@@ -1,15 +1,21 @@
 """gbp-tpu's engine in PyTorch with hand-written CUDA kernels for Hopper.
 
 A second package beside `gbp_tpu/` (the JAX reference, which stays as it
-is).  The first slice is the bundle-adjustment fast path:
+is).  Ported so far: the bundle-adjustment fast path, from the 64-camera
+bench scene (camera table in shared memory) to city and venice scenes
+(per-tile camera windows after the locality sort):
 
     from gbp_tpu_torch.models import ba
     from gbp_tpu_torch.core import sweep_cm
     from gbp_tpu_torch.core.sweep import GBPConfig
     from gbp_tpu_torch.parallel import schur
 
-Tensors on a CUDA device go through the kernels in `csrc/`; tensors on the
-CPU go through each kernel's plain PyTorch version (ops/messages.py).
+Entry points that build tensors (`GraphBuilder`, `models.ba.build`,
+`interop.*_from_numpy`, the bench scripts) take `device=None`, which means
+`default_device()`: the card, or a RuntimeError when there is none.  Pass
+`device="cpu"` to run on the CPU.  Tensors on a CUDA device go through the
+kernels in `csrc/`; tensors on the CPU go through each kernel's plain
+PyTorch version (ops/messages.py).
 """
 from __future__ import annotations
 
@@ -25,6 +31,22 @@ def set_exact_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def default_device() -> torch.device:
+    """The device the port's entry points build on when the caller names
+    none: the CUDA card.  Raises when there is no card: nothing moves to
+    the CPU on its own; ask for it with device="cpu"."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "gbp_tpu_torch: no CUDA device is present (torch.cuda.is_available() is "
+            "False) and no device was asked for; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; None means `default_device()`."""
+    return default_device() if device is None else torch.device(device)
 
 
 __version__ = "0.1.0"

@@ -15,6 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from gbp_tpu_torch import resolve_device
 from gbp_tpu_torch.factors.base import FactorType
 
 
@@ -77,11 +78,12 @@ class Graph:
 
 
 class GraphBuilder:
-    """Host-side (numpy) construction of a Graph + initial means."""
+    """Host-side (numpy) construction of a Graph + initial means.  The
+    tensors are built on `device`; None means the card (`default_device()`)."""
 
     def __init__(self, dtype=torch.float32, device=None):
         self.dtype = dtype
-        self.device = device
+        self.device = resolve_device(device)
         self._vblocks: list[dict] = []
         self._fblocks: list[dict] = []
 

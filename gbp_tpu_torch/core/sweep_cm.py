@@ -1,9 +1,10 @@
 """Persistent component-major GBP sweeps: the single-GPU speed path.
 
 Counterpart of the single-segment fast path of gbp_tpu/core/sweep_cm.py
-(`prepare(graph, segsum_exact=True, window=False)` with the camera table in
-the kernels and the ELL slot fused).  The whole factor state stays
-component-major, [F, mp] tensors, across sweeps, so one sweep is:
+(`prepare(graph, segsum_exact=True)` with the camera table in the kernels
+and the ELL slot fused, with or without camera windows).  The whole factor
+state stays component-major, [F, mp] tensors, across sweeps, so one sweep
+is:
 
   1. pack the camera beliefs [n_cam, eta 6 | lam 36] and the landmark
      beliefs [nv, eta 3 | lam 9] (virtual padding landmarks get eta = 0,
@@ -15,13 +16,26 @@ component-major, [F, mp] tensors, across sweeps, so one sweep is:
   4. belief updates: landmarks by a reshape-sum over the degree axis,
      cameras from the segment sum, means by `scaled_sym_solve`.
 
-The reference's camera windows, locality sort and one-hot table dots exist
-because a TPU kernel has no lane-dynamic gather; an index read does their
-job here.  `mp`, `nv` and the row order are the reference's, so the state
+Large scenes (city, venice): the packed camera table no longer fits one
+block's shared memory, so `prepare(window=True)` gives every tile of
+ROW_ALIGN rows a camera window [win_starts[i], win_starts[i] + win_w) that
+holds all of the tile's camera ids, sorting the landmarks by their lowest
+camera id first when the natural order is not local (the reference's
+locality sort).  Steps 2 and 3 then run `relin_cm_tabblk_ell` and
+`messages_cm_tabblk_ell`, whose blocks stage only their tile's window; the
+camera sum comes as per-tile window partials (`segsum_cm_blk`) combined by
+`scatter_windows_cm`.  With the sort the landmark beliefs and the factor
+rows live in sorted order across sweeps (`vperm`, `rowperm`); `init_state`,
+`from_gbp_state` and `to_gbp_state` apply and undo it at the boundaries.
+
+The reference's one-hot table dots and per-tile table stacks exist because
+a TPU kernel has no lane-dynamic gather; an index read does their job here.
+`mp`, `nv`, the windows and the row order are the reference's, so the state
 converts row for row (interop.py).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -44,17 +58,31 @@ from gbp_tpu_torch.ops.messages import (
     D1,
     F_CAM,
     F_LMK,
+    SMEM_WINDOW_BYTES,
+    TILE,
     messages_cm_tab_ell,
+    messages_cm_tabblk_ell,
     relin_cm_tab_ell,
+    relin_cm_tabblk_ell,
+    scatter_windows_cm,
+    window_cover_csr,
+    window_rows_csr,
 )
 from gbp_tpu_torch.utils.smalllinalg import scaled_sym_solve
 
 # Rows are padded to a multiple of lcm(ROW_ALIGN, deg), the reference's
 # grid tile (8 x 128 factors), so that state arrays convert row for row.
-ROW_ALIGN = 1024
-# The packed camera table is staged in each block's shared memory; larger
-# camera sets need a global-memory table (ROADMAP A11).
+# It is also the window tile of the large-scene kernels.
+ROW_ALIGN = TILE
+# Without windows the whole packed camera table is staged in each block's
+# (static) shared memory; larger camera sets need windows, or a table in
+# global memory (ROADMAP B3).
 SMEM_TABLE_BYTES = 48 * 1024
+# Window starts are multiples of SUB and widths multiples of LANE, as in the
+# reference (its sublane and lane counts), so that both packages cut the
+# same windows.
+SUB = 8
+LANE = 128
 
 
 class CMFactorState(NamedTuple):
@@ -85,6 +113,24 @@ class CMGraph(NamedTuple):
     seg_offsets: torch.Tensor  # [n_cam + 1] int32 CSR offsets into seg_rows
     mp: int
     nv: int  # virtual ELL landmarks, mp // deg
+    # Camera windows (win_w == 0: none, the whole table is staged).  Every
+    # camera id of tile i (rows [i * ROW_ALIGN, (i + 1) * ROW_ALIGN)) lies
+    # in [win_starts[i], win_starts[i] + win_w).
+    win_w: int = 0
+    win_ncpad: int = 0  # camera count padded to a multiple of SUB
+    win_starts: torch.Tensor | None = None  # [n_tiles] int32, multiples of SUB
+    win_rows: torch.Tensor | None = None  # [mp] int32: each tile's rows by window column
+    win_offsets: torch.Tensor | None = None  # [n_tiles * win_w + 1] int32
+    cov_tiles: torch.Tensor | None = None  # tiles covering each camera, ascending
+    cov_offsets: torch.Tensor | None = None  # [n_cam + 1] int32
+    # Locality sort (None when the natural order is local enough): the
+    # landmark block of `base` carries its priors in sorted order and the
+    # resident landmark beliefs live in sorted order.  vperm: sorted id ->
+    # user id; vinv: user id -> sorted id; rowperm: CM row -> row of `fb`.
+    # `fb` itself (adjacency, z, prec) stays in user order.
+    vperm: torch.Tensor | None = None  # [n_lmk] int64
+    vinv: torch.Tensor | None = None  # [n_lmk] int64
+    rowperm: torch.Tensor | None = None  # [m] int64
 
     @property
     def fb(self):
@@ -95,13 +141,42 @@ def _unsupported(what: str, item: str):
     return NotImplementedError(f"sweep_cm.prepare: {what} is not ported yet (ROADMAP {item})")
 
 
-def prepare(graph: Graph, segsum_exact: bool = True, segment: bool = False) -> CMGraph:
+def _windows(gp: np.ndarray, n_cam: int, itemsize: int):
+    """Per-tile windows (starts, w, ncpad) of the edge-padded camera ids
+    `gp`, or None when they are too wide to pay.  The reference's rule, so
+    that both packages cut the same windows: the width covers the widest
+    tile plus SUB of slack for the SUB-aligned starts, rounded up to LANE."""
+    ncpad = ((n_cam + SUB - 1) // SUB) * SUB
+    tiles = gp.reshape(-1, ROW_ALIGN)
+    mins, maxs = tiles.min(1), tiles.max(1)
+    w = (int((maxs - mins).max()) + 1 + SUB + LANE - 1) // LANE * LANE
+    # Gate: the window must be at most half the table (the reference's
+    # rule), and its packed beliefs must fit the shared memory one block can
+    # ask for.  The latter replaces the reference's VMEM limits on the whole
+    # table (4 MB and 6 MB), which are the TPU's: here only the window is
+    # staged.
+    if 2 * w > ncpad or w * F_CAM * itemsize > SMEM_WINDOW_BYTES:
+        return None
+    starts = np.maximum(np.minimum(mins, ncpad - w), 0) // SUB * SUB
+    if not ((maxs < starts + w).all() and (mins >= starts).all()):
+        raise AssertionError("a camera window does not cover its tile")
+    return starts, w, ncpad
+
+
+def prepare(graph: Graph, segsum_exact: bool = True, window: bool = True,
+            segment: bool = False) -> CMGraph:
     """Build the CM static data for `graph`.
 
-    Takes what the slice runs: one `reprojection_normalized` block in ELL
-    layout grouped by landmark, diagonal precision, no Huber or a scalar
-    Huber threshold, a camera table that fits shared memory.  Anything else
-    raises NotImplementedError naming the ROADMAP item that ports it.
+    Takes what the ported slices run: one `reprojection_normalized` block in
+    ELL layout grouped by landmark, diagonal precision, no Huber or a scalar
+    Huber threshold.  Anything else raises NotImplementedError naming the
+    ROADMAP item that ports it.
+
+    window=True gives every tile of rows a camera window when the graph has
+    camera locality, in its natural landmark order or after sorting the
+    landmarks by their lowest camera id (see the module docstring); the
+    windows, `vperm` and `rowperm` equal the reference's.  Without windows
+    the whole camera table must fit a block's shared memory.
 
     segsum_exact is accepted for the reference's signature and ignored: the
     camera-side sum always runs at full precision (the reference's bf16
@@ -127,13 +202,57 @@ def prepare(graph: Graph, segsum_exact: bool = True, segment: bool = False) -> C
         raise _unsupported("an ELL layout with degenerate padding (generic sweep)", "A4")
     n_cam = graph.vblocks[fb.vblocks[0]].count
     dt, dev = fb.z.dtype, fb.z.device
-    if n_cam * F_CAM * fb.z.element_size() > SMEM_TABLE_BYTES:
-        raise _unsupported(f"a camera table of {n_cam} cameras beyond shared memory", "A11")
     pad = mp - m
 
     gidx = np.asarray(fb.adj[0].cpu(), dtype=np.int32)
-    if pad:
-        gidx = np.pad(gidx, (0, pad), mode="edge")
+    # Padded rows carry zero messages, so any id in range is inert; the edge
+    # value keeps them inside their tile's window.
+    edge_pad = lambda a: np.pad(a, (0, pad), mode="edge") if pad else a
+    win, rowperm, order = None, None, None
+    if window:
+        win = _windows(edge_pad(gidx), n_cam, fb.z.element_size())
+        if win is None:
+            # The natural landmark order is not camera-local (random
+            # numbering: real BAL files, the corridor scenes): sort the ELL
+            # groups (blocks of `deg` rows) by their lowest camera id and
+            # try again.
+            n_ell = m // deg
+            order = np.argsort(gidx.reshape(n_ell, deg).min(1), kind="stable")
+            rowperm = (order[:, None] * deg + np.arange(deg)).reshape(-1)
+            win = _windows(edge_pad(gidx[rowperm]), n_cam, fb.z.element_size())
+            if win is None:
+                rowperm = order = None
+    if win is None and n_cam * F_CAM * fb.z.element_size() > SMEM_TABLE_BYTES:
+        raise _unsupported(
+            f"a camera table of {n_cam} cameras beyond shared memory on a scene whose "
+            "camera windows do not engage (table in global memory)", "B3")
+
+    as_i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
+    as_i64 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=dev)
+    extra = {}
+    if rowperm is not None:
+        vb_l = graph.vblocks[fb.vblocks[1]]
+        if m // deg != vb_l.count:
+            raise AssertionError("the ELL layout does not cover every landmark")
+        gidx = gidx[rowperm]
+        vperm = as_i64(order)
+        # The sort relabels the landmark block: its priors, and with them
+        # the resident beliefs, live in sorted order, so a sweep pays
+        # nothing for it.
+        vblocks = list(graph.vblocks)
+        vblocks[fb.vblocks[1]] = dataclasses.replace(
+            vb_l, prior_eta=vb_l.prior_eta[vperm], prior_lam=vb_l.prior_lam[vperm])
+        graph = dataclasses.replace(graph, vblocks=tuple(vblocks))
+        extra.update(vperm=vperm, vinv=as_i64(np.argsort(order)), rowperm=as_i64(rowperm))
+    gidx = edge_pad(gidx)
+    if win is not None:
+        starts, w, ncpad = win
+        win_rows, win_offsets = window_rows_csr(gidx, starts, w)
+        cov_tiles, cov_offsets = window_cover_csr(starts, w, n_cam)
+        extra.update(win_w=int(w), win_ncpad=int(ncpad), win_starts=as_i32(starts),
+                     win_rows=as_i32(win_rows), win_offsets=as_i32(win_offsets),
+                     cov_tiles=as_i32(cov_tiles), cov_offsets=as_i32(cov_offsets))
+
     # CSR of all rows by camera id, in row order: the fixed summation order
     # that makes the camera-side sum deterministic.  Padded rows carry zero
     # messages, so including them changes no value.
@@ -141,8 +260,9 @@ def prepare(graph: Graph, segsum_exact: bool = True, segment: bool = False) -> C
     seg_offsets = np.concatenate(
         [[0], np.cumsum(np.bincount(gidx, minlength=n_cam))]).astype(np.int32)
     act = torch.ones(m, dtype=dt, device=dev) if fb.valid is None else fb.valid.to(dt)
-    to_cm = lambda a, fill=0.0: F.pad(a.T, (0, pad), value=fill).contiguous()
-    as_i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    rp = extra.get("rowperm")
+    perm = lambda a: a if rp is None else a[rp]
+    to_cm = lambda a, fill=0.0: F.pad(perm(a).T, (0, pad), value=fill).contiguous()
     return CMGraph(
         base=graph,
         z=to_cm(fb.z),
@@ -153,26 +273,48 @@ def prepare(graph: Graph, segsum_exact: bool = True, segment: bool = False) -> C
         seg_offsets=as_i32(seg_offsets),
         mp=mp,
         nv=mp // deg,
+        **extra,
     )
 
 
-def _rm2cm(a: torch.Tensor, mp: int) -> torch.Tensor:
-    """[m, F] -> [F, mp], zero rows appended."""
-    return F.pad(a.T, (0, mp - a.shape[0])).contiguous()
+def _rm2cm(cmg: CMGraph, a: torch.Tensor) -> torch.Tensor:
+    """Rows of `fb` [m, F] -> resident [F, mp]: sorted by `rowperm` when the
+    locality sort is on, zero rows appended."""
+    if cmg.rowperm is not None:
+        a = a[cmg.rowperm]
+    return F.pad(a.T, (0, cmg.mp - a.shape[0])).contiguous()
+
+
+def _sorted_landmarks(cmg: CMGraph, vstates, index) -> tuple:
+    """`vstates` with the landmark block's tensors indexed by `index`
+    (vperm: user -> sorted order, vinv: back); unchanged without the sort."""
+    if index is None:
+        return tuple(vstates)
+    out = list(vstates)
+    li = cmg.fb.vblocks[1]
+    out[li] = VariableState(*(t[index] for t in out[li]))
+    return tuple(out)
 
 
 def init_state(cmg: CMGraph, means: tuple) -> CMState:
-    """Beliefs = priors, factors linearized at `means`, zero messages."""
+    """Beliefs = priors, factors linearized at `means` (in user order), zero
+    messages."""
     fb = cmg.fb
+    # The factors are linearized with the user adjacency and user means;
+    # their rows are sorted afterwards.  The beliefs take the sorted order
+    # of the (relabelled) landmark priors.
+    vmeans = list(means)
+    if cmg.vperm is not None:
+        vmeans[fb.vblocks[1]] = means[fb.vblocks[1]][cmg.vperm]
     vstates = tuple(VariableState(eta=vb.prior_eta, lam=vb.prior_lam, mean=mu)
-                    for vb, mu in zip(cmg.base.vblocks, means))
+                    for vb, mu in zip(cmg.base.vblocks, vmeans))
     x = torch.cat([means[vb][fb.adj[k].long()] for k, vb in enumerate(fb.vblocks)], dim=-1)
     jac, r0 = linearize_block(fb, x)
     zeros = lambda f: torch.zeros((f, cmg.mp), dtype=x.dtype, device=x.device)
     fstate = CMFactorState(
-        lp=_rm2cm(x, cmg.mp),
-        jac=_rm2cm(jac.reshape(fb.count, -1), cmg.mp),
-        r0=_rm2cm(r0, cmg.mp),
+        lp=_rm2cm(cmg, x),
+        jac=_rm2cm(cmg, jac.reshape(fb.count, -1)),
+        r0=_rm2cm(cmg, r0),
         srel=zeros(1),
         msg_eta=tuple(zeros(d) for d in fb.dofs),
         msg_lam=tuple(zeros(d * d) for d in fb.dofs),
@@ -209,18 +351,31 @@ def sweep(cmg: CMGraph, state: CMState, cfg: GBPConfig) -> CMState:
     deg = fb.ell_deg
     params = _kernel_params(cfg, fs.r0.dtype)
     cam_mean, lmk_mean, cam_tab, lmk_tab = belief_tables(cmg, state)
-    lp, jac, r0, srel = relin_cm_tab_ell(
-        params, cam_mean, lmk_mean, cmg.gidx, cmg.z, fs.lp, fs.jac, fs.r0,
-        fs.srel, cmg.act, deg=deg)
-    oe0, ol0, oe1, ol1, sum_c = messages_cm_tab_ell(
-        params, cam_tab, lmk_tab, cmg.gidx, jac, lp, r0, cmg.prec, srel,
-        cmg.act, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
-        cmg.seg_rows, cmg.seg_offsets, deg=deg, huber=fb.huber)
+    n_cam = cam_mean.shape[0]
+    if cmg.win_w:
+        lp, jac, r0, srel = relin_cm_tabblk_ell(
+            params, cam_mean, lmk_mean, cmg.gidx, cmg.win_starts, cmg.z, fs.lp, fs.jac,
+            fs.r0, fs.srel, cmg.act, deg=deg, win_w=cmg.win_w)
+        oe0, ol0, oe1, ol1, part = messages_cm_tabblk_ell(
+            params, cam_tab, lmk_tab, cmg.gidx, cmg.win_starts, jac, lp, r0, cmg.prec,
+            srel, cmg.act, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
+            cmg.win_rows, cmg.win_offsets, deg=deg, huber=fb.huber, win_w=cmg.win_w)
+        sum_c = scatter_windows_cm(part, cmg.win_starts, cmg.cov_tiles, cmg.cov_offsets,
+                                   n_seg=n_cam)
+    else:
+        lp, jac, r0, srel = relin_cm_tab_ell(
+            params, cam_mean, lmk_mean, cmg.gidx, cmg.z, fs.lp, fs.jac, fs.r0,
+            fs.srel, cmg.act, deg=deg)
+        oe0, ol0, oe1, ol1, sum_c = messages_cm_tab_ell(
+            params, cam_tab, lmk_tab, cmg.gidx, jac, lp, r0, cmg.prec, srel,
+            cmg.act, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
+            cmg.seg_rows, cmg.seg_offsets, deg=deg, huber=fb.huber)
     fs = CMFactorState(lp=lp, jac=jac, r0=r0, srel=srel, msg_eta=(oe0, oe1),
                        msg_lam=(ol0, ol1))
 
     # Landmarks: padded and clone rows carry zero messages, so the plain
-    # reshape-sum over the degree axis is exact.
+    # reshape-sum over the degree axis is exact.  The beliefs live in the
+    # (possibly sorted) group order, so the sum is already aligned.
     vb_c = cmg.base.vblocks[fb.vblocks[0]]
     vb_l = cmg.base.vblocks[fb.vblocks[1]]
     n_c, n_l = vb_c.count, vb_l.count
@@ -243,13 +398,14 @@ def run(cmg: CMGraph, state: CMState, cfg: GBPConfig, n_iters: int) -> CMState:
 
 
 def from_gbp_state(cmg: CMGraph, state: GBPState) -> CMState:
-    """Resume a row-major GBPState in the CM layout.  Rows are re-padded
-    with zeros, which restores the invariants the sweep relies on: padded
-    rows carry zero messages and act = 0 keeps them inert."""
+    """Resume a row-major GBPState (user order) in the CM layout.  Rows are
+    sorted by `rowperm` and re-padded with zeros, which restores the
+    invariants the sweep relies on: padded rows carry zero messages and
+    act = 0 keeps them inert.  Landmark beliefs take the sorted order."""
     fb = cmg.fb
     m = fb.count
     fs = state.f[0]
-    to_cm = lambda a: _rm2cm(a.reshape(m, -1), cmg.mp)
+    to_cm = lambda a: _rm2cm(cmg, a.reshape(m, -1))
     fstate = CMFactorState(
         lp=to_cm(fs.linpoint),
         jac=to_cm(fs.jac),
@@ -258,15 +414,17 @@ def from_gbp_state(cmg: CMGraph, state: GBPState) -> CMState:
         msg_eta=tuple(to_cm(me) for me in fs.msg_eta),
         msg_lam=tuple(to_cm(ml) for ml in fs.msg_lam),
     )
-    return CMState(v=tuple(state.v), f=fstate)
+    return CMState(v=_sorted_landmarks(cmg, state.v, cmg.vperm), f=fstate)
 
 
 def to_gbp_state(cmg: CMGraph, state: CMState) -> GBPState:
-    """Convert to the row-major GBPState (diagnostics, checkpoints, tests)."""
+    """Convert to the row-major GBPState in user order (diagnostics,
+    checkpoints, tests): factor rows and landmark beliefs are unsorted."""
     fb = cmg.fb
     m = fb.count
     fs = state.f
-    row = lambda a: a[:, :m].T
+    inv = None if cmg.rowperm is None else torch.argsort(cmg.rowperm)
+    row = (lambda a: a[:, :m].T) if inv is None else (lambda a: a[:, :m].T[inv])
     fstate = FactorState(
         linpoint=row(fs.lp),
         jac=row(fs.jac).reshape(m, fb.z.shape[-1], fb.tdof),
@@ -275,4 +433,4 @@ def to_gbp_state(cmg: CMGraph, state: CMState) -> GBPState:
         msg_lam=tuple(row(ml).reshape(m, d, d) for ml, d in zip(fs.msg_lam, fb.dofs)),
         since_relin=row(fs.srel).reshape(m).to(torch.int32),
     )
-    return GBPState(v=tuple(state.v), f=(fstate,))
+    return GBPState(v=_sorted_landmarks(cmg, state.v, cmg.vinv), f=(fstate,))

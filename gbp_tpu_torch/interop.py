@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gbp_tpu_torch import resolve_device
 from gbp_tpu_torch.core.graph import FactorBlock, Graph, VariableBlock
 from gbp_tpu_torch.core.sweep import VariableState
 from gbp_tpu_torch.core.sweep_cm import CMFactorState, CMState
@@ -28,7 +29,9 @@ def _t(a, device, dtype=None):
 def graph_from_numpy(g, device=None) -> Graph:
     """The port's Graph from the reference's Graph / FactorBlock /
     VariableBlock with numpy leaves (priors, z, prec, adj, valid,
-    huber_arr, and the static ell_slot, ell_deg, dofs, huber, n_valid)."""
+    huber_arr, and the static ell_slot, ell_deg, dofs, huber, n_valid), on
+    `device` (None: the card)."""
+    device = resolve_device(device)
     vblocks = tuple(
         VariableBlock(prior_eta=_t(vb.prior_eta, device), prior_lam=_t(vb.prior_lam, device),
                       name=vb.name)
@@ -70,7 +73,15 @@ def _cm_out(t):
 def cm_state_from_numpy(st, device=None) -> CMState:
     """The port's CMState from the reference's CMState with numpy leaves:
     beliefs (v[i].eta, .lam, .mean) and factor state (f.lp, .jac, .r0,
-    .srel, .msg_eta, .msg_lam as [F, T, 128])."""
+    .srel, .msg_eta, .msg_lam as [F, T, 128]), on `device` (None: the card).
+
+    A CM state travels in its resident order.  With camera windows the
+    landmark beliefs and the factor rows live locality-sorted (`vperm`,
+    `rowperm` of the CMGraph); both packages' `prepare` derive the same
+    permutations from the same graph, so the state converts leaf for leaf
+    and no permutation is applied here.  User order is restored by
+    `to_gbp_state` on either side."""
+    device = resolve_device(device)
     f = st.f
     return CMState(
         v=tuple(VariableState(eta=_t(vs.eta, device), lam=_t(vs.lam, device),

@@ -1,9 +1,10 @@
 """Bundle adjustment: synthetic scenes, graph building and the ARE metric.
 
-Counterpart of the main-path subset of gbp_tpu/models/ba.py.  `simulate`
-is the reference's numpy code with the same `numpy.random.Generator` call
-order, so a seed gives the same scene in both packages (the reference's
-rotations go through JAX, these through the port's `lie` in float64).
+Counterpart of the main-path subset of gbp_tpu/models/ba.py.  `simulate`,
+`simulate_corridor` and `simulate_blocks` are the reference's numpy code
+with the same `numpy.random.Generator` call order, so a seed gives the same
+scene in both packages (the reference's rotations go through JAX, these
+through the port's `lie` on the CPU in float64).
 """
 from __future__ import annotations
 
@@ -102,6 +103,127 @@ def simulate(
     )
 
 
+def simulate_corridor(
+    n_cams=32,
+    lmks_per_cam=40,
+    window=3,
+    step=1.0,
+    wall_dist=4.0,
+    pix_sigma=1.0,
+    cam_noise=(0.02, 0.05),
+    lmk_noise=0.2,
+    seed=0,
+    k=(500.0, 500.0, 320.0, 240.0),
+):
+    """Synthetic corridor/street BA scene with visibility locality.
+
+    Cameras move along a line looking at a landmark wall; each landmark is
+    only visible from cameras within +-`window` positions, so consecutive
+    landmarks (in corridor order) see nearby cameras.  The landmark
+    numbering is random along the corridor.  Returns the same dict shape as
+    `simulate`."""
+    rng = np.random.default_rng(seed)
+    k_arr = np.asarray(k)
+
+    # Cameras along +x, looking at the wall in +y; one shared rotation.
+    cams = np.zeros((n_cams, 6))
+    fwd = np.array([0.0, 1.0, 0.0])
+    up0 = np.array([0.0, 0.0, 1.0])
+    right = np.cross(fwd, up0)
+    right /= np.linalg.norm(right)
+    up = np.cross(fwd, right)
+    r = np.stack([right, up, fwd], axis=1).T
+    w = so3_log(torch.as_tensor(r, dtype=torch.float64)).numpy()
+    for i in range(n_cams):
+        c = np.array([i * step, 0.0, 0.0])
+        cams[i, :3] = w
+        cams[i, 3:] = -r @ c
+
+    # Landmarks on the wall, spread along the corridor.
+    n_lmks = n_cams * lmks_per_cam
+    lx = rng.uniform(-step, (n_cams - 1 + 1.0) * step, n_lmks)
+    lmks = np.stack(
+        [lx, wall_dist + 0.5 * rng.standard_normal(n_lmks),
+         0.8 * rng.standard_normal(n_lmks)], axis=1)
+
+    obs, cam_ids, lmk_ids = [], [], []
+    for i in range(n_cams):
+        xi = i * step
+        near = np.flatnonzero(np.abs(lmks[:, 0] - xi) <= window * step)
+        xc = lmks[near] @ r.T + cams[i, 3:]
+        uv = np.stack(
+            [k_arr[0] * xc[:, 0] / xc[:, 2] + k_arr[2],
+             k_arr[1] * xc[:, 1] / xc[:, 2] + k_arr[3]], axis=1)
+        vis = (
+            (xc[:, 2] > 0.5)
+            & (uv[:, 0] > 0) & (uv[:, 0] < 2 * k_arr[2])
+            & (uv[:, 1] > 0) & (uv[:, 1] < 2 * k_arr[3])
+        )
+        idx = near[vis]
+        obs.append(uv[vis] + pix_sigma * rng.standard_normal((idx.size, 2)))
+        cam_ids.append(np.full(idx.size, i))
+        lmk_ids.append(idx)
+    obs = np.concatenate(obs)
+    cam_ids = np.concatenate(cam_ids)
+    lmk_ids = np.concatenate(lmk_ids)
+
+    keep = np.bincount(lmk_ids, minlength=n_lmks) >= 2
+    remap = -np.ones(n_lmks, dtype=np.int64)
+    remap[keep] = np.arange(keep.sum())
+    sel = keep[lmk_ids]
+    obs, cam_ids, lmk_ids = obs[sel], cam_ids[sel], remap[lmk_ids[sel]]
+    lmks = lmks[keep]
+
+    cam_init = cams + np.concatenate(
+        [cam_noise[0] * rng.standard_normal((n_cams, 3)),
+         cam_noise[1] * rng.standard_normal((n_cams, 3))], axis=1)
+    cam_init[0] = cams[0]
+    lmk_init = lmks + lmk_noise * rng.standard_normal(lmks.shape)
+
+    return dict(
+        cam_truth=cams, lmk_truth=lmks, cam_init=cam_init, lmk_init=lmk_init,
+        obs=obs, cam_ids=cam_ids, lmk_ids=lmk_ids, k=k_arr, pix_sigma=pix_sigma,
+    )
+
+
+def simulate_blocks(n_blocks=8, n_cams=40, lmks_per_cam=20, window=3,
+                    seed=0, shuffle=False, **kw):
+    """`n_blocks` independent corridor blocks merged into one graph: the
+    float32-stable large-camera-count scene (each block is a 40-camera
+    corridor, so the merged problem has bounded effective diameter, unlike
+    one long chain).  32 blocks x 40 cameras x 60 landmarks per camera is
+    the city scene, 256 x 40 x 80 the venice scene.
+
+    shuffle=True randomizes the landmark numbering over the whole scene, so
+    that the camera windows of core/sweep_cm.py engage only through the
+    locality sort (the condition of real BAL files).  Returns the same dict
+    shape as `simulate`."""
+    sims = [simulate_corridor(n_cams=n_cams, lmks_per_cam=lmks_per_cam,
+                              window=window, seed=seed + i, **kw)
+            for i in range(n_blocks)]
+    out = {}
+    for key in ("cam_truth", "cam_init", "lmk_truth", "lmk_init", "obs"):
+        out[key] = np.concatenate([s[key] for s in sims])
+    cam_ids, lmk_ids, co, lo = [], [], 0, 0
+    for s in sims:
+        cam_ids.append(s["cam_ids"] + co)
+        lmk_ids.append(s["lmk_ids"] + lo)
+        co += s["cam_init"].shape[0]
+        lo += s["lmk_init"].shape[0]
+    out["cam_ids"] = np.concatenate(cam_ids)
+    out["lmk_ids"] = np.concatenate(lmk_ids)
+    out["k"] = sims[0]["k"]
+    out["pix_sigma"] = sims[0]["pix_sigma"]
+    if shuffle:
+        rng = np.random.default_rng(seed + 99)
+        perm = rng.permutation(lo)
+        inv = np.argsort(perm)
+        out["lmk_truth"] = out["lmk_truth"][perm]
+        out["lmk_init"] = out["lmk_init"][perm]
+        out["lmk_ids"] = inv[out["lmk_ids"]]
+    return out
+
+
 def build(
     sim: dict,
     pix_sigma=None,
@@ -113,7 +235,8 @@ def build(
     device=None,
     layout="ell",
 ):
-    """Build the BA factor graph in normalized image coordinates; returns
+    """Build the BA factor graph in normalized image coordinates, on
+    `device` (None: the card, see `gbp_tpu_torch.default_device`); returns
     (graph, init_means).
 
     Camera 0 is anchored with anchor_prec[0] (6-dof gauge), camera 1's

@@ -1,8 +1,10 @@
 """Build csrc/*.cu with nvcc on first use and load it with ctypes.
 
-The library has a plain C interface (no PyTorch headers), so one nvcc call
-takes seconds.  It lands in gbp_tpu_torch/_build/<hash of the sources>/,
-so an edited source rebuilds and an unchanged one loads the cached build.
+The library has a plain C interface (no PyTorch headers), so nvcc takes
+seconds; the sources compile side by side, one nvcc process each, and are
+linked into one library.  It lands in gbp_tpu_torch/_build/<hash of the
+sources>/, so an edited source rebuilds and an unchanged one loads the
+cached build.
 nvcc is found through torch's CUDA_HOME; nothing outside the package's own
 directory is written.
 """
@@ -20,8 +22,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# -fmad=false: no multiply-add is contracted, so a kernel rounds every
+# operation as its plain PyTorch version does and the two agree to the last
+# bits whatever the conditioning of a row's cavity (float32 cavities of
+# two-view landmarks amplify a contraction's half-ulp past any fixed
+# tolerance).  The kernels are bound by bytes and registers, not arithmetic.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 _ARGTYPES = {
@@ -36,6 +43,22 @@ _ARGTYPES = {
     + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P],
     # me, ml, rows, offsets, n_seg, mp, out, stream
     "gbp_segsum_by_id": [_P, _P, _P, _P, _I, _I64, _P, _P],
+    # cam_mean, n_cam, lmk_mean, gidx, starts, win_w, z, lp, jac, r0, srel,
+    # act, olp, ojac, or0, osrel, mp, deg, beta, min_linear, stream
+    "gbp_relin_cm_tabblk_ell": [_P, _I, _P, _P, _P, _I] + [_P] * 6 + [_P] * 4
+    + [_I64, _I, _D, _D, _P],
+    # cam_tab, n_cam, lmk_tab, gidx, starts, win_w, jac, lp, r0, prec, srel,
+    # act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp, deg, eta_damping,
+    # lam_damping, num_undamped, floor, jitter, has_huber, huber, stream
+    "gbp_messages_cm_tabblk_ell": [_P, _I, _P, _P, _P, _I] + [_P] * 6 + [_P] * 4 + [_P] * 4
+    + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P],
+    # me, ml, d, rows, offsets, n_tiles, w, mp, out, stream
+    "gbp_segsum_cm_blk": [_P, _P, _I, _P, _P, _I, _I, _I64, _P, _P],
+    # part, starts, cov_tiles, cov_offsets, f, w, n_seg, out, stream
+    "gbp_scatter_windows_cm": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # win_w -> resident blocks per SM (negative: minus the CUDA error)
+    "gbp_relin_cm_tabblk_ell_blocks_per_sm": [_I],
+    "gbp_messages_cm_tabblk_ell_blocks_per_sm": [_I],
 }
 
 
@@ -67,18 +90,29 @@ def build() -> tuple[Path, float]:
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # Compile to a private name, then rename: a concurrent process never
-    # sees a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    (out_dir / "ptxas.txt").write_text(proc.stderr)
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    # Everything is written under private names in a directory of this
+    # process and the library renamed into place last: a concurrent process
+    # never sees a half-written library.
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        cus = sorted(CSRC.glob("*.cu"))
+        objs = [str(Path(tmp) / (cu.stem + ".o")) for cu in cus]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(cu)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cu, obj in zip(cus, objs)]
+        # communicate() drains the pipes, so no compiler blocks on a full one
+        # while an earlier one is waited for.
+        errs = [proc.communicate()[1] for proc in procs]
+        failed = [f"{cu.name} ({proc.returncode}):\n{err}"
+                  for cu, proc, err in zip(cus, procs, errs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        so = str(Path(tmp) / lib.name)
+        link = subprocess.run([nvcc, "-shared", "-o", so, *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        (out_dir / "ptxas.txt").write_text("".join(errs))
+        os.replace(so, lib)
     return lib, time.perf_counter() - t0
 
 

@@ -1,4 +1,4 @@
-"""The fast path's three kernels: wrappers, plain versions, launch counts.
+"""The fast path's seven kernels: wrappers, plain versions, launch counts.
 
 Each function dispatches on where its tensors lie: CUDA tensors go to the
 hand-written kernel in csrc/messages.cu (built on first use by
@@ -15,12 +15,25 @@ landmark (3 dof, ELL slot: row r belongs to landmark r // deg), z = 2.
   messages_cm_tab_ell  replaces gbp_tpu.ops.messages_pallas.fused_messages_cm_tab_ell
   segsum_by_id         replaces gbp_tpu.ops.messages_pallas.segsum_cm and the
                        5th output of fused_messages_cm_tab_ell
+
+Large scenes (csrc/windows.cu): rows are cut into tiles of TILE rows and
+every camera id of tile i lies in the window [win_starts[i], win_starts[i] +
+win_w), so a block stages only its tile's window of the camera table.
+
+  relin_cm_tabblk_ell     replaces fused_relin_cm_tabblk_ell
+  messages_cm_tabblk_ell  replaces fused_messages_cm_tabblk_ell
+  segsum_cm_blk           replaces the kernel stage of segsum_cm_blk and the
+                          5th output of fused_messages_cm_tabblk_ell: per-tile
+                          window partials [n_tiles, F, w]
+  scatter_windows_cm      replaces scatter_windows_cm: the partials combined
+                          over the overlapping windows, tiles in ascending order
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 
 from gbp_tpu_torch.ops import comp_linalg as cl
@@ -30,7 +43,12 @@ D0, D1, Z = 6, 3, 2  # camera dofs, landmark dofs, measurement dim
 T = D0 + D1
 F_CAM = D0 + D0 * D0  # packed camera belief row: eta | lam
 F_LMK = D1 + D1 * D1  # packed landmark belief row: eta | lam
-KERNELS = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id")
+TILE = 1024  # rows per window tile, the reference's grid tile (8 x 128)
+# The most dynamic shared memory one block can ask for on sm_90.
+SMEM_WINDOW_BYTES = 232448
+KERNELS = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id",
+           "relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
+           "scatter_windows_cm")
 
 
 @dataclasses.dataclass
@@ -65,18 +83,17 @@ def _scalar(v, like):
 # --- plain versions ---------------------------------------------------------
 
 
-def relin_cm_tab_ell_plain(params, cam_mean, lmk_mean, gidx, z, lp, jac, r0,
-                           srel, act, *, deg):
-    """Masked relinearization (the reference's `_relin_math`).
+def _relin_plain(params, cam_rows, lmk_mean, z, lp, jac, r0, srel, act, *, deg):
+    """Masked relinearization (the reference's `_relin_math`) with the
+    camera means already read per row, cam_rows [mp, 6].
 
-    x = [cam_mean[gidx[r]], lmk_mean[r // deg]];  eligible =
+    x = [cam_rows[r], lmk_mean[r // deg]];  eligible =
     ||x - lp||^2 > beta^2 and srel >= min_linear_iters and act.  Eligible
     rows take lp = x, the new (J, r0 = z - h) and srel = 0; the others keep
     their state and srel + 1."""
-    COUNTS.plain["relin_cm_tab_ell"] += 1
     mp = lp.shape[1]
     rows = torch.arange(mp, device=lp.device) // deg
-    x = _rows(cam_mean[gidx.long()].T) + _rows(lmk_mean[rows].T)
+    x = _rows(cam_rows.T) + _rows(lmk_mean[rows].T)
     lp_o = _rows(lp)
     beta = _scalar(params[4], lp)
     dist2 = sum((x[i] - lp_o[i]) * (x[i] - lp_o[i]) for i in range(T))
@@ -90,15 +107,44 @@ def relin_cm_tab_ell_plain(params, cam_mean, lmk_mean, gidx, z, lp, jac, r0,
             torch.where(eligible, torch.zeros_like(srel), srel + 1.0))
 
 
-def _messages_plain(params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec, srel,
+def relin_cm_tab_ell_plain(params, cam_mean, lmk_mean, gidx, z, lp, jac, r0,
+                           srel, act, *, deg):
+    """Plain version of `relin_cm_tab_ell`: camera means read by id from the
+    whole table."""
+    COUNTS.plain["relin_cm_tab_ell"] += 1
+    return _relin_plain(params, cam_mean[gidx.long()], lmk_mean, z, lp, jac, r0,
+                        srel, act, deg=deg)
+
+
+def _window_rows(tab, gidx, win_starts, win_w):
+    """tab[start + (gidx - start)] per row, start the row's tile's window
+    start: the read the windowed kernels make, with their in-window check."""
+    start = win_starts.long().repeat_interleave(TILE)
+    off = gidx.long() - start
+    if bool(((off < 0) | (off >= win_w) | (gidx.long() >= tab.shape[0])).any()):
+        raise ValueError("a camera id lies outside its tile's window")
+    return tab[start + off]
+
+
+def relin_cm_tabblk_ell_plain(params, cam_mean, lmk_mean, gidx, win_starts, z, lp,
+                              jac, r0, srel, act, *, deg, win_w):
+    """Plain version of `relin_cm_tabblk_ell`: camera means read from each
+    row's tile window."""
+    COUNTS.plain["relin_cm_tabblk_ell"] += 1
+    return _relin_plain(params, _window_rows(cam_mean, gidx, win_starts, win_w), lmk_mean,
+                        z, lp, jac, r0, srel, act, deg=deg)
+
+
+def _messages_plain(params, cam_rows, lmk_tab, jac, lp, r0, prec, srel,
                     act, me0, ml0, me1, ml1, *, deg, huber):
     """Covariance-form factor -> variable messages (the reference's
-    `_message_math`, diagonal prec): Huber weight, cavities with floor and
+    `_message_math`, diagonal prec) with the packed camera beliefs already
+    read per row, cam_rows [mp, 42]: Huber weight, cavities with floor and
     jitter, S = sym(Sigma / w + P_other), damping, act select."""
     eta_damping, lam_damping, num_undamped, floor, _, _, jitter = params
     mp = jac.shape[1]
     rows = torch.arange(mp, device=jac.device) // deg
-    cam = _rows(cam_tab[gidx.long()].T)
+    cam = _rows(cam_rows.T)
     lmk = _rows(lmk_tab[rows].T)
     jm = _mat(_rows(jac), Z, T)
     j0 = [row[:D0] for row in jm]
@@ -168,21 +214,110 @@ def messages_cm_tab_ell_plain(params, cam_tab, lmk_tab, gidx, jac, lp, r0,
     camera-side sum of the new camera messages [F_CAM, n_cam]."""
     COUNTS.plain["messages_cm_tab_ell"] += 1
     oe0, ol0, oe1, ol1 = _messages_plain(
-        params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec, srel, act,
+        params, cam_tab[gidx.long()], lmk_tab, jac, lp, r0, prec, srel, act,
         me0, ml0, me1, ml1, deg=deg, huber=huber)
     return oe0, ol0, oe1, ol1, segsum_by_id_plain(oe0, ol0, seg_rows, seg_offsets)
+
+
+def messages_cm_tabblk_ell_plain(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp,
+                                 r0, prec, srel, act, me0, ml0, me1, ml1, win_rows,
+                                 win_offsets, *, deg, huber, win_w):
+    """Plain version of `messages_cm_tabblk_ell`: the four new messages and
+    the per-tile window partials of the new camera messages
+    [n_tiles, F_CAM, win_w]."""
+    COUNTS.plain["messages_cm_tabblk_ell"] += 1
+    oe0, ol0, oe1, ol1 = _messages_plain(
+        params, _window_rows(cam_tab, gidx, win_starts, win_w), lmk_tab, jac, lp, r0,
+        prec, srel, act, me0, ml0, me1, ml1, deg=deg, huber=huber)
+    part = segsum_cm_blk_plain(oe0, ol0, win_rows, win_offsets,
+                               n_tiles=jac.shape[1] // TILE, w=win_w)
+    return oe0, ol0, oe1, ol1, part
+
+
+def _csr_sum(me, ml, rows, offsets):
+    """out[k, s] = sum over i in [offsets[s], offsets[s+1]) of comp_k[rows[i]]
+    for the components (me | ml)."""
+    n_seg = offsets.shape[0] - 1
+    ids = torch.repeat_interleave(
+        torch.arange(n_seg, device=me.device), (offsets[1:] - offsets[:-1]).long())
+    vals = torch.cat([me, ml])[:, rows.long()]
+    out = torch.zeros((vals.shape[0], n_seg), dtype=me.dtype, device=me.device)
+    return out.index_add_(1, ids, vals)
 
 
 def segsum_by_id_plain(me, ml, seg_rows, seg_offsets):
     """Sum the (eta | lam) components of the rows of each segment:
     out[k, s] = sum over i in [offsets[s], offsets[s+1]) of comp_k[rows[i]]."""
     COUNTS.plain["segsum_by_id"] += 1
-    n_seg = seg_offsets.shape[0] - 1
-    ids = torch.repeat_interleave(
-        torch.arange(n_seg, device=me.device), (seg_offsets[1:] - seg_offsets[:-1]).long())
-    vals = torch.cat([me, ml])[:, seg_rows.long()]
-    out = torch.zeros((vals.shape[0], n_seg), dtype=me.dtype, device=me.device)
-    return out.index_add_(1, ids, vals)
+    return _csr_sum(me, ml, seg_rows, seg_offsets)
+
+
+def segsum_cm_blk_plain(me, ml, win_rows, win_offsets, *, n_tiles, w):
+    """Per-tile window partials: part[i, k, j] = sum of component k over
+    the rows of tile i with camera id win_starts[i] + j, from the CSR of
+    `window_rows_csr` (segment i * w + j)."""
+    COUNTS.plain["segsum_cm_blk"] += 1
+    out = _csr_sum(me, ml, win_rows, win_offsets)
+    return out.reshape(-1, n_tiles, w).permute(1, 0, 2).contiguous()
+
+
+def scatter_windows_cm_plain(part, win_starts, cov_tiles, cov_offsets, *, n_seg):
+    """out[k, c] = sum over the tiles i that cover camera c of
+    part[i, k, c - win_starts[i]], in ascending i (the cover lists of
+    `window_cover_csr`): pass r adds every camera's r-th covering tile."""
+    COUNTS.plain["scatter_windows_cm"] += 1
+    f = part.shape[1]
+    first = cov_offsets[:-1].long()
+    counts = cov_offsets[1:].long() - first
+    starts = win_starts.long()
+    out = torch.zeros((f, n_seg), dtype=part.dtype, device=part.device)
+    cams = torch.arange(n_seg, device=part.device)
+    for r in range(int(counts.max()) if n_seg else 0):
+        sel = cams[counts > r]
+        t = cov_tiles[first[sel] + r].long()
+        off = sel - starts[t]
+        if bool(((off < 0) | (off >= part.shape[2])).any()):
+            raise ValueError("a cover list names a tile whose window does not hold the camera")
+        out[:, sel] += part[t, :, off].T
+    return out
+
+
+# --- window index structures (numpy, built once per graph) --------------------
+
+
+def window_rows_csr(gidx, win_starts, w):
+    """CSR of each tile's rows by window column, for `segsum_cm_blk`:
+    (rows [mp] int32, offsets [n_tiles * w + 1] int32); segment i * w + j
+    lists, in row order, the rows of tile i whose camera id is
+    win_starts[i] + j.  Raises if an id lies outside its tile's window."""
+    gidx = np.asarray(gidx, dtype=np.int64)
+    win_starts = np.asarray(win_starts, dtype=np.int64)
+    if gidx.size != win_starts.size * TILE:
+        raise ValueError(f"{gidx.size} rows are not {win_starts.size} tiles of {TILE}")
+    tile = np.arange(gidx.size) // TILE
+    off = gidx - win_starts[tile]
+    if ((off < 0) | (off >= w)).any():
+        raise ValueError("a camera id lies outside its tile's window")
+    key = tile * w + off
+    rows = np.argsort(key, kind="stable").astype(np.int32)
+    offsets = np.concatenate(
+        [[0], np.cumsum(np.bincount(key, minlength=win_starts.size * w))]).astype(np.int32)
+    return rows, offsets
+
+
+def window_cover_csr(win_starts, w, n_seg):
+    """For `scatter_windows_cm`: per camera c < n_seg the tiles i with
+    win_starts[i] <= c < win_starts[i] + w, ascending, as
+    (tiles [nnz] int32, offsets [n_seg + 1] int32).  Starts may repeat and
+    windows may overlap or reach past n_seg."""
+    win_starts = np.asarray(win_starts, dtype=np.int64)
+    cams = (win_starts[:, None] + np.arange(w)).reshape(-1)
+    tiles = np.repeat(np.arange(win_starts.size), w)
+    keep = (cams >= 0) & (cams < n_seg)
+    cams, tiles = cams[keep], tiles[keep]
+    order = np.argsort(cams, kind="stable")  # stable: tiles stay ascending
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(cams, minlength=n_seg))])
+    return tiles[order].astype(np.int32), offsets.astype(np.int32)
 
 
 # --- kernel wrappers --------------------------------------------------------
@@ -317,4 +452,171 @@ def segsum_by_id(me, ml, seg_rows, seg_offsets):
     fn = getattr(library(), f"gbp_segsum_by_id_{_suffix(dt)}")
     _raise_on(fn(*args), "segsum_by_id")
     COUNTS.kernel["segsum_by_id"] += 1
+    return out
+
+
+def _window_smem(name, win_w, width, dt):
+    """Raise unless a window of `win_w` table rows of `width` values fits
+    one block's shared memory."""
+    need = win_w * width * torch.empty((), dtype=dt).element_size()
+    if need > SMEM_WINDOW_BYTES:
+        raise ValueError(
+            f"{name}: a window of {win_w} cameras x {width} values of {dt} takes {need} "
+            f"bytes of shared memory; one block has {SMEM_WINDOW_BYTES}")
+
+
+def window_blocks_per_sm(name, win_w, dtype):
+    """Blocks of the windowed kernel `name` ("relin_cm_tabblk_ell" or
+    "messages_cm_tabblk_ell") that one SM holds at once when each stages a
+    window of `win_w` cameras, as the CUDA occupancy calculator reports it."""
+    from gbp_tpu_torch.ops._build import library
+
+    n = getattr(library(), f"gbp_{name}_blocks_per_sm_{_suffix(dtype)}")(ctypes.c_int(win_w))
+    _raise_on(max(-n, 0), f"{name} occupancy")
+    return n
+
+
+def _tiles(name, mp):
+    if mp <= 0 or mp % TILE:
+        raise ValueError(f"{name}: mp={mp} is not a positive multiple of the tile ({TILE} rows)")
+    return mp // TILE
+
+
+def relin_cm_tabblk_ell(params, cam_mean, lmk_mean, gidx, win_starts, z, lp, jac, r0,
+                        srel, act, *, deg, win_w):
+    """`relin_cm_tab_ell` for large scenes: the block of tile i stages rows
+    [win_starts[i], win_starts[i] + win_w) of cam_mean and a row reads its
+    camera at gidx[r] - win_starts[i].  win_starts [mp / TILE] int32.  An id
+    outside its tile's window stops the kernel (a fault of `prepare`)."""
+    if not lp.is_cuda:
+        return relin_cm_tabblk_ell_plain(params, cam_mean, lmk_mean, gidx, win_starts, z,
+                                         lp, jac, r0, srel, act, deg=deg, win_w=win_w)
+    from gbp_tpu_torch.ops._build import library
+
+    dt = lp.dtype
+    mp = lp.shape[1]
+    n_cam, nv = cam_mean.shape[0], lmk_mean.shape[0]
+    n_tiles = _tiles("relin_cm_tabblk_ell", mp)
+    if mp != nv * deg:
+        raise ValueError(f"relin_cm_tabblk_ell: mp={mp} != nv*deg={nv}*{deg}")
+    _window_smem("relin_cm_tabblk_ell", win_w, D0, dt)
+    out = [torch.empty((f, mp), dtype=dt, device=lp.device) for f in (T, Z * T, Z, 1)]
+    args = [
+        _check("cam_mean", cam_mean, (n_cam, D0), dt), ctypes.c_int(n_cam),
+        _check("lmk_mean", lmk_mean, (nv, D1), dt),
+        _check("gidx", gidx, (mp,), torch.int32),
+        _check("win_starts", win_starts, (n_tiles,), torch.int32), ctypes.c_int(win_w),
+        _check("z", z, (Z, mp), dt), _check("lp", lp, (T, mp), dt),
+        _check("jac", jac, (Z * T, mp), dt), _check("r0", r0, (Z, mp), dt),
+        _check("srel", srel, (1, mp), dt), _check("act", act, (1, mp), dt),
+        *[ctypes.c_void_p(o.data_ptr()) for o in out],
+        ctypes.c_int64(mp), ctypes.c_int(deg),
+        ctypes.c_double(params[4]), ctypes.c_double(params[5]), _stream(),
+    ]
+    fn = getattr(library(), f"gbp_relin_cm_tabblk_ell_{_suffix(dt)}")
+    _raise_on(fn(*args), "relin_cm_tabblk_ell")
+    COUNTS.kernel["relin_cm_tabblk_ell"] += 1
+    return tuple(out)
+
+
+def messages_cm_tabblk_ell(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, r0,
+                           prec, srel, act, me0, ml0, me1, ml1, win_rows, win_offsets,
+                           *, deg, huber, win_w):
+    """`messages_cm_tab_ell` for large scenes; returns (eta0, lam0, eta1,
+    lam1, part) like the reference: part [mp / TILE, 42, win_w] holds the
+    per-tile window partials of the new camera messages (`segsum_cm_blk` on
+    the outputs), to be combined by `scatter_windows_cm`."""
+    if not jac.is_cuda:
+        return messages_cm_tabblk_ell_plain(
+            params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, r0, prec, srel, act,
+            me0, ml0, me1, ml1, win_rows, win_offsets, deg=deg, huber=huber, win_w=win_w)
+    from gbp_tpu_torch.ops._build import library
+
+    dt = jac.dtype
+    mp = jac.shape[1]
+    n_cam, nv = cam_tab.shape[0], lmk_tab.shape[0]
+    n_tiles = _tiles("messages_cm_tabblk_ell", mp)
+    if mp != nv * deg:
+        raise ValueError(f"messages_cm_tabblk_ell: mp={mp} != nv*deg={nv}*{deg}")
+    _window_smem("messages_cm_tabblk_ell", win_w, F_CAM, dt)
+    out = [torch.empty((f, mp), dtype=dt, device=jac.device)
+           for f in (D0, D0 * D0, D1, D1 * D1)]
+    eta_damping, lam_damping, num_undamped, floor, _, _, jitter = params
+    args = [
+        _check("cam_tab", cam_tab, (n_cam, F_CAM), dt), ctypes.c_int(n_cam),
+        _check("lmk_tab", lmk_tab, (nv, F_LMK), dt),
+        _check("gidx", gidx, (mp,), torch.int32),
+        _check("win_starts", win_starts, (n_tiles,), torch.int32), ctypes.c_int(win_w),
+        _check("jac", jac, (Z * T, mp), dt), _check("lp", lp, (T, mp), dt),
+        _check("r0", r0, (Z, mp), dt), _check("prec", prec, (Z, mp), dt),
+        _check("srel", srel, (1, mp), dt), _check("act", act, (1, mp), dt),
+        _check("me0", me0, (D0, mp), dt), _check("ml0", ml0, (D0 * D0, mp), dt),
+        _check("me1", me1, (D1, mp), dt), _check("ml1", ml1, (D1 * D1, mp), dt),
+        *[ctypes.c_void_p(o.data_ptr()) for o in out],
+        ctypes.c_int64(mp), ctypes.c_int(deg),
+        ctypes.c_double(eta_damping), ctypes.c_double(lam_damping),
+        ctypes.c_double(num_undamped), ctypes.c_double(floor),
+        ctypes.c_double(jitter), ctypes.c_int(huber is not None),
+        ctypes.c_double(0.0 if huber is None else huber), _stream(),
+    ]
+    fn = getattr(library(), f"gbp_messages_cm_tabblk_ell_{_suffix(dt)}")
+    _raise_on(fn(*args), "messages_cm_tabblk_ell")
+    COUNTS.kernel["messages_cm_tabblk_ell"] += 1
+    return (*out, segsum_cm_blk(out[0], out[1], win_rows, win_offsets, n_tiles=n_tiles, w=win_w))
+
+
+def segsum_cm_blk(me, ml, win_rows, win_offsets, *, n_tiles, w):
+    """Deterministic per-tile window partials [n_tiles, d + d*d, w] of
+    me [d, mp] | ml [d*d, mp] over the CSR of `window_rows_csr`: one thread
+    per output adds its rows in CSR order.  Two runs give the same bits."""
+    if not me.is_cuda:
+        return segsum_cm_blk_plain(me, ml, win_rows, win_offsets, n_tiles=n_tiles, w=w)
+    from gbp_tpu_torch.ops._build import library
+
+    dt = me.dtype
+    d, mp = me.shape
+    if n_tiles != _tiles("segsum_cm_blk", mp):
+        raise ValueError(f"segsum_cm_blk: n_tiles={n_tiles} but mp={mp} holds {mp // TILE} tiles")
+    f = d + d * d
+    if not 0 < f <= 65535 or w <= 0:
+        raise ValueError(f"segsum_cm_blk: d={d}, w={w} out of range")
+    out = torch.empty((n_tiles, f, w), dtype=dt, device=me.device)
+    args = [
+        _check("me", me, (d, mp), dt), _check("ml", ml, (d * d, mp), dt), ctypes.c_int(d),
+        _check("win_rows", win_rows, (mp,), torch.int32),
+        _check("win_offsets", win_offsets, (n_tiles * w + 1,), torch.int32),
+        ctypes.c_int(n_tiles), ctypes.c_int(w), ctypes.c_int64(mp),
+        ctypes.c_void_p(out.data_ptr()), _stream(),
+    ]
+    fn = getattr(library(), f"gbp_segsum_cm_blk_{_suffix(dt)}")
+    _raise_on(fn(*args), "segsum_cm_blk")
+    COUNTS.kernel["segsum_cm_blk"] += 1
+    return out
+
+
+def scatter_windows_cm(part, win_starts, cov_tiles, cov_offsets, *, n_seg):
+    """Combine per-tile window partials part [n_tiles, f, w] into [f, n_seg]:
+    out[k, c] = sum over the tiles i covering c of part[i, k, c -
+    win_starts[i]], in ascending i.  (cov_tiles, cov_offsets) are the cover
+    lists of `window_cover_csr`; starts are int32.  Deterministic."""
+    if not part.is_cuda:
+        return scatter_windows_cm_plain(part, win_starts, cov_tiles, cov_offsets, n_seg=n_seg)
+    from gbp_tpu_torch.ops._build import library
+
+    dt = part.dtype
+    n_tiles, f, w = part.shape
+    if not 0 < f <= 65535:
+        raise ValueError(f"scatter_windows_cm: f={f} out of range")
+    out = torch.empty((f, n_seg), dtype=dt, device=part.device)
+    args = [
+        _check("part", part, (n_tiles, f, w), dt),
+        _check("win_starts", win_starts, (n_tiles,), torch.int32),
+        _check("cov_tiles", cov_tiles, (cov_tiles.shape[0],), torch.int32),
+        _check("cov_offsets", cov_offsets, (n_seg + 1,), torch.int32),
+        ctypes.c_int(f), ctypes.c_int(w), ctypes.c_int(n_seg),
+        ctypes.c_void_p(out.data_ptr()), _stream(),
+    ]
+    fn = getattr(library(), f"gbp_scatter_windows_cm_{_suffix(dt)}")
+    _raise_on(fn(*args), "scatter_windows_cm")
+    COUNTS.kernel["scatter_windows_cm"] += 1
     return out

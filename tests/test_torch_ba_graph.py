@@ -41,7 +41,7 @@ def scenes():
 @pytest.fixture(scope="module")
 def graphs(scenes):
     jsim, psim = scenes
-    return jba.build(jsim, dtype=jnp.float64), pba.build(psim, dtype=torch.float64)
+    return jba.build(jsim, dtype=jnp.float64), pba.build(psim, dtype=torch.float64, device="cpu")
 
 
 def test_simulate_matches_reference(scenes):
@@ -75,7 +75,7 @@ def test_graph_from_numpy_matches_port_build(graphs):
     """interop.graph_from_numpy on the reference graph gives the port's own
     build of the same scene."""
     (jg, _), (pg, _) = graphs
-    g = interop.graph_from_numpy(jax.tree.map(np.asarray, jg))
+    g = interop.graph_from_numpy(jax.tree.map(np.asarray, jg), device="cpu")
     fb, pfb = g.fblocks[0], pg.fblocks[0]
     assert fb.ftype.name == pfb.ftype.name
     assert (fb.ell_slot, fb.ell_deg, fb.n_valid, fb.dofs) == (

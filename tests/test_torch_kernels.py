@@ -12,8 +12,9 @@ Tolerances, relative to each output's magnitude:
   camera sum 1e-12: the same addends summed in another order.
 
 The CUDA kernels themselves run only on a card: `test_kernels_match_plain_
-on_card` (marker `cuda`) holds them against these plain versions there, as
-chip_smoke.py does at the bench scene.  The JAX reference is imported by
+on_card` and `test_window_kernels_match_plain_on_card` (marker `cuda`) hold
+them against these plain versions there, as chip_smoke.py does at the bench
+and city scenes.  The JAX reference is imported by
 the fixture that needs it, so that on a machine with a card and no JAX the
 card test runs alone:
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import gbp_tpu_torch
 from gbp_tpu_torch import interop
 from gbp_tpu_torch.core import sweep_cm as P
 from gbp_tpu_torch.core.sweep import GBPConfig, _kernel_params
@@ -47,7 +49,7 @@ def port():
     """The port's graph and its plain-sweep state after 8 sweeps (8 =
     min_linear_iters: rows may relinearize in the next sweep)."""
     sim = pba.simulate(n_cams=8, n_lmks=120, seed=0)
-    graph, means = pba.build(sim, dtype=torch.float64)
+    graph, means = pba.build(sim, dtype=torch.float64, device="cpu")
     cmg = P.prepare(graph)
     return sim, cmg, P.run(cmg, P.init_state(cmg, means), GBPConfig(**CFG), 8)
 
@@ -175,7 +177,21 @@ def test_cpu_tensors_take_the_plain_versions(port):
     M.COUNTS.reset()
     P.sweep(cmg, st, GBPConfig(**CFG))
     assert M.COUNTS.kernel == dict.fromkeys(M.KERNELS, 0)
-    assert M.COUNTS.plain == dict.fromkeys(M.KERNELS, 1)
+    full_table = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id")
+    assert M.COUNTS.plain == {k: int(k in full_table) for k in M.KERNELS}
+
+
+def _on_card(cmg, st, dtype):
+    """The CM graph's tensors and the state on the card in `dtype`."""
+    dev = torch.device("cuda")
+    cast = lambda t: t.to(dev, dtype) if t.is_floating_point() else t.to(dev)
+    cmg = cmg._replace(**{k: cast(v) for k, v in cmg._asdict().items()
+                          if isinstance(v, torch.Tensor)})
+    st = P.CMState(
+        v=tuple(type(v)(*(cast(t) for t in v)) for v in st.v),
+        f=P.CMFactorState(*(tuple(cast(t) for t in x) if isinstance(x, tuple) else cast(x)
+                            for x in st.f)))
+    return cmg, st
 
 
 @pytest.mark.cuda
@@ -187,14 +203,7 @@ def test_kernels_match_plain_on_card(port, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     _, cmg, st = port
-    dev = torch.device("cuda")
-    cast = lambda t: t.to(dev, dtype) if t.is_floating_point() else t.to(dev)
-    cmg = cmg._replace(**{k: cast(getattr(cmg, k)) for k in
-                          ("z", "prec", "act", "gidx", "seg_rows", "seg_offsets")})
-    st = P.CMState(
-        v=tuple(type(v)(*(cast(t) for t in v)) for v in st.v),
-        f=P.CMFactorState(*(tuple(cast(t) for t in x) if isinstance(x, tuple) else cast(x)
-                            for x in st.f)))
+    cmg, st = _on_card(cmg, st, dtype)
     params = _kernel_params(GBPConfig(**CFG), dtype)
     cam_mean, lmk_mean, cam_tab, lmk_tab = P.belief_tables(cmg, st)
     fs, deg = st.f, cmg.fb.ell_deg
@@ -228,3 +237,88 @@ def test_kernels_match_plain_on_card(port, dtype, tol):
             args[names.index(k)] = v
         with pytest.raises(ValueError):
             M.relin_cm_tab_ell(*args, deg=deg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11), (torch.float32, 1e-4)])
+def test_window_kernels_match_plain_on_card(dtype, tol):
+    """The four windowed CUDA kernels against their plain versions on
+    identical CUDA inputs (7 blocks of 40 cameras after 8 plain sweeps); the
+    window partials and their combination repeat bit for bit; a window
+    beyond one block's shared memory is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    sim = pba.simulate_blocks(n_blocks=7, n_cams=40, lmks_per_cam=20, window=3, seed=0,
+                              shuffle=True)
+    graph, means = pba.build(sim, dtype=torch.float64, device="cpu", layout="ell",
+                             cam_prior_prec=1000.0, lmk_prior_prec=1000.0)
+    cmg = P.prepare(graph, window=True)
+    assert cmg.win_w > 0 and cmg.vperm is not None
+    st = P.run(cmg, P.init_state(cmg, means), GBPConfig(**CFG), 8)
+    cmg, st = _on_card(cmg, st, dtype)
+    cam_mean, lmk_mean, cam_tab, lmk_tab = P.belief_tables(cmg, st)
+    fs, deg = st.f, cmg.fb.ell_deg
+    kw = dict(deg=deg, win_w=cmg.win_w)
+    for beta in (BETA, median_beta(cmg, st)):
+        r_args = (_kernel_params(GBPConfig(beta=beta, **CFG), dtype), cam_mean, lmk_mean,
+                  cmg.gidx, cmg.win_starts, cmg.z, fs.lp, fs.jac, fs.r0, fs.srel, cmg.act)
+        ref_r = M.relin_cm_tabblk_ell_plain(*r_args, **kw)
+        for g, r in zip(M.relin_cm_tabblk_ell(*r_args, **kw), ref_r):
+            assert rel(g, r) <= tol
+    m_args = (_kernel_params(GBPConfig(**CFG), dtype), cam_tab, lmk_tab, cmg.gidx,
+              cmg.win_starts, ref_r[1], ref_r[0], ref_r[2], cmg.prec, ref_r[3], cmg.act,
+              fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1], cmg.win_rows,
+              cmg.win_offsets)
+    for huber in (None, 1.0):
+        ref_m = M.messages_cm_tabblk_ell_plain(*m_args, huber=huber, **kw)
+        for g, r in zip(M.messages_cm_tabblk_ell(*m_args, huber=huber, **kw), ref_m):
+            assert rel(g, r) <= tol
+    b_args = (ref_m[0], ref_m[1], cmg.win_rows, cmg.win_offsets)
+    b_kw = dict(n_tiles=cmg.mp // M.TILE, w=cmg.win_w)
+    part = M.segsum_cm_blk(*b_args, **b_kw)
+    assert rel(part, M.segsum_cm_blk_plain(*b_args, **b_kw)) <= tol
+    assert torch.equal(part, M.segsum_cm_blk(*b_args, **b_kw))
+    s_args = (part, cmg.win_starts, cmg.cov_tiles, cmg.cov_offsets)
+    n_cam = cam_mean.shape[0]
+    got = M.scatter_windows_cm(*s_args, n_seg=n_cam)
+    assert rel(got, M.scatter_windows_cm_plain(*s_args, n_seg=n_cam)) <= tol
+    assert rel(got, M.segsum_by_id_plain(ref_m[0], ref_m[1], cmg.seg_rows, cmg.seg_offsets)) <= tol
+    assert torch.equal(got, M.scatter_windows_cm(*s_args, n_seg=n_cam))
+    # A window that cannot fit one block's shared memory raises, with the numbers.
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        M.messages_cm_tabblk_ell(*m_args, huber=None, deg=deg, win_w=4096)
+
+
+# --- the default device ---------------------------------------------------------------
+
+
+def test_default_device_is_the_card_or_raises():
+    """No quiet move to the CPU: without a card `default_device()` and every
+    entry point given device=None raise, naming the problem."""
+    if torch.cuda.is_available():
+        assert gbp_tpu_torch.default_device().type == "cuda"
+        return
+    sim = pba.simulate(n_cams=4, n_lmks=20, seed=0)
+    for call in (gbp_tpu_torch.default_device,
+                 lambda: gbp_tpu_torch.resolve_device(None),
+                 lambda: pba.build(sim),
+                 lambda: interop.cm_state_from_numpy(None),
+                 lambda: interop.graph_from_numpy(None)):
+        with pytest.raises(RuntimeError, match="no CUDA device is present"):
+            call()
+
+
+@pytest.mark.parametrize("device", ["cpu", torch.device("cpu")])
+def test_an_explicit_cpu_device_is_honoured(device):
+    assert gbp_tpu_torch.resolve_device(device) == torch.device("cpu")
+    sim = pba.simulate(n_cams=4, n_lmks=20, seed=0)
+    graph, means = pba.build(sim, dtype=torch.float64, device=device)
+    tensors = [means[0], graph.vblocks[0].prior_eta, graph.fblocks[0].z, graph.fblocks[0].adj[0]]
+    cmg = P.prepare(graph)
+    st = P.init_state(cmg, means)
+    tensors += [cmg.z, cmg.gidx, cmg.seg_rows, st.f.lp, st.v[1].mean]
+    back = interop.cm_state_from_numpy(types.SimpleNamespace(
+        v=[types.SimpleNamespace(**d) for d in interop.cm_state_to_numpy(st)["v"]],
+        f=types.SimpleNamespace(**interop.cm_state_to_numpy(st)["f"])), device=device)
+    tensors += [back.f.jac, back.v[0].eta]
+    assert all(t.device.type == "cpu" for t in tensors)

@@ -1,0 +1,464 @@
+"""The port's windowed large-scene path (gbp_tpu_torch: corridor / merged
+blocks scenes, camera windows, locality sort, the four windowed kernels'
+plain versions on the CPU) against the JAX reference, on scenes of 280-320
+cameras where the windows engage.  The reference's Pallas kernels run as
+its own CPU tests run them, with `interpret=True`.
+
+Scenes and `prepare` are compared on single corridors and merged blocks.
+The numeric checks run on 7 merged blocks of 40 cameras (280 cameras, ids
+shuffled, so the locality sort engages; 280 x 42 floats also fit the
+full-table kernels): a single long corridor diverges under the plain
+schedule in both packages (ARE of hundreds of pixels by sweep 8 in float64,
+non-finite in float32), which leaves nothing to compare.
+
+Tolerances, relative to each output's magnitude unless said otherwise:
+  scenes: ids exact, values 1e-12 (one rotation logarithm goes through
+    torch on one side and XLA on the other);
+  prepare: every integer (windows, permutations, row counts) exact;
+  relinearization 1e-12, messages and window partials 1e-10 in float64
+    (6x6 cavity inverses amplify operation-order roundoff), 1e-4 in float32;
+  scatter_windows_cm 1e-12 absolute in float64 against a dense accumulation
+    (the same addends in the same order), 1e-5 in float32;
+  one sweep from a common state 1e-10; 6 sweeps 1e-6 absolute on the means
+    (beta-threshold relinearization amplifies roundoff); float32 ARE after
+    15 sweeps within 1e-3 px;
+  3 sweeps after a to_gbp_state / from_gbp_state round trip: 1e-12 absolute.
+"""
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gbp_tpu.core import sweep_cm as J
+from gbp_tpu.core.sweep import GBPConfig as JConfig
+from gbp_tpu.core.sweep import VariableState as JVar
+from gbp_tpu.core.sweep import _kernel_params as j_kernel_params
+from gbp_tpu.models import ba as jba
+from gbp_tpu.ops import messages_pallas as mp
+from gbp_tpu_torch import interop
+from gbp_tpu_torch.core import sweep_cm as P
+from gbp_tpu_torch.core.sweep import GBPConfig, _kernel_params
+from gbp_tpu_torch.models import ba as pba
+from gbp_tpu_torch.ops import messages as M
+
+torch.set_num_threads(1)
+CFG = dict(eta_damping=0.4, num_undamped_iters=6, min_linear_iters=8)
+JCFG = JConfig(message_form="pallas", **CFG)
+PCFG = GBPConfig(**CFG)
+BETA = GBPConfig().beta
+PRIORS = dict(cam_prior_prec=1000.0, lmk_prior_prec=1000.0)
+JDT = {torch.float64: jnp.float64, torch.float32: jnp.float32}
+SCENES = {
+    "corridor280": lambda m: m.simulate_corridor(n_cams=280, lmks_per_cam=12, window=3, seed=1),
+    "corridor320": lambda m: m.simulate_corridor(n_cams=320, lmks_per_cam=20, window=3, seed=1),
+    "blocks7": lambda m: m.simulate_blocks(n_blocks=7, n_cams=40, lmks_per_cam=20, window=3,
+                                           seed=0, shuffle=True),
+    "blocks8": lambda m: m.simulate_blocks(n_blocks=8, n_cams=40, lmks_per_cam=20, window=3,
+                                           seed=0, shuffle=True),
+    "blocks3_unshuffled": lambda m: m.simulate_blocks(n_blocks=3, n_cams=40, lmks_per_cam=20,
+                                                      window=3, seed=2),
+}
+
+
+def rel(got, ref):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    ref = np.asarray(ref).reshape(got.shape)
+    return np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300)
+
+
+def jax_state(d, dtype=None):
+    arr = lambda a: jnp.asarray(a, dtype)
+    f = {k: (tuple(arr(a) for a in v) if isinstance(v, tuple) else arr(v))
+         for k, v in d["f"].items()}
+    return J.CMState(v=tuple(JVar(**{k: arr(a) for k, a in v.items()}) for v in d["v"]),
+                     f=J.CMFactorState(**f))
+
+
+def build_both(sim, dtype, **prepare_kw):
+    jg, jm = jba.build(sim, dtype=JDT[dtype], layout="ell", **PRIORS)
+    pg, pm = pba.build(sim, dtype=dtype, device="cpu", layout="ell", **PRIORS)
+    return ((jg, jm, J.prepare(jg, segsum_exact=True, **prepare_kw)),
+            (pg, pm, P.prepare(pg, **prepare_kw)))
+
+
+@pytest.fixture(scope="module")
+def sim280():
+    return SCENES["blocks7"](pba)
+
+
+@pytest.fixture(scope="module")
+def f64(sim280):
+    return build_both(sim280, torch.float64)
+
+
+@pytest.fixture(scope="module")
+def operands(f64):
+    """The port's state after 8 plain sweeps (8 = min_linear_iters: rows may
+    relinearize next) and the reference sweep's kernel operands for it
+    (sweep_cm.sweep, windowed fused path)."""
+    (_, _, jc), (_, pm, pc) = f64
+    assert jc.win_w and jc.ell_fused and jc.gather_mode == "table"
+    st = P.run(pc, P.init_state(pc, pm), PCFG, 8)
+    return pc, st, reference_operands(jc, st, jnp.float64)
+
+
+def reference_operands(jc, st, jdt):
+    jst = jax_state(interop.cm_state_to_numpy(st), jdt)
+    fb = jc.fb
+    bwtab, mwtab = J.window_tables(jc, J._pack_beliefs(jst.v[fb.vblocks[0]]))
+    lbtab, lmtab = J.ell_tables(jc, jst.v[fb.vblocks[1]])
+    fs = jst.f
+    cast = lambda a: jnp.asarray(a, jdt)
+    kw = dict(d0=6, d1=3, z=2, gslot=0, win_w=jc.win_w, deg=fb.ell_deg, ell_w2=jc.ell_w2,
+              interpret=True)
+
+    def relin(beta):
+        return mp.fused_relin_cm_tabblk_ell(
+            j_kernel_params(JConfig(beta=beta, **CFG), jdt), jc.ell_starts, jc.win_starts,
+            lmtab, mwtab, jc.gidx_cm, cast(jc.z), jc.args, fs.lp, fs.jac, fs.r0, fs.srel,
+            cast(jc.act), comp_name=fb.ftype.name, n_args=0, **kw)
+
+    def messages(relin_out, act, huber):
+        lp, jac, r0, srel = relin_out
+        return mp.fused_messages_cm_tabblk_ell(
+            j_kernel_params(JCFG, jdt), jc.ell_starts, jc.win_starts, jac, lp, r0,
+            cast(jc.prec), srel, act, lbtab, bwtab, jc.gidx_cm, fs.msg_eta[0], fs.msg_lam[0],
+            fs.msg_eta[1], fs.msg_lam[1], prec_full=False, huber=huber, exact=True, **kw)
+
+    return types.SimpleNamespace(jc=jc, jst=jst, relin=relin, messages=messages)
+
+
+def cast_port(pc, st, dtype):
+    """The CM graph's float tensors and the state in `dtype`."""
+    c = lambda t: t.to(dtype) if t.is_floating_point() else t
+    pc = pc._replace(z=c(pc.z), prec=c(pc.prec), act=c(pc.act))
+    st = P.CMState(v=tuple(type(v)(*(c(t) for t in v)) for v in st.v),
+                   f=P.CMFactorState(*(tuple(c(t) for t in x) if isinstance(x, tuple) else c(x)
+                                       for x in st.f)))
+    return pc, st
+
+
+def median_beta(pc, st):
+    cam_mean, lmk_mean, _, _ = P.belief_tables(pc, st)
+    rows = torch.arange(pc.mp) // pc.fb.ell_deg
+    x = torch.cat([cam_mean[pc.gidx.long()], lmk_mean[rows]], 1).T
+    dist = ((x - st.f.lp) ** 2).sum(0).sqrt()[pc.act[0] > 0.5]
+    return float(dist.double().median())
+
+
+# --- (a) scenes -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["corridor280", "blocks8", "blocks3_unshuffled"])
+def test_scene_matches_reference(name):
+    jsim, psim = SCENES[name](jba), SCENES[name](pba)
+    assert set(jsim) == set(psim)
+    for key, ref in jsim.items():
+        ref, got = np.asarray(ref), np.asarray(psim[key])
+        assert got.shape == ref.shape, key
+        if ref.dtype.kind in "iu":
+            np.testing.assert_array_equal(got, ref, err_msg=key)
+        else:
+            assert np.abs(got - ref).max() <= 1e-12 * max(np.abs(ref).max(), 1.0), key
+
+
+# --- (b) prepare --------------------------------------------------------------
+
+
+def presorted(sim):
+    """Landmarks renumbered in corridor order: windows engage without the sort."""
+    order = np.argsort(sim["lmk_truth"][:, 0], kind="stable")
+    return dict(sim, lmk_truth=sim["lmk_truth"][order], lmk_init=sim["lmk_init"][order],
+                lmk_ids=np.argsort(order)[sim["lmk_ids"]])
+
+
+@pytest.mark.parametrize("name", ["corridor280", "corridor320", "blocks8", "presorted320"])
+def test_prepare_windows_match_reference(name):
+    sim = presorted(SCENES["corridor320"](pba)) if name == "presorted320" else SCENES[name](pba)
+    (_, _, jc), (_, _, pc) = build_both(sim, torch.float64)
+    assert pc.win_w > 0 and 2 * pc.win_w <= pc.win_ncpad
+    assert (pc.mp, pc.nv, pc.win_w, pc.win_ncpad) == (jc.mp, jc.nv, jc.win_w, jc.win_ncpad)
+    np.testing.assert_array_equal(pc.win_starts.numpy(), np.asarray(jc.win_starts))
+    assert (pc.vperm is None) == (name == "presorted320") == (jc.vperm is None)
+    if pc.vperm is not None:
+        for field in ("vperm", "vinv", "rowperm"):
+            np.testing.assert_array_equal(getattr(pc, field).numpy(),
+                                          np.asarray(getattr(jc, field)), err_msg=field)
+        for field in ("prior_eta", "prior_lam"):
+            np.testing.assert_array_equal(getattr(pc.base.vblocks[1], field).numpy(),
+                                          np.asarray(getattr(jc.base.vblocks[1], field)))
+    flat = lambda a: np.asarray(a).reshape(np.asarray(a).shape[0], -1)
+    for field in ("z", "prec", "act"):
+        np.testing.assert_array_equal(getattr(pc, field).numpy(), flat(getattr(jc, field)))
+    gidx = pc.gidx.numpy()
+    np.testing.assert_array_equal(gidx, np.asarray(jc.gidx_rm))
+    # Every camera id lies in its tile's window; the per-tile CSR lists each
+    # row once, under its window column, in row order; the cover lists name
+    # exactly the tiles whose window holds the camera, ascending.
+    starts, w = pc.win_starts.numpy(), pc.win_w
+    tiles = gidx.reshape(-1, P.ROW_ALIGN)
+    assert (tiles.min(1) >= starts).all() and (tiles.max(1) < starts + w).all()
+    rows, offs = pc.win_rows.numpy(), pc.win_offsets.numpy()
+    assert sorted(rows.tolist()) == list(range(pc.mp)) and offs[-1] == pc.mp
+    seg_of_row = np.repeat(np.arange(len(offs) - 1), np.diff(offs))
+    np.testing.assert_array_equal(seg_of_row // w, rows // P.ROW_ALIGN)
+    np.testing.assert_array_equal(starts[seg_of_row // w] + seg_of_row % w, gidx[rows])
+    assert (np.diff(rows)[np.diff(seg_of_row) == 0] > 0).all()
+    cov, coff = pc.cov_tiles.numpy(), pc.cov_offsets.numpy()
+    n_cam = pc.base.vblocks[0].count
+    for c in range(0, n_cam, 7):
+        want = np.flatnonzero((starts <= c) & (c < starts + w))
+        np.testing.assert_array_equal(cov[coff[c]:coff[c + 1]], want)
+
+
+def test_windows_off_for_64_cams():
+    sim = pba.simulate_corridor(n_cams=64, lmks_per_cam=20, window=3, seed=0)
+    jg, _ = jba.build(sim, dtype=jnp.float64)
+    pg, _ = pba.build(sim, dtype=torch.float64, device="cpu")
+    jc, pc = J.prepare(jg, window=True), P.prepare(pg, window=True)
+    assert jc.win_w == 0 and pc.win_w == 0
+    assert pc.vperm is None and pc.rowperm is None and pc.win_starts is None
+    assert (pc.mp, pc.nv) == (jc.mp, jc.nv)
+
+
+# --- (c) the four kernels' plain versions ---------------------------------------
+
+
+@pytest.mark.parametrize("which,dtype,tol", [("config", torch.float64, 1e-12),
+                                             ("median", torch.float64, 1e-12),
+                                             ("config", torch.float32, 1e-4)])
+def test_relin_window_plain_matches_reference(operands, which, dtype, tol):
+    pc, st, ref = operands
+    if dtype == torch.float32:
+        pc, st = cast_port(pc, st, dtype)
+        ref = reference_operands(ref.jc, st, jnp.float32)
+    beta = BETA if which == "config" else median_beta(pc, st)
+    cam_mean, lmk_mean, _, _ = P.belief_tables(pc, st)
+    fs = st.f
+    got = M.relin_cm_tabblk_ell_plain(
+        _kernel_params(GBPConfig(beta=beta, **CFG), dtype), cam_mean, lmk_mean, pc.gidx,
+        pc.win_starts, pc.z, fs.lp, fs.jac, fs.r0, fs.srel, pc.act, deg=pc.fb.ell_deg,
+        win_w=pc.win_w)
+    for g, r in zip(got, ref.relin(beta)):
+        assert g.dtype == dtype and rel(g, r) <= tol
+    n_relin, n_valid = int((got[3] == 0).sum()), int(pc.act.sum())
+    assert n_relin == n_valid if which == "config" else 0 < n_relin < n_valid
+
+
+@pytest.mark.parametrize("huber,dtype,tol", [(None, torch.float64, 1e-10),
+                                             (1.0, torch.float64, 1e-10),
+                                             (None, torch.float32, 1e-4)])
+def test_messages_window_plain_matches_reference(operands, huber, dtype, tol):
+    """All five outputs, with every 5th row switched off (act = 0): those
+    rows pass their old messages through unchanged.  The 5th output is the
+    stack of per-tile window partials [n_tiles, 42, win_w]."""
+    pc, st, ref = operands
+    jdt = JDT[dtype]
+    if dtype == torch.float32:
+        pc, st = cast_port(pc, st, dtype)
+        ref = reference_operands(ref.jc, st, jdt)
+    relin_ref = ref.relin(BETA)
+    lp, jac, r0, srel = (torch.tensor(np.asarray(a).reshape(a.shape[0], -1)) for a in relin_ref)
+    act = pc.act.clone()
+    act[0, ::5] = 0.0
+    _, _, cam_tab, lmk_tab = P.belief_tables(pc, st)
+    fs = st.f
+    got = M.messages_cm_tabblk_ell_plain(
+        _kernel_params(PCFG, dtype), cam_tab, lmk_tab, pc.gidx, pc.win_starts, jac, lp, r0,
+        pc.prec, srel, act, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
+        pc.win_rows, pc.win_offsets, deg=pc.fb.ell_deg, huber=huber, win_w=pc.win_w)
+    out = ref.messages(relin_ref, jnp.asarray(act.numpy().reshape(ref.jc.act.shape), jdt), huber)
+    for g, r in zip(got[:4], out[:4]):
+        assert g.dtype == dtype and rel(g, r) <= tol
+    assert got[4].shape == (pc.mp // M.TILE, M.F_CAM, pc.win_w) == out[4].shape
+    assert rel(got[4], out[4]) <= tol
+    off = act[0] == 0
+    for g, old in zip(got[:4], (fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])):
+        assert torch.equal(g[:, off], old[:, off])
+        assert not torch.equal(g[:, ~off], old[:, ~off])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_segsum_blk_plain_matches_reference(operands, dtype, tol):
+    """The per-tile partials, combined by scatter_windows_cm_plain, against
+    the reference's segsum_cm_blk (kernel stage + combine), and against the
+    whole-table camera sum of the same messages."""
+    pc, st, _ = operands
+    me, ml = st.f.msg_eta[0].to(dtype), st.f.msg_lam[0].to(dtype)
+    n_cam = pc.base.vblocks[0].count
+    part = M.segsum_cm_blk_plain(me, ml, pc.win_rows, pc.win_offsets,
+                                 n_tiles=pc.mp // M.TILE, w=pc.win_w)
+    got = M.scatter_windows_cm_plain(part, pc.win_starts, pc.cov_tiles, pc.cov_offsets,
+                                     n_seg=n_cam)
+    cm = lambda a: jnp.asarray(a.numpy().reshape(a.shape[0], -1, mp.LANE))
+    out = mp.segsum_cm_blk(cm(me), cm(ml), cm(pc.gidx[None]), jnp.asarray(pc.win_starts.numpy()),
+                           n_seg=n_cam, w=pc.win_w, exact=True, interpret=True)
+    assert got.shape == (M.F_CAM, n_cam) and got.dtype == dtype
+    assert rel(got, out) <= tol
+    assert rel(got, M.segsum_by_id_plain(me, ml, pc.seg_rows, pc.seg_offsets)) <= tol
+
+
+@pytest.mark.parametrize("dtype,f,n_tiles,w,n_seg,ncpad", [
+    (np.float64, 42, 7, 128, 1280, 1536),
+    (np.float32, 12, 5, 16, 40, 48),
+])
+def test_scatter_windows_plain_exact(dtype, f, n_tiles, w, n_seg, ncpad):
+    """Against the reference's kernel and a dense accumulation: overlapping
+    windows, repeated starts, windows reaching into the padded tail."""
+    rng = np.random.default_rng(7)
+    part = rng.normal(size=(n_tiles, f, w)).astype(dtype)
+    starts = np.sort(rng.integers(0, (ncpad - w) // 8 + 1, size=n_tiles)) * 8
+    starts[1] = starts[0]  # a repeated start, whatever the draw
+    cov_tiles, cov_offsets = M.window_cover_csr(starts, w, n_seg)
+    got = M.scatter_windows_cm_plain(
+        torch.tensor(part), torch.tensor(starts, dtype=torch.int32), torch.tensor(cov_tiles),
+        torch.tensor(cov_offsets), n_seg=n_seg).numpy()
+    want = np.zeros((f, ncpad), dtype)
+    for i, s in enumerate(starts):
+        want[:, s:s + w] += part[i]
+    atol = 1e-5 if dtype is np.float32 else 1e-12
+    np.testing.assert_allclose(got, want[:, :n_seg], rtol=0, atol=atol)
+    ref = mp.scatter_windows_cm(jnp.asarray(part), jnp.asarray(starts, jnp.int32), n_seg=n_seg,
+                                w=w, ncpad=ncpad, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=atol)
+
+
+def test_window_csr_rejects_ids_outside_their_window(operands):
+    pc, st, _ = operands
+    gidx = pc.gidx.numpy().copy()
+    gidx[5] = pc.win_starts.numpy()[0] + pc.win_w
+    with pytest.raises(ValueError, match="outside its tile's window"):
+        M.window_rows_csr(gidx, pc.win_starts.numpy(), pc.win_w)
+    cam_mean, lmk_mean, _, _ = P.belief_tables(pc, st)
+    fs = st.f
+    with pytest.raises(ValueError, match="outside its tile's window"):
+        M.relin_cm_tabblk_ell_plain(
+            _kernel_params(PCFG, torch.float64), cam_mean, lmk_mean, torch.tensor(gidx),
+            pc.win_starts, pc.z, fs.lp, fs.jac, fs.r0, fs.srel, pc.act, deg=pc.fb.ell_deg,
+            win_w=pc.win_w)
+
+
+# --- (d) the windowed sweep -----------------------------------------------------
+
+
+def test_init_state_lives_in_sorted_order(f64):
+    (_, jm, jc), (_, pm, pc) = f64
+    js, ps = J.init_state(jc, jm), P.init_state(pc, pm)
+    for name in ("lp", "jac", "r0", "srel"):
+        assert rel(getattr(ps.f, name), getattr(js.f, name)) <= 1e-12
+    for pv, jv in zip(ps.v, js.v):
+        for name in ("eta", "lam", "mean"):
+            np.testing.assert_array_equal(getattr(pv, name).numpy(), np.asarray(getattr(jv, name)))
+    assert torch.equal(ps.v[1].mean, pm[1][pc.vperm]) and not torch.equal(ps.v[1].mean, pm[1])
+
+
+@pytest.mark.parametrize("start", [0, 8])
+def test_one_windowed_sweep_matches_reference(f64, start):
+    (_, _, jc), (_, pm, pc) = f64
+    ps = P.run(pc, P.init_state(pc, pm), PCFG, start)
+    js = jax_state(interop.cm_state_to_numpy(ps))
+    M.COUNTS.reset()
+    ps, js = P.sweep(pc, ps, PCFG), J.sweep(jc, js, JCFG)
+    windowed = ("relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
+                "scatter_windows_cm")
+    assert M.COUNTS.plain == {k: int(k in windowed) for k in M.KERNELS}
+    assert not any(M.COUNTS.kernel.values())
+    for a, b in zip(ps.f.msg_eta + ps.f.msg_lam, js.f.msg_eta + js.f.msg_lam):
+        assert rel(a, b) <= 1e-10
+    for pv, jv in zip(ps.v, js.v):
+        for name in ("eta", "lam", "mean"):
+            assert rel(getattr(pv, name), getattr(jv, name)) <= 1e-10
+    for name in ("lp", "jac", "r0", "srel"):
+        assert rel(getattr(ps.f, name), getattr(js.f, name)) <= 1e-10
+
+
+def test_six_windowed_sweeps_track_reference(f64):
+    (_, jm, jc), (_, pm, pc) = f64
+    js = jax.jit(J.run, static_argnums=3)(jc, J.init_state(jc, jm), JCFG, 6)
+    ps = P.run(pc, P.init_state(pc, pm), PCFG, 6)
+    for pv, jv in zip(ps.v, js.v):
+        assert np.abs(pv.mean.numpy() - np.asarray(jv.mean)).max() <= 1e-6
+
+
+def test_f32_are_after_fifteen_windowed_sweeps(sim280):
+    """float32, 15 sweeps (through relinearization): the ARE agrees with the
+    reference's windowed run and with the port's own full-table path (280
+    cameras x 42 floats fit the unwindowed kernels' shared memory)."""
+    (jg, jm, jc), (pg, pm, pc) = build_both(sim280, torch.float32)
+    assert pc.win_w > 0
+    js = jax.jit(J.run, static_argnums=3)(jc, J.init_state(jc, jm), JCFG, 15)
+    ref = float(jba.avg_reprojection_error(jg, J.to_gbp_state(jc, js), k=sim280["k"]))
+    are = lambda c, s: float(pba.avg_reprojection_error(pg, P.to_gbp_state(c, s), k=sim280["k"]))
+    got = are(pc, P.run(pc, P.init_state(pc, pm), PCFG, 15))
+    assert np.isfinite(got) and abs(got - ref) <= 1e-3, (got, ref)
+    full = P.prepare(pg, window=False)
+    assert full.win_w == 0 and full.vperm is None
+    got_full = are(full, P.run(full, P.init_state(full, pm), PCFG, 15))
+    assert abs(got - got_full) <= 1e-3, (got, got_full)
+    assert got < are(pc, P.init_state(pc, pm))
+
+
+# --- (e) state conversion with the row permutation -----------------------------------
+
+
+def test_windowed_state_round_trip_with_rowperm(f64):
+    (_, _, jc), (pg, pm, pc) = f64
+    assert pc.rowperm is not None
+    ps = P.run(pc, P.init_state(pc, pm), PCFG, 5)
+    g = P.to_gbp_state(pc, ps)
+    jg = J.to_gbp_state(jc, jax_state(interop.cm_state_to_numpy(ps)))
+    f, jf = g.f[0], jg.f[0]
+    for name in ("linpoint", "jac", "r0", "since_relin"):
+        np.testing.assert_array_equal(getattr(f, name).numpy(), np.asarray(getattr(jf, name)))
+    for a, b in zip(f.msg_eta + f.msg_lam, jf.msg_eta + jf.msg_lam):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for gv, jv in zip(g.v, jg.v):
+        np.testing.assert_array_equal(gv.mean.numpy(), np.asarray(jv.mean))
+    # User order: a row's linearization point is its own camera and
+    # landmark (all rows relinearized at sweep 0, none since).
+    fb = pg.fblocks[0]
+    valid = fb.valid.numpy()
+    x0 = torch.cat([pm[0][fb.adj[0].long()], pm[1][fb.adj[1].long()]], 1).numpy()
+    np.testing.assert_array_equal(f.linpoint.numpy()[valid], x0[valid])
+    # Back into the CM layout and on: identical to the uninterrupted run.
+    back = P.from_gbp_state(pc, g)
+    a, b = P.run(pc, ps, PCFG, 3), P.run(pc, back, PCFG, 3)
+    for av, bv in zip(a.v, b.v):
+        assert (av.mean - bv.mean).abs().max() <= 1e-12
+    # Through numpy and back (the checkpoint path of interop.py): leaf for leaf.
+    again = interop.cm_state_from_numpy(
+        jax.tree.map(np.asarray, jax_state(interop.cm_state_to_numpy(ps))), device="cpu")
+    for x, y in zip(jax.tree.leaves(tuple(again)), jax.tree.leaves(tuple(ps))):
+        assert torch.equal(x, y)
+
+
+# --- (f) what prepare declines -----------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["segment", "nonlocal_arc", "window_off_f64"])
+def test_prepare_declines(f64, case):
+    (_, _, _), (pg, _, _) = f64
+    if case == "segment":
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            P.prepare(pg, window=True, segment=True)
+        return
+    if case == "nonlocal_arc":
+        # Every landmark sees most cameras: no locality even after the sort,
+        # and 260 cameras x 42 doubles exceed the unwindowed kernels' limit.
+        sim = pba.simulate(n_cams=260, n_lmks=600, seed=0)
+        pg, _ = pba.build(sim, dtype=torch.float64, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+        P.prepare(pg, window=(case == "nonlocal_arc"))
+
+
+def test_window_shared_memory_gate():
+    """A window whose packed beliefs exceed one block's shared memory does
+    not engage: the gate is the card's, not the reference's VMEM limit."""
+    gp = np.repeat(np.arange(0, 40000, 10, dtype=np.int32), 256)  # tile span 40 -> w = 128
+    assert P._windows(gp, 40000, 4)[1] == 128
+    wide = np.repeat(np.arange(0, 40000, 500, dtype=np.int32), 256)  # tile span 1500 -> 1536
+    assert 2 * 1536 <= 40000 and 1536 * M.F_CAM * 4 > M.SMEM_WINDOW_BYTES
+    assert P._windows(wide, 40000, 4) is None
