@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Drive the PyTorch/CUDA port's bundle-adjustment fast paths on one GPU.
+"""Drive the PyTorch/CUDA port's paths on one GPU: the bundle-adjustment fast
+paths (camera table, windows, expanded operands) and the generic engine.
 
     python3 chip_smoke.py
 
@@ -52,13 +53,36 @@ non-zero; no phase is caught):
      venice scene (256 blocks x 40 x 80; 10,240 cameras, about 4.1 million
      factors): 50 sweeps, finite ARE below the initial one, launch counts,
      timed sweeps.
-  8. the kernels' JSON line, the card line, and the last line
+  8. kernel vs plain, expanded-operand kernels (csrc/rows.cu), on the 8-cam
+     and the bench scene from the same states: `relin_cm` and `messages_cm`
+     on component-major operands, `fused_relin_messages` and
+     `fused_messages` on their row-major transposes, both relinearization
+     regimes, Huber none / scalar / per row, diagonal and full precision
+     (float64 1e-11, float32 1e-4); timed with their bounds at the bench
+     scene in float32.
+  9. generic path: the bench scene through `core.sweep` under
+     message_form="pallas" (row-major state, `fused_relin_messages` every
+     sweep): 200 sweeps, launch counts 200, plain calls 0, ARE <= 1.05x the
+     MAP ARE, bitwise rerun, sweeps/s; then 50 sweeps with layout="none"
+     (both belief updates by the deterministic segment sum), ARE within
+     1e-3 px of the ELL run at 50 sweeps.
+ 10. rows path: 512 cameras that all see every landmark (no window engages,
+     the packed table is beyond shared memory): `prepare` must choose
+     gather_mode "rows"; 50 sweeps (counts, ARE finite and below the initial
+     one), 200 sweeps against the MAP ARE (printed, which of the two it
+     meets), bitwise rerun, sweeps/s, peak memory; then the bench scene
+     forced to "rows" and "take1", 50 sweeps, within 1e-3 px of "table".
+ 11. linear path: the 1-D toy chain in float64 under message_form="pallas"
+     on the card (kernel `fused_messages` at (1, 1, 1)), means against
+     `oracle.map_solution` to 1e-9.
+ 12. the kernels' JSON line, the card line, and the last line
      {"ok": true, "device": {...}}.
 """
 import contextlib
 import dataclasses
 import json
 import math
+import re
 import sys
 import time
 
@@ -68,9 +92,9 @@ import torch
 import gbp_tpu_torch
 from gbp_tpu_torch.bench import BIG_BUILD as BIG
 from gbp_tpu_torch.bench import CFG, CITY, VENICE, card_line
-from gbp_tpu_torch.core import sweep_cm
+from gbp_tpu_torch.core import oracle, sweep, sweep_cm
 from gbp_tpu_torch.core.sweep import _kernel_params
-from gbp_tpu_torch.models import ba
+from gbp_tpu_torch.models import ba, toy
 from gbp_tpu_torch.ops import _build
 from gbp_tpu_torch.ops import messages as M
 from gbp_tpu_torch.parallel import schur
@@ -84,8 +108,11 @@ TOL = {torch.float64: 1e-11, torch.float32: 1e-4}
 FULL = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id")
 WINDOWED = ("relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
             "scatter_windows_cm")
+ROWS = ("messages_cm", "relin_cm", "fused_messages", "fused_relin_messages")
+NONLOCAL = dict(n_cams=512, n_lmks=2000, pix_sigma=1.0, seed=0)
 SOURCE = {**dict.fromkeys(FULL, "gbp_tpu_torch/csrc/messages.cu"),
-          **dict.fromkeys(WINDOWED, "gbp_tpu_torch/csrc/windows.cu")}
+          **dict.fromkeys(WINDOWED, "gbp_tpu_torch/csrc/windows.cu"),
+          **dict.fromkeys(ROWS, "gbp_tpu_torch/csrc/rows.cu")}
 REPLACES = {
     "relin_cm_tab_ell": "gbp_tpu/ops/messages_pallas.py:1118",
     "messages_cm_tab_ell": "gbp_tpu/ops/messages_pallas.py:1054",
@@ -94,6 +121,10 @@ REPLACES = {
     "messages_cm_tabblk_ell": "gbp_tpu/ops/messages_pallas.py:1162",
     "segsum_cm_blk": "gbp_tpu/ops/messages_pallas.py:1588",
     "scatter_windows_cm": "gbp_tpu/ops/messages_pallas.py:1562",
+    "messages_cm": "gbp_tpu/ops/messages_pallas.py:372",
+    "relin_cm": "gbp_tpu/ops/messages_pallas.py:404",
+    "fused_messages": "gbp_tpu/ops/messages_pallas.py:1796",
+    "fused_relin_messages": "gbp_tpu/ops/messages_pallas.py:1871",
 }
 # The card's published peaks (H100 SXM data sheet): device memory rate and
 # float32 rate outside the tensor cores.
@@ -158,10 +189,12 @@ def are_px(graph, cmg, state, k):
 
 
 def check_counts(what, names, sweeps):
-    """The kernels `names` were launched `sweeps` times each, the others not
-    at all, and no plain version ran; returns the launch counts."""
+    """The kernels `names` were launched `sweeps` times each (or, given a
+    dict, its count times `sweeps`), the others not at all, and no plain
+    version ran; returns the launch counts."""
     launches, plain = dict(M.COUNTS.kernel), dict(M.COUNTS.plain)
-    want = {k: sweeps * int(k in names) for k in M.KERNELS}
+    per = names if isinstance(names, dict) else dict.fromkeys(names, 1)
+    want = {k: sweeps * per.get(k, 0) for k in M.KERNELS}
     if launches != want or any(plain.values()):
         raise AssertionError(f"{what} did not run through its kernels: launches {launches} "
                              f"(expected {want}), plain calls {plain}")
@@ -230,16 +263,22 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None):
               f"({cmg.win_w * M.F_CAM * cam_tab.element_size()} bytes of packed beliefs per "
               f"block), locality sort {'on' if cmg.vperm is not None else 'off'}")
 
-    def compare(name, got, ref, record=True):
+    def compare(name, got, ref, record=True, key=None):
+        """Hold every output to the tolerance; `key` files the error under a
+        kernel's name and prints one line for the call, not one per output."""
         worst_rel, worst_abs = 0.0, 0.0
         for i, (a, b) in enumerate(zip(got, ref)):
             rel, err = rel_err(a, b)
-            print(f"[kernels] {tag} {name} out{i}: max abs {err:.3e} rel {rel:.3e}")
+            if key is None:
+                print(f"[kernels] {tag} {name} out{i}: max abs {err:.3e} rel {rel:.3e}")
             if not rel <= tol:
                 raise AssertionError(f"{name} {tag} out{i}: rel err {rel:.3e} > {tol:g}")
             worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+        if key is not None:
+            print(f"[kernels] {tag} {name}: {len(got)} outputs, max abs {worst_abs:.3e} rel "
+                  f"{worst_rel:.3e}")
         if record:
-            errs[name] = max(errs.get(name, 0.0), worst_abs)
+            errs[key or name] = max(errs.get(key or name, 0.0), worst_abs)
 
     def repeats(name, fn, args, kw, first):
         if not torch.equal(first, sync(fn(*args, **kw))):
@@ -309,6 +348,8 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None):
         compare("segsum_by_id", (got_s,), (whole,))
         repeats("segsum_by_id", M.segsum_by_id, seg_args, {}, got_s)
 
+    if not win:
+        check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings)
     if timings is None:
         return errs
     vals = torch.cat([me, ml])
@@ -350,6 +391,99 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None):
               f"{b_ms:.4f} ms ({b_by}), index_add_ "
               + ("none" if lib_ms is None else f"{lib_ms:.4f} ms"))
     return errs
+
+
+def check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings):
+    """Phase 8 for one scene and dtype, from the state `st` of the full-table
+    checks: the four expanded-operand entries against their plain versions.
+    `ref_r` is the relinearized state at the config's beta."""
+    fs = st.f
+    fb = cmg.fb
+    dev = fs.lp.device
+    rows = cmg._replace(gather_mode="rows", gidx_rm=cmg.gidx.long())
+    be1, bl1, mean1 = sweep_cm._expand_ell(rows, st.v[fb.vblocks[1]])
+    be0, bl0, mean0 = sweep_cm._expand_gather(rows, st.v[fb.vblocks[0]])
+    x = torch.cat([mean0, mean1])
+    rm = lambda a: a.T.contiguous()  # the same operand, one row per factor
+    shape = dict(d0=M.D0, d1=M.D1, z=M.Z)
+    on = cmg.act[0] > 0.5
+    beta_mid = float(((x - fs.lp) ** 2).sum(0).sqrt()[on].double().median())
+    n_valid = int(on.sum())
+
+    lp, jac, r0, srel = ref_r
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    thr = torch.randint(0, 3, (1, cmg.mp), generator=gen).to(dev, dtype)  # 0 = off
+    off = 0.3 * (cmg.prec[0] * cmg.prec[1]).sqrt()
+    prec_of = {
+        (False, False): cmg.prec,
+        (False, True): torch.cat([cmg.prec, thr]),
+        (True, False): torch.stack([cmg.prec[0], off, off, cmg.prec[1]]),
+    }
+    msgs = (fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])
+    for huber, prec_full in ((None, False), (1.0, False), ("row", False), (None, True),
+                             (1.0, True)):
+        prec = prec_of[(prec_full, huber == "row")]
+        kw = dict(prec_full=prec_full, huber=huber, **shape)
+        cm_args = (_kernel_params(CFG, dtype), jac, lp, r0, prec, srel, cmg.act, be0, bl0, be1,
+                   bl1, *msgs)
+        got_cm = sync(M.messages_cm(*cm_args, **kw))
+        compare(f"messages_cm[huber={huber}, full={prec_full}]",
+                got_cm, sync(M.messages_cm_plain(*cm_args, **kw)), key="messages_cm")
+        rm_args = (cm_args[0], *(rm(a) for a in cm_args[1:5]), srel[0], cmg.act[0],
+                   *(rm(a) for a in cm_args[7:]))
+        got_rm = sync(M.fused_messages(*rm_args, **kw))
+        compare(f"fused_messages[huber={huber}, full={prec_full}]",
+                got_rm, sync(M.fused_messages_plain(*rm_args, **kw)), key="fused_messages")
+        # One body, two layouts: the same bits either way.
+        for a, b in zip(got_cm, got_rm):
+            if not torch.equal(a.T, b):
+                raise AssertionError(f"{tag}: messages_cm and fused_messages differ")
+
+    kw = dict(prec_full=False, huber=None, **shape)
+    for beta in (beta_mid, CFG.beta):
+        params = _kernel_params(dataclasses.replace(CFG, beta=beta), dtype)
+        relin_args = (params, x, cmg.z, None, fs.lp, fs.jac, fs.r0, fs.srel, cmg.act)
+        r_kw = dict(comp_name=fb.ftype.name, **shape)
+        ref = sync(M.relin_cm_plain(*relin_args, **r_kw))
+        n_relin = int((ref[3] == 0).sum())
+        print(f"[kernels] {tag} rows beta {beta:.4g}: {n_relin} of {n_valid} valid rows "
+              f"relinearize")
+        if n_relin == 0 or (beta == beta_mid and n_relin == n_valid):
+            raise AssertionError(f"{tag}: the relinearization check needs both kinds of rows")
+        compare("relin_cm", sync(M.relin_cm(*relin_args, **r_kw)), ref, key="relin_cm")
+        frm_args = (params, rm(x), rm(cmg.z), None, rm(fs.lp), rm(fs.jac), rm(fs.r0),
+                    rm(cmg.prec), fs.srel[0], cmg.act[0], *(rm(a) for a in (be0, bl0, be1, bl1)),
+                    *(rm(a) for a in msgs))
+        frm_kw = dict(comp_name=fb.ftype.name, **kw)
+        compare("fused_relin_messages", sync(M.fused_relin_messages(*frm_args, **frm_kw)),
+                sync(M.fused_relin_messages_plain(*frm_args, **frm_kw)),
+                key="fused_relin_messages")
+
+    if timings is None:
+        return
+    n_relin_cfg = int((ref_r[3] == 0).sum())
+    msg_flops = MESSAGES_ROW_FLOPS * cmg.mp
+    relin_flops = RELIN_TEST_FLOPS * cmg.mp + RELIN_ROW_FLOPS * n_relin_cfg
+    cm_args = (_kernel_params(CFG, dtype), jac, lp, r0, cmg.prec, srel, cmg.act, be0, bl0, be1,
+               bl1, *msgs)
+    rm_args = (cm_args[0], *(rm(a) for a in cm_args[1:5]), srel[0], cmg.act[0],
+               *(rm(a) for a in cm_args[7:]))
+    timed = [
+        ("messages_cm", M.messages_cm, M.messages_cm_plain, cm_args, kw, msg_flops),
+        ("relin_cm", M.relin_cm, M.relin_cm_plain, relin_args, r_kw, relin_flops),
+        ("fused_messages", M.fused_messages, M.fused_messages_plain, rm_args, kw, msg_flops),
+        ("fused_relin_messages", M.fused_relin_messages, M.fused_relin_messages_plain,
+         frm_args, frm_kw, msg_flops + relin_flops),
+    ]
+    for name, kern, plain, args, t_kw, flops in timed:
+        outs = kern(*args, **t_kw)
+        ms = time_ms(lambda: kern(*args, **t_kw), 20)
+        plain_ms = time_ms(lambda: plain(*args, **t_kw), 3)
+        b_ms, b_by = bound_ms(args, outs, flops)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None)
+        print(f"[kernels] {tag} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), no single library call")
 
 
 def check_scatter_dense(dev):
@@ -511,6 +645,147 @@ def big_path(tag, scene, card, against_plain):
     return launches
 
 
+def map_are(graph, state, means, k):
+    """The ARE of 6 Gauss-Newton steps from `means`, on the card."""
+    mu = means
+    for _ in range(6):
+        mu = schur.gauss_newton_step(graph, mu, cg_iters=60)
+    return float(ba.avg_reprojection_error(graph, ba.with_means(state, mu), k=k))
+
+
+def same_means(what, a, b):
+    for vi, (x, y) in enumerate(zip(a.v, b.v)):
+        if not torch.equal(x.mean, y.mean):
+            raise AssertionError(f"{what}: rerun from the same init differs (variable block {vi})")
+    print(f"[{what}] rerun from the same init: means bitwise equal")
+
+
+def generic_path(card):
+    """Phase 9.  Built on the default device: the card."""
+    cfg = dataclasses.replace(CFG, message_form="pallas")
+    sim = ba.simulate(**BENCH)
+    graph, means = ba.build(sim, dtype=torch.float32, layout="ell")
+    fb = graph.fblocks[0]
+    print(f"[generic] bench scene on {means[0].device}: {fb.n_valid} factors in {fb.count} "
+          f"row-major rows (ELL by landmark, deg {fb.ell_deg}), message_form 'pallas'")
+    init = sweep.init_state(graph, means)
+    are = lambda g, st: float(ba.avg_reprojection_error(g, st, k=sim["k"]))
+    are50 = are(graph, sync(sweep.run(graph, init, cfg, QUALITY_SWEEPS)))
+
+    per_sweep = {"fused_relin_messages": 1, "fused_messages": 1, "segsum_by_id": 1}
+    M.COUNTS.reset()
+    t0 = time.perf_counter()
+    state = sync(sweep.run(graph, init, cfg, SWEEPS))
+    t_first = time.perf_counter() - t0
+    launches = check_counts("the generic path", per_sweep, SWEEPS)
+    a, a_map = are(graph, state), map_are(graph, state, means, sim["k"])
+    print(f"[generic] {SWEEPS} sweeps (first call) in {t_first:.3f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; plain calls 0; ARE {a:.6f} px; MAP "
+          f"{a_map:.6f} px; ratio {a / a_map:.6f}; ARE at {QUALITY_SWEEPS} sweeps {are50:.6f} px")
+    if not (a == a and a_map == a_map and a <= 1.05 * a_map):
+        raise AssertionError(f"generic path: ARE {a} not within 1.05x of MAP ARE {a_map}")
+    same_means("generic", state, sync(sweep.run(graph, init, cfg, SWEEPS)))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sync(sweep.run(graph, init, cfg, SWEEPS))
+    dt = time.perf_counter() - t0
+    print(f"[generic] timed {SWEEPS} sweeps: {dt:.4f} s -> {SWEEPS / dt:.2f} sweeps/s, "
+          f"{dt / SWEEPS / fb.n_valid * 1e9:.4f} ns per valid factor (informational; {card}); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    flat, means_n = ba.build(sim, dtype=torch.float32, layout="none")
+    M.COUNTS.reset()
+    t0 = time.perf_counter()
+    st_n = sync(sweep.run(flat, sweep.init_state(flat, means_n), cfg, QUALITY_SWEEPS))
+    dt = time.perf_counter() - t0
+    check_counts("the generic path, layout none", {**per_sweep, "segsum_by_id": 2},
+                 QUALITY_SWEEPS)
+    a_n = are(flat, st_n)
+    print(f"[generic] layout none, {QUALITY_SWEEPS} sweeps in {dt:.3f} s "
+          f"({QUALITY_SWEEPS / dt:.2f} sweeps/s, first call): ARE {a_n:.6f} px vs ELL "
+          f"{are50:.6f} px")
+    if not abs(a_n - are50) <= 1e-3:
+        raise AssertionError(f"generic path: layout none ARE {a_n} vs ELL {are50}")
+    return launches
+
+
+def rows_path(card):
+    """Phase 10.  Built on the default device: the card."""
+    sim = ba.simulate(**NONLOCAL)
+    graph, means = ba.build(sim, dtype=torch.float32)
+    cmg = sweep_cm.prepare(graph)
+    n_valid = graph.fblocks[0].n_valid
+    n_cam = graph.vblocks[0].count
+    if cmg.gather_mode != "rows" or cmg.win_w:
+        raise AssertionError(f"nonlocal512: prepare chose {cmg.gather_mode!r}, win_w {cmg.win_w}")
+    init = sweep_cm.init_state(cmg, means)
+    are0 = are_px(graph, cmg, init, sim["k"])
+    print(f"[rows] nonlocal512 on {means[0].device}: {n_cam} cams "
+          f"({n_cam * M.F_CAM * 4} bytes of packed beliefs, shared-memory table limit "
+          f"{sweep_cm.SMEM_TABLE_BYTES}), {sim['lmk_init'].shape[0]} lmks, {n_valid} factors in "
+          f"{cmg.mp} rows (deg {cmg.fb.ell_deg}); gather_mode {cmg.gather_mode!r}; initial ARE "
+          f"{are0:.6f} px")
+    names = ("relin_cm", "messages_cm", "segsum_by_id")
+    M.COUNTS.reset()
+    st50 = sync(sweep_cm.run(cmg, init, CFG, QUALITY_SWEEPS))
+    launches = check_counts("the rows path", names, QUALITY_SWEEPS)
+    a50 = are_px(graph, cmg, st50, sim["k"])
+    print(f"[rows] {QUALITY_SWEEPS} sweeps: launches { {k: launches[k] for k in names} }; plain "
+          f"calls 0; ARE {a50:.6f} px")
+    if not (math.isfinite(a50) and a50 < are0):
+        raise AssertionError(f"rows path: ARE {a50} is not finite and below the initial {are0}")
+    same_means("rows", st50, sync(sweep_cm.run(cmg, init, CFG, QUALITY_SWEEPS)))
+    st = sync(sweep_cm.run(cmg, st50, CFG, SWEEPS - QUALITY_SWEEPS))
+    a = are_px(graph, cmg, st, sim["k"])
+    a_map = map_are(graph, sweep_cm.to_gbp_state(cmg, st), means, sim["k"])
+    print(f"[rows] ARE after {SWEEPS} sweeps {a:.6f} px; MAP (6 Gauss-Newton steps) "
+          f"{a_map:.6f} px; ratio {a / a_map:.6f}: "
+          + ("within 1.05x of the MAP ARE" if a <= 1.05 * a_map else
+             "NOT within 1.05x of the MAP ARE (informational at this scene)"))
+    if not math.isfinite(a):
+        raise AssertionError(f"rows path: ARE {a} after {SWEEPS} sweeps")
+    timed_sweeps("rows", cmg, init, SWEEPS, n_valid, card)
+
+    sim = ba.simulate(**BENCH)
+    graph, means = ba.build(sim, dtype=torch.float32)
+    ares = {}
+    for mode in ("table", "rows", "take1"):
+        cmg = sweep_cm.prepare(graph, gather_mode=mode)
+        if cmg.gather_mode != mode:
+            raise AssertionError(f"prepare(gather_mode={mode!r}) gave {cmg.gather_mode!r}")
+        init = sweep_cm.init_state(cmg, means)
+        sync(sweep_cm.run(cmg, init, CFG, 5))
+        M.COUNTS.reset()
+        t0 = time.perf_counter()
+        st = sync(sweep_cm.run(cmg, init, CFG, QUALITY_SWEEPS))
+        dt = time.perf_counter() - t0
+        check_counts(f"bench64 {mode}", FULL if mode == "table" else names, QUALITY_SWEEPS)
+        ares[mode] = are_px(graph, cmg, st, sim["k"])
+        print(f"[rows] bench64 gather_mode {mode!r}: {QUALITY_SWEEPS} sweeps in {dt:.4f} s "
+              f"({QUALITY_SWEEPS / dt:.2f} sweeps/s), ARE {ares[mode]:.6f} px")
+    if not all(abs(ares[m] - ares["table"]) <= 1e-3 for m in ares):
+        raise AssertionError(f"gather modes disagree at bench64: {ares}")
+    return launches
+
+
+def linear_path():
+    """Phase 11: a linear chain, where GBP is exact, through the (1, 1, 1)
+    instantiation of the row-major messages kernel, in float64."""
+    n, sweeps = 50, 300
+    graph, means = toy.build(toy.simulate(n=n), dtype=torch.float64)
+    cfg = sweep.GBPConfig(message_form="pallas")
+    M.COUNTS.reset()
+    state = sync(sweep.run(graph, sweep.init_state(graph, means), cfg, sweeps))
+    # The smoothness block goes through the kernel; its two slots and the
+    # unary block's one are summed by the deterministic segment sum.
+    check_counts("the linear path", {"fused_messages": 1, "segsum_by_id": 3}, sweeps)
+    err = float((state.v[0].mean - oracle.map_solution(graph, state)[0]).abs().max())
+    print(f"[linear] toy chain of {n} on {means[0].device}, float64, {sweeps} sweeps under "
+          f"message_form 'pallas': largest difference from the dense MAP solution {err:.3e}")
+    if not err <= 1e-9:
+        raise AssertionError(f"linear path: {err:.3e} from the oracle")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -526,9 +801,13 @@ def main():
     _build.library()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {compile_s:.2f} s)")
-    for line in _build.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[build] {line.strip()}")
+    # One line per kernel instantiation of ptxas's report: mangled name (its
+    # template arguments follow the kernel's name), registers, spilled bytes.
+    for name, stores, loads, regs in re.findall(
+            r"Compiling entry function '_ZN3gbp\d+([^']+)' for 'sm_90a'\n(?:.*\n)*?.*?(\d+) bytes "
+            r"spill stores, (\d+) bytes spill loads\n.*?Used (\d+) registers",
+            _build.ptxas_report()):
+        print(f"[build] {regs:>3} registers, spills {stores}/{loads} bytes: {name[:60]}")
 
     timings, errs = {}, {}
     f64, f32 = torch.float64, torch.float32
@@ -562,6 +841,11 @@ def main():
     if any(venice[k] != city[k] for k in WINDOWED):
         raise AssertionError(f"venice launches {venice} differ from the city's {city}")
     launches = {**{k: launches[k] for k in FULL}, **{k: city[k] for k in WINDOWED}}
+    torch.cuda.empty_cache()
+    generic = generic_path(card)
+    rows = rows_path(card)
+    linear_path()
+    launches.update({k: generic[k] for k in ROWS[2:]}, **{k: rows[k] for k in ROWS[:2]})
     print(f"[done] {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],

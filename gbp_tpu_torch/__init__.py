@@ -3,12 +3,17 @@
 A second package beside `gbp_tpu/` (the JAX reference, which stays as it
 is).  Ported so far: the bundle-adjustment fast path, from the 64-camera
 bench scene (camera table in shared memory) to city and venice scenes
-(per-tile camera windows after the locality sort):
+(per-tile camera windows after the locality sort) and scenes without camera
+locality (expanded operands), and the generic row-major engine with the
+dense oracle for every other graph:
 
-    from gbp_tpu_torch.models import ba
-    from gbp_tpu_torch.core import sweep_cm
+    from gbp_tpu_torch.models import ba, toy
+    from gbp_tpu_torch.core import oracle, sweep, sweep_cm
     from gbp_tpu_torch.core.sweep import GBPConfig
     from gbp_tpu_torch.parallel import schur
+
+`sweep_cm.prepare(graph)` returns None for a graph the fast path does not
+take; run `sweep.run` on it then.
 
 Entry points that build tensors (`GraphBuilder`, `models.ba.build`,
 `interop.*_from_numpy`, the bench scripts) take `device=None`, which means

@@ -11,8 +11,9 @@ BAL files:
              (10,240 cameras, about 4.1 million factors)
 
 Each row runs `prepare(window=True)` (single segment; the degree-class
-segmentation of the reference's rows waits for ROADMAP A11, and a full-table
-row at these camera counts for B3), warms up with one run of `--sweeps`
+segmentation of the reference's rows waits for ROADMAP A11; a full-table
+row at these camera counts would be `prepare(window=False)`, which lands on
+the expanded operands of gather mode "rows"), warms up with one run of `--sweeps`
 sweeps, times three more (host clock around `torch.cuda.synchronize`) and
 takes the quality at 50 sweeps from the initial state: the plain
 static-prior schedule goes non-finite on corridor scenes past about 100

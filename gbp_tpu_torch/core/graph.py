@@ -43,9 +43,13 @@ class FactorBlock:
 
     adj[k] [m] int32: which variable of block `vblocks[k]` slot k connects
     to.  prec is the diagonal measurement precision [m, zdim] (or full
-    [m, zdim, zdim]).  valid False marks inert padding rows.  With the ELL
-    layout (`ell_slot` not None) row r belongs to variable r // ell_deg of
-    slot `ell_slot`."""
+    [m, zdim, zdim]).  valid False marks inert padding rows.  huber_arr [m]
+    holds per-factor Huber thresholds (0 = off for that factor) and excludes
+    the static `huber`.  With the ELL layout (`ell_slot` not None) row r
+    belongs to variable r // ell_deg of slot `ell_slot`.  csr[k] = (rows,
+    offsets), int32: the rows sorted by adj[k] (stable) and the offsets of
+    each variable's rows, the fixed summation order of the deterministic
+    scatter lowering of the belief update."""
 
     adj: tuple
     z: torch.Tensor
@@ -61,6 +65,7 @@ class FactorBlock:
     n_valid: int | None = None
     ell_slot: int | None = None
     ell_deg: int = 0
+    csr: tuple | None = None
 
     @property
     def count(self) -> int:
@@ -70,11 +75,88 @@ class FactorBlock:
     def tdof(self) -> int:
         return sum(self.dofs)
 
+    @property
+    def offsets(self) -> tuple:
+        out, acc = [], 0
+        for d in self.dofs:
+            out.append(acc)
+            acc += d
+        return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Inbox:
+    """Dense per-variable message inbox for one (factor block, slot) source:
+    idx[v, k] is the factor row whose slot-`slot` message is variable v's
+    k-th incoming message (0 where mask is False), so a belief update is a
+    gather and a masked sum, with no scatter."""
+
+    idx: torch.Tensor  # [n, max_deg] int32
+    mask: torch.Tensor  # [n, max_deg] bool
+    fi: int = 0
+    slot: int = 0
+
 
 @dataclasses.dataclass(frozen=True)
 class Graph:
     vblocks: tuple  # tuple[VariableBlock]
     fblocks: tuple  # tuple[FactorBlock]
+    # inboxes[vi] = tuple[Inbox] for variable block vi, or None to sum that
+    # block's messages by the ELL reshape-sum / scatter lowering.
+    inboxes: tuple | None = None
+
+    def total_dim(self) -> int:
+        return sum(vb.count * vb.dof for vb in self.vblocks)
+
+
+def adjacency_csr(adj, n: int):
+    """(rows, offsets) int32 numpy arrays: the factor rows sorted by their
+    variable id `adj` (stable, so each variable's rows stay in row order)
+    and the [n + 1] offsets of each variable's rows."""
+    adj = np.asarray(adj, dtype=np.int64)
+    rows = np.argsort(adj, kind="stable").astype(np.int32)
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(adj, minlength=n))]).astype(np.int32)
+    return rows, offsets
+
+
+def build_inboxes(fblocks, vcounts, max_pad_ratio=8.0, device=None):
+    """Precompute dense inboxes from factor adjacency (host-side numpy).
+
+    Returns a tuple per variable block of tuples of Inbox, with None where
+    the degree skew makes the padding exceed max_pad_ratio x the message
+    count (that block keeps the scatter lowering), or None when every block
+    does.  The reference's numpy code, so both packages build the same
+    inboxes."""
+    out = []
+    for vi, n in enumerate(vcounts):
+        specs = []
+        ok = True
+        for fi, fb in enumerate(fblocks):
+            for slot, target in enumerate(fb.vblocks):
+                if target != vi:
+                    continue
+                adj = np.asarray(fb.adj[slot].cpu())
+                m = adj.shape[0]
+                deg = np.bincount(adj, minlength=n)
+                max_deg = max(int(deg.max()), 1)
+                if n * max_deg > max_pad_ratio * max(m, 1):
+                    ok = False
+                    break
+                order = np.argsort(adj, kind="stable")
+                pos = np.arange(m) - np.concatenate([[0], np.cumsum(deg)])[adj[order]]
+                idx = np.zeros((n, max_deg), dtype=np.int32)
+                mask = np.zeros((n, max_deg), dtype=bool)
+                idx[adj[order], pos] = order.astype(np.int32)
+                mask[adj[order], pos] = True
+                dev = fb.adj[slot].device if device is None else device
+                specs.append(Inbox(idx=torch.tensor(idx, device=dev),
+                                   mask=torch.tensor(mask, device=dev), fi=fi, slot=slot))
+            if not ok:
+                break
+        out.append(tuple(specs) if ok else None)
+    if all(s is None for s in out):
+        return None
+    return tuple(out)
 
 
 class GraphBuilder:
@@ -197,9 +279,10 @@ class GraphBuilder:
         out["valid"] = valid
         return out, k, d_max
 
-    def build(self, layout: str = "none"):
+    def build(self, with_inboxes: bool = False, layout: str = "none"):
         """Returns (Graph, init_means).  layout="ell" reorders every factor
-        block into ELL form; "none" keeps insertion order."""
+        block into ELL form; "none" keeps insertion order.  with_inboxes
+        precomputes dense per-variable inboxes (gather-form belief updates)."""
         for vb in self._vblocks:
             if (vb["pp"] == 0).all(axis=-1).any():
                 warnings.warn(
@@ -248,5 +331,11 @@ class GraphBuilder:
                 n_valid=None if valid is None else int(valid.sum()),
                 ell_slot=ell_slot,
                 ell_deg=ell_deg,
+                csr=tuple(
+                    tuple(torch.tensor(a, dtype=torch.int32, device=dev)
+                          for a in adjacency_csr(idx, vcounts[vb]))
+                    for vb, idx in fb["conns"]),
             ))
-        return Graph(vblocks=tuple(vblocks), fblocks=tuple(fblocks)), tuple(init_means)
+        inboxes = build_inboxes(fblocks, vcounts) if with_inboxes else None
+        return (Graph(vblocks=tuple(vblocks), fblocks=tuple(fblocks), inboxes=inboxes),
+                tuple(init_means))

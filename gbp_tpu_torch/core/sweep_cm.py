@@ -1,10 +1,27 @@
 """Persistent component-major GBP sweeps: the single-GPU speed path.
 
-Counterpart of the single-segment fast path of gbp_tpu/core/sweep_cm.py
-(`prepare(graph, segsum_exact=True)` with the camera table in the kernels
-and the ELL slot fused, with or without camera windows).  The whole factor
-state stays component-major, [F, mp] tensors, across sweeps, so one sweep
-is:
+Counterpart of the single-segment fast path of gbp_tpu/core/sweep_cm.py.
+The whole factor state stays component-major, [F, mp] tensors, across
+sweeps.  How the camera (gathered) slot's beliefs reach the kernels is the
+prepared graph's `gather_mode`:
+
+  "table"  the kernels read the packed camera table themselves, whole from
+           shared memory or, on large scenes with camera locality, their
+           tile's window of it; the landmark (ELL) slot is read at
+           row // deg.  Nothing is expanded in device memory.
+  "rows"   both slots' beliefs are expanded to per-row operands [F, mp]
+           (one wide-row gather pk[gidx] and a transpose of the gathered
+           data for the cameras, a broadcast over the degree axis for the
+           landmarks) and `relin_cm` / `messages_cm` read those; the camera
+           sum is the standalone `segsum_by_id`.  For camera tables beyond
+           shared memory on scenes whose windows do not engage.
+  "take1"  as "rows" with the camera gather taken along the trailing axis
+           of the transposed table (no transpose of gathered data).
+
+`prepare(gather_mode="auto")` picks "table" where it can and "rows"
+otherwise, and returns None for a graph the fast path does not take (the
+caller then runs the generic sweep of core/sweep.py).  In "table" mode one
+sweep is:
 
   1. pack the camera beliefs [n_cam, eta 6 | lam 36] and the landmark
      beliefs [nv, eta 3 | lam 9] (virtual padding landmarks get eta = 0,
@@ -53,6 +70,7 @@ from gbp_tpu_torch.core.sweep import (
     linearize_block,
 )
 from gbp_tpu_torch.gaussians import packed_identity_row
+from gbp_tpu_torch.ops.comp_factors import COMP_FACTORS, COMP_FACTORS_QUEUED
 from gbp_tpu_torch.ops.messages import (
     D0,
     D1,
@@ -60,11 +78,15 @@ from gbp_tpu_torch.ops.messages import (
     F_LMK,
     SMEM_WINDOW_BYTES,
     TILE,
+    Z,
+    messages_cm,
     messages_cm_tab_ell,
     messages_cm_tabblk_ell,
+    relin_cm,
     relin_cm_tab_ell,
     relin_cm_tabblk_ell,
     scatter_windows_cm,
+    segsum_by_id,
     window_cover_csr,
     window_rows_csr,
 )
@@ -75,9 +97,10 @@ from gbp_tpu_torch.utils.smalllinalg import scaled_sym_solve
 # It is also the window tile of the large-scene kernels.
 ROW_ALIGN = TILE
 # Without windows the whole packed camera table is staged in each block's
-# (static) shared memory; larger camera sets need windows, or a table in
-# global memory (ROADMAP B3).
+# (static) shared memory; larger camera sets need windows or, where those do
+# not engage, the expanded operands of gather_mode "rows".
 SMEM_TABLE_BYTES = 48 * 1024
+GATHER_MODES = ("auto", "table", "rows", "take1")
 # Window starts are multiples of SUB and widths multiples of LANE, as in the
 # reference (its sublane and lane counts), so that both packages cut the
 # same windows.
@@ -113,6 +136,8 @@ class CMGraph(NamedTuple):
     seg_offsets: torch.Tensor  # [n_cam + 1] int32 CSR offsets into seg_rows
     mp: int
     nv: int  # virtual ELL landmarks, mp // deg
+    gather_mode: str = "table"  # "table" | "rows" | "take1" (module docstring)
+    gidx_rm: torch.Tensor | None = None  # [mp] int64 ids for the expanding gather
     # Camera windows (win_w == 0: none, the whole table is staged).  Every
     # camera id of tile i (rows [i * ROW_ALIGN, (i + 1) * ROW_ALIGN)) lies
     # in [win_starts[i], win_starts[i] + win_w).
@@ -163,43 +188,64 @@ def _windows(gp: np.ndarray, n_cam: int, itemsize: int):
     return starts, w, ncpad
 
 
-def prepare(graph: Graph, segsum_exact: bool = True, window: bool = True,
-            segment: bool = False) -> CMGraph:
-    """Build the CM static data for `graph`.
+def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
+            window: bool = True, ell_fused: bool | None = None,
+            segment: bool = False) -> CMGraph | None:
+    """Build the CM static data for `graph`, or None if the fast path does
+    not take it: several factor blocks, a block that is not 2-slot or has no
+    ELL slot, a factor type without a component-form model, full measurement
+    precision, or degenerate ELL padding.  The caller then runs the generic
+    sweep (core/sweep.py), as with the reference.
 
-    Takes what the ported slices run: one `reprojection_normalized` block in
-    ELL layout grouped by landmark, diagonal precision, no Huber or a scalar
-    Huber threshold.  Anything else raises NotImplementedError naming the
-    ROADMAP item that ports it.
+    Taken: one `reprojection_normalized` block in ELL layout grouped by
+    landmark, diagonal precision, no Huber or a scalar Huber threshold.
+    What the reference's fast path takes and this one does not yet raises
+    NotImplementedError naming the ROADMAP item: the degree-class segmented
+    layout (A11), per-factor Huber thresholds and same-block slots (A8), the
+    BAL and pose-graph factor types and cameras in the ELL slot (A7/A8), the
+    unfused table kernels `ell_fused=False` (B4/B5).
 
-    window=True gives every tile of rows a camera window when the graph has
-    camera locality, in its natural landmark order or after sorting the
-    landmarks by their lowest camera id (see the module docstring); the
-    windows, `vperm` and `rowperm` equal the reference's.  Without windows
-    the whole camera table must fit a block's shared memory.
+    gather_mode "auto" (and "table") picks "table" when the camera windows
+    engage or the whole packed camera table fits a block's shared memory
+    (SMEM_TABLE_BYTES; the reference's rule is its 4 MB of VMEM), else
+    "rows"; "rows" and "take1" force the expanded operands.  window=True
+    gives every tile of rows a camera window when the graph has camera
+    locality, in its natural landmark order or after sorting the landmarks
+    by their lowest camera id (see the module docstring); the windows,
+    `vperm` and `rowperm` equal the reference's.  Windows exist in "table"
+    mode only.
 
     segsum_exact is accepted for the reference's signature and ignored: the
     camera-side sum always runs at full precision (the reference's bf16
     hi/lo split is a TPU matrix-unit device)."""
     del segsum_exact
+    if gather_mode not in GATHER_MODES:
+        raise ValueError(f"gather_mode must be one of {GATHER_MODES}, got {gather_mode!r}")
     if segment:
         raise _unsupported("the degree-class segmented layout", "A11")
     if len(graph.fblocks) != 1:
-        raise _unsupported("a graph with several factor blocks (generic sweep)", "A4")
+        return None
     fb = graph.fblocks[0]
-    if fb.ftype is None or fb.ftype.name != "reprojection_normalized":
-        raise _unsupported(f"factor type {getattr(fb.ftype, 'name', None)!r}", "A7/A8")
-    if fb.huber_arr is not None:
-        raise _unsupported("per-factor ('row') Huber thresholds", "A8")
-    if fb.prec.ndim != 2:
-        raise _unsupported("full measurement precision (prec.ndim != 2)", "A8")
-    if fb.ell_slot != 1 or tuple(fb.dofs) != (D0, D1) or fb.vblocks[0] == fb.vblocks[1]:
-        raise _unsupported("a layout other than cameras gathered, landmarks in ELL", "A7")
+    name = getattr(fb.ftype, "name", None)
+    if name in COMP_FACTORS_QUEUED:
+        raise _unsupported(f"factor type {name!r}", COMP_FACTORS_QUEUED[name])
+    entry = COMP_FACTORS.get(name)
+    if (len(fb.dofs) != 2 or fb.ell_slot is None or entry is None
+            or (fb.ftype.residual_fn is not None and len(entry) < 3) or fb.prec.ndim != 2):
+        return None
     m, deg = fb.count, fb.ell_deg
     lcm = ROW_ALIGN * deg // math.gcd(ROW_ALIGN, deg)
     mp = ((m + lcm - 1) // lcm) * lcm
+    # Reject only degenerate padding: a large relative blowup that is also
+    # large in absolute rows.
     if mp > 4 * m and mp - m > 64 * ROW_ALIGN:
-        raise _unsupported("an ELL layout with degenerate padding (generic sweep)", "A4")
+        return None
+    if fb.huber_arr is not None:
+        raise _unsupported("per-factor ('row') Huber thresholds on the CM path", "A8")
+    if fb.vblocks[0] == fb.vblocks[1]:
+        raise _unsupported("both slots on one variable block (pose graphs)", "A8")
+    if fb.ell_slot != 1 or tuple(fb.dofs) != (D0, D1):
+        raise _unsupported("a layout other than cameras gathered, landmarks in ELL", "A7")
     n_cam = graph.vblocks[fb.vblocks[0]].count
     dt, dev = fb.z.dtype, fb.z.device
     pad = mp - m
@@ -209,23 +255,25 @@ def prepare(graph: Graph, segsum_exact: bool = True, window: bool = True,
     # value keeps them inside their tile's window.
     edge_pad = lambda a: np.pad(a, (0, pad), mode="edge") if pad else a
     win, rowperm, order = None, None, None
-    if window:
-        win = _windows(edge_pad(gidx), n_cam, fb.z.element_size())
-        if win is None:
-            # The natural landmark order is not camera-local (random
-            # numbering: real BAL files, the corridor scenes): sort the ELL
-            # groups (blocks of `deg` rows) by their lowest camera id and
-            # try again.
-            n_ell = m // deg
-            order = np.argsort(gidx.reshape(n_ell, deg).min(1), kind="stable")
-            rowperm = (order[:, None] * deg + np.arange(deg)).reshape(-1)
-            win = _windows(edge_pad(gidx[rowperm]), n_cam, fb.z.element_size())
+    if gather_mode in ("auto", "table"):
+        if window:
+            win = _windows(edge_pad(gidx), n_cam, fb.z.element_size())
             if win is None:
-                rowperm = order = None
-    if win is None and n_cam * F_CAM * fb.z.element_size() > SMEM_TABLE_BYTES:
-        raise _unsupported(
-            f"a camera table of {n_cam} cameras beyond shared memory on a scene whose "
-            "camera windows do not engage (table in global memory)", "B3")
+                # The natural landmark order is not camera-local (random
+                # numbering: real BAL files, the corridor scenes): sort the
+                # ELL groups (blocks of `deg` rows) by their lowest camera
+                # id and try again.
+                n_ell = m // deg
+                order = np.argsort(gidx.reshape(n_ell, deg).min(1), kind="stable")
+                rowperm = (order[:, None] * deg + np.arange(deg)).reshape(-1)
+                win = _windows(edge_pad(gidx[rowperm]), n_cam, fb.z.element_size())
+                if win is None:
+                    rowperm = order = None
+        fits = n_cam * F_CAM * fb.z.element_size() <= SMEM_TABLE_BYTES
+        gather_mode = "table" if win is not None or fits else "rows"
+    if gather_mode == "table" and ell_fused is not None and not ell_fused:
+        raise _unsupported("the table kernels without the fused ELL slot (ell_fused=False)",
+                           "B4/B5")
 
     as_i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
     as_i64 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=dev)
@@ -273,6 +321,8 @@ def prepare(graph: Graph, segsum_exact: bool = True, window: bool = True,
         seg_offsets=as_i32(seg_offsets),
         mp=mp,
         nv=mp // deg,
+        gather_mode=gather_mode,
+        gidx_rm=None if gather_mode == "table" else as_i64(gidx),
         **extra,
     )
 
@@ -344,35 +394,118 @@ def belief_tables(cmg: CMGraph, state: CMState):
             lmk_tab.contiguous())
 
 
-def sweep(cmg: CMGraph, state: CMState, cfg: GBPConfig) -> CMState:
-    """One synchronous GBP iteration on resident-CM state."""
+def _pack_beliefs(vs: VariableState) -> torch.Tensor:
+    """[n, 2d + d*d] packed (eta | lam | mean) belief rows."""
+    return torch.cat([_packed(vs), vs.mean], dim=1)
+
+
+def _split(cm: torch.Tensor, d: int):
+    """Packed components [2d + d*d, mp] -> (eta [d, mp], lam [d*d, mp], mean [d, mp])."""
+    return cm[:d], cm[d:d + d * d], cm[d + d * d:]
+
+
+def _expand_ell(cmg: CMGraph, vs: VariableState):
+    """ELL-slot beliefs -> per-row operands [F, mp]: the packed table is
+    transposed once ([nv, F] -> [F, nv], small) and broadcast over the
+    degree axis (row r belongs to variable r // deg).  Virtual padding
+    variables get (eta = 0, lam = I, mean = 0), so padded rows' cavity
+    inverses stay finite."""
+    d = vs.eta.shape[1]
+    pk = _pack_beliefs(vs)  # locality-sorted order when cmg.vperm is set
+    n_pad = cmg.nv - pk.shape[0]
+    if n_pad:
+        row = packed_identity_row(d, dtype=pk.dtype, device=pk.device)
+        pk = torch.cat([pk, row.expand(n_pad, -1)])
+    f = pk.shape[1]
+    cm = pk.T[:, :, None].expand(f, cmg.nv, cmg.fb.ell_deg).reshape(f, cmg.mp)
+    return _split(cm, d)
+
+
+def _expand_gather(cmg: CMGraph, vs: VariableState):
+    """Gathered-slot beliefs -> per-row operands [F, mp] by one gather of the
+    (small) packed table: wide rows then a transpose of the gathered data
+    ("rows"), or a take along the trailing axis of the transposed table
+    ("take1")."""
+    pk = _pack_beliefs(vs)
+    if cmg.gather_mode == "take1":
+        cm = pk.T.index_select(1, cmg.gidx_rm)
+    else:
+        cm = pk[cmg.gidx_rm].T.contiguous()
+    return _split(cm, vs.eta.shape[1])
+
+
+def expand_means(cmg: CMGraph, state: CMState) -> torch.Tensor:
+    """Adjacent belief means per factor in CM layout [tdof, mp] (slot-0
+    components first), without the full belief expansion: what schedules
+    need to rate a factor's urgency."""
+    fb = cmg.fb
+    vs_c, vs_l = state.v[fb.vblocks[0]], state.v[fb.vblocks[1]]
+    me = F.pad(vs_l.mean, (0, 0, 0, cmg.nv - vs_l.mean.shape[0]))
+    cm_l = me.T[:, :, None].expand(me.shape[1], cmg.nv, fb.ell_deg).reshape(me.shape[1], cmg.mp)
+    return torch.cat([vs_c.mean.T.index_select(1, cmg.gidx.long()), cm_l])
+
+
+def sweep(cmg: CMGraph, state: CMState, cfg: GBPConfig,
+          active: torch.Tensor | None = None) -> CMState:
+    """One synchronous GBP iteration on resident-CM state.
+
+    active: optional factor mask in CM layout [1, mp] (or [mp]), in resident
+    row order, for wildfire / priority schedules: inactive factors keep
+    their previous messages and skip relinearization, which is what the
+    kernels' `act` operand does, so the mask composes with the validity
+    mask."""
     fb = cmg.fb
     fs = state.f
     deg = fb.ell_deg
-    params = _kernel_params(cfg, fs.r0.dtype)
-    cam_mean, lmk_mean, cam_tab, lmk_tab = belief_tables(cmg, state)
-    n_cam = cam_mean.shape[0]
-    if cmg.win_w:
+    dt = fs.r0.dtype
+    params = _kernel_params(cfg, dt)
+    act = cmg.act
+    if active is not None:
+        act = act * active.to(dt).reshape(1, cmg.mp)
+    n_cam = cmg.base.vblocks[fb.vblocks[0]].count
+    if cmg.gather_mode != "table":
+        be1, bl1, mean1 = _expand_ell(cmg, state.v[fb.vblocks[1]])
+        be0, bl0, mean0 = _expand_gather(cmg, state.v[fb.vblocks[0]])
+        shape = dict(d0=D0, d1=D1, z=Z)
+        lp, jac, r0, srel = relin_cm(
+            params, torch.cat([mean0, mean1]), cmg.z, None, fs.lp, fs.jac, fs.r0, fs.srel,
+            act, comp_name=fb.ftype.name, **shape)
+        oe0, ol0, oe1, ol1 = messages_cm(
+            params, jac, lp, r0, cmg.prec, srel, act, be0, bl0, be1, bl1,
+            fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
+            prec_full=False, huber=fb.huber, **shape)
+        sum_c = segsum_by_id(oe0, ol0, cmg.seg_rows, cmg.seg_offsets)
+    elif cmg.win_w:
+        cam_mean, lmk_mean, cam_tab, lmk_tab = belief_tables(cmg, state)
         lp, jac, r0, srel = relin_cm_tabblk_ell(
             params, cam_mean, lmk_mean, cmg.gidx, cmg.win_starts, cmg.z, fs.lp, fs.jac,
-            fs.r0, fs.srel, cmg.act, deg=deg, win_w=cmg.win_w)
+            fs.r0, fs.srel, act, deg=deg, win_w=cmg.win_w)
         oe0, ol0, oe1, ol1, part = messages_cm_tabblk_ell(
             params, cam_tab, lmk_tab, cmg.gidx, cmg.win_starts, jac, lp, r0, cmg.prec,
-            srel, cmg.act, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
+            srel, act, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
             cmg.win_rows, cmg.win_offsets, deg=deg, huber=fb.huber, win_w=cmg.win_w)
         sum_c = scatter_windows_cm(part, cmg.win_starts, cmg.cov_tiles, cmg.cov_offsets,
                                    n_seg=n_cam)
     else:
+        cam_mean, lmk_mean, cam_tab, lmk_tab = belief_tables(cmg, state)
         lp, jac, r0, srel = relin_cm_tab_ell(
             params, cam_mean, lmk_mean, cmg.gidx, cmg.z, fs.lp, fs.jac, fs.r0,
-            fs.srel, cmg.act, deg=deg)
+            fs.srel, act, deg=deg)
         oe0, ol0, oe1, ol1, sum_c = messages_cm_tab_ell(
             params, cam_tab, lmk_tab, cmg.gidx, jac, lp, r0, cmg.prec, srel,
-            cmg.act, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
+            act, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
             cmg.seg_rows, cmg.seg_offsets, deg=deg, huber=fb.huber)
-    fs = CMFactorState(lp=lp, jac=jac, r0=r0, srel=srel, msg_eta=(oe0, oe1),
-                       msg_lam=(ol0, ol1))
+    return _update_beliefs(cmg, state, CMFactorState(
+        lp=lp, jac=jac, r0=r0, srel=srel, msg_eta=(oe0, oe1), msg_lam=(ol0, ol1)), sum_c)
 
+
+def _update_beliefs(cmg: CMGraph, state: CMState, fs: CMFactorState,
+                    sum_c: torch.Tensor) -> CMState:
+    """Beliefs = priors + message sums: landmarks by the reshape-sum over the
+    degree axis, cameras from `sum_c` [42, n_cam]."""
+    fb = cmg.fb
+    deg = fb.ell_deg
+    oe1, ol1 = fs.msg_eta[1], fs.msg_lam[1]
     # Landmarks: padded and clone rows carry zero messages, so the plain
     # reshape-sum over the degree axis is exact.  The beliefs live in the
     # (possibly sorted) group order, so the sum is already aligned.

@@ -1,11 +1,13 @@
-// Per-factor-row bodies shared by the bundle-adjustment kernels.
+// Per-factor-row bodies shared by all message and relinearization kernels.
 //
-// One thread owns one factor row r of the component-major [F, mp] state.
-// The kernels differ only in how the row's camera belief reaches the
-// thread: messages.cu stages the whole per-camera table in shared memory,
-// windows.cu stages the row's tile window of it.  Both hand these bodies a
-// pointer to the camera's packed row, so the arithmetic (operation order,
-// the separately rounded beta and Huber decisions) is the same code.
+// One thread owns one factor row r.  The kernels differ only in how the
+// row's beliefs reach the thread and in the layout of the per-factor
+// operands: messages.cu stages the whole per-camera table in shared memory,
+// windows.cu stages the row's tile window of it (both component-major, the
+// landmark's belief read at r / deg), rows.cu reads both slots' beliefs
+// from expanded per-row operands in either layout.  All of them run
+// `relin_core` and `messages_core`, so the arithmetic (operation order, the
+// separately rounded beta and Huber decisions) is the same code.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -23,8 +25,108 @@ constexpr int F_CAM = D0 + D0 * D0;
 constexpr int F_LMK = D1 + D1 * D1;
 constexpr int BLOCK = 256;
 
-// Masked relinearization of row r.  cam: the camera's mean [D0]; the
-// landmark mean is read at r / deg.
+// Where component k of row r of an operand lies, `ld` being the operand's
+// leading stride: component-major [F, ld] or row-major [m, ld].
+struct ColMajor {
+  static __device__ __forceinline__ int64_t at(int k, int64_t r, int64_t ld) { return k * ld + r; }
+};
+struct RowMajor {
+  static __device__ __forceinline__ int64_t at(int k, int64_t r, int64_t ld) { return r * ld + k; }
+};
+
+// The per-factor operands travel as raw __restrict__ pointers (the compiler
+// may then keep loaded values across the stores of the outputs) and their
+// leading strides as one object indexed by operand: one stride for all
+// (the resident component-major state), or one per operand.
+struct UniformLd {
+  int64_t v;
+  __device__ __forceinline__ int64_t operator[](int) const { return v; }
+};
+template <int N>
+struct OpLds {
+  int64_t v[N];
+  __device__ __forceinline__ int64_t operator[](int i) const { return v[i]; }
+};
+// Operand order of the strides: relinearization, then messages.
+enum RelinOp { R_Z, R_LP, R_JAC, R_R0, R_SREL, R_ACT, R_OLP, R_OJAC, R_OR0, R_OSREL, N_RELIN_OPS };
+enum MsgOp { M_JAC, M_LP, M_R0, M_PREC, M_SREL, M_ACT, M_ME0, M_ML0, M_ME1, M_ML1,
+             M_OE0, M_OL0, M_OE1, M_OL1, N_MSG_OPS };
+
+// A slot's belief (eta [D], lam [D][D]) as a packed (eta | lam) table row ...
+template <typename S, int D>
+struct PackedBelief {
+  const S* __restrict__ row;
+  __device__ __forceinline__ S eta(int i) const { return row[i]; }
+  __device__ __forceinline__ S lam(int i, int k) const { return row[D + i * D + k]; }
+};
+// ... as the packed row of the ELL slot's variable r / deg, located where it
+// is read: the 64-bit division, done ahead of the other slot's work, costs
+// the float32 table kernel 55 registers and half its occupancy ...
+template <typename S, int D>
+struct EllBelief {
+  const S* __restrict__ tab;
+  int64_t r;
+  int deg;
+  __device__ __forceinline__ S eta(int i) const { return tab[(r / deg) * (D + D * D) + i]; }
+  __device__ __forceinline__ S lam(int i, int k) const {
+    return tab[(r / deg) * (D + D * D) + D + i * D + k];
+  }
+};
+// ... or as row r of two expanded per-factor operands.
+template <typename S, int D, class L>
+struct ExpandedBelief {
+  const S* __restrict__ be;
+  const S* __restrict__ bl;
+  int64_t be_ld, bl_ld, r;
+  __device__ __forceinline__ S eta(int i) const { return be[L::at(i, r, be_ld)]; }
+  __device__ __forceinline__ S lam(int i, int k) const { return bl[L::at(i * D + k, r, bl_ld)]; }
+};
+
+// Masked relinearization of row r at the adjacent means x (the
+// `reprojection_normalized` model).
+template <typename S, class L, class LD>
+__device__ __forceinline__ void relin_core(
+    const S (&x)[T9], const S* __restrict__ z, const S* __restrict__ lp,
+    const S* __restrict__ jac, const S* __restrict__ r0, const S* __restrict__ srel,
+    const S* __restrict__ act, S* __restrict__ olp, S* __restrict__ ojac, S* __restrict__ or0,
+    S* __restrict__ osrel, const LD& ld, int64_t r, S beta, S min_linear) {
+  S lp_o[T9];
+#pragma unroll
+  for (int i = 0; i < T9; ++i) lp_o[i] = lp[L::at(i, r, ld[R_LP])];
+  // Separately rounded, in the plain version's order: the beta decision
+  // must not flip between the kernel and its plain version.
+  S dist2 = mul_rn(x[0] - lp_o[0], x[0] - lp_o[0]);
+#pragma unroll
+  for (int i = 1; i < T9; ++i) dist2 = add_rn(dist2, mul_rn(x[i] - lp_o[i], x[i] - lp_o[i]));
+  const S sr = srel[L::at(0, r, ld[R_SREL])];
+  const bool eligible = (dist2 > mul_rn(beta, beta)) && (sr >= min_linear) &&
+                        (act[L::at(0, r, ld[R_ACT])] > S(0.5));
+
+  if (eligible) {
+    S h[Z], jn[Z][T9];
+    reprojection_normalized(x, h, jn);
+#pragma unroll
+    for (int i = 0; i < T9; ++i) olp[L::at(i, r, ld[R_OLP])] = x[i];
+#pragma unroll
+    for (int i = 0; i < Z; ++i) {
+      or0[L::at(i, r, ld[R_OR0])] = z[L::at(i, r, ld[R_Z])] - h[i];
+#pragma unroll
+      for (int j = 0; j < T9; ++j) ojac[L::at(i * T9 + j, r, ld[R_OJAC])] = jn[i][j];
+    }
+    osrel[L::at(0, r, ld[R_OSREL])] = S(0.0);
+  } else {
+#pragma unroll
+    for (int i = 0; i < T9; ++i) olp[L::at(i, r, ld[R_OLP])] = lp_o[i];
+#pragma unroll
+    for (int i = 0; i < Z; ++i) or0[L::at(i, r, ld[R_OR0])] = r0[L::at(i, r, ld[R_R0])];
+#pragma unroll
+    for (int k = 0; k < Z * T9; ++k) ojac[L::at(k, r, ld[R_OJAC])] = jac[L::at(k, r, ld[R_JAC])];
+    osrel[L::at(0, r, ld[R_OSREL])] = sr + S(1.0);
+  }
+}
+
+// The table form on component-major [F, mp] state.  cam: the camera's mean
+// [D0]; the landmark mean is read at r / deg.
 template <typename S>
 __device__ __forceinline__ void relin_row(
     const S* __restrict__ cam, const S* __restrict__ lmk_mean, const S* __restrict__ z,
@@ -33,51 +135,22 @@ __device__ __forceinline__ void relin_row(
     S* __restrict__ ojac, S* __restrict__ or0, S* __restrict__ osrel, int64_t mp, int deg,
     int64_t r, S beta, S min_linear) {
   const int64_t l = r / deg;
-  S x[T9], lp_o[T9];
+  S x[T9];
 #pragma unroll
   for (int i = 0; i < D0; ++i) x[i] = cam[i];
 #pragma unroll
   for (int i = 0; i < D1; ++i) x[D0 + i] = lmk_mean[l * D1 + i];
-#pragma unroll
-  for (int i = 0; i < T9; ++i) lp_o[i] = lp[i * mp + r];
-  // Separately rounded, in the plain version's order: the beta decision
-  // must not flip between the kernel and its plain version.
-  S dist2 = mul_rn(x[0] - lp_o[0], x[0] - lp_o[0]);
-#pragma unroll
-  for (int i = 1; i < T9; ++i) dist2 = add_rn(dist2, mul_rn(x[i] - lp_o[i], x[i] - lp_o[i]));
-  const S sr = srel[r];
-  const bool eligible = (dist2 > mul_rn(beta, beta)) && (sr >= min_linear) && (act[r] > S(0.5));
-
-  if (eligible) {
-    S h[Z], jn[Z][T9];
-    reprojection_normalized(x, h, jn);
-#pragma unroll
-    for (int i = 0; i < T9; ++i) olp[i * mp + r] = x[i];
-#pragma unroll
-    for (int i = 0; i < Z; ++i) {
-      or0[i * mp + r] = z[i * mp + r] - h[i];
-#pragma unroll
-      for (int j = 0; j < T9; ++j) ojac[(i * T9 + j) * mp + r] = jn[i][j];
-    }
-    osrel[r] = S(0.0);
-  } else {
-#pragma unroll
-    for (int i = 0; i < T9; ++i) olp[i * mp + r] = lp_o[i];
-#pragma unroll
-    for (int i = 0; i < Z; ++i) or0[i * mp + r] = r0[i * mp + r];
-#pragma unroll
-    for (int k = 0; k < Z * T9; ++k) ojac[k * mp + r] = jac[k * mp + r];
-    osrel[r] = sr + S(1.0);
-  }
+  relin_core<S, ColMajor>(x, z, lp, jac, r0, srel, act, olp, ojac, or0, osrel, UniformLd{mp}, r,
+                          beta, min_linear);
 }
 
 // Cavity of one slot and its projection through that slot's Jacobian:
-// p = J C^-1 J^T [Z][Z], q = J (x0 - C^-1 cav_eta) [Z].
-template <typename S, int D>
+// p = J C^-1 J^T [ZD][ZD], q = J (x0 - C^-1 cav_eta) [ZD].
+template <typename S, int D, int ZD>
 __device__ __forceinline__ void slot_terms(const S (&be)[D], const S (&bl)[D][D],
                                            const S (&me)[D], const S (&ml)[D][D],
-                                           const S (&j)[Z][D], const S (&x0)[D],
-                                           S floor, S jitter, S (&p)[Z][Z], S (&q)[Z]) {
+                                           const S (&j)[ZD][D], const S (&x0)[D],
+                                           S floor, S jitter, S (&p)[ZD][ZD], S (&q)[ZD]) {
   S cav_lam[D][D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
@@ -92,7 +165,7 @@ __device__ __forceinline__ void slot_terms(const S (&be)[D], const S (&bl)[D][D]
   scaled_sym_inv(cav_lam, cav_cov);
   S cav_mu[D];
   mv(cav_cov, cav_eta, cav_mu);
-  S jc[Z][D];
+  S jc[ZD][D];
   mm(j, cav_cov, jc);
   mm_bt(jc, j, p);
   S dx[D];
@@ -103,27 +176,28 @@ __device__ __forceinline__ void slot_terms(const S (&be)[D], const S (&bl)[D][D]
 
 // The message to slot a from the other slot's (p_o, q_o), damped and
 // selected, written straight to the outputs.
-template <typename S, int D>
-__device__ __forceinline__ void emit(const S (&j)[Z][D], const S (&x0)[D],
-                                     const S (&sigma)[Z][Z], const S (&p_o)[Z][Z],
-                                     const S (&q_o)[Z], const S (&r0)[Z],
-                                     const S* __restrict__ me_old, const S* __restrict__ ml_old,
-                                     S* __restrict__ oe, S* __restrict__ ol, int64_t mp,
-                                     int64_t r, S damp, S ldamp, bool on) {
-  S sp[Z][Z], s_mat[Z][Z], s_inv[Z][Z];
+template <typename S, int D, int ZD, class L>
+__device__ __forceinline__ void emit(const S (&j)[ZD][D], const S (&x0)[D],
+                                     const S (&sigma)[ZD][ZD], const S (&p_o)[ZD][ZD],
+                                     const S (&q_o)[ZD], const S (&r0)[ZD],
+                                     const S* __restrict__ me_old, int64_t me_ld,
+                                     const S* __restrict__ ml_old, int64_t ml_ld,
+                                     S* __restrict__ oe, int64_t oe_ld, S* __restrict__ ol,
+                                     int64_t ol_ld, int64_t r, S damp, S ldamp, bool on) {
+  S sp[ZD][ZD], s_mat[ZD][ZD], s_inv[ZD][ZD];
 #pragma unroll
-  for (int i = 0; i < Z; ++i) {
+  for (int i = 0; i < ZD; ++i) {
 #pragma unroll
-    for (int k = 0; k < Z; ++k) sp[i][k] = sigma[i][k] + p_o[i][k];
+    for (int k = 0; k < ZD; ++k) sp[i][k] = sigma[i][k] + p_o[i][k];
   }
   sym(sp, s_mat);
   scaled_sym_inv(s_mat, s_inv);
-  S sj[Z][D];
+  S sj[ZD][D];
   mm(s_inv, j, sj);
-  S jx[Z], u[Z];
+  S jx[ZD], u[ZD];
   mv(j, x0, jx);
 #pragma unroll
-  for (int i = 0; i < Z; ++i) u[i] = (jx[i] + r0[i]) + q_o[i];
+  for (int i = 0; i < ZD; ++i) u[i] = (jx[i] + r0[i]) + q_o[i];
   S jtsj[D][D], lam[D][D];
   mm_at(j, sj, jtsj);
   sym(jtsj, lam);
@@ -131,12 +205,13 @@ __device__ __forceinline__ void emit(const S (&j)[Z][D], const S (&x0)[D],
   mv_at(sj, u, eta);
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    const S old = me_old[i * mp + r];
-    oe[i * mp + r] = on ? (S(1.0) - damp) * eta[i] + damp * old : old;
+    const S old = me_old[L::at(i, r, me_ld)];
+    oe[L::at(i, r, oe_ld)] = on ? (S(1.0) - damp) * eta[i] + damp * old : old;
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      const S old_l = ml_old[(i * D + k) * mp + r];
-      ol[(i * D + k) * mp + r] = on ? (S(1.0) - ldamp) * lam[i][k] + ldamp * old_l : old_l;
+      const S old_l = ml_old[L::at(i * D + k, r, ml_ld)];
+      ol[L::at(i * D + k, r, ol_ld)] =
+          on ? (S(1.0) - ldamp) * lam[i][k] + ldamp * old_l : old_l;
     }
   }
 }
@@ -158,8 +233,141 @@ inline MsgParams<S> msg_params(double eta_damping, double lam_damping, double nu
           static_cast<S>(huber * huber)};
 }
 
-// The four new messages of row r.  cam: the camera's packed belief row
-// (eta | lam) [F_CAM]; the landmark's is read at r / deg.
+// The four new messages of row r for slots of DA and DB dofs and a ZD-dim
+// measurement; b0 and b1 hand out the two slots' beliefs.  PREC_FULL: prec
+// holds the row's full [ZD][ZD] precision instead of its diagonal.
+// HUBER_ROW: the row's own Huber threshold rides as the component after
+// the precision (0 = off for that row); otherwise p.has_huber / p.huber.
+template <typename S, int DA, int DB, int ZD, class L, bool PREC_FULL, bool HUBER_ROW, class B0,
+          class B1, class LD>
+__device__ __forceinline__ void messages_core(
+    const B0& b0, const B1& b1, const S* __restrict__ jac, const S* __restrict__ lp,
+    const S* __restrict__ r0g, const S* __restrict__ prec, const S* __restrict__ srel,
+    const S* __restrict__ act, const S* __restrict__ me0, const S* __restrict__ ml0,
+    const S* __restrict__ me1, const S* __restrict__ ml1, S* __restrict__ oe0,
+    S* __restrict__ ol0, S* __restrict__ oe1, S* __restrict__ ol1, const LD& ld, int64_t r,
+    const MsgParams<S>& p) {
+  constexpr int TD = DA + DB;
+  S j0[ZD][DA], j1[ZD][DB];
+#pragma unroll
+  for (int i = 0; i < ZD; ++i) {
+#pragma unroll
+    for (int k = 0; k < DA; ++k) j0[i][k] = jac[L::at(i * TD + k, r, ld[M_JAC])];
+#pragma unroll
+    for (int k = 0; k < DB; ++k) j1[i][k] = jac[L::at(i * TD + DA + k, r, ld[M_JAC])];
+  }
+  S x00[DA], x01[DB];
+#pragma unroll
+  for (int k = 0; k < DA; ++k) x00[k] = lp[L::at(k, r, ld[M_LP])];
+#pragma unroll
+  for (int k = 0; k < DB; ++k) x01[k] = lp[L::at(DA + k, r, ld[M_LP])];
+  S r0[ZD];
+#pragma unroll
+  for (int i = 0; i < ZD; ++i) r0[i] = r0g[L::at(i, r, ld[M_R0])];
+
+  // Measurement covariance, and for the Huber weight the squared
+  // Mahalanobis residual (separately rounded, in the plain version's order:
+  // the Huber decision must not flip).
+  const bool robust = HUBER_ROW || p.has_huber;
+  S sigma[ZD][ZD];
+  S m2 = S(0.0);
+  if constexpr (PREC_FULL) {
+    S pm[ZD][ZD];
+#pragma unroll
+    for (int i = 0; i < ZD; ++i) {
+#pragma unroll
+      for (int k = 0; k < ZD; ++k) pm[i][k] = prec[L::at(i * ZD + k, r, ld[M_PREC])];
+    }
+    if (robust) {
+#pragma unroll
+      for (int i = 0; i < ZD; ++i) {
+        S pr_i = mul_rn(pm[i][0], r0[0]);
+#pragma unroll
+        for (int k = 1; k < ZD; ++k) pr_i = add_rn(pr_i, mul_rn(pm[i][k], r0[k]));
+        m2 = i == 0 ? mul_rn(r0[0], pr_i) : add_rn(m2, mul_rn(r0[i], pr_i));
+      }
+    }
+    scaled_sym_inv(pm, sigma);
+  } else {
+    S pr[ZD];
+#pragma unroll
+    for (int i = 0; i < ZD; ++i) {
+      pr[i] = prec[L::at(i, r, ld[M_PREC])];
+#pragma unroll
+      for (int k = 0; k < ZD; ++k) sigma[i][k] = i == k ? S(1.0) / pr[i] : S(0.0);
+    }
+    if (robust) {
+#pragma unroll
+      for (int i = 0; i < ZD; ++i) {
+        const S term = mul_rn(mul_rn(pr[i], r0[i]), r0[i]);
+        m2 = i == 0 ? term : add_rn(m2, term);
+      }
+    }
+  }
+  // Huber covariance scaling from the linpoint residual.
+  if (robust) {
+    const S mm_ = g_sqrt(max_nan(m2, S(1e-12)));
+    S w;
+    if constexpr (HUBER_ROW) {
+      const S t = prec[L::at(PREC_FULL ? ZD * ZD : ZD, r, ld[M_PREC])];
+      w = (mm_ > t && t > S(0.0)) ? S(2.0) * t / mm_ - (t * t) / (mm_ * mm_) : S(1.0);
+    } else {
+      w = mm_ > p.huber ? p.two_huber / mm_ - p.huber_sq / (mm_ * mm_) : S(1.0);
+    }
+    const S inv_w = S(1.0) / w;
+#pragma unroll
+    for (int i = 0; i < ZD; ++i) {
+#pragma unroll
+      for (int k = 0; k < ZD; ++k) sigma[i][k] = sigma[i][k] * inv_w;
+    }
+  }
+
+  // Slot 0's cavity terms.
+  S p0[ZD][ZD], q0[ZD];
+  {
+    S be[DA], bl[DA][DA], me[DA], ml[DA][DA];
+#pragma unroll
+    for (int i = 0; i < DA; ++i) {
+      be[i] = b0.eta(i);
+      me[i] = me0[L::at(i, r, ld[M_ME0])];
+#pragma unroll
+      for (int k = 0; k < DA; ++k) {
+        bl[i][k] = b0.lam(i, k);
+        ml[i][k] = ml0[L::at(i * DA + k, r, ld[M_ML0])];
+      }
+    }
+    slot_terms(be, bl, me, ml, j0, x00, p.floor, p.jitter, p0, q0);
+  }
+  // Slot 1's cavity terms.
+  S p1[ZD][ZD], q1[ZD];
+  {
+    S be[DB], bl[DB][DB], me[DB], ml[DB][DB];
+#pragma unroll
+    for (int i = 0; i < DB; ++i) {
+      be[i] = b1.eta(i);
+      me[i] = me1[L::at(i, r, ld[M_ME1])];
+#pragma unroll
+      for (int k = 0; k < DB; ++k) {
+        bl[i][k] = b1.lam(i, k);
+        ml[i][k] = ml1[L::at(i * DB + k, r, ld[M_ML1])];
+      }
+    }
+    slot_terms(be, bl, me, ml, j1, x01, p.floor, p.jitter, p1, q1);
+  }
+
+  const bool undamped = srel[L::at(0, r, ld[M_SREL])] >= p.num_undamped;
+  const S damp = undamped ? p.eta_damping : S(0.0);
+  const S ldamp = undamped ? p.lam_damping : S(0.0);
+  const bool on = act[L::at(0, r, ld[M_ACT])] > S(0.5);
+  emit<S, DA, ZD, L>(j0, x00, sigma, p1, q1, r0, me0, ld[M_ME0], ml0, ld[M_ML0], oe0,
+                     ld[M_OE0], ol0, ld[M_OL0], r, damp, ldamp, on);
+  emit<S, DB, ZD, L>(j1, x01, sigma, p0, q0, r0, me1, ld[M_ME1], ml1, ld[M_ML1], oe1,
+                     ld[M_OE1], ol1, ld[M_OL1], r, damp, ldamp, on);
+}
+
+// The table form on component-major [F, mp] state, diagonal precision.  cam:
+// the camera's packed belief row (eta | lam) [F_CAM]; the landmark's is read
+// at r / deg.
 template <typename S>
 __device__ __forceinline__ void messages_row(
     const S* __restrict__ cam, const S* __restrict__ lmk_tab, const S* __restrict__ jac,
@@ -168,76 +376,11 @@ __device__ __forceinline__ void messages_row(
     const S* __restrict__ ml0, const S* __restrict__ me1, const S* __restrict__ ml1,
     S* __restrict__ oe0, S* __restrict__ ol0, S* __restrict__ oe1, S* __restrict__ ol1,
     int64_t mp, int deg, int64_t r, const MsgParams<S>& p) {
-  S j0[Z][D0], j1[Z][D1];
-#pragma unroll
-  for (int i = 0; i < Z; ++i) {
-#pragma unroll
-    for (int k = 0; k < D0; ++k) j0[i][k] = jac[(i * T9 + k) * mp + r];
-#pragma unroll
-    for (int k = 0; k < D1; ++k) j1[i][k] = jac[(i * T9 + D0 + k) * mp + r];
-  }
-  S x00[D0], x01[D1];
-#pragma unroll
-  for (int k = 0; k < D0; ++k) x00[k] = lp[k * mp + r];
-#pragma unroll
-  for (int k = 0; k < D1; ++k) x01[k] = lp[(D0 + k) * mp + r];
-  const S r0[Z] = {r0g[r], r0g[mp + r]};
-  const S pr[Z] = {prec[r], prec[mp + r]};
-
-  // Huber covariance scaling from the linpoint residual.
-  S sigma[Z][Z] = {{S(1.0) / pr[0], S(0.0)}, {S(0.0), S(1.0) / pr[1]}};
-  if (p.has_huber) {
-    const S m2 = add_rn(mul_rn(mul_rn(pr[0], r0[0]), r0[0]), mul_rn(mul_rn(pr[1], r0[1]), r0[1]));
-    const S mm_ = g_sqrt(max_nan(m2, S(1e-12)));
-    const S w = mm_ > p.huber ? p.two_huber / mm_ - p.huber_sq / (mm_ * mm_) : S(1.0);
-    const S inv_w = S(1.0) / w;
-#pragma unroll
-    for (int i = 0; i < Z; ++i) {
-#pragma unroll
-      for (int k = 0; k < Z; ++k) sigma[i][k] = sigma[i][k] * inv_w;
-    }
-  }
-
-  // Slot 0: the camera's cavity terms.
-  S p0[Z][Z], q0[Z];
-  {
-    S be[D0], bl[D0][D0], me[D0], ml[D0][D0];
-#pragma unroll
-    for (int i = 0; i < D0; ++i) {
-      be[i] = cam[i];
-      me[i] = me0[i * mp + r];
-#pragma unroll
-      for (int k = 0; k < D0; ++k) {
-        bl[i][k] = cam[D0 + i * D0 + k];
-        ml[i][k] = ml0[(i * D0 + k) * mp + r];
-      }
-    }
-    slot_terms(be, bl, me, ml, j0, x00, p.floor, p.jitter, p0, q0);
-  }
-  // Slot 1: the landmark's cavity terms.
-  S p1[Z][Z], q1[Z];
-  {
-    const int64_t l = r / deg;
-    S be[D1], bl[D1][D1], me[D1], ml[D1][D1];
-#pragma unroll
-    for (int i = 0; i < D1; ++i) {
-      be[i] = lmk_tab[l * F_LMK + i];
-      me[i] = me1[i * mp + r];
-#pragma unroll
-      for (int k = 0; k < D1; ++k) {
-        bl[i][k] = lmk_tab[l * F_LMK + D1 + i * D1 + k];
-        ml[i][k] = ml1[(i * D1 + k) * mp + r];
-      }
-    }
-    slot_terms(be, bl, me, ml, j1, x01, p.floor, p.jitter, p1, q1);
-  }
-
-  const bool undamped = srel[r] >= p.num_undamped;
-  const S damp = undamped ? p.eta_damping : S(0.0);
-  const S ldamp = undamped ? p.lam_damping : S(0.0);
-  const bool on = act[r] > S(0.5);
-  emit(j0, x00, sigma, p1, q1, r0, me0, ml0, oe0, ol0, mp, r, damp, ldamp, on);
-  emit(j1, x01, sigma, p0, q0, r0, me1, ml1, oe1, ol1, mp, r, damp, ldamp, on);
+  const PackedBelief<S, D0> b0{cam};
+  const EllBelief<S, D1> b1{lmk_tab, r, deg};
+  messages_core<S, D0, D1, Z, ColMajor, false, false>(
+      b0, b1, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1,
+      UniformLd{mp}, r, p);
 }
 
 inline unsigned int n_blocks(int64_t threads) {

@@ -41,8 +41,8 @@ _ARGTYPES = {
     # lam_damping, num_undamped, floor, jitter, has_huber, huber, stream
     "gbp_messages_cm_tab_ell": [_P, _I, _P, _I] + [_P] * 7 + [_P] * 4 + [_P] * 4
     + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P],
-    # me, ml, rows, offsets, n_seg, mp, out, stream
-    "gbp_segsum_by_id": [_P, _P, _P, _P, _I, _I64, _P, _P],
+    # me, me_ld, ml, ml_ld, d, row_major, rows, offsets, n_seg, out, stream
+    "gbp_segsum_by_id": [_P, _I64, _P, _I64, _I, _I, _P, _P, _I, _P, _P],
     # cam_mean, n_cam, lmk_mean, gidx, starts, win_w, z, lp, jac, r0, srel,
     # act, olp, ojac, or0, osrel, mp, deg, beta, min_linear, stream
     "gbp_relin_cm_tabblk_ell": [_P, _I, _P, _P, _P, _I] + [_P] * 6 + [_P] * 4
@@ -56,6 +56,12 @@ _ARGTYPES = {
     "gbp_segsum_cm_blk": [_P, _P, _I, _P, _P, _I, _I, _I64, _P, _P],
     # part, starts, cov_tiles, cov_offsets, f, w, n_seg, out, stream
     "gbp_scatter_windows_cm": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # d0, d1, z, row_major, prec_full, huber_row, in[14], in_ld[14], out[4],
+    # out_ld[4], m, eta_damping, lam_damping, num_undamped, floor, jitter,
+    # has_huber, huber, stream
+    "gbp_messages_rows": [_I] * 6 + [_P] * 4 + [_I64, _D, _D, _D, _D, _D, _I, _D, _P],
+    # row_major, in[7], in_ld[7], out[4], out_ld[4], m, beta, min_linear, stream
+    "gbp_relin_rows": [_I] + [_P] * 4 + [_I64, _D, _D, _P],
     # win_w -> resident blocks per SM (negative: minus the CUDA error)
     "gbp_relin_cm_tabblk_ell_blocks_per_sm": [_I],
     "gbp_messages_cm_tabblk_ell_blocks_per_sm": [_I],

@@ -3,8 +3,12 @@
 Counterpart of gbp_tpu/ops/comp_factors.py for the slice's factor type.  The
 state x is a list of component tensors (one per state dof), outputs are
 component lists: (h [z], jac [z][t]).  csrc/comp_factors.cuh is the same
-model for one factor per CUDA thread.  The BAL and pose-graph models follow
-with ROADMAP A7/A8.
+model for one factor per CUDA thread.
+
+Registry: COMP_FACTORS[ftype.name] -> (fn(x_comps), n_args), as in the
+reference; a factor type that is absent has no fused relinearization and
+the generic sweep relinearizes it in plain torch.  The BAL and pose-graph
+models follow with ROADMAP A7/A8.
 """
 from __future__ import annotations
 
@@ -80,3 +84,27 @@ def reprojection_normalized_comp(x):
     eye = [[one if i == j else zero for j in range(3)] for i in range(3)]
     dxc = [d_omega[i] + eye[i] + r[i] for i in range(3)]  # [3][9]: omega | t | X
     return h, cl.cmm(dpi, dxc)
+
+
+COMP_FACTORS = {
+    "reprojection_normalized": (reprojection_normalized_comp, 0),
+}
+# The reference's other component-form models and the ROADMAP items that
+# port them.
+COMP_FACTORS_QUEUED = {
+    "bal_reprojection_normalized": "A7",
+    "bal_reprojection_intrinsics": "A7",
+    "se2_between": "A8",
+    "se3_between": "A8",
+}
+
+
+def comp_model(name: str):
+    """The component-form model fn(x_comps) -> (h, jac) of factor type
+    `name`; raises for one that is not ported."""
+    if name not in COMP_FACTORS:
+        item = COMP_FACTORS_QUEUED.get(name)
+        raise NotImplementedError(
+            f"no component-form model for factor type {name!r}"
+            + (f": not ported yet (ROADMAP {item})" if item else ""))
+    return COMP_FACTORS[name][0]

@@ -1,9 +1,9 @@
-"""The fast path's seven kernels: wrappers, plain versions, launch counts.
+"""The port's eleven kernels: wrappers, plain versions, launch counts.
 
 Each function dispatches on where its tensors lie: CUDA tensors go to the
-hand-written kernel in csrc/messages.cu (built on first use by
-ops/_build.py), CPU tensors to the `*_plain` version beside it.  There is
-no fallback: a CUDA tensor that the kernel does not take raises.
+hand-written kernel in csrc/*.cu (built on first use by ops/_build.py), CPU
+tensors to the `*_plain` version beside it.  There is no fallback: a CUDA
+tensor that the kernel does not take raises.
 
 Layout: component-major, every per-factor operand is [F, mp] (component k
 of factor row r at [k, r]), the memory order of the reference's
@@ -27,6 +27,20 @@ win_w), so a block stages only its tile's window of the camera table.
                           window partials [n_tiles, F, w]
   scatter_windows_cm      replaces scatter_windows_cm: the partials combined
                           over the overlapping windows, tiles in ascending order
+
+Expanded operands (csrc/rows.cu): both slots' beliefs arrive per factor row
+instead of from a table, for any instantiated (d0, d1, z), diagonal or full
+precision, Huber none / scalar / per row ("row": the thresholds ride as the
+component after the precision, 0 = off for that row).  One kernel body per
+function serves both layouts; every operand is passed with its leading
+stride, so slices of wider arrays are taken in place.
+
+  messages_cm           replaces fused_messages_cm      (operands [F, mp])
+  relin_cm              replaces fused_relin_cm         (operands [F, mp])
+  fused_messages        replaces fused_messages         (operands [m, F])
+  fused_relin_messages  replaces fused_relin_messages   (operands [m, F]): the
+                        relinearization kernel, then `fused_messages` on the
+                        new linearization
 """
 from __future__ import annotations
 
@@ -37,7 +51,7 @@ import numpy as np
 import torch
 
 from gbp_tpu_torch.ops import comp_linalg as cl
-from gbp_tpu_torch.ops.comp_factors import reprojection_normalized_comp
+from gbp_tpu_torch.ops.comp_factors import comp_model
 
 D0, D1, Z = 6, 3, 2  # camera dofs, landmark dofs, measurement dim
 T = D0 + D1
@@ -48,7 +62,12 @@ TILE = 1024  # rows per window tile, the reference's grid tile (8 x 128)
 SMEM_WINDOW_BYTES = 232448
 KERNELS = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id",
            "relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
-           "scatter_windows_cm")
+           "scatter_windows_cm", "messages_cm", "relin_cm", "fused_messages",
+           "fused_relin_messages")
+# (d0, d1, z) the expanded-operand messages kernel is instantiated for, and
+# the ROADMAP items that add the others.
+ROW_SHAPES = ((6, 3, 2), (1, 1, 1))
+ROW_SHAPES_QUEUED = {(9, 3, 2): "A7", (3, 3, 3): "A8", (6, 6, 6): "A8"}
 
 
 @dataclasses.dataclass
@@ -83,28 +102,37 @@ def _scalar(v, like):
 # --- plain versions ---------------------------------------------------------
 
 
-def _relin_plain(params, cam_rows, lmk_mean, z, lp, jac, r0, srel, act, *, deg):
-    """Masked relinearization (the reference's `_relin_math`) with the
-    camera means already read per row, cam_rows [mp, 6].
+def _relin_math(params, x, z, lp_o, jac_o, r0_o, srel, act, comp_name):
+    """Masked relinearization (the reference's `_relin_math`) on component
+    lists: x the adjacent means, srel and act one tensor each.
 
-    x = [cam_rows[r], lmk_mean[r // deg]];  eligible =
-    ||x - lp||^2 > beta^2 and srel >= min_linear_iters and act.  Eligible
-    rows take lp = x, the new (J, r0 = z - h) and srel = 0; the others keep
-    their state and srel + 1."""
+    eligible = ||x - lp||^2 > beta^2 and srel >= min_linear_iters and act.
+    Eligible rows take lp = x, the new (J, r0 = z - h) and srel = 0; the
+    others keep their state and srel + 1.  Returns (lp, jac, r0) as lists
+    and the new srel."""
+    comp_fn = comp_model(comp_name)
+    t, zd = len(x), len(z)
+    beta = _scalar(params[4], lp_o[0])
+    dist2 = sum((x[i] - lp_o[i]) * (x[i] - lp_o[i]) for i in range(t))
+    eligible = (dist2 > beta * beta) & (srel >= params[5]) & (act > 0.5)
+    h, j_new = comp_fn(x)
+    r_new = [z[i] - h[i] for i in range(zd)]
+    jac_new = [j_new[i][j] for i in range(zd) for j in range(t)]
+    sel = lambda new, old: [torch.where(eligible, a, b) for a, b in zip(new, old)]
+    return (sel(x, lp_o), sel(jac_new, jac_o), sel(r_new, r0_o),
+            torch.where(eligible, torch.zeros_like(srel), srel + 1.0))
+
+
+def _relin_plain(params, cam_rows, lmk_mean, z, lp, jac, r0, srel, act, *, deg):
+    """`_relin_math` on component-major state with the camera means already
+    read per row, cam_rows [mp, 6]: x = [cam_rows[r], lmk_mean[r // deg]]."""
     mp = lp.shape[1]
     rows = torch.arange(mp, device=lp.device) // deg
     x = _rows(cam_rows.T) + _rows(lmk_mean[rows].T)
-    lp_o = _rows(lp)
-    beta = _scalar(params[4], lp)
-    dist2 = sum((x[i] - lp_o[i]) * (x[i] - lp_o[i]) for i in range(T))
-    eligible = (dist2 > beta * beta) & (srel[0] >= params[5]) & (act[0] > 0.5)
-    h, j_new = reprojection_normalized_comp(x)
-    r_new = [z[i] - h[i] for i in range(Z)]
-    jac_new = [j_new[i][j] for i in range(Z) for j in range(T)]
-    sel = lambda new, old: torch.stack(
-        [torch.where(eligible, a, b) for a, b in zip(new, old)])
-    return (sel(x, lp_o), sel(jac_new, _rows(jac)), sel(r_new, _rows(r0)),
-            torch.where(eligible, torch.zeros_like(srel), srel + 1.0))
+    lp_n, jac_n, r0_n, srel_n = _relin_math(
+        params, x, _rows(z), _rows(lp), _rows(jac), _rows(r0), srel[0], act[0],
+        "reprojection_normalized")
+    return torch.stack(lp_n), torch.stack(jac_n), torch.stack(r0_n), srel_n[None]
 
 
 def relin_cm_tab_ell_plain(params, cam_mean, lmk_mean, gidx, z, lp, jac, r0,
@@ -135,35 +163,41 @@ def relin_cm_tabblk_ell_plain(params, cam_mean, lmk_mean, gidx, win_starts, z, l
                         z, lp, jac, r0, srel, act, deg=deg)
 
 
-def _messages_plain(params, cam_rows, lmk_tab, jac, lp, r0, prec, srel,
-                    act, me0, ml0, me1, ml1, *, deg, huber):
+def _message_math(params, jac, x0, r0_l, prec, srel, act, be0, bl0, be1, bl1,
+                  me0, ml0, me1, ml1, *, d0, d1, z, prec_full, huber):
     """Covariance-form factor -> variable messages (the reference's
-    `_message_math`, diagonal prec) with the packed camera beliefs already
-    read per row, cam_rows [mp, 42]: Huber weight, cavities with floor and
-    jitter, S = sym(Sigma / w + P_other), damping, act select."""
+    `_message_math`) on component lists: Huber weight, cavities with floor
+    and jitter, S = sym(Sigma / w + P_other), damping, act select.  prec:
+    the z diagonal or z*z full precision components, then the per-row Huber
+    threshold when huber == "row".  Returns four component lists."""
     eta_damping, lam_damping, num_undamped, floor, _, _, jitter = params
-    mp = jac.shape[1]
-    rows = torch.arange(mp, device=jac.device) // deg
-    cam = _rows(cam_rows.T)
-    lmk = _rows(lmk_tab[rows].T)
-    jm = _mat(_rows(jac), Z, T)
-    j0 = [row[:D0] for row in jm]
-    j1 = [row[D0:] for row in jm]
-    x0 = _rows(lp)
-    r0_l = _rows(r0)
-    pr = _rows(prec)
-    floor_t, jitter_t = _scalar(floor, jac), _scalar(jitter, jac)
-
-    m2 = sum(pr[i] * r0_l[i] * r0_l[i] for i in range(Z))
+    like = jac[0]
+    jm = _mat(jac, z, d0 + d1)
+    j0 = [row[:d0] for row in jm]
+    j1 = [row[d0:] for row in jm]
+    floor_t, jitter_t = _scalar(floor, like), _scalar(jitter, like)
     zero = torch.zeros_like(r0_l[0])
-    sigma = [[1.0 / pr[i] if i == j else zero for j in range(Z)] for i in range(Z)]
+
+    if prec_full:
+        pm = _mat(prec[:z * z], z, z)
+        pr = cl.cmv(pm, r0_l)
+        m2 = sum(r0_l[i] * pr[i] for i in range(z))
+        sigma = cl.cscaled_sym_inv(pm)
+    else:
+        m2 = sum(prec[i] * r0_l[i] * r0_l[i] for i in range(z))
+        sigma = [[1.0 / prec[i] if i == j else zero for j in range(z)] for i in range(z)]
     if huber is not None:
         mm = torch.sqrt(torch.clamp(m2, min=1e-12))
-        # 2T and T^2 rounded once from the Python float, as the reference's
-        # weakly typed scalars are.
-        two_h, h_sq = _scalar(2.0 * huber, jac), _scalar(huber * huber, jac)
-        w = torch.where(mm > _scalar(huber, jac), two_h / mm - h_sq / (mm * mm),
-                        torch.ones_like(mm))
+        if huber == "row":
+            t = prec[z * z if prec_full else z]
+            w = torch.where((mm > t) & (t > 0.0), 2.0 * t / mm - (t * t) / (mm * mm),
+                            torch.ones_like(mm))
+        else:
+            # 2T and T^2 rounded once from the Python float, as the
+            # reference's weakly typed scalars are.
+            two_h, h_sq = _scalar(2.0 * huber, like), _scalar(huber * huber, like)
+            w = torch.where(mm > _scalar(huber, like), two_h / mm - h_sq / (mm * mm),
+                            torch.ones_like(mm))
         sigma = cl.cscale(sigma, 1.0 / w)
 
     def slot(be, bl_flat, me, ml_flat, j_s, x0_s, d):
@@ -179,13 +213,13 @@ def _messages_plain(params, cam_rows, lmk_tab, jac, lp, r0, prec, srel,
         q = cl.cmv(j_s, cl.vsub(x0_s, cav_mu))
         return p, q, ml
 
-    p0, q0, ml0_m = slot(cam[:D0], cam[D0:], _rows(me0), _rows(ml0), j0, x0[:D0], D0)
-    p1, q1, ml1_m = slot(lmk[:D1], lmk[D1:], _rows(me1), _rows(ml1), j1, x0[D0:], D1)
+    p0, q0, ml0_m = slot(be0, bl0, me0, ml0, j0, x0[:d0], d0)
+    p1, q1, ml1_m = slot(be1, bl1, me1, ml1, j1, x0[d0:], d1)
 
-    undamped = srel[0] >= num_undamped
-    damp = torch.where(undamped, _scalar(eta_damping, jac), zero)
-    ldamp = torch.where(undamped, _scalar(lam_damping, jac), zero)
-    on = act[0] > 0.5
+    undamped = srel >= num_undamped
+    damp = torch.where(undamped, _scalar(eta_damping, like), zero)
+    ldamp = torch.where(undamped, _scalar(lam_damping, like), zero)
+    on = act > 0.5
 
     def emit(j_a, x0_a, p_o, q_o, me_old, ml_old, d):
         s_inv = cl.cscaled_sym_inv(cl.csym(cl.cadd(sigma, p_o)))
@@ -200,11 +234,27 @@ def _messages_plain(params, cam_rows, lmk_tab, jac, lp, r0, prec, srel,
         ol = [torch.where(on, (1.0 - ldamp) * lam_msg[i][j] + ldamp * ml_old[i][j],
                           ml_old[i][j])
               for i in range(d) for j in range(d)]
-        return torch.stack(oe), torch.stack(ol)
+        return oe, ol
 
-    oe0, ol0 = emit(j0, x0[:D0], p1, q1, _rows(me0), ml0_m, D0)
-    oe1, ol1 = emit(j1, x0[D0:], p0, q0, _rows(me1), ml1_m, D1)
+    oe0, ol0 = emit(j0, x0[:d0], p1, q1, me0, ml0_m, d0)
+    oe1, ol1 = emit(j1, x0[d0:], p0, q0, me1, ml1_m, d1)
     return oe0, ol0, oe1, ol1
+
+
+def _messages_plain(params, cam_rows, lmk_tab, jac, lp, r0, prec, srel,
+                    act, me0, ml0, me1, ml1, *, deg, huber):
+    """`_message_math` on component-major state (diagonal prec) with the
+    packed camera beliefs already read per row, cam_rows [mp, 42], and the
+    landmark beliefs read at r // deg."""
+    mp = jac.shape[1]
+    rows = torch.arange(mp, device=jac.device) // deg
+    cam = _rows(cam_rows.T)
+    lmk = _rows(lmk_tab[rows].T)
+    out = _message_math(
+        params, _rows(jac), _rows(lp), _rows(r0), _rows(prec), srel[0], act[0],
+        cam[:D0], cam[D0:], lmk[:D1], lmk[D1:], _rows(me0), _rows(ml0), _rows(me1),
+        _rows(ml1), d0=D0, d1=D1, z=Z, prec_full=False, huber=huber)
+    return tuple(torch.stack(o) for o in out)
 
 
 def messages_cm_tab_ell_plain(params, cam_tab, lmk_tab, gidx, jac, lp, r0,
@@ -234,22 +284,28 @@ def messages_cm_tabblk_ell_plain(params, cam_tab, lmk_tab, gidx, win_starts, jac
     return oe0, ol0, oe1, ol1, part
 
 
-def _csr_sum(me, ml, rows, offsets):
+def _csr_sum(me, ml, rows, offsets, row_major=False):
     """out[k, s] = sum over i in [offsets[s], offsets[s+1]) of comp_k[rows[i]]
-    for the components (me | ml)."""
+    for the components (me | ml); with row_major the operands are [m, d] |
+    [m, d*d] and the result [n_seg, d + d*d]."""
     n_seg = offsets.shape[0] - 1
     ids = torch.repeat_interleave(
         torch.arange(n_seg, device=me.device), (offsets[1:] - offsets[:-1]).long())
+    if row_major:
+        vals = torch.cat([me, ml], dim=1)[rows.long()]
+        out = torch.zeros((n_seg, vals.shape[1]), dtype=me.dtype, device=me.device)
+        return out.index_add_(0, ids, vals)
     vals = torch.cat([me, ml])[:, rows.long()]
     out = torch.zeros((vals.shape[0], n_seg), dtype=me.dtype, device=me.device)
     return out.index_add_(1, ids, vals)
 
 
-def segsum_by_id_plain(me, ml, seg_rows, seg_offsets):
+def segsum_by_id_plain(me, ml, seg_rows, seg_offsets, *, row_major=False):
     """Sum the (eta | lam) components of the rows of each segment:
-    out[k, s] = sum over i in [offsets[s], offsets[s+1]) of comp_k[rows[i]]."""
+    out[k, s] = sum over i in [offsets[s], offsets[s+1]) of comp_k[rows[i]]
+    ([s, k] with row_major)."""
     COUNTS.plain["segsum_by_id"] += 1
-    return _csr_sum(me, ml, seg_rows, seg_offsets)
+    return _csr_sum(me, ml, seg_rows, seg_offsets, row_major)
 
 
 def segsum_cm_blk_plain(me, ml, win_rows, win_offsets, *, n_tiles, w):
@@ -429,25 +485,48 @@ def messages_cm_tab_ell(params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec,
     return (*out, segsum_by_id(out[0], out[1], seg_rows, seg_offsets))
 
 
-def segsum_by_id(me, ml, seg_rows, seg_offsets):
-    """Deterministic segment sum [d + d*d, n_seg] of me [d, mp] | ml
-    [d*d, mp] over the CSR (seg_rows sorted by segment, seg_offsets
-    [n_seg + 1]).  Two runs give the same bits: no atomics."""
+def _check_op(name, t, rows, comps, dtype, row_major):
+    """A per-factor operand of `comps` components and `rows` rows, [rows,
+    comps] (row_major) or [comps, rows], unit stride along the trailing axis;
+    returns (pointer, leading stride).  A slice of a wider array passes."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    shape = (rows, comps) if row_major else (comps, rows)
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: expected unit stride along the trailing axis")
+    ld = t.stride(0) if shape[0] > 1 else shape[1]
+    if ld < shape[1]:
+        raise ValueError(f"{name}: leading stride {ld} below the row length {shape[1]}")
+    return ctypes.c_void_p(t.data_ptr()), ld
+
+
+def segsum_by_id(me, ml, seg_rows, seg_offsets, *, row_major=False):
+    """Deterministic segment sum of me | ml over the CSR (seg_rows sorted by
+    segment, seg_offsets [n_seg + 1]): component-major me [d, mp], ml
+    [d*d, mp] -> [d + d*d, n_seg], or with row_major me [m, d], ml [m, d*d]
+    -> [n_seg, d + d*d].  Two runs give the same bits: no atomics."""
     if not me.is_cuda:
-        return segsum_by_id_plain(me, ml, seg_rows, seg_offsets)
+        return segsum_by_id_plain(me, ml, seg_rows, seg_offsets, row_major=row_major)
     from gbp_tpu_torch.ops._build import library
 
     dt = me.dtype
-    mp = me.shape[1]
+    d, m = (me.shape[1], me.shape[0]) if row_major else me.shape
+    f = d + d * d
     n_seg = seg_offsets.shape[0] - 1
     n_rows = seg_rows.shape[0]
-    out = torch.empty((F_CAM, n_seg), dtype=dt, device=me.device)
+    out = torch.empty((n_seg, f) if row_major else (f, n_seg), dtype=dt, device=me.device)
+    me_p, me_ld = _check_op("me", me, m, d, dt, row_major)
+    ml_p, ml_ld = _check_op("ml", ml, m, d * d, dt, row_major)
     args = [
-        _check("me", me, (D0, mp), dt), _check("ml", ml, (D0 * D0, mp), dt),
+        me_p, ctypes.c_int64(me_ld), ml_p, ctypes.c_int64(ml_ld), ctypes.c_int(d),
+        ctypes.c_int(row_major),
         _check("seg_rows", seg_rows, (n_rows,), torch.int32),
         _check("seg_offsets", seg_offsets, (n_seg + 1,), torch.int32),
-        ctypes.c_int(n_seg), ctypes.c_int64(mp),
-        ctypes.c_void_p(out.data_ptr()), _stream(),
+        ctypes.c_int(n_seg), ctypes.c_void_p(out.data_ptr()), _stream(),
     ]
     fn = getattr(library(), f"gbp_segsum_by_id_{_suffix(dt)}")
     _raise_on(fn(*args), "segsum_by_id")
@@ -620,3 +699,251 @@ def scatter_windows_cm(part, win_starts, cov_tiles, cov_offsets, *, n_seg):
     _raise_on(fn(*args), "scatter_windows_cm")
     COUNTS.kernel["scatter_windows_cm"] += 1
     return out
+
+
+# --- expanded operands: both slots' beliefs arrive per factor row ---------------
+
+
+def _row_shape(name, d0, d1, z):
+    if (d0, d1, z) not in ROW_SHAPES:
+        item = ROW_SHAPES_QUEUED.get((d0, d1, z))
+        raise NotImplementedError(
+            f"{name}: the kernel is not instantiated for (d0, d1, z) = ({d0}, {d1}, {z})"
+            + (f" (ROADMAP {item})" if item else ""))
+
+
+def _huber_mode(huber, prec_full):
+    """(per-row mode, has scalar, scalar value) of the static huber argument:
+    None | float | "row"."""
+    if huber is None:
+        return False, False, 0.0
+    if isinstance(huber, str):
+        if huber != "row":
+            raise ValueError(f"huber must be None, a number or 'row', got {huber!r}")
+        if prec_full:
+            raise ValueError("per-row Huber thresholds require diagonal precision")
+        return True, False, 0.0
+    return False, True, float(huber)
+
+
+def _prec_comps(z, prec_full, huber):
+    return (z * z if prec_full else z) + int(isinstance(huber, str))
+
+
+def _comps(a, row_major):
+    """The components of an operand as a list of [rows] tensors."""
+    return [a[:, k] for k in range(a.shape[1])] if row_major else _rows(a)
+
+
+def _stack(comps, row_major):
+    return torch.stack(comps, dim=1 if row_major else 0)
+
+
+def _as_col(a, dt, row_major):
+    """A per-row scalar operand ([m], [m, 1] or [1, mp]) as the layout's
+    one-component operand of dtype dt."""
+    a = a.to(dt)
+    if a.ndim == 1:
+        a = a[:, None] if row_major else a[None]
+    return a
+
+
+def _messages_any_plain(params, ops, *, row_major, d0, d1, z, prec_full, huber):
+    jac, x0, r0, prec, srel, act = ops[:6]
+    dt = jac.dtype
+    _huber_mode(huber, prec_full)
+    c = lambda a: _comps(a, row_major)
+    out = _message_math(
+        params, c(jac), c(x0), c(r0), c(prec), c(_as_col(srel, dt, row_major))[0],
+        c(_as_col(act, dt, row_major))[0], *(c(a) for a in ops[6:]),
+        d0=d0, d1=d1, z=z, prec_full=prec_full, huber=huber)
+    return tuple(_stack(o, row_major) for o in out)
+
+
+def _messages_any(name, params, ops, *, row_major, d0, d1, z, prec_full, huber):
+    """Launch the expanded-operand messages kernel in one layout; `ops` are
+    (jac, x0, r0, prec, srel, act, be0, bl0, be1, bl1, me0, ml0, me1, ml1)."""
+    from gbp_tpu_torch.ops._build import library
+
+    _row_shape(name, d0, d1, z)
+    huber_row, has_huber, huber_val = _huber_mode(huber, prec_full)
+    jac = ops[0]
+    dt = jac.dtype
+    m = jac.shape[0] if row_major else jac.shape[1]
+    t = d0 + d1
+    widths = (z * t, t, z, _prec_comps(z, prec_full, huber), 1, 1,
+              d0, d0 * d0, d1, d1 * d1, d0, d0 * d0, d1, d1 * d1)
+    names = ("jac", "x0", "r0", "prec", "srel", "act", "be0", "bl0", "be1", "bl1",
+             "me0", "ml0", "me1", "ml1")
+    ops = list(ops)
+    ops[4], ops[5] = _as_col(ops[4], dt, row_major), _as_col(ops[5], dt, row_major)
+    checked = [_check_op(f"{name}: {n}", a, m, w, dt, row_major)
+               for n, a, w in zip(names, ops, widths)]
+    out = [torch.empty((m, w) if row_major else (w, m), dtype=dt, device=jac.device)
+           for w in (d0, d0 * d0, d1, d1 * d1)]
+    out_ld = [o.shape[1] for o in out]
+    eta_damping, lam_damping, num_undamped, floor, _, _, jitter = params
+    fn = getattr(library(), f"gbp_messages_rows_{_suffix(dt)}")
+    rc = fn(d0, d1, z, int(row_major), int(prec_full), int(huber_row),
+            (ctypes.c_void_p * 14)(*[p for p, _ in checked]),
+            (ctypes.c_int64 * 14)(*[ld for _, ld in checked]),
+            (ctypes.c_void_p * 4)(*[o.data_ptr() for o in out]),
+            (ctypes.c_int64 * 4)(*out_ld), m, eta_damping, lam_damping, num_undamped,
+            floor, jitter, int(has_huber), huber_val, _stream())
+    _raise_on(rc, name)
+    COUNTS.kernel[name] += 1
+    return tuple(out)
+
+
+def _relin_any_plain(params, ops, *, row_major, comp_name):
+    x, z_meas, lp, jac, r0, srel, act = ops
+    dt = x.dtype
+    c = lambda a: _comps(a, row_major)
+    lp_n, jac_n, r0_n, srel_n = _relin_math(
+        params, c(x), c(z_meas), c(lp), c(jac), c(r0), c(_as_col(srel, dt, row_major))[0],
+        c(_as_col(act, dt, row_major))[0], comp_name)
+    return (_stack(lp_n, row_major), _stack(jac_n, row_major), _stack(r0_n, row_major),
+            _stack([srel_n], row_major))
+
+
+def _relin_any(name, params, ops, *, row_major, d0, d1, z, comp_name):
+    """Launch the expanded-operand relinearization kernel in one layout;
+    `ops` are (x, z_meas, lp, jac, r0, srel, act)."""
+    from gbp_tpu_torch.ops._build import library
+
+    comp_model(comp_name)  # raises for a model that is not ported
+    if (d0, d1, z) != (D0, D1, Z):
+        raise NotImplementedError(
+            f"{name}: the kernel holds the reprojection_normalized model, (d0, d1, z) = "
+            f"({D0}, {D1}, {Z}); got ({d0}, {d1}, {z}) (ROADMAP A7/A8)")
+    x = ops[0]
+    dt = x.dtype
+    m = x.shape[0] if row_major else x.shape[1]
+    ops = list(ops)
+    ops[5], ops[6] = _as_col(ops[5], dt, row_major), _as_col(ops[6], dt, row_major)
+    names = ("x", "z", "lp", "jac", "r0", "srel", "act")
+    checked = [_check_op(f"{name}: {n}", a, m, w, dt, row_major)
+               for n, a, w in zip(names, ops, (T, Z, T, Z * T, Z, 1, 1))]
+    out = [torch.empty((m, w) if row_major else (w, m), dtype=dt, device=x.device)
+           for w in (T, Z * T, Z, 1)]
+    fn = getattr(library(), f"gbp_relin_rows_{_suffix(dt)}")
+    rc = fn(int(row_major),
+            (ctypes.c_void_p * 7)(*[p for p, _ in checked]),
+            (ctypes.c_int64 * 7)(*[ld for _, ld in checked]),
+            (ctypes.c_void_p * 4)(*[o.data_ptr() for o in out]),
+            (ctypes.c_int64 * 4)(*[o.shape[1] for o in out]), m, params[4], params[5],
+            _stream())
+    _raise_on(rc, name)
+    COUNTS.kernel[name] += 1
+    return tuple(out)
+
+
+def _no_fargs(name, fargs):
+    if fargs is not None:
+        raise NotImplementedError(
+            f"{name}: per-factor model arguments are not ported yet (ROADMAP A7)")
+
+
+def messages_cm_plain(params, jac, x0, r0, prec, srel, act, be0, bl0, be1, bl1,
+                      me0, ml0, me1, ml1, *, d0, d1, z, prec_full, huber):
+    """Plain version of `messages_cm`."""
+    COUNTS.plain["messages_cm"] += 1
+    return _messages_any_plain(
+        params, (jac, x0, r0, prec, srel, act, be0, bl0, be1, bl1, me0, ml0, me1, ml1),
+        row_major=False, d0=d0, d1=d1, z=z, prec_full=prec_full, huber=huber)
+
+
+def messages_cm(params, jac, x0, r0, prec, srel, act, be0, bl0, be1, bl1,
+                me0, ml0, me1, ml1, *, d0, d1, z, prec_full, huber):
+    """Factor -> variable messages on component-major operands [F, mp] with
+    both slots' beliefs expanded per row (be* [d, mp], bl* [d*d, mp]);
+    returns (eta0, lam0, eta1, lam1), component-major.  prec [z | z*z (+1),
+    mp]; huber None, the scalar threshold, or "row"."""
+    ops = (jac, x0, r0, prec, srel, act, be0, bl0, be1, bl1, me0, ml0, me1, ml1)
+    if not jac.is_cuda:
+        return messages_cm_plain(params, *ops, d0=d0, d1=d1, z=z, prec_full=prec_full,
+                                 huber=huber)
+    return _messages_any("messages_cm", params, ops, row_major=False, d0=d0, d1=d1, z=z,
+                         prec_full=prec_full, huber=huber)
+
+
+def relin_cm_plain(params, x, z_meas, fargs, linpoint, jac, r0, srel, act, *,
+                   d0, d1, z, comp_name):
+    """Plain version of `relin_cm`."""
+    del d0, d1, z
+    _no_fargs("relin_cm", fargs)
+    COUNTS.plain["relin_cm"] += 1
+    return _relin_any_plain(params, (x, z_meas, linpoint, jac, r0, srel, act),
+                            row_major=False, comp_name=comp_name)
+
+
+def relin_cm(params, x, z_meas, fargs, linpoint, jac, r0, srel, act, *,
+             d0, d1, z, comp_name):
+    """Masked relinearization on component-major operands [F, mp], the
+    adjacent means x [t, mp] expanded per row; returns (lp, jac, r0, srel)."""
+    if not x.is_cuda:
+        return relin_cm_plain(params, x, z_meas, fargs, linpoint, jac, r0, srel, act,
+                              d0=d0, d1=d1, z=z, comp_name=comp_name)
+    _no_fargs("relin_cm", fargs)
+    return _relin_any("relin_cm", params, (x, z_meas, linpoint, jac, r0, srel, act),
+                      row_major=False, d0=d0, d1=d1, z=z, comp_name=comp_name)
+
+
+def fused_messages_plain(params, jac, x0, r0, prec, since_relin, active, be0, bl0, be1,
+                         bl1, me0, ml0, me1, ml1, *, d0, d1, z, prec_full, huber):
+    """Plain version of `fused_messages`."""
+    COUNTS.plain["fused_messages"] += 1
+    return _messages_any_plain(
+        params, (jac, x0, r0, prec, since_relin, active, be0, bl0, be1, bl1, me0, ml0,
+                 me1, ml1),
+        row_major=True, d0=d0, d1=d1, z=z, prec_full=prec_full, huber=huber)
+
+
+def fused_messages(params, jac, x0, r0, prec, since_relin, active, be0, bl0, be1, bl1,
+                   me0, ml0, me1, ml1, *, d0, d1, z, prec_full, huber):
+    """Factor -> variable messages of one 2-slot factor block on row-major
+    operands, matrices flattened ([m, z*t], [m, d*d], ...); since_relin and
+    active are [m].  Returns (eta0 [m, d0], lam0 [m, d0*d0], eta1, lam1)."""
+    ops = (jac, x0, r0, prec, since_relin, active, be0, bl0, be1, bl1, me0, ml0, me1, ml1)
+    if not jac.is_cuda:
+        return fused_messages_plain(params, *ops, d0=d0, d1=d1, z=z, prec_full=prec_full,
+                                    huber=huber)
+    return _messages_any("fused_messages", params, ops, row_major=True, d0=d0, d1=d1, z=z,
+                         prec_full=prec_full, huber=huber)
+
+
+def fused_relin_messages_plain(params, x, z_meas, fargs, linpoint, jac, r0, prec,
+                               since_relin, active, be0, bl0, be1, bl1, me0, ml0, me1, ml1,
+                               *, d0, d1, z, prec_full, huber, comp_name):
+    """Plain version of `fused_relin_messages`."""
+    _no_fargs("fused_relin_messages", fargs)
+    COUNTS.plain["fused_relin_messages"] += 1
+    lp, jc, r0n, srel = _relin_any_plain(
+        params, (x, z_meas, linpoint, jac, r0, since_relin, active), row_major=True,
+        comp_name=comp_name)
+    out = fused_messages_plain(params, jc, lp, r0n, prec, srel, active, be0, bl0, be1, bl1,
+                               me0, ml0, me1, ml1, d0=d0, d1=d1, z=z, prec_full=prec_full,
+                               huber=huber)
+    return (*out, lp, jc, r0n, srel)
+
+
+def fused_relin_messages(params, x, z_meas, fargs, linpoint, jac, r0, prec, since_relin,
+                         active, be0, bl0, be1, bl1, me0, ml0, me1, ml1, *, d0, d1, z,
+                         prec_full, huber, comp_name):
+    """Masked relinearization at the adjacent means x [m, t], then the
+    message update on the new linearization (`fused_messages`), row-major.
+    Returns (eta0, lam0, eta1, lam1, linpoint, jac [m, z*t], r0, since_relin
+    [m, 1] as float)."""
+    if not x.is_cuda:
+        return fused_relin_messages_plain(
+            params, x, z_meas, fargs, linpoint, jac, r0, prec, since_relin, active, be0, bl0,
+            be1, bl1, me0, ml0, me1, ml1, d0=d0, d1=d1, z=z, prec_full=prec_full,
+            huber=huber, comp_name=comp_name)
+    _no_fargs("fused_relin_messages", fargs)
+    lp, jc, r0n, srel = _relin_any(
+        "fused_relin_messages", params, (x, z_meas, linpoint, jac, r0, since_relin, active),
+        row_major=True, d0=d0, d1=d1, z=z, comp_name=comp_name)
+    out = fused_messages(params, jc, lp, r0n, prec, srel, active, be0, bl0, be1, bl1,
+                         me0, ml0, me1, ml1, d0=d0, d1=d1, z=z, prec_full=prec_full,
+                         huber=huber)
+    return (*out, lp, jc, r0n, srel)

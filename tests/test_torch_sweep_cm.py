@@ -169,8 +169,12 @@ def _with_fb(graph, **kw):
 
 
 @pytest.mark.parametrize("case", ["segment", "huber_arr", "full_prec", "factor_type",
-                                  "cam_table", "two_blocks"])
+                                  "cam_table", "two_blocks", "ell_fused", "no_ell"])
 def test_prepare_rejects_what_is_not_ported(f64, case):
+    """What the reference's fast path takes and the port's does not yet
+    raises, naming its ROADMAP item; what the reference declines returns
+    None (the caller runs the generic sweep); a camera table beyond shared
+    memory without camera locality lands on the expanded operands."""
     _, _, (pg, _, _) = f64
     fb = pg.fblocks[0]
     kw = {}
@@ -185,10 +189,20 @@ def test_prepare_rejects_what_is_not_ported(f64, case):
         pg = dataclasses.replace(pg, vblocks=(cams, pg.vblocks[1]))
     elif case == "two_blocks":
         pg = dataclasses.replace(pg, fblocks=(fb, fb))
+    elif case == "no_ell":
+        pg = _with_fb(pg, ell_slot=None, ell_deg=0)
+    elif case == "ell_fused":
+        kw = {"ell_fused": False}
     else:
         kw = {"segment": True}
-    with pytest.raises(NotImplementedError, match="ROADMAP (A|B3)"):
-        P.prepare(pg, **kw)
+    if case in ("full_prec", "two_blocks", "no_ell"):
+        assert P.prepare(pg, **kw) is None
+    elif case == "cam_table":
+        cmg = P.prepare(pg, **kw)
+        assert cmg.gather_mode == "rows" and cmg.win_w == 0 and cmg.gidx_rm is not None
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP (A|B4)"):
+            P.prepare(pg, **kw)
 
 
 def test_port_never_imports_jax():

@@ -450,8 +450,10 @@ def test_prepare_declines(f64, case):
         # and 260 cameras x 42 doubles exceed the unwindowed kernels' limit.
         sim = pba.simulate(n_cams=260, n_lmks=600, seed=0)
         pg, _ = pba.build(sim, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        P.prepare(pg, window=(case == "nonlocal_arc"))
+    # No window engages and the table is beyond shared memory: the expanded
+    # operands ("rows"), where the port used to decline naming B3.
+    cmg = P.prepare(pg, window=(case == "nonlocal_arc"))
+    assert cmg.gather_mode == "rows" and cmg.win_w == 0 and cmg.vperm is None
 
 
 def test_window_shared_memory_gate():
