@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Drive the PyTorch/CUDA port's paths on one GPU: the bundle-adjustment fast
-paths (camera table, windows, expanded operands) and the generic engine.
+paths (camera table, windows, expanded operands, the unfused table kernels),
+the generic engine, and pose-graph SLAM (SE(2) and SE(3)).
 
     python3 chip_smoke.py
 
@@ -75,7 +76,37 @@ non-zero; no phase is caught):
  11. linear path: the 1-D toy chain in float64 under message_form="pallas"
      on the card (kernel `fused_messages` at (1, 1, 1)), means against
      `oracle.map_solution` to 1e-9.
- 12. the kernels' JSON line, the card line, and the last line
+ 12. kernel vs plain, unfused table kernels (csrc/unfused.cu): inside phase
+     3, from the same states (8-cam and bench scene, float64 and float32) and
+     on the 280-camera scene prepared without windows (float32: in float64
+     its table is beyond the 48 KB the full-table kernels stage):
+     `expand_ell_blk` (exact), `relin_cm_tab` in both regimes,
+     `messages_cm_tab` with and without Huber; timed with their bounds at
+     the bench scene, `expand_ell_blk` beside one `index_select`.
+ 13. kernel vs plain at the pose-graph shapes: every kernel at (3, 3, 3)
+     with per-row Huber thresholds on Manhattan graphs after 11 plain sweeps
+     (500 poses in float64 and 1,000 in float32: the largest tables that fit
+     48 KB), fused, unfused, expanded operands in both layouts; the windowed
+     kernels on the 1,500-pose graph; everything again at (6, 6, 6) on a
+     250-pose SE(3) helix (its ELL layout groups by the first end of its
+     factors, so slot 1 is the gathered one).
+ 14. unfused path: the bench scene with `prepare(ell_fused=False)`, 50 sweeps
+     through `relin_cm_tab`, `messages_cm_tab`, `expand_ell_blk` and
+     `segsum_by_id` (launch counts 50 each, plain calls 0), ARE within 1e-3 px
+     of the fused run's, bitwise rerun, both timed side by side.
+ 15. pose path: a 4,000-pose Manhattan graph (f32) -> `prepare` (prints the
+     mode it chose) -> 400 timed sweeps with `pose_graph.default_config()`
+     (launch counts, plain calls 0, ATE finite and below the initial ATE,
+     bitwise rerun), the Gauss-Newton ATE by `schur.solve_pcg` on the card,
+     then 50-sweep chunks up to 6,000 sweeps until the ATE is at or below
+     1.25 x ATE_GN + 0.02 (or the statement that it was not reached); 1,000
+     poses in table mode fused and unfused (150 sweeps, means equal to 1e-4,
+     ATE finite) and the 200-pose graph of the reference's float32 test (ATE
+     below half the initial one); 1,500 poses windowed against
+     window=False (50 sweeps); a 250-pose SE(3) helix (100 sweeps); and
+     data/manhattan_sim.g2o (full information matrices) through `read_g2o`,
+     `build_g2o` and the generic engine, energy decreasing.
+ 16. the kernels' JSON line, the card line, and the last line
      {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -85,6 +116,7 @@ import math
 import re
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -94,7 +126,8 @@ from gbp_tpu_torch.bench import BIG_BUILD as BIG
 from gbp_tpu_torch.bench import CFG, CITY, VENICE, card_line
 from gbp_tpu_torch.core import oracle, sweep, sweep_cm
 from gbp_tpu_torch.core.sweep import _kernel_params
-from gbp_tpu_torch.models import ba, toy
+from gbp_tpu_torch.io import g2o
+from gbp_tpu_torch.models import ba, pose_graph, toy
 from gbp_tpu_torch.ops import _build
 from gbp_tpu_torch.ops import messages as M
 from gbp_tpu_torch.parallel import schur
@@ -109,10 +142,26 @@ FULL = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id")
 WINDOWED = ("relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
             "scatter_windows_cm")
 ROWS = ("messages_cm", "relin_cm", "fused_messages", "fused_relin_messages")
+UNFUSED = ("relin_cm_tab", "messages_cm_tab", "expand_ell_blk")
+ROWS_MODE = ("relin_cm", "messages_cm", "segsum_by_id", "expand_ell_blk")
 NONLOCAL = dict(n_cams=512, n_lmks=2000, pix_sigma=1.0, seed=0)
+# Manhattan pose graphs: the kernel checks' (500 poses fill the 48 KB table
+# in float64, 1,000 in float32), the windowed one, the pose path's.
+M500 = dict(n_poses=500, seed=0, loop_prob=0.3, loop_radius=3.0, outlier_frac=0.1)
+M1000 = dict(n_poses=1000, seed=0, loop_prob=0.3, loop_radius=3.0)
+M1500 = dict(n_poses=1500, seed=4, loop_prob=0.5, loop_radius=3.0)
+M4000 = dict(n_poses=4000, seed=0, loop_prob=0.3, loop_radius=3.0)
+HELIX = dict(n_poses=250, seed=0)
+M200 = dict(n_poses=200, seed=1, loop_prob=0.5, loop_radius=3.0)
+# Sweeps before a pose graph's kernel checks: with min_linear_iters = 5 rows
+# relinearize in sweep 6 and are eligible again from sweep 12 on.
+POSE_WARM = 11
+G2O_FILE = Path(__file__).resolve().parent / "data" / "manhattan_sim.g2o"
+PCFG = pose_graph.default_config()
 SOURCE = {**dict.fromkeys(FULL, "gbp_tpu_torch/csrc/messages.cu"),
           **dict.fromkeys(WINDOWED, "gbp_tpu_torch/csrc/windows.cu"),
-          **dict.fromkeys(ROWS, "gbp_tpu_torch/csrc/rows.cu")}
+          **dict.fromkeys(ROWS, "gbp_tpu_torch/csrc/rows.cu"),
+          **dict.fromkeys(UNFUSED, "gbp_tpu_torch/csrc/unfused.cu")}
 REPLACES = {
     "relin_cm_tab_ell": "gbp_tpu/ops/messages_pallas.py:1118",
     "messages_cm_tab_ell": "gbp_tpu/ops/messages_pallas.py:1054",
@@ -125,6 +174,9 @@ REPLACES = {
     "relin_cm": "gbp_tpu/ops/messages_pallas.py:404",
     "fused_messages": "gbp_tpu/ops/messages_pallas.py:1796",
     "fused_relin_messages": "gbp_tpu/ops/messages_pallas.py:1871",
+    "messages_cm_tab": "gbp_tpu/ops/messages_pallas.py:446",
+    "relin_cm_tab": "gbp_tpu/ops/messages_pallas.py:491",
+    "expand_ell_blk": "gbp_tpu/ops/messages_pallas.py:1469",
 }
 # The card's published peaks (H100 SXM data sheet): device memory rate and
 # float32 rate outside the tensor cores.
@@ -216,10 +268,10 @@ def plain_versions():
             setattr(sweep_cm, name, fn)
 
 
-def cpu_state(sim, dtype, build_kw):
+def cpu_state(sim, dtype, build_kw, prep_kw):
     """The state after 8 plain sweeps on the CPU (in resident order)."""
     g_cpu, m_cpu = ba.build(sim, dtype=dtype, device="cpu", **build_kw)
-    cmg_cpu = sweep_cm.prepare(g_cpu)
+    cmg_cpu = sweep_cm.prepare(g_cpu, **prep_kw)
     return sweep_cm.run(cmg_cpu, sweep_cm.init_state(cmg_cpu, m_cpu), CFG, 8)
 
 
@@ -240,14 +292,15 @@ def widened(cmg, w):
                         cov_offsets=i32(cov_offsets))
 
 
-def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None):
+def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_kw=None):
     """Phases 3 and 4 for one scene and dtype: the full-table kernels when
     the prepared graph has no windows, the windowed ones when it has (with
     the windows widened to `wide` cameras, if given).
     Returns {kernel: max abs err}."""
     tol = TOL[dtype]
-    st = to_device(cpu_state(sim, dtype, build_kw), dev)
-    cmg = sweep_cm.prepare(ba.build(sim, dtype=dtype, **build_kw)[0])
+    prep_kw = prep_kw or {}
+    st = to_device(cpu_state(sim, dtype, build_kw, prep_kw), dev)
+    cmg = sweep_cm.prepare(ba.build(sim, dtype=dtype, **build_kw)[0], **prep_kw)
     if wide:
         cmg = widened(cmg, wide)
     win = bool(cmg.win_w)
@@ -350,6 +403,7 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None):
 
     if not win:
         check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings)
+        check_unfused_kernels(tag, cmg, st, dtype, compare, timings)
     if timings is None:
         return errs
     vals = torch.cat([me, ml])
@@ -486,6 +540,246 @@ def check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings):
               f"{b_ms:.4f} ms ({b_by}), no single library call")
 
 
+def check_unfused_kernels(tag, cmg, st, dtype, compare, timings):
+    """Phase 12 for one scene and dtype, from the state `st` of the full-table
+    checks: `expand_ell_blk`, `relin_cm_tab` and `messages_cm_tab` against
+    their plain versions."""
+    fs, fb = st.f, cmg.fb
+    deg = fb.ell_deg
+    dev = fs.lp.device
+    vs_c, vs_l = st.v[fb.vblocks[0]], st.v[fb.vblocks[1]]
+    pk = sweep_cm._with_identity_rows(sweep_cm._pack_beliefs(vs_l), fb.dofs[1],
+                                      cmg.nv - vs_l.eta.shape[0]).contiguous()
+    cm = sync(M.expand_ell_blk(pk, deg=deg))
+    if not torch.equal(cm, sync(M.expand_ell_blk_plain(pk, deg=deg))):
+        raise AssertionError(f"expand_ell_blk {tag}: differs from its plain version")
+    compare("expand_ell_blk", (cm,), (M.expand_ell_blk_plain(pk, deg=deg),))
+    be1, bl1, mean1 = sweep_cm._split(cm, fb.dofs[1])
+    mtab, btab = vs_c.mean.contiguous(), sweep_cm._packed(vs_c).contiguous()
+    x = torch.cat([mtab[cmg.gidx.long()].T, mean1])
+    on = cmg.act[0] > 0.5
+    beta_mid = float(((x - fs.lp) ** 2).sum(0).sqrt()[on].double().median())
+    for beta in (beta_mid, CFG.beta):
+        params = _kernel_params(dataclasses.replace(CFG, beta=beta), dtype)
+        relin_args = (params, mean1, mtab, cmg.gidx, cmg.z, None, fs.lp, fs.jac, fs.r0, fs.srel,
+                      cmg.act)
+        r_kw = dict(comp_name=fb.ftype.name)
+        ref_r = sync(M.relin_cm_tab_plain(*relin_args, **r_kw))
+        n_relin = int((ref_r[3] == 0).sum())
+        if n_relin == 0 or (beta == beta_mid and n_relin == int(on.sum())):
+            raise AssertionError(f"{tag}: the relinearization check needs both kinds of rows")
+        compare("relin_cm_tab", sync(M.relin_cm_tab(*relin_args, **r_kw)), ref_r,
+                key="relin_cm_tab")
+    lp, jac, r0, srel = ref_r
+    msg_args = (_kernel_params(CFG, dtype), jac, lp, r0, cmg.prec, srel, cmg.act, be1, bl1, btab,
+                cmg.gidx, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])
+    for huber in (1.0, None):
+        got_m = sync(M.messages_cm_tab(*msg_args, huber=huber))
+        compare(f"messages_cm_tab[huber={huber}]", got_m,
+                sync(M.messages_cm_tab_plain(*msg_args, huber=huber)), key="messages_cm_tab")
+    if timings is None:
+        return
+    rows = torch.arange(cmg.mp, device=dev) // deg
+    pk_t = pk.T.contiguous()
+    n_relin_cfg = int((ref_r[3] == 0).sum())
+    timed = [
+        ("expand_ell_blk", M.expand_ell_blk, M.expand_ell_blk_plain, (pk,), dict(deg=deg), (cm,),
+         0, lambda: pk_t.index_select(1, rows)),
+        ("relin_cm_tab", M.relin_cm_tab, M.relin_cm_tab_plain, relin_args, r_kw, ref_r,
+         RELIN_TEST_FLOPS * cmg.mp + RELIN_ROW_FLOPS * n_relin_cfg, None),
+        ("messages_cm_tab", M.messages_cm_tab, M.messages_cm_tab_plain, msg_args,
+         dict(huber=None), got_m, MESSAGES_ROW_FLOPS * cmg.mp, None),
+    ]
+    for name, kern, plain, args, kw, outs, flops, library in timed:
+        ms = time_ms(lambda: kern(*args, **kw), 20)
+        plain_ms = time_ms(lambda: plain(*args, **kw), 3)
+        b_ms, b_by = bound_ms(args, outs, flops)
+        lib_ms = None if library is None else time_ms(library, 20)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms)
+        print(f"[kernels] {tag} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), index_select "
+              + ("none" if lib_ms is None else f"{lib_ms:.4f} ms"))
+
+
+def check_pose_kernels(tag, build, dtype, dev, ptimes):
+    """Phase 13 for one pose graph and dtype.  `build(dtype, device)` gives
+    (graph, means).  From the state after POSE_WARM plain sweeps on the CPU
+    (every row is eligible to relinearize in the next), every kernel the graph's shape can
+    reach runs against its plain version on identical CUDA inputs: the fused
+    table kernels, or the windowed ones where `prepare` cuts windows, the
+    unfused ones, the expanded-operand ones in both layouts.  Thresholds:
+    the graph's own (per row, or none) and a scalar.  `ptimes` collects the
+    kernels' times at this graph's shape."""
+    tol = TOL[dtype]
+    g_cpu, m_cpu = build(dtype, "cpu")
+    cmg_cpu = sweep_cm.prepare(g_cpu)
+    st = to_device(sweep_cm.run(cmg_cpu, sweep_cm.init_state(cmg_cpu, m_cpu), PCFG, POSE_WARM),
+                   dev)
+    graph = build(dtype, dev)[0]
+    cmg = sweep_cm.prepare(graph)
+    fs, fb = st.f, cmg.fb
+    e, deg, model = fb.ell_slot, fb.ell_deg, fb.ftype.name
+    g = 1 - e
+    shape = dict(d0=fb.dofs[0], d1=fb.dofs[1], z=cmg.z.shape[0])
+    own = "row" if fb.huber_arr is not None else fb.huber
+    hubers = (own, 1.5) if own is not None else (None, 1.5)
+    tag = f"{tag} {str(dtype)[6:]} {tuple(shape.values())}"
+    print(f"[kernels] {tag}: {cmg.mp} rows (deg {deg}, ELL slot {e}), mode "
+          f"{cmg.gather_mode!r}, win_w {cmg.win_w}, thresholds {own!r}")
+    by_slot = lambda a_g, a_e: (a_g, a_e) if g == 0 else (a_e, a_g)
+    worst = {}
+
+    def hold(name, got, ref):
+        for i, (a, b) in enumerate(zip(got, ref)):
+            rel, err = rel_err(a, b)
+            if not rel <= tol:
+                raise AssertionError(f"{name} {tag} out{i}: rel err {rel:.3e} > {tol:g}")
+            worst[name] = max(worst.get(name, 0.0), rel)
+
+    def timed(name, fn):
+        if dtype == torch.float32:
+            ptimes.setdefault(name, {})[tuple(shape.values())] = time_ms(fn, 20)
+
+    vs_c, vs_l = sweep_cm._slot_states(cmg, st)
+    cam_mean, lmk_mean, cam_tab, lmk_tab = sweep_cm.belief_tables(cmg, st)
+    x = sweep_cm.expand_means(cmg, st)
+    on = cmg.act[0] > 0.5
+    beta_mid = float(((x - fs.lp) ** 2).sum(0).sqrt()[on].double().median())
+    betas = (beta_mid, PCFG.beta)
+    params_at = lambda beta: _kernel_params(dataclasses.replace(PCFG, beta=beta), dtype)
+    params = params_at(PCFG.beta)
+    state_ops = (cmg.z, fs.lp, fs.jac, fs.r0, fs.srel, cmg.act)
+    msgs = (fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])
+    prec_of = lambda h: cmg.prec if h == own else cmg.prec[:shape["z"]].contiguous()
+
+    def both_regimes(name, ref_of):
+        """The plain version's output at the config's beta, after checking
+        that the median distance as beta splits the valid rows."""
+        n_mid = int((sync(ref_of(beta_mid))[3] == 0).sum())
+        ref = sync(ref_of(PCFG.beta))
+        print(f"[kernels] {tag} {name}: {n_mid} of {int(on.sum())} valid rows relinearize at "
+              f"beta {beta_mid:.4g}, {int((ref[3] == 0).sum())} at {PCFG.beta}")
+        if not 0 < n_mid < int(on.sum()):
+            raise AssertionError(f"{tag} {name}: the relinearization check needs both kinds "
+                                 f"of rows")
+        return ref
+
+    # Fused table kernels, whole table or windows.
+    if cmg.win_w:
+        w_kw = dict(deg=deg, win_w=cmg.win_w, gslot=g)
+        r_args = lambda beta: (params_at(beta), cam_mean, lmk_mean, cmg.gidx, cmg.win_starts,
+                               *state_ops)
+        for beta in betas:
+            hold("relin_cm_tabblk_ell",
+                 sync(M.relin_cm_tabblk_ell(*r_args(beta), comp_name=model, **w_kw)),
+                 M.relin_cm_tabblk_ell_plain(*r_args(beta), comp_name=model, **w_kw))
+        ref_r = both_regimes("relin_cm_tabblk_ell", lambda beta: M.relin_cm_tabblk_ell_plain(
+            *r_args(beta), comp_name=model, **w_kw))
+        lp, jac, r0, srel = ref_r
+        for h in hubers:
+            m_args = (params, cam_tab, lmk_tab, cmg.gidx, cmg.win_starts, jac, lp, r0,
+                      prec_of(h), srel, cmg.act, *msgs, cmg.win_rows, cmg.win_offsets)
+            ref_m = sync(M.messages_cm_tabblk_ell_plain(*m_args, huber=h, **w_kw))
+            got_m = sync(M.messages_cm_tabblk_ell(*m_args, huber=h, **w_kw))
+            hold("messages_cm_tabblk_ell", got_m[:4], ref_m[:4])
+            hold("segsum_cm_blk", got_m[4:], ref_m[4:])
+        sc_args = (got_m[4], cmg.win_starts, cmg.cov_tiles, cmg.cov_offsets)
+        n_g = cam_mean.shape[0]
+        got_s = sync(M.scatter_windows_cm(*sc_args, n_seg=n_g))
+        hold("scatter_windows_cm", (got_s,), (M.scatter_windows_cm_plain(*sc_args, n_seg=n_g),))
+        hold("scatter_windows_cm", (got_s,), (M.segsum_by_id_plain(
+            ref_m[2 * g], ref_m[2 * g + 1], cmg.seg_rows, cmg.seg_offsets),))
+        timed("messages_cm_tabblk_ell", lambda: M.messages_cm_tabblk_ell(*m_args, huber=h, **w_kw))
+        timed("relin_cm_tabblk_ell", lambda: M.relin_cm_tabblk_ell(
+            *r_args(PCFG.beta), comp_name=model, **w_kw))
+    elif cmg.gather_mode == "table":
+        t_kw = dict(deg=deg, gslot=g)
+        r_args = lambda beta: (params_at(beta), cam_mean, lmk_mean, cmg.gidx, *state_ops)
+        for beta in betas:
+            hold("relin_cm_tab_ell",
+                 sync(M.relin_cm_tab_ell(*r_args(beta), comp_name=model, **t_kw)),
+                 M.relin_cm_tab_ell_plain(*r_args(beta), comp_name=model, **t_kw))
+        ref_r = both_regimes("relin_cm_tab_ell", lambda beta: M.relin_cm_tab_ell_plain(
+            *r_args(beta), comp_name=model, **t_kw))
+        lp, jac, r0, srel = ref_r
+        for h in hubers:
+            m_args = (params, cam_tab, lmk_tab, cmg.gidx, jac, lp, r0, prec_of(h), srel,
+                      cmg.act, *msgs, cmg.seg_rows, cmg.seg_offsets)
+            ref_m = sync(M.messages_cm_tab_ell_plain(*m_args, huber=h, **t_kw))
+            got_m = sync(M.messages_cm_tab_ell(*m_args, huber=h, **t_kw))
+            hold("messages_cm_tab_ell", got_m[:4], ref_m[:4])
+            hold("segsum_by_id", got_m[4:], ref_m[4:])
+        timed("messages_cm_tab_ell", lambda: M.messages_cm_tab_ell(*m_args, huber=h, **t_kw))
+        timed("relin_cm_tab_ell", lambda: M.relin_cm_tab_ell(
+            *r_args(PCFG.beta), comp_name=model, **t_kw))
+    else:
+        raise AssertionError(f"{tag}: prepare chose {cmg.gather_mode!r}; the check needs a table")
+
+    # Expansion, then the unfused kernels (where the whole table fits) and
+    # the expanded-operand kernels in both layouts.
+    d_e = fb.dofs[e]
+    pk = sweep_cm._with_identity_rows(sweep_cm._pack_beliefs(vs_l), d_e,
+                                      cmg.nv - vs_l.eta.shape[0]).contiguous()
+    cm = sync(M.expand_ell_blk(pk, deg=deg))
+    if not torch.equal(cm, M.expand_ell_blk_plain(pk, deg=deg)):
+        raise AssertionError(f"expand_ell_blk {tag}: differs from its plain version")
+    worst["expand_ell_blk"] = 0.0
+    be_l, bl_l, mean_l = sweep_cm._split(cm, d_e)
+    if not cmg.win_w:
+        mtab, btab = vs_c.mean.contiguous(), sweep_cm._packed(vs_c).contiguous()
+        u_args = lambda beta: (params_at(beta), mean_l, mtab, cmg.gidx, cmg.z, None, *state_ops[1:])
+        for beta in betas:
+            hold("relin_cm_tab", sync(M.relin_cm_tab(*u_args(beta), comp_name=model, gslot=g)),
+                 M.relin_cm_tab_plain(*u_args(beta), comp_name=model, gslot=g))
+        for h in hubers:
+            m_args = (params, jac, lp, r0, prec_of(h), srel, cmg.act, be_l, bl_l, btab,
+                      cmg.gidx, *msgs)
+            hold("messages_cm_tab", sync(M.messages_cm_tab(*m_args, huber=h, gslot=g)),
+                 M.messages_cm_tab_plain(*m_args, huber=h, gslot=g))
+        timed("messages_cm_tab", lambda: M.messages_cm_tab(*m_args, huber=h, gslot=g))
+    rows_cmg = cmg._replace(gather_mode="rows", gidx_rm=cmg.gidx.long())
+    be_c, bl_c, mean_c = sweep_cm._expand_gather(rows_cmg, vs_c)
+    (be0, be1), (bl0, bl1) = by_slot(be_c, be_l), by_slot(bl_c, bl_l)
+    x_cm = torch.cat(by_slot(mean_c, mean_l))
+    rm = lambda a: a.T.contiguous()
+    for beta in betas:
+        rr_args = (params_at(beta), x_cm, cmg.z, None, *state_ops[1:])
+        rr_kw = dict(comp_name=model, **shape)
+        hold("relin_cm", sync(M.relin_cm(*rr_args, **rr_kw)), M.relin_cm_plain(*rr_args, **rr_kw))
+        frm_args = (params_at(beta), rm(x_cm), rm(cmg.z), None, rm(fs.lp), rm(fs.jac), rm(fs.r0),
+                    rm(cmg.prec), fs.srel[0], cmg.act[0],
+                    *(rm(a) for a in (be0, bl0, be1, bl1)), *(rm(a) for a in msgs))
+        frm_kw = dict(prec_full=False, huber=own, comp_name=model, **shape)
+        hold("fused_relin_messages", sync(M.fused_relin_messages(*frm_args, **frm_kw)),
+             M.fused_relin_messages_plain(*frm_args, **frm_kw))
+    for h in hubers:
+        cm_args = (params, jac, lp, r0, prec_of(h), srel, cmg.act, be0, bl0, be1, bl1, *msgs)
+        kw = dict(prec_full=False, huber=h, **shape)
+        got_cm = sync(M.messages_cm(*cm_args, **kw))
+        hold("messages_cm", got_cm, M.messages_cm_plain(*cm_args, **kw))
+        rm_args = (params, *(rm(a) for a in cm_args[1:5]), srel[0], cmg.act[0],
+                   *(rm(a) for a in cm_args[7:]))
+        got_rm = sync(M.fused_messages(*rm_args, **kw))
+        hold("fused_messages", got_rm, M.fused_messages_plain(*rm_args, **kw))
+        for a, b in zip(got_cm, got_rm):
+            if not torch.equal(a.T, b):
+                raise AssertionError(f"{tag}: messages_cm and fused_messages differ")
+    # Full precision in the row-major layout, as the generic engine hands a
+    # g2o file's information matrices over.
+    zd = shape["z"]
+    full = torch.diag_embed(rm(cmg.prec[:zd])).reshape(cmg.mp, zd * zd).contiguous()
+    fp_args = (params, *(rm(a) for a in (jac, lp, r0)), full, srel[0], cmg.act[0],
+               *(rm(a) for a in (be0, bl0, be1, bl1)), *(rm(a) for a in msgs))
+    fp_kw = dict(prec_full=True, huber=None, **shape)
+    hold("fused_messages", sync(M.fused_messages(*fp_args, **fp_kw)),
+         M.fused_messages_plain(*fp_args, **fp_kw))
+    timed("messages_cm", lambda: M.messages_cm(*cm_args, **kw))
+    timed("fused_messages", lambda: M.fused_messages(*rm_args, **kw))
+    print(f"[kernels] {tag}: worst rel err per kernel "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (tolerance {tol:g})")
+
+
 def check_scatter_dense(dev):
     """`scatter_windows_cm` against a dense accumulation in tile order, with
     overlapping windows, a repeated start and a window reaching into the
@@ -535,10 +829,10 @@ def window_vs_full():
         raise AssertionError(f"windowed and full-table ARE differ: {ares}")
 
 
-def timed_sweeps(tag, cmg, init, n, n_valid, card):
+def timed_sweeps(tag, cmg, init, n, n_valid, card, cfg=CFG):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sync(sweep_cm.run(cmg, init, CFG, n))
+    sync(sweep_cm.run(cmg, init, cfg, n))
     dt = time.perf_counter() - t0
     print(f"[{tag}] timed {n} sweeps: {dt:.4f} s -> {n / dt:.2f} sweeps/s, "
           f"{dt / n / n_valid * 1e9:.4f} ns per valid factor (informational; {card}); "
@@ -725,7 +1019,7 @@ def rows_path(card):
           f"{sweep_cm.SMEM_TABLE_BYTES}), {sim['lmk_init'].shape[0]} lmks, {n_valid} factors in "
           f"{cmg.mp} rows (deg {cmg.fb.ell_deg}); gather_mode {cmg.gather_mode!r}; initial ARE "
           f"{are0:.6f} px")
-    names = ("relin_cm", "messages_cm", "segsum_by_id")
+    names = ROWS_MODE
     M.COUNTS.reset()
     st50 = sync(sweep_cm.run(cmg, init, CFG, QUALITY_SWEEPS))
     launches = check_counts("the rows path", names, QUALITY_SWEEPS)
@@ -766,6 +1060,187 @@ def rows_path(card):
     if not all(abs(ares[m] - ares["table"]) <= 1e-3 for m in ares):
         raise AssertionError(f"gather modes disagree at bench64: {ares}")
     return launches
+
+
+def unfused_path(card):
+    """Phase 14.  Built on the default device: the card."""
+    sim = ba.simulate(**BENCH)
+    graph, means = ba.build(sim, dtype=torch.float32)
+    n_valid = graph.fblocks[0].n_valid
+    n = QUALITY_SWEEPS
+    out = {}
+    for fused, names in ((True, FULL), (False, (*UNFUSED, "segsum_by_id"))):
+        cmg = sweep_cm.prepare(graph, ell_fused=fused)
+        if cmg.ell_fused != fused or cmg.gather_mode != "table" or cmg.win_w:
+            raise AssertionError(f"prepare(ell_fused={fused}) gave ell_fused {cmg.ell_fused}, "
+                                 f"mode {cmg.gather_mode!r}, win_w {cmg.win_w}")
+        init = sweep_cm.init_state(cmg, means)
+        sync(sweep_cm.run(cmg, init, CFG, 5))
+        M.COUNTS.reset()
+        t0 = time.perf_counter()
+        st = sync(sweep_cm.run(cmg, init, CFG, n))
+        dt = time.perf_counter() - t0
+        launches = check_counts(f"bench64 ell_fused={fused}", names, n)
+        out[fused] = (are_px(graph, cmg, st, sim["k"]), dt, launches, cmg, init, st)
+    (a_f, dt_f, _, _, _, _), (a_u, dt_u, launches, cmg, init, st) = out[True], out[False]
+    print(f"[unfused] bench64, {n} sweeps, ell_fused=False: launches "
+          f"{ {k: launches[k] for k in (*UNFUSED, 'segsum_by_id')} }; plain calls 0; ARE "
+          f"{a_u:.6f} px vs fused {a_f:.6f} px; {dt_u / n * 1e3:.4f} ms per sweep "
+          f"({n / dt_u:.2f} sweeps/s) vs fused {dt_f / n * 1e3:.4f} ms ({n / dt_f:.2f} sweeps/s) "
+          f"({card})")
+    if not (math.isfinite(a_u) and abs(a_u - a_f) <= 1e-3):
+        raise AssertionError(f"unfused path: ARE {a_u} vs the fused path's {a_f}")
+    same_means("unfused", st, sync(sweep_cm.run(cmg, init, CFG, n)))
+    timed_sweeps("unfused", cmg, init, SWEEPS, n_valid, card)
+    return launches
+
+
+def mode_kernels(cmg):
+    """The kernels one sweep of the prepared graph launches, once each."""
+    if cmg.gather_mode != "table":
+        return ROWS_MODE
+    if not cmg.ell_fused:
+        return (*UNFUSED, "segsum_by_id")
+    return WINDOWED if cmg.win_w else FULL
+
+
+def pose_run(tag, graph, means, truth, n, card, prep_kw=None, timed=False, gate=1.0):
+    """Prepare a pose graph, run `n` sweeps through the kernels (launch
+    counts checked, plain calls 0), return (cmg, state, ATE, initial ATE,
+    launch counts).  The ATE must be finite and below `gate` times the
+    initial one (None: finite)."""
+    cmg = sweep_cm.prepare(graph, **(prep_kw or {}))
+    if cmg is None:
+        raise AssertionError(f"{tag}: prepare declined the graph")
+    fb = graph.fblocks[0]
+    init = sweep_cm.init_state(cmg, means)
+    ate0 = pose_graph.ate(means[0], truth)
+    torch.cuda.synchronize()
+    M.COUNTS.reset()
+    t0 = time.perf_counter()
+    st = sync(sweep_cm.run(cmg, init, PCFG, n))
+    dt = time.perf_counter() - t0
+    launches = check_counts(tag, mode_kernels(cmg), n)
+    ate = pose_graph.ate(st.v[0].mean, truth)
+    print(f"[pose] {tag} on {means[0].device}: {graph.vblocks[0].count} poses, {fb.n_valid} "
+          f"factors in {cmg.mp} rows (deg {fb.ell_deg}, ELL slot {fb.ell_slot}), mode "
+          f"{cmg.gather_mode!r}, ell_fused {cmg.ell_fused}, win_w {cmg.win_w}; {n} sweeps (first "
+          f"call) in {dt:.3f} s; launches { {k: v for k, v in launches.items() if v} }; plain "
+          f"calls 0; ATE {ate0:.6f} -> {ate:.6f}")
+    if not (math.isfinite(ate) and (gate is None or ate < gate * ate0)):
+        raise AssertionError(f"{tag}: ATE {ate} is not finite and below {gate} x the initial "
+                             f"{ate0}")
+    if timed:
+        same_means(tag, st, sync(sweep_cm.run(cmg, init, PCFG, n)))
+        timed_sweeps(tag, cmg, init, n, fb.n_valid, card, PCFG)
+    return cmg, st, ate, ate0, launches
+
+
+def pose_path(card):
+    """Phase 15.  Built on the default device: the card."""
+    f32 = torch.float32
+    sim = pose_graph.simulate_manhattan(**M4000)
+    graph, means = pose_graph.build(sim, layout="ell")
+    n_poses = M4000["n_poses"]
+    n_g = graph.vblocks[0].count
+    print(f"[pose] manhattan4000: {n_g * 12 * 4} bytes of packed pose beliefs, shared-memory "
+          f"table limit {sweep_cm.SMEM_TABLE_BYTES}")
+    cmg, st, ate, ate0, launches = pose_run("manhattan4000", graph, means, sim["truth"], 400,
+                                            card, timed=True)
+    if not all(launches[k] == 400 for k in mode_kernels(cmg)):
+        raise AssertionError(f"manhattan4000 launched {launches}")
+    t0 = time.perf_counter()
+    mu = sync(schur.solve_pcg(graph, means, n_steps=8, cg_iters=max(1000, n_poses // 2)))
+    ate_gn = pose_graph.ate(mu[0], sim["truth"])
+    target = 1.25 * ate_gn + 0.02
+    print(f"[pose] manhattan4000 Gauss-Newton target (8 PCG steps of "
+          f"{max(1000, n_poses // 2)} iterations on the card, {time.perf_counter() - t0:.1f} s): "
+          f"ATE_GN {ate_gn:.6f}; bar 1.25 x ATE_GN + 0.02 = {target:.6f}")
+    if not math.isfinite(ate_gn):
+        raise AssertionError(f"pose path: ATE_GN {ate_gn}")
+    chunk, reached, traj = 50, None, []
+    state = sweep_cm.init_state(cmg, means)
+    t0 = time.perf_counter()
+    for i in range(6000 // chunk):
+        state = sync(sweep_cm.run(cmg, state, PCFG, chunk))
+        a = pose_graph.ate(state.v[0].mean, sim["truth"])
+        traj.append(round(a, 4))
+        if a <= target:
+            reached = ((i + 1) * chunk, time.perf_counter() - t0)
+            break
+    print("[pose] manhattan4000 ATE per 50 sweeps " + str(traj[:20]) + ": "
+          + (f"at or below the bar at sweep {reached[0]} ({reached[1]:.3f} s of wall clock)"
+             if reached else "did NOT reach the bar within 6000 sweeps (throughput only)"))
+
+    # 200 poses, the graph of the reference's float32 test: half the initial
+    # ATE within 150 sweeps.
+    sim = pose_graph.simulate_manhattan(**M200)
+    graph, means = pose_graph.build(sim, layout="ell")
+    pose_run("manhattan200", graph, means, sim["truth"], 150, card, gate=0.5)
+
+    # 1,000 poses: the largest table that fits shared memory; fused against
+    # unfused.  Its diameter is far beyond 150 sweeps (the ATE is still in its
+    # transient, and may pass above the initial one), so only the two runs'
+    # agreement is held.
+    sim = pose_graph.simulate_manhattan(**M1000)
+    graph, means = pose_graph.build(sim, layout="ell")
+    runs = {}
+    for fused in (True, False):
+        cmg, st, ate, ate0, _ = pose_run(f"manhattan1000 ell_fused={fused}", graph, means,
+                                         sim["truth"], 150, card, prep_kw=dict(ell_fused=fused),
+                                         gate=None)
+        if cmg.gather_mode != "table" or cmg.ell_fused != fused:
+            raise AssertionError(f"manhattan1000: mode {cmg.gather_mode!r}, ell_fused "
+                                 f"{cmg.ell_fused}")
+        runs[fused] = st.v[0].mean
+    diff = float((runs[True] - runs[False]).abs().max())
+    print(f"[pose] manhattan1000 fused vs unfused, 150 sweeps: largest difference of the means "
+          f"{diff:.3e}")
+    if not diff <= 1e-4:
+        raise AssertionError(f"manhattan1000: fused and unfused means differ by {diff}")
+
+    # 1,500 poses: chain locality engages the windows.
+    sim = pose_graph.simulate_manhattan(**M1500)
+    graph, means = pose_graph.build(sim, layout="ell")
+    ates = {}
+    for window in (True, False):
+        cmg, st, ates[window], _, _ = pose_run(f"manhattan1500 window={window}", graph, means,
+                                               sim["truth"], QUALITY_SWEEPS, card,
+                                               prep_kw=dict(window=window))
+        if bool(cmg.win_w) != window:
+            raise AssertionError(f"manhattan1500: prepare(window={window}) gave win_w {cmg.win_w}")
+    if not abs(ates[True] - ates[False]) <= 1e-3:
+        raise AssertionError(f"manhattan1500: windowed ATE {ates[True]} vs {ates[False]}")
+
+    # SE(3): a 250-pose helix, diagonal information, table mode.
+    data = pose_graph.simulate_helix(**HELIX)
+    graph, means = pose_graph.build_g2o(data, dtype=f32, layout="ell")
+    # Its initial estimate is the truth plus 5 cm of noise, and the first
+    # hundreds of sweeps of the schedule move the chain away from it before it
+    # settles (0.085 -> 0.89 at 100 sweeps in the reference as well): the ATE is
+    # held finite, not falling.
+    pose_run("helix250 (SE(3))", graph, means, data["truth"], 100, card, gate=None)
+
+    # A g2o file with full information matrices: the generic engine.
+    data = g2o.read_g2o(G2O_FILE)
+    graph, means = pose_graph.build_g2o(data, huber=2.0, dtype=f32, layout="ell")
+    if sweep_cm.prepare(graph) is not None:
+        raise AssertionError("manhattan_sim.g2o: prepare took a full-precision graph")
+    cfg = dataclasses.replace(PCFG, message_form="pallas")
+    state = sweep.init_state(graph, means)
+    e0 = float(sweep.energy(graph, state))
+    M.COUNTS.reset()
+    state = sync(sweep.run(graph, state, cfg, 100))
+    got = {k: v for k, v in M.COUNTS.kernel.items() if v}
+    e1 = float(sweep.energy(graph, state))
+    print(f"[pose] {G2O_FILE.name} ({data['kind']}, {data['poses'].shape[0]} poses, "
+          f"{data['edges_ij'].shape[0]} edges, full information): generic engine, 100 sweeps, "
+          f"launches {got}, plain calls {sum(M.COUNTS.plain.values())}; energy {e0:.3f} -> "
+          f"{e1:.3f}")
+    if any(M.COUNTS.plain.values()) or got.get("fused_relin_messages") != 100:
+        raise AssertionError(f"g2o path did not run through its kernels: {got}")
+    if not (math.isfinite(e1) and e1 < e0):
+        raise AssertionError(f"g2o path: energy {e0} -> {e1}")
 
 
 def linear_path():
@@ -821,20 +1296,45 @@ def main():
         ("64cam", ba.simulate(**BENCH), {}, (f64, f32), None, True),
         ("280cam", ba.simulate_blocks(**BLOCKS7), BIG, (f64, f32), None, False),
         ("280cam wide", ba.simulate_blocks(**BLOCKS7), BIG, (f64,), 256, False),
+        ("280cam no windows", ba.simulate_blocks(**BLOCKS7), BIG, (f32,), None, False),
         ("city wide", city, BIG, (f32,), 384, False),
         ("city", city, BIG, (f32,), None, True),
     ]
     for tag, sim, build_kw, dtypes, wide, keep in checks:
+        prep_kw = dict(window=False) if tag.endswith("no windows") else None
         for dtype in dtypes:
             last = keep and dtype is dtypes[-1]
-            e = check_kernels(tag, sim, dtype, dev, build_kw, timings if last else None, wide)
+            e = check_kernels(tag, sim, dtype, dev, build_kw, timings if last else None, wide,
+                              prep_kw)
             if last:
                 errs.update(e)
         print(f"[kernels] {tag} done at {time.perf_counter() - T_START:.1f} s")
     check_scatter_dense(dev)
     window_vs_full()
 
+    # Pose-graph shapes: (3, 3, 3) with per-row thresholds, (6, 6, 6).
+    ptimes = {}
+    m500, m1000 = (pose_graph.simulate_manhattan(**kw) for kw in (M500, M1000))
+    m1500 = pose_graph.simulate_manhattan(**M1500)
+    helix = pose_graph.simulate_helix(**HELIX)
+    se2 = lambda sim: lambda dt, dv: pose_graph.build(sim, dtype=dt, layout="ell", device=dv)
+    se3 = lambda dt, dv: pose_graph.build_g2o(helix, dtype=dt, layout="ell", device=dv)
+    for tag, build, dtypes in (("manhattan500", se2(m500), (f64,)),
+                               ("manhattan1000", se2(m1000), (f32,)),
+                               ("manhattan1500", se2(m1500), (f64, f32)),
+                               ("helix120", lambda dt, dv: pose_graph.build_g2o(
+                                   pose_graph.simulate_helix(n_poses=120, seed=0), dtype=dt,
+                                   layout="ell", device=dv), (f64,)),
+                               ("helix250", se3, (f32,))):
+        for dtype in dtypes:
+            check_pose_kernels(tag, build, dtype, dev, ptimes)
+    for name, by_shape in ptimes.items():
+        print(f"[kernels] {name} at the pose-graph shapes, float32 ({card}): "
+              + ", ".join(f"{shape} {ms:.4f} ms" for shape, ms in by_shape.items()))
+    print(f"[kernels] pose shapes done at {time.perf_counter() - T_START:.1f} s")
+
     launches = bench_path(card)
+    unfused = unfused_path(card)
     city = big_path("city", CITY, card, against_plain=True)
     torch.cuda.empty_cache()
     venice = big_path("venice", VENICE, card, against_plain=False)
@@ -845,7 +1345,9 @@ def main():
     generic = generic_path(card)
     rows = rows_path(card)
     linear_path()
-    launches.update({k: generic[k] for k in ROWS[2:]}, **{k: rows[k] for k in ROWS[:2]})
+    pose_path(card)
+    launches.update({k: generic[k] for k in ROWS[2:]}, **{k: rows[k] for k in ROWS[:2]},
+                    **{k: unfused[k] for k in UNFUSED})
     print(f"[done] {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],

@@ -4,10 +4,12 @@ A second package beside `gbp_tpu/` (the JAX reference, which stays as it
 is).  Ported so far: the bundle-adjustment fast path, from the 64-camera
 bench scene (camera table in shared memory) to city and venice scenes
 (per-tile camera windows after the locality sort) and scenes without camera
-locality (expanded operands), and the generic row-major engine with the
-dense oracle for every other graph:
+locality (expanded operands), pose-graph SLAM on the same fast path (SE(2)
+and SE(3), `python -m gbp_tpu_torch.slam`), and the generic row-major engine
+with the dense oracle for every other graph:
 
-    from gbp_tpu_torch.models import ba, toy
+    from gbp_tpu_torch.models import ba, pose_graph, toy
+    from gbp_tpu_torch.io import g2o
     from gbp_tpu_torch.core import oracle, sweep, sweep_cm
     from gbp_tpu_torch.core.sweep import GBPConfig
     from gbp_tpu_torch.parallel import schur

@@ -1,7 +1,8 @@
-"""Large-scene single-GPU throughput: city- and venice-scale bundle adjustment.
+"""Large-scene single-GPU throughput: city- and venice-scale bundle adjustment
+and a long Manhattan pose graph.
 
-Counterpart of the BA rows of gbp_tpu/bench/bigscene.py.  The scenes are
-merged corridor blocks (`models.ba.simulate_blocks`) with shuffled landmark
+Counterpart of gbp_tpu/bench/bigscene.py.  The BA scenes are merged corridor
+blocks (`models.ba.simulate_blocks`) with shuffled landmark
 ids, so the camera windows engage only through the locality sort, as on real
 BAL files:
 
@@ -17,11 +18,20 @@ the expanded operands of gather mode "rows"), warms up with one run of `--sweeps
 sweeps, times three more (host clock around `torch.cuda.synchronize`) and
 takes the quality at 50 sweeps from the initial state: the plain
 static-prior schedule goes non-finite on corridor scenes past about 100
-sweeps, so timing integrates longer runs than quality does.  The
-pose-graph row of the reference script waits for ROADMAP A8.
+sweeps, so timing integrates longer runs than quality does.
+
+  pose_graph_cm  `simulate_manhattan(n_poses=--poses, seed=0, loop_prob=0.3,
+             loop_radius=3.0)` in ELL layout under `pose_graph.default_config()`:
+             max(--sweeps, 400) timed sweeps, the ATE against the Gauss-Newton
+             target `schur.solve_pcg(n_steps=8, cg_iters=max(1000, poses // 2))`
+             (block-Jacobi PCG moves information about one pose per iteration
+             between loop closures, hence the iteration count), and the first
+             50-sweep chunk whose ATE is at or below 1.25 x ATE_GN + 0.02, up
+             to 6,000 sweeps, with a note when it is not reached.
 
     python -m gbp_tpu_torch.bench.bigscene [--blocks 32] [--cams 40] [--lpc 60]
-        [--sweeps 200] [--skip_venice] [--device cuda] [--out results.json]
+        [--sweeps 200] [--poses 4000] [--skip_ba] [--skip_venice] [--device cuda]
+        [--out results.json]
 
 Prints one line per row and the JSON of all rows; `--out` also writes the
 JSON to a file.  Runs on the card unless `--device cpu` is given.
@@ -38,7 +48,8 @@ import torch
 import gbp_tpu_torch
 from gbp_tpu_torch.bench import BIG_BUILD, CFG, CITY, VENICE, card_line
 from gbp_tpu_torch.core import sweep_cm
-from gbp_tpu_torch.models import ba
+from gbp_tpu_torch.models import ba, pose_graph
+from gbp_tpu_torch.parallel import schur
 
 QUALITY_SWEEPS = 50
 
@@ -103,6 +114,60 @@ def _city_row(out, key, sim, cfg, sweeps, device, windows=(True,)):
               + (f", win_w={win_w}" if win_w else ""), flush=True)
 
 
+def _pose_row(out, n_poses, sweeps, device):
+    """The long Manhattan pose graph on the component-major fast path."""
+    sim = pose_graph.simulate_manhattan(n_poses=n_poses, seed=0, loop_prob=0.3, loop_radius=3.0)
+    graph, means = pose_graph.build(sim, layout="ell", device=device)
+    cfg = pose_graph.default_config()
+    fb = graph.fblocks[0]
+    m = fb.count if fb.n_valid is None else fb.n_valid
+    sps, state, cmg, win_w = _measure_cm(graph, means, cfg, max(sweeps, 400), True)
+    ate_end = pose_graph.ate(sweep_cm.to_gbp_state(cmg, state).v[0].mean, sim["truth"])
+    if not math.isfinite(ate_end):
+        raise AssertionError("pose graph: non-finite ATE")
+
+    t0 = time.perf_counter()
+    mu = schur.solve_pcg(graph, means, n_steps=8, cg_iters=max(1000, n_poses // 2))
+    ate_gn = pose_graph.ate(mu[0], sim["truth"])
+    print(f"[bigscene] pose-graph GN target: ATE {ate_gn:.4f} "
+          f"({time.perf_counter() - t0:.1f}s, not counted)", flush=True)
+    target = 1.25 * ate_gn + 0.02
+
+    chunk = 50
+    st = sweep_cm.init_state(cmg, means)
+    t_conv, conv_sweeps, traj = None, None, []
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(6000 // chunk):
+        st = sweep_cm.run(cmg, st, cfg, chunk)
+        _sync(device)
+        t_i = time.perf_counter() - t0
+        a = pose_graph.ate(sweep_cm.to_gbp_state(cmg, st).v[0].mean, sim["truth"])
+        traj.append(round(a, 4))
+        if a <= target:
+            t_conv, conv_sweeps = t_i, (i + 1) * chunk
+            break
+    row = {
+        "n_poses": n_poses, "n_factors": int(m), "mp_rows": int(cmg.mp),
+        "gather_mode": cmg.gather_mode, "win_w": win_w,
+        "sweeps_per_s": sps["median"], "sweeps_per_s_min_max": [sps["min"], sps["max"]],
+        "sweeps_per_rep": sps["sweeps_per_rep"], "factor_updates_per_s": sps["median"] * m,
+        "ate_gn_target": ate_gn, "ate_at_end_of_timing": ate_end,
+        "wall_clock_to_1.25x_gn_ate_s": t_conv, "sweeps_to_1.25x_gn_ate": conv_sweeps,
+        "ate_target_threshold": target, "ate_per_50_sweeps": traj[:20],
+    }
+    if t_conv is None:
+        row["note"] = ("did not reach 1.25x GN ATE + 0.02 within 6000 sweeps; trajectory in "
+                       "ate_per_50_sweeps: treat sweeps_per_s as throughput only")
+    out["results"]["pose_graph_cm"] = row
+    print(f"[bigscene] pose graph ({n_poses} poses, {m} factors, mode {cmg.gather_mode!r}): "
+          f"{sps['median']:.2f} sweeps/s [{sps['min']:.2f}, {sps['max']:.2f}]"
+          + (f", win_w={win_w}" if win_w else "")
+          + (f"; ATE<=1.25xGN+0.02 at sweep {conv_sweeps} ({t_conv:.3f}s wall)"
+             if t_conv is not None else f"; NOT converged to {target:.3f} in 6000 sweeps"),
+          flush=True)
+
+
 def _platform(device):
     if device.type != "cuda":
         return {"platform": "cpu", "kind": "cpu", "count": 0}
@@ -121,6 +186,9 @@ def main(argv=None):
     ap.add_argument("--venice_blocks", type=int, default=VENICE["n_blocks"])
     ap.add_argument("--venice_lpc", type=int, default=VENICE["lmks_per_cam"])
     ap.add_argument("--skip_venice", action="store_true")
+    ap.add_argument("--skip_ba", action="store_true", help="only the pose-graph row")
+    ap.add_argument("--poses", type=int, default=4000,
+                    help="poses of the Manhattan pose-graph row (0: skip it)")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
@@ -129,13 +197,16 @@ def main(argv=None):
     gbp_tpu_torch.set_exact_f32()
     out = {"device": _platform(device), "results": {}}
 
-    sim = ba.simulate_blocks(**{**CITY, "n_blocks": args.blocks, "n_cams": args.cams,
-                                "lmks_per_cam": args.lpc})
-    _city_row(out, "ba_city", sim, CFG, args.sweeps, device)
-    if not args.skip_venice:
-        vsim = ba.simulate_blocks(**{**VENICE, "n_blocks": args.venice_blocks,
-                                     "n_cams": args.cams, "lmks_per_cam": args.venice_lpc})
-        _city_row(out, "ba_venice", vsim, CFG, args.sweeps, device)
+    if not args.skip_ba:
+        sim = ba.simulate_blocks(**{**CITY, "n_blocks": args.blocks, "n_cams": args.cams,
+                                    "lmks_per_cam": args.lpc})
+        _city_row(out, "ba_city", sim, CFG, args.sweeps, device)
+        if not args.skip_venice:
+            vsim = ba.simulate_blocks(**{**VENICE, "n_blocks": args.venice_blocks,
+                                         "n_cams": args.cams, "lmks_per_cam": args.venice_lpc})
+            _city_row(out, "ba_venice", vsim, CFG, args.sweeps, device)
+    if args.poses:
+        _pose_row(out, args.poses, args.sweeps, device)
 
     text = json.dumps(out, indent=1)
     print(text)

@@ -2,14 +2,17 @@
 steady sweeps of one scene.
 
     python -m gbp_tpu_torch.bench.profile_sweep
-        [--scene bench64|bench64_generic|nonlocal512|city|venice]
+        [--scene bench64|bench64_unfused|bench64_generic|nonlocal512|city|venice|
+                 manhattan4000]
         [--sweeps 20] [--warm 10] [--out trace.json]
 
 bench64, city and venice run the component-major fast path as `prepare`
-sets it up (camera table, or windows); nonlocal512 (512 cameras that all
-see every landmark) lands on its expanded operands (gather_mode "rows");
-bench64_generic runs the bench scene through the generic row-major sweep
-under message_form="pallas".
+sets it up (camera table, or windows); bench64_unfused the bench scene with
+`prepare(ell_fused=False)` (the unfused table kernels and the expansion);
+nonlocal512 (512 cameras that all see every landmark) lands on its expanded
+operands (gather_mode "rows"); bench64_generic runs the bench scene through
+the generic row-major sweep under message_form="pallas"; manhattan4000 a
+4,000-pose Manhattan pose graph under `pose_graph.default_config()`.
 
 Prints the unprofiled time per sweep (CUDA events), the device time per
 sweep summed over all kernels, the device's busy share (device time over
@@ -30,12 +33,15 @@ import dataclasses
 import gbp_tpu_torch
 from gbp_tpu_torch.bench import BIG_BUILD, CFG, CITY, VENICE, card_line
 from gbp_tpu_torch.core import sweep, sweep_cm
-from gbp_tpu_torch.models import ba
+from gbp_tpu_torch.models import ba, pose_graph
 
 BENCH64 = dict(n_cams=64, n_lmks=8000, pix_sigma=1.0, seed=0)
 SCENES = {
     "bench64": (lambda: ba.simulate(**BENCH64), {}),
+    "bench64_unfused": (lambda: ba.simulate(**BENCH64), {}),
     "bench64_generic": (lambda: ba.simulate(**BENCH64), {}),
+    "manhattan4000": (lambda: pose_graph.simulate_manhattan(
+        n_poses=4000, seed=0, loop_prob=0.3, loop_radius=3.0), {"layout": "ell"}),
     "nonlocal512": (lambda: ba.simulate(n_cams=512, n_lmks=2000, pix_sigma=1.0, seed=0), {}),
     "city": (lambda: ba.simulate_blocks(**CITY), BIG_BUILD),
     "venice": (lambda: ba.simulate_blocks(**VENICE), BIG_BUILD),
@@ -54,15 +60,18 @@ def main(argv=None):
     gbp_tpu_torch.set_exact_f32()
     card = card_line()
     make, build_kw = SCENES[args.scene]
-    graph, means = ba.build(make(), dtype=torch.float32, device=device, **build_kw)
+    build = pose_graph.build if args.scene == "manhattan4000" else ba.build
+    sweep_cfg = pose_graph.default_config() if args.scene == "manhattan4000" else CFG
+    graph, means = build(make(), dtype=torch.float32, device=device, **build_kw)
     if args.scene == "bench64_generic":
         cfg = dataclasses.replace(CFG, message_form="pallas")
         run = lambda st, n: sweep.run(graph, st, cfg, n)
         state = run(sweep.init_state(graph, means), args.warm)
         rows, win_w, mode = graph.fblocks[0].count, 0, "generic"
     else:
-        cmg = sweep_cm.prepare(graph, segsum_exact=True, window=True)
-        run = lambda st, n: sweep_cm.run(cmg, st, CFG, n)
+        cmg = sweep_cm.prepare(graph, window=True,
+                               ell_fused=False if args.scene == "bench64_unfused" else None)
+        run = lambda st, n: sweep_cm.run(cmg, st, sweep_cfg, n)
         state = run(sweep_cm.init_state(cmg, means), args.warm)
         rows, win_w, mode = cmg.mp, cmg.win_w, cmg.gather_mode
     torch.cuda.synchronize()

@@ -2,8 +2,14 @@
 
 Counterpart of the single-segment fast path of gbp_tpu/core/sweep_cm.py.
 The whole factor state stays component-major, [F, mp] tensors, across
-sweeps.  How the camera (gathered) slot's beliefs reach the kernels is the
-prepared graph's `gather_mode`:
+sweeps.  One slot of the one factor block is the ELL slot (`fb.ell_slot`:
+row r belongs to variable r // deg; landmarks, or one end of a pose graph's
+between factors), the other the gathered slot (cameras; the other end):
+bundle adjustment has them on two variable blocks, a pose graph on one
+(same-block factors: both tables come from the one block and its belief
+update adds both slots' sums).  The text below says "camera" and "landmark"
+for the gathered and the ELL slot.  How the camera (gathered) slot's beliefs
+reach the kernels is the prepared graph's `gather_mode`:
 
   "table"  the kernels read the packed camera table themselves, whole from
            shared memory or, on large scenes with camera locality, their
@@ -20,8 +26,8 @@ prepared graph's `gather_mode`:
 
 `prepare(gather_mode="auto")` picks "table" where it can and "rows"
 otherwise, and returns None for a graph the fast path does not take (the
-caller then runs the generic sweep of core/sweep.py).  In "table" mode one
-sweep is:
+caller then runs the generic sweep of core/sweep.py).  In "table" mode with
+the ELL slot fused (`ell_fused`, the default at ELL degree > 1) one sweep is:
 
   1. pack the camera beliefs [n_cam, eta 6 | lam 36] and the landmark
      beliefs [nv, eta 3 | lam 9] (virtual padding landmarks get eta = 0,
@@ -44,6 +50,14 @@ camera sum comes as per-tile window partials (`segsum_cm_blk`) combined by
 `scatter_windows_cm`.  With the sort the landmark beliefs and the factor
 rows live in sorted order across sweeps (`vperm`, `rowperm`); `init_state`,
 `from_gbp_state` and `to_gbp_state` apply and undo it at the boundaries.
+
+Unfused (`prepare(ell_fused=False)`, and by itself at ELL degree 1, where
+the reference does the same): the landmark slot's packed beliefs are
+expanded to per-row operands by `expand_ell_blk`, `relin_cm_tab` and
+`messages_cm_tab` read the cameras from the shared-memory table and the
+landmarks from those operands, and the camera sum is the standalone
+`segsum_by_id`.  Full table only: with camera windows this form needs the
+reference's kernels 8 and 9 (ROADMAP B5).
 
 The reference's one-hot table dots and per-tile table stacks exist because
 a TPU kernel has no lane-dynamic gather; an index read does their job here.
@@ -72,17 +86,18 @@ from gbp_tpu_torch.core.sweep import (
 from gbp_tpu_torch.gaussians import packed_identity_row
 from gbp_tpu_torch.ops.comp_factors import COMP_FACTORS, COMP_FACTORS_QUEUED
 from gbp_tpu_torch.ops.messages import (
-    D0,
-    D1,
-    F_CAM,
-    F_LMK,
+    ROW_SHAPES,
+    SMEM_TABLE_BYTES,
     SMEM_WINDOW_BYTES,
+    TABLE_SHAPES,
     TILE,
-    Z,
+    expand_ell_blk,
     messages_cm,
+    messages_cm_tab,
     messages_cm_tab_ell,
     messages_cm_tabblk_ell,
     relin_cm,
+    relin_cm_tab,
     relin_cm_tab_ell,
     relin_cm_tabblk_ell,
     scatter_windows_cm,
@@ -97,9 +112,8 @@ from gbp_tpu_torch.utils.smalllinalg import scaled_sym_solve
 # It is also the window tile of the large-scene kernels.
 ROW_ALIGN = TILE
 # Without windows the whole packed camera table is staged in each block's
-# (static) shared memory; larger camera sets need windows or, where those do
-# not engage, the expanded operands of gather_mode "rows".
-SMEM_TABLE_BYTES = 48 * 1024
+# (static) shared memory, SMEM_TABLE_BYTES; larger camera sets need windows
+# or, where those do not engage, the expanded operands of gather_mode "rows".
 GATHER_MODES = ("auto", "table", "rows", "take1")
 # Window starts are multiples of SUB and widths multiples of LANE, as in the
 # reference (its sublane and lane counts), so that both packages cut the
@@ -111,9 +125,9 @@ LANE = 128
 class CMFactorState(NamedTuple):
     """Factor state resident in component-major layout [F, mp]."""
 
-    lp: torch.Tensor  # [9, mp] linearization point
-    jac: torch.Tensor  # [18, mp]
-    r0: torch.Tensor  # [2, mp]
+    lp: torch.Tensor  # [t, mp] linearization point, t = d0 + d1
+    jac: torch.Tensor  # [z * t, mp]
+    r0: torch.Tensor  # [z, mp]
     srel: torch.Tensor  # [1, mp] float sweeps-since-relin
     msg_eta: tuple  # per slot [d_k, mp]
     msg_lam: tuple  # per slot [d_k * d_k, mp]
@@ -128,15 +142,20 @@ class CMGraph(NamedTuple):
     """Static per-graph data for the CM sweep (component-major, padded)."""
 
     base: Graph
-    z: torch.Tensor  # [2, mp]
-    prec: torch.Tensor  # [2, mp] diagonal measurement precision (pad 1.0)
+    z: torch.Tensor  # [z, mp]
+    # [z, mp] diagonal measurement precision, then the per-factor Huber
+    # thresholds as one more component when the block has them (pad 1.0)
+    prec: torch.Tensor
     act: torch.Tensor  # [1, mp] float; 0 = padded or invalid row
-    gidx: torch.Tensor  # [mp] int32 camera id per row (edge-padded)
+    gidx: torch.Tensor  # [mp] int32 gathered-slot (camera) id per row (edge-padded)
     seg_rows: torch.Tensor  # [mp] int32 rows sorted by camera id (stable)
     seg_offsets: torch.Tensor  # [n_cam + 1] int32 CSR offsets into seg_rows
     mp: int
     nv: int  # virtual ELL landmarks, mp // deg
     gather_mode: str = "table"  # "table" | "rows" | "take1" (module docstring)
+    # "table" mode: the kernels read the ELL slot at row // deg themselves;
+    # False: it is expanded first (`expand_ell_blk`), the unfused kernels.
+    ell_fused: bool = True
     gidx_rm: torch.Tensor | None = None  # [mp] int64 ids for the expanding gather
     # Camera windows (win_w == 0: none, the whole table is staged).  Every
     # camera id of tile i (rows [i * ROW_ALIGN, (i + 1) * ROW_ALIGN)) lies
@@ -166,9 +185,11 @@ def _unsupported(what: str, item: str):
     return NotImplementedError(f"sweep_cm.prepare: {what} is not ported yet (ROADMAP {item})")
 
 
-def _windows(gp: np.ndarray, n_cam: int, itemsize: int):
+def _windows(gp: np.ndarray, n_cam: int, itemsize: int, width: int = 42):
     """Per-tile windows (starts, w, ncpad) of the edge-padded camera ids
-    `gp`, or None when they are too wide to pay.  The reference's rule, so
+    `gp`, or None when they are too wide to pay; `width` is the values of one
+    packed belief row of the gathered slot (42 for a camera).  The
+    reference's rule, so
     that both packages cut the same windows: the width covers the widest
     tile plus SUB of slack for the SUB-aligned starts, rounded up to LANE."""
     ncpad = ((n_cam + SUB - 1) // SUB) * SUB
@@ -180,7 +201,7 @@ def _windows(gp: np.ndarray, n_cam: int, itemsize: int):
     # ask for.  The latter replaces the reference's VMEM limits on the whole
     # table (4 MB and 6 MB), which are the TPU's: here only the window is
     # staged.
-    if 2 * w > ncpad or w * F_CAM * itemsize > SMEM_WINDOW_BYTES:
+    if 2 * w > ncpad or w * width * itemsize > SMEM_WINDOW_BYTES:
         return None
     starts = np.maximum(np.minimum(mins, ncpad - w), 0) // SUB * SUB
     if not ((maxs < starts + w).all() and (mins >= starts).all()):
@@ -197,23 +218,31 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     precision, or degenerate ELL padding.  The caller then runs the generic
     sweep (core/sweep.py), as with the reference.
 
-    Taken: one `reprojection_normalized` block in ELL layout grouped by
-    landmark, diagonal precision, no Huber or a scalar Huber threshold.
-    What the reference's fast path takes and this one does not yet raises
+    Taken: one block of `reprojection_normalized`, `se2_between` or
+    `se3_between` factors in ELL layout (cameras and landmarks grouped by
+    landmark; between factors by either end), diagonal precision, no Huber, a
+    scalar threshold or per-factor thresholds, the two slots on two variable
+    blocks or on one (pose graphs).  What the
+    reference's fast path takes and this one does not yet raises
     NotImplementedError naming the ROADMAP item: the degree-class segmented
-    layout (A11), per-factor Huber thresholds and same-block slots (A8), the
-    BAL and pose-graph factor types and cameras in the ELL slot (A7/A8), the
-    unfused table kernels `ell_fused=False` (B4/B5).
+    layout (A11), the BAL factor types and cameras in the ELL slot (A7),
+    `ell_fused=False` with engaged camera windows (B5).
 
     gather_mode "auto" (and "table") picks "table" when the camera windows
     engage or the whole packed camera table fits a block's shared memory
-    (SMEM_TABLE_BYTES; the reference's rule is its 4 MB of VMEM), else
-    "rows"; "rows" and "take1" force the expanded operands.  window=True
-    gives every tile of rows a camera window when the graph has camera
-    locality, in its natural landmark order or after sorting the landmarks
-    by their lowest camera id (see the module docstring); the windows,
-    `vperm` and `rowperm` equal the reference's.  Windows exist in "table"
-    mode only.
+    (SMEM_TABLE_BYTES: 1,024 SE(2) poses or 292 cameras or SE(3) poses in
+    float32; the reference's rule is its 4 MB of VMEM), else "rows"; "rows"
+    and "take1" force the expanded operands.  window=True gives every tile
+    of rows a camera window when the graph has camera locality, in its
+    natural landmark order or, with the slots on two blocks, after sorting
+    the landmarks by their lowest camera id (see the module docstring); the
+    windows, `vperm` and `rowperm` equal the reference's.  Windows exist in
+    "table" mode only.
+
+    ell_fused None fuses the ELL slot into the table kernels at ELL degree
+    > 1 and takes the unfused kernels at degree 1 (the reference's rule; at
+    degree 1 no window is tried here, where the reference would run its
+    windowed unfused kernels, B5); False forces the unfused kernels.
 
     segsum_exact is accepted for the reference's signature and ignored: the
     camera-side sum always runs at full precision (the reference's bf16
@@ -240,46 +269,54 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     # large in absolute rows.
     if mp > 4 * m and mp - m > 64 * ROW_ALIGN:
         return None
-    if fb.huber_arr is not None:
-        raise _unsupported("per-factor ('row') Huber thresholds on the CM path", "A8")
-    if fb.vblocks[0] == fb.vblocks[1]:
-        raise _unsupported("both slots on one variable block (pose graphs)", "A8")
-    if fb.ell_slot != 1 or tuple(fb.dofs) != (D0, D1):
-        raise _unsupported("a layout other than cameras gathered, landmarks in ELL", "A7")
-    n_cam = graph.vblocks[fb.vblocks[0]].count
+    shape = (*fb.dofs, fb.z.shape[-1])
+    e = fb.ell_slot
+    g = 1 - e
+    if (shape not in TABLE_SHAPES or shape not in ROW_SHAPES
+            or (g == 1 and fb.dofs[0] != fb.dofs[1])):
+        raise _unsupported("cameras in the ELL slot (a layout other than cameras gathered, "
+                           "landmarks in ELL)", "A7")
+    same_block = fb.vblocks[0] == fb.vblocks[1]
+    n_cam = graph.vblocks[fb.vblocks[g]].count
     dt, dev = fb.z.dtype, fb.z.device
     pad = mp - m
+    d_g = fb.dofs[g]
+    width, itemsize = d_g + d_g * d_g, fb.z.element_size()
 
-    gidx = np.asarray(fb.adj[0].cpu(), dtype=np.int32)
+    gidx = np.asarray(fb.adj[g].cpu(), dtype=np.int32)
     # Padded rows carry zero messages, so any id in range is inert; the edge
     # value keeps them inside their tile's window.
     edge_pad = lambda a: np.pad(a, (0, pad), mode="edge") if pad else a
     win, rowperm, order = None, None, None
+    fused = deg > 1 if ell_fused is None else bool(ell_fused)
     if gather_mode in ("auto", "table"):
-        if window:
-            win = _windows(edge_pad(gidx), n_cam, fb.z.element_size())
-            if win is None:
+        # At degree 1 the unfused kernels run by themselves; they have no
+        # windowed form yet, so no window is tried.
+        if window and (fused or ell_fused is not None):
+            win = _windows(edge_pad(gidx), n_cam, itemsize, width)
+            if win is None and not same_block:
                 # The natural landmark order is not camera-local (random
                 # numbering: real BAL files, the corridor scenes): sort the
                 # ELL groups (blocks of `deg` rows) by their lowest camera
-                # id and try again.
+                # id and try again.  Same-block graphs get windows in their
+                # natural order only (chain numbering is already local).
                 n_ell = m // deg
                 order = np.argsort(gidx.reshape(n_ell, deg).min(1), kind="stable")
                 rowperm = (order[:, None] * deg + np.arange(deg)).reshape(-1)
-                win = _windows(edge_pad(gidx[rowperm]), n_cam, fb.z.element_size())
+                win = _windows(edge_pad(gidx[rowperm]), n_cam, itemsize, width)
                 if win is None:
                     rowperm = order = None
-        fits = n_cam * F_CAM * fb.z.element_size() <= SMEM_TABLE_BYTES
+        fits = n_cam * width * itemsize <= SMEM_TABLE_BYTES
         gather_mode = "table" if win is not None or fits else "rows"
-    if gather_mode == "table" and ell_fused is not None and not ell_fused:
-        raise _unsupported("the table kernels without the fused ELL slot (ell_fused=False)",
-                           "B4/B5")
+    if gather_mode == "table" and not fused and win is not None:
+        raise _unsupported("the windowed table kernels without the fused ELL slot "
+                           "(ell_fused=False with engaged camera windows)", "B5")
 
     as_i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
     as_i64 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=dev)
     extra = {}
     if rowperm is not None:
-        vb_l = graph.vblocks[fb.vblocks[1]]
+        vb_l = graph.vblocks[fb.vblocks[e]]
         if m // deg != vb_l.count:
             raise AssertionError("the ELL layout does not cover every landmark")
         gidx = gidx[rowperm]
@@ -288,7 +325,7 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
         # the resident beliefs, live in sorted order, so a sweep pays
         # nothing for it.
         vblocks = list(graph.vblocks)
-        vblocks[fb.vblocks[1]] = dataclasses.replace(
+        vblocks[fb.vblocks[e]] = dataclasses.replace(
             vb_l, prior_eta=vb_l.prior_eta[vperm], prior_lam=vb_l.prior_lam[vperm])
         graph = dataclasses.replace(graph, vblocks=tuple(vblocks))
         extra.update(vperm=vperm, vinv=as_i64(np.argsort(order)), rowperm=as_i64(rowperm))
@@ -311,10 +348,14 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     rp = extra.get("rowperm")
     perm = lambda a: a if rp is None else a[rp]
     to_cm = lambda a, fill=0.0: F.pad(perm(a).T, (0, pad), value=fill).contiguous()
+    # Per-factor Huber thresholds ride as one more component of prec; the pad
+    # fill 1.0 keeps padded rows' weight finite (act masks them anyway).
+    prec = fb.prec if fb.huber_arr is None else torch.cat(
+        [fb.prec, fb.huber_arr[:, None].to(dt)], dim=1)
     return CMGraph(
         base=graph,
         z=to_cm(fb.z),
-        prec=to_cm(fb.prec, fill=1.0),
+        prec=to_cm(prec, fill=1.0),
         act=to_cm(act[:, None]),
         gidx=as_i32(gidx),
         seg_rows=as_i32(seg_rows),
@@ -322,6 +363,7 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
         mp=mp,
         nv=mp // deg,
         gather_mode=gather_mode,
+        ell_fused=fused and gather_mode == "table",
         gidx_rm=None if gather_mode == "table" else as_i64(gidx),
         **extra,
     )
@@ -341,7 +383,7 @@ def _sorted_landmarks(cmg: CMGraph, vstates, index) -> tuple:
     if index is None:
         return tuple(vstates)
     out = list(vstates)
-    li = cmg.fb.vblocks[1]
+    li = cmg.fb.vblocks[cmg.fb.ell_slot]
     out[li] = VariableState(*(t[index] for t in out[li]))
     return tuple(out)
 
@@ -355,7 +397,8 @@ def init_state(cmg: CMGraph, means: tuple) -> CMState:
     # of the (relabelled) landmark priors.
     vmeans = list(means)
     if cmg.vperm is not None:
-        vmeans[fb.vblocks[1]] = means[fb.vblocks[1]][cmg.vperm]
+        li = fb.vblocks[fb.ell_slot]
+        vmeans[li] = means[li][cmg.vperm]
     vstates = tuple(VariableState(eta=vb.prior_eta, lam=vb.prior_lam, mean=mu)
                     for vb, mu in zip(cmg.base.vblocks, vmeans))
     x = torch.cat([means[vb][fb.adj[k].long()] for k, vb in enumerate(fb.vblocks)], dim=-1)
@@ -377,19 +420,33 @@ def _packed(vs: VariableState) -> torch.Tensor:
     return torch.cat([vs.eta, vs.lam.reshape(vs.eta.shape[0], -1)], dim=1)
 
 
-def belief_tables(cmg: CMGraph, state: CMState):
-    """The kernels' belief inputs: (cam_mean [n_cam, 6], lmk_mean [nv, 3],
-    cam_tab [n_cam, 42], lmk_tab [nv, 12]).  Virtual landmarks (ids >= the
-    real count) carry eta = 0, lam = I, mean = 0, so the cavity inverses of
-    padded rows stay finite."""
+def _with_identity_rows(pk: torch.Tensor, d: int, n_pad: int) -> torch.Tensor:
+    """Packed belief rows [n, f] (eta | lam | mean, or its first f values)
+    with `n_pad` virtual padding variables appended: eta = 0, lam = I, mean =
+    0, so the cavity inverses of padded rows stay finite."""
+    if not n_pad:
+        return pk
+    row = packed_identity_row(d, dtype=pk.dtype, device=pk.device)[:pk.shape[1]]
+    return torch.cat([pk, row.expand(n_pad, -1)])
+
+
+def _slot_states(cmg: CMGraph, state: CMState):
+    """(gathered slot's, ELL slot's) VariableState."""
     fb = cmg.fb
-    vs_c, vs_l = state.v[fb.vblocks[0]], state.v[fb.vblocks[1]]
+    return state.v[fb.vblocks[1 - fb.ell_slot]], state.v[fb.vblocks[fb.ell_slot]]
+
+
+def belief_tables(cmg: CMGraph, state: CMState):
+    """The fused table kernels' belief inputs: (cam_mean [n_cam, d_g],
+    lmk_mean [nv, d_e], cam_tab [n_cam, d_g + d_g * d_g], lmk_tab [nv, d_e +
+    d_e * d_e]) of the gathered and the ELL slot; on a same-block graph both
+    pairs come from the one block.  Virtual
+    ELL variables (ids >= the real count) carry eta = 0, lam = I, mean = 0."""
+    fb = cmg.fb
+    vs_c, vs_l = _slot_states(cmg, state)
     n_pad = cmg.nv - vs_l.eta.shape[0]
-    lmk_tab, lmk_mean = _packed(vs_l), vs_l.mean
-    if n_pad:
-        row = packed_identity_row(D1, dtype=lmk_tab.dtype, device=lmk_tab.device)
-        lmk_tab = torch.cat([lmk_tab, row[:F_LMK].expand(n_pad, F_LMK)])
-        lmk_mean = torch.cat([lmk_mean, row[F_LMK:].expand(n_pad, D1)])
+    lmk_tab = _with_identity_rows(_packed(vs_l), fb.dofs[fb.ell_slot], n_pad)
+    lmk_mean = F.pad(vs_l.mean, (0, 0, 0, n_pad))
     return (vs_c.mean.contiguous(), lmk_mean.contiguous(), _packed(vs_c).contiguous(),
             lmk_tab.contiguous())
 
@@ -405,20 +462,18 @@ def _split(cm: torch.Tensor, d: int):
 
 
 def _expand_ell(cmg: CMGraph, vs: VariableState):
-    """ELL-slot beliefs -> per-row operands [F, mp]: the packed table is
-    transposed once ([nv, F] -> [F, nv], small) and broadcast over the
-    degree axis (row r belongs to variable r // deg).  Virtual padding
-    variables get (eta = 0, lam = I, mean = 0), so padded rows' cavity
-    inverses stay finite."""
+    """ELL-slot beliefs -> per-row operands [F, mp]: row r takes the packed
+    (eta | lam | mean) row of variable r // deg, through `expand_ell_blk`.
+    The reference calls its kernel only at degrees that do not divide its
+    lane count and broadcasts in XLA otherwise; a GPU has no such alignment,
+    so the kernel runs at every degree on the card (the broadcast is exactly
+    its plain version, which CPU tensors take).  Virtual padding variables
+    get (eta = 0, lam = I, mean = 0), so padded rows' cavity inverses stay
+    finite."""
     d = vs.eta.shape[1]
     pk = _pack_beliefs(vs)  # locality-sorted order when cmg.vperm is set
-    n_pad = cmg.nv - pk.shape[0]
-    if n_pad:
-        row = packed_identity_row(d, dtype=pk.dtype, device=pk.device)
-        pk = torch.cat([pk, row.expand(n_pad, -1)])
-    f = pk.shape[1]
-    cm = pk.T[:, :, None].expand(f, cmg.nv, cmg.fb.ell_deg).reshape(f, cmg.mp)
-    return _split(cm, d)
+    pk = _with_identity_rows(pk, d, cmg.nv - pk.shape[0])
+    return _split(expand_ell_blk(pk.contiguous(), deg=cmg.fb.ell_deg), d)
 
 
 def _expand_gather(cmg: CMGraph, vs: VariableState):
@@ -439,10 +494,11 @@ def expand_means(cmg: CMGraph, state: CMState) -> torch.Tensor:
     components first), without the full belief expansion: what schedules
     need to rate a factor's urgency."""
     fb = cmg.fb
-    vs_c, vs_l = state.v[fb.vblocks[0]], state.v[fb.vblocks[1]]
+    vs_c, vs_l = _slot_states(cmg, state)
     me = F.pad(vs_l.mean, (0, 0, 0, cmg.nv - vs_l.mean.shape[0]))
     cm_l = me.T[:, :, None].expand(me.shape[1], cmg.nv, fb.ell_deg).reshape(me.shape[1], cmg.mp)
-    return torch.cat([vs_c.mean.T.index_select(1, cmg.gidx.long()), cm_l])
+    cm_c = vs_c.mean.T.index_select(1, cmg.gidx.long())
+    return torch.cat([cm_c, cm_l] if fb.ell_slot == 1 else [cm_l, cm_c])
 
 
 def sweep(cmg: CMGraph, state: CMState, cfg: GBPConfig,
@@ -462,61 +518,88 @@ def sweep(cmg: CMGraph, state: CMState, cfg: GBPConfig,
     act = cmg.act
     if active is not None:
         act = act * active.to(dt).reshape(1, cmg.mp)
-    n_cam = cmg.base.vblocks[fb.vblocks[0]].count
+    g = 1 - fb.ell_slot
+    by_slot = lambda a_g, a_e: (a_g, a_e) if g == 0 else (a_e, a_g)
+    n_cam = cmg.base.vblocks[fb.vblocks[g]].count
+    vs_c, vs_l = _slot_states(cmg, state)
+    model = fb.ftype.name
+    # "row": per-factor thresholds, the last component of cmg.prec.
+    huber = "row" if fb.huber_arr is not None else fb.huber
+    msgs = (fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])
     if cmg.gather_mode != "table":
-        be1, bl1, mean1 = _expand_ell(cmg, state.v[fb.vblocks[1]])
-        be0, bl0, mean0 = _expand_gather(cmg, state.v[fb.vblocks[0]])
-        shape = dict(d0=D0, d1=D1, z=Z)
+        be_l, bl_l, mean_l = _expand_ell(cmg, vs_l)
+        be_c, bl_c, mean_c = _expand_gather(cmg, vs_c)
+        shape = dict(d0=fb.dofs[0], d1=fb.dofs[1], z=cmg.z.shape[0])
         lp, jac, r0, srel = relin_cm(
-            params, torch.cat([mean0, mean1]), cmg.z, None, fs.lp, fs.jac, fs.r0, fs.srel,
-            act, comp_name=fb.ftype.name, **shape)
-        oe0, ol0, oe1, ol1 = messages_cm(
-            params, jac, lp, r0, cmg.prec, srel, act, be0, bl0, be1, bl1,
-            fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
-            prec_full=False, huber=fb.huber, **shape)
-        sum_c = segsum_by_id(oe0, ol0, cmg.seg_rows, cmg.seg_offsets)
+            params, torch.cat(by_slot(mean_c, mean_l)), cmg.z, None, fs.lp, fs.jac, fs.r0,
+            fs.srel, act, comp_name=model, **shape)
+        (be0, be1), (bl0, bl1) = by_slot(be_c, be_l), by_slot(bl_c, bl_l)
+        out = messages_cm(
+            params, jac, lp, r0, cmg.prec, srel, act, be0, bl0, be1, bl1, *msgs,
+            prec_full=False, huber=huber, **shape)
+        sum_c = segsum_by_id(out[2 * g], out[2 * g + 1], cmg.seg_rows, cmg.seg_offsets)
+    elif not cmg.ell_fused:
+        be_l, bl_l, mean_l = _expand_ell(cmg, vs_l)
+        lp, jac, r0, srel = relin_cm_tab(
+            params, mean_l, vs_c.mean.contiguous(), cmg.gidx, cmg.z, None, fs.lp, fs.jac,
+            fs.r0, fs.srel, act, comp_name=model, gslot=g)
+        out = messages_cm_tab(
+            params, jac, lp, r0, cmg.prec, srel, act, be_l, bl_l, _packed(vs_c).contiguous(),
+            cmg.gidx, *msgs, huber=huber, gslot=g)
+        sum_c = segsum_by_id(out[2 * g], out[2 * g + 1], cmg.seg_rows, cmg.seg_offsets)
     elif cmg.win_w:
         cam_mean, lmk_mean, cam_tab, lmk_tab = belief_tables(cmg, state)
         lp, jac, r0, srel = relin_cm_tabblk_ell(
             params, cam_mean, lmk_mean, cmg.gidx, cmg.win_starts, cmg.z, fs.lp, fs.jac,
-            fs.r0, fs.srel, act, deg=deg, win_w=cmg.win_w)
-        oe0, ol0, oe1, ol1, part = messages_cm_tabblk_ell(
+            fs.r0, fs.srel, act, deg=deg, win_w=cmg.win_w, comp_name=model, gslot=g)
+        *out, part = messages_cm_tabblk_ell(
             params, cam_tab, lmk_tab, cmg.gidx, cmg.win_starts, jac, lp, r0, cmg.prec,
-            srel, act, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
-            cmg.win_rows, cmg.win_offsets, deg=deg, huber=fb.huber, win_w=cmg.win_w)
+            srel, act, *msgs, cmg.win_rows, cmg.win_offsets, deg=deg, huber=huber,
+            win_w=cmg.win_w, gslot=g)
         sum_c = scatter_windows_cm(part, cmg.win_starts, cmg.cov_tiles, cmg.cov_offsets,
                                    n_seg=n_cam)
     else:
         cam_mean, lmk_mean, cam_tab, lmk_tab = belief_tables(cmg, state)
         lp, jac, r0, srel = relin_cm_tab_ell(
             params, cam_mean, lmk_mean, cmg.gidx, cmg.z, fs.lp, fs.jac, fs.r0,
-            fs.srel, act, deg=deg)
-        oe0, ol0, oe1, ol1, sum_c = messages_cm_tab_ell(
+            fs.srel, act, deg=deg, comp_name=model, gslot=g)
+        *out, sum_c = messages_cm_tab_ell(
             params, cam_tab, lmk_tab, cmg.gidx, jac, lp, r0, cmg.prec, srel,
-            act, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
-            cmg.seg_rows, cmg.seg_offsets, deg=deg, huber=fb.huber)
+            act, *msgs, cmg.seg_rows, cmg.seg_offsets, deg=deg, huber=huber, gslot=g)
+    oe0, ol0, oe1, ol1 = out
     return _update_beliefs(cmg, state, CMFactorState(
         lp=lp, jac=jac, r0=r0, srel=srel, msg_eta=(oe0, oe1), msg_lam=(ol0, ol1)), sum_c)
 
 
 def _update_beliefs(cmg: CMGraph, state: CMState, fs: CMFactorState,
                     sum_c: torch.Tensor) -> CMState:
-    """Beliefs = priors + message sums: landmarks by the reshape-sum over the
-    degree axis, cameras from `sum_c` [42, n_cam]."""
+    """Beliefs = priors + message sums: the ELL slot by the reshape-sum over
+    the degree axis, the gathered slot from `sum_c` [d_g + d_g * d_g, n_cam].
+    With both slots on one variable block (pose graphs) the two sums land on
+    that block: prior + ELL reshape-sum + gathered sum, one solve."""
     fb = cmg.fb
     deg = fb.ell_deg
-    oe1, ol1 = fs.msg_eta[1], fs.msg_lam[1]
-    # Landmarks: padded and clone rows carry zero messages, so the plain
+    e = fb.ell_slot
+    g = 1 - e
+    d_c, d_l = fb.dofs[g], fb.dofs[e]
+    oe_l, ol_l = fs.msg_eta[e], fs.msg_lam[e]
+    # ELL slot: padded and clone rows carry zero messages, so the plain
     # reshape-sum over the degree axis is exact.  The beliefs live in the
     # (possibly sorted) group order, so the sum is already aligned.
-    vb_c = cmg.base.vblocks[fb.vblocks[0]]
-    vb_l = cmg.base.vblocks[fb.vblocks[1]]
+    vb_c = cmg.base.vblocks[fb.vblocks[g]]
+    vb_l = cmg.base.vblocks[fb.vblocks[e]]
     n_c, n_l = vb_c.count, vb_l.count
-    sum_l = torch.cat([oe1.reshape(D1, cmg.nv, deg).sum(-1),
-                       ol1.reshape(D1 * D1, cmg.nv, deg).sum(-1)])[:, :n_l]
+    sum_l = torch.cat([oe_l.reshape(d_l, cmg.nv, deg).sum(-1),
+                       ol_l.reshape(d_l * d_l, cmg.nv, deg).sum(-1)])[:, :n_l]
     new_v = list(state.v)
-    for vi, vb, s, n, d in ((fb.vblocks[1], vb_l, sum_l, n_l, D1),
-                            (fb.vblocks[0], vb_c, sum_c, n_c, D0)):
+    if fb.vblocks[e] == fb.vblocks[g]:
+        eta = vb_l.prior_eta + sum_l[:d_l].T + sum_c[:d_l].T
+        lam = (vb_l.prior_lam + sum_l[d_l:].T.reshape(n_l, d_l, d_l)
+               + sum_c[d_l:].T.reshape(n_l, d_l, d_l))
+        new_v[fb.vblocks[e]] = VariableState(eta=eta, lam=lam, mean=scaled_sym_solve(lam, eta))
+        return CMState(v=tuple(new_v), f=fs)
+    for vi, vb, s, n, d in ((fb.vblocks[e], vb_l, sum_l, n_l, d_l),
+                            (fb.vblocks[g], vb_c, sum_c, n_c, d_c)):
         eta = vb.prior_eta + s[:d].T
         lam = vb.prior_lam + s[d:].T.reshape(n, d, d)
         new_v[vi] = VariableState(eta=eta, lam=lam, mean=scaled_sym_solve(lam, eta))

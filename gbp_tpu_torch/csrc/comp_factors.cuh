@@ -1,9 +1,17 @@
-// Component-form measurement model for one factor per CUDA thread.
+// Component-form measurement models for one factor per CUDA thread.
 //
-// The CUDA counterpart of `reprojection_normalized_comp` in
-// gbp_tpu/ops/comp_factors.py, with the same Taylor guards and the same
-// sign-preserving depth floor; the plain version is
-// gbp_tpu_torch/ops/comp_factors.py.
+// The CUDA counterparts of `reprojection_normalized_comp`,
+// `se2_between_comp` / `se2_between_res` and `se3_between_comp` /
+// `se3_between_res` in gbp_tpu/ops/comp_factors.py, with the same Taylor
+// guards, the same sign-preserving depth floor, the same floor-form angle
+// wrap and the same Newton `stable_acos`; the plain versions are
+// gbp_tpu_torch/ops/comp_factors.py, operation for operation.  Branches
+// (small angle, angle near pi) are selects between two evaluated values, as
+// in the plain versions.
+//
+// A model is a struct with the slot dofs DA, DB, the measurement dim ZD,
+// `eval(x, h, jac)` and `residual(z, h, r)`; the relinearization bodies of
+// messages_rows.cuh take it as a template parameter.
 #pragma once
 
 #include "comp_linalg.cuh"
@@ -98,5 +106,193 @@ GBP_HD void reprojection_normalized(const T (&x)[9], T (&h)[2], T (&jac)[2][9]) 
   }
   mm(dpi, dxc, jac);
 }
+
+// r = z - h, the default residual.
+template <typename T, int ZD>
+GBP_HD void residual_diff(const T (&z)[ZD], const T (&h)[ZD], T (&r)[ZD]) {
+#pragma unroll
+  for (int i = 0; i < ZD; ++i) r[i] = z[i] - h[i];
+}
+
+struct ReprojectionNormalized {
+  static constexpr int DA = 6, DB = 3, ZD = 2;
+  template <typename T>
+  GBP_HD static void eval(const T (&x)[9], T (&h)[2], T (&jac)[2][9]) {
+    reprojection_normalized(x, h, jac);
+  }
+  template <typename T>
+  GBP_HD static void residual(const T (&z)[2], const T (&h)[2], T (&r)[2]) {
+    residual_diff(z, h, r);
+  }
+};
+
+// Wrap to [-pi, pi): theta - 2 pi floor((theta + pi) / (2 pi)), the floor
+// form of utils/lie.wrap_angle.
+template <typename T>
+GBP_HD T wrap_angle(T theta) {
+  const T pi = T(3.141592653589793), two_pi = T(6.283185307179586);
+  return theta - two_pi * g_floor((theta + pi) / two_pi);
+}
+
+// x = [xi, yi, ti, xj, yj, tj] -> h = the pose of j in frame i [3],
+// jac [3][6]; the residual wraps its angle component.
+struct Se2Between {
+  static constexpr int DA = 3, DB = 3, ZD = 3;
+  template <typename T>
+  GBP_HD static void eval(const T (&x)[6], T (&h)[3], T (&jac)[3][6]) {
+    const T c = g_cos(x[2]), s = g_sin(x[2]);
+    const T dx = x[3] - x[0];
+    const T dy = x[4] - x[1];
+    const T h0 = c * dx + s * dy;
+    const T h1 = -s * dx + c * dy;
+    h[0] = h0;
+    h[1] = h1;
+    h[2] = x[5] - x[2];
+    const T row0[6] = {-c, -s, h1, c, s, T(0.0)};
+    const T row1[6] = {s, -c, -h0, -s, c, T(0.0)};
+    const T row2[6] = {T(0.0), T(0.0), T(-1.0), T(0.0), T(0.0), T(1.0)};
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      jac[0][k] = row0[k];
+      jac[1][k] = row1[k];
+      jac[2][k] = row2[k];
+    }
+  }
+  template <typename T>
+  GBP_HD static void residual(const T (&z)[3], const T (&h)[3], T (&r)[3]) {
+    r[0] = z[0] - h[0];
+    r[1] = z[1] - h[1];
+    r[2] = wrap_angle(z[2] - h[2]);
+  }
+};
+
+// arccos(clip(c, -1, 1)) by three Newton steps from a series seed
+// (utils/lie.stable_acos).
+template <typename T>
+GBP_HD T asin_series(T t) {
+  const T t2 = t * t;
+  return t * (T(1.0) + t2 * (T(1.0 / 6.0) + t2 * (T(3.0 / 40.0) + t2 * T(15.0 / 336.0))));
+}
+
+template <typename T>
+GBP_HD T stable_acos(T c) {
+  const T a = g_abs(min_nan(max_nan(c, T(-1.0)), T(1.0)));
+  const T s = g_sqrt(max_nan((T(1.0) - a) * (T(1.0) + a), T(0.0)));
+  const bool near1 = a >= T(0.7071067811865476);
+  T th = near1 ? asin_series(s) : T(0.5 * 3.141592653589793) - asin_series(a);
+#pragma unroll
+  for (int it = 0; it < 3; ++it) {
+    const T sin_t = g_sin(th), cos_t = g_cos(th);
+    const T by_sin = th - (sin_t - s) / cos_t;
+    const T by_cos = th + (cos_t - a) / sin_t;
+    th = near1 ? by_sin : by_cos;
+  }
+  return c < T(0.0) ? T(3.141592653589793) - th : th;
+}
+
+// Rotation matrix -> axis-angle (utils/lie.so3_log).
+template <typename T>
+GBP_HD void so3_log(const T (&r)[3][3], T (&w)[3]) {
+  const T trace = r[0][0] + r[1][1] + r[2][2];
+  const T theta = stable_acos(min_nan(max_nan((trace - T(1.0)) / T(2.0), T(-1.0)), T(1.0)));
+  const bool small = g_abs(theta) < T(1e-4);
+  const T scale = small ? T(0.5) + theta * theta / T(12.0)
+                        : theta / (T(2.0) * (small ? T(1.0) : g_sin(theta)));
+  w[0] = scale * (r[2][1] - r[1][2]);
+  w[1] = scale * (r[0][2] - r[2][0]);
+  w[2] = scale * (r[1][0] - r[0][1]);
+}
+
+// Jr(w)^-1 = I + [w]x / 2 + c [w]x^2, c = 1/t2 - cot(t/2) / (2t).
+template <typename T>
+GBP_HD void right_jacobian_inv(const T (&w)[3], T (&j)[3][3]) {
+  const T t2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+  const bool small = t2 < T(1e-8);
+  const T safe_t2 = small ? T(1.0) : t2;
+  const T theta = g_sqrt(safe_t2);
+  const T c = small ? T(1.0 / 12.0) + t2 / T(720.0)
+                    : T(1.0) / safe_t2 - T(1.0) / (T(2.0) * theta * g_tan(theta / T(2.0)));
+  T k[3][3], kk[3][3];
+  hat(w, k);
+  mm(k, k, kk);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int jj = 0; jj < 3; ++jj) j[i][jj] = T(0.5) * k[i][jj] + c * kk[i][jj];
+    j[i][i] = j[i][i] + T(1.0);
+  }
+}
+
+template <typename T>
+GBP_HD void transpose3(const T (&a)[3][3], T (&out)[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) out[i][j] = a[j][i];
+  }
+}
+
+// x = [t_i, w_i, t_j, w_j] -> h = [R_i^T (t_j - t_i), log(R_i^T R_j)] [6],
+// jac [6][12] (the analytic blocks of ops/comp_factors.se3_between_comp);
+// the residual's rotation block is log(R(h_w)^T R(z_w)).
+struct Se3Between {
+  static constexpr int DA = 6, DB = 6, ZD = 6;
+  template <typename T>
+  GBP_HD static void eval(const T (&x)[12], T (&h)[6], T (&jac)[6][12]) {
+    const T wi[3] = {x[3], x[4], x[5]};
+    const T wj[3] = {x[9], x[10], x[11]};
+    T ri[3][3], rit[3][3], rj[3][3];
+    so3_exp(wi, ri);
+    transpose3(ri, rit);
+    so3_exp(wj, rj);
+    const T d[3] = {x[6] - x[0], x[7] - x[1], x[8] - x[2]};
+    T ht[3], hw[3], rel[3][3];
+    mv(rit, d, ht);
+    mm(rit, rj, rel);
+    so3_log(rel, hw);
+    T jr_i[3][3], jr_j[3][3], jinv[3][3], jinv_t[3][3];
+    right_jacobian(wi, jr_i);
+    right_jacobian(wj, jr_j);
+    right_jacobian_inv(hw, jinv);
+    transpose3(jinv, jinv_t);
+    T ht_hat[3][3], dt_dwi[3][3], dw_dwi[3][3], dw_dwj[3][3];
+    hat(ht, ht_hat);
+    mm(ht_hat, jr_i, dt_dwi);
+    mm(jinv_t, jr_i, dw_dwi);
+    mm(jinv, jr_j, dw_dwj);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      h[k] = ht[k];
+      h[3 + k] = hw[k];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        jac[k][c] = -rit[k][c];
+        jac[k][3 + c] = dt_dwi[k][c];
+        jac[k][6 + c] = rit[k][c];
+        jac[k][9 + c] = T(0.0);
+        jac[3 + k][c] = T(0.0);
+        jac[3 + k][3 + c] = dw_dwi[k][c] * T(-1.0);
+        jac[3 + k][6 + c] = T(0.0);
+        jac[3 + k][9 + c] = dw_dwj[k][c];
+      }
+    }
+  }
+  template <typename T>
+  GBP_HD static void residual(const T (&z)[6], const T (&h)[6], T (&r)[6]) {
+    const T hw[3] = {h[3], h[4], h[5]};
+    const T zw[3] = {z[3], z[4], z[5]};
+    T rh[3][3], rht[3][3], rz[3][3], rel[3][3], rw[3];
+    so3_exp(hw, rh);
+    transpose3(rh, rht);
+    so3_exp(zw, rz);
+    mm(rht, rz, rel);
+    so3_log(rel, rw);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      r[k] = z[k] - h[k];
+      r[3 + k] = rw[k];
+    }
+  }
+};
 
 }  // namespace gbp

@@ -25,6 +25,12 @@ GBP_HD float g_sin(float x) { return sinf(x); }
 GBP_HD double g_sin(double x) { return sin(x); }
 GBP_HD float g_cos(float x) { return cosf(x); }
 GBP_HD double g_cos(double x) { return cos(x); }
+GBP_HD float g_tan(float x) { return tanf(x); }
+GBP_HD double g_tan(double x) { return tan(x); }
+GBP_HD float g_floor(float x) { return floorf(x); }
+GBP_HD double g_floor(double x) { return floor(x); }
+GBP_HD float g_abs(float x) { return fabsf(x); }
+GBP_HD double g_abs(double x) { return fabs(x); }
 
 // Separately rounded multiply / add (never contracted into an FMA): used
 // where a threshold decision must match the plain version bit for bit.

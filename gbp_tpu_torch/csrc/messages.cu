@@ -1,13 +1,17 @@
-// The bundle-adjustment fast path's kernels for Hopper (sm_90a).
+// The fast path's full-table kernels for Hopper (sm_90a).
 //
 // Layout: component-major [F, mp], one thread per factor row, so the
 // threads of a warp read neighbouring addresses of every component.  Slot 0
-// is the camera (D0 = 6, gathered by id from a per-camera table staged in
-// shared memory), slot 1 the landmark (D1 = 3, ELL slot: row r belongs to
-// landmark r / deg), Z = 2.  The per-row arithmetic is in messages_rows.cuh,
-// shared with the windowed kernels of windows.cu; the wrappers and plain
-// versions are in gbp_tpu_torch/ops/messages.py.  Kernels allocate nothing
-// and launch on the caller's stream; each C entry returns cudaGetLastError().
+// is gathered by id from a per-variable table staged in shared memory
+// (cameras; poses), slot 1 is the ELL slot: row r belongs to variable
+// r / deg (landmarks; the same poses).  Instantiated for (d0, d1, z) =
+// (6, 3, 2) reprojection, (3, 3, 3) SE(2) and (6, 6, 6) SE(3) between
+// factors, with a scalar or a per-row Huber threshold.  The per-row
+// arithmetic is in messages_rows.cuh, shared with windows.cu, unfused.cu and
+// rows.cu; the wrappers and plain versions are in
+// gbp_tpu_torch/ops/messages.py.  Kernels allocate nothing and launch on the
+// caller's stream; each C entry returns cudaGetLastError(), or -2 for a
+// shape or model that is not instantiated.
 //
 // relin_cm_tab_ell
 //   Replaces gbp_tpu/ops/messages_pallas.py `fused_relin_cm_tab_ell`
@@ -47,7 +51,7 @@
 
 namespace gbp {
 
-template <typename S>
+template <typename S, class M>
 __global__ void __launch_bounds__(BLOCK)
 relin_kernel(const S* __restrict__ cam_mean, int n_cam,
              const S* __restrict__ lmk_mean, const int* __restrict__ gidx,
@@ -55,18 +59,20 @@ relin_kernel(const S* __restrict__ cam_mean, int n_cam,
              const S* __restrict__ jac, const S* __restrict__ r0,
              const S* __restrict__ srel, const S* __restrict__ act,
              S* __restrict__ olp, S* __restrict__ ojac, S* __restrict__ or0,
-             S* __restrict__ osrel, int64_t mp, int deg, S beta, S min_linear) {
+             S* __restrict__ osrel, int64_t mp, int deg, int gslot, S beta,
+             S min_linear) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* tab = reinterpret_cast<S*>(smem_raw);
-  for (int i = threadIdx.x; i < n_cam * D0; i += blockDim.x) tab[i] = cam_mean[i];
+  const int dg = gathered_dofs<M>(gslot);
+  for (int i = threadIdx.x; i < n_cam * dg; i += blockDim.x) tab[i] = cam_mean[i];
   __syncthreads();
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= mp) return;
-  relin_row(tab + gidx[r] * D0, lmk_mean, z, lp, jac, r0, srel, act, olp, ojac, or0, osrel,
-            mp, deg, r, beta, min_linear);
+  relin_row<S, M>(tab + gidx[r] * dg, lmk_mean, z, lp, jac, r0, srel, act, olp, ojac, or0,
+                  osrel, mp, deg, gslot, r, beta, min_linear);
 }
 
-template <typename S>
+template <typename S, class Sh, bool HUBER_ROW>
 __global__ void __launch_bounds__(BLOCK)
 messages_kernel(const S* __restrict__ cam_tab, int n_cam,
                 const S* __restrict__ lmk_tab, const int* __restrict__ gidx,
@@ -78,14 +84,16 @@ messages_kernel(const S* __restrict__ cam_tab, int n_cam,
                 S* __restrict__ oe0, S* __restrict__ ol0,
                 S* __restrict__ oe1, S* __restrict__ ol1, int64_t mp, int deg,
                 MsgParams<S> p) {
+  constexpr int F_G = Sh::F_G;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* tab = reinterpret_cast<S*>(smem_raw);
-  for (int i = threadIdx.x; i < n_cam * F_CAM; i += blockDim.x) tab[i] = cam_tab[i];
+  for (int i = threadIdx.x; i < n_cam * F_G; i += blockDim.x) tab[i] = cam_tab[i];
   __syncthreads();
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= mp) return;
-  messages_row(tab + gidx[r] * F_CAM, lmk_tab, jac, lp, r0g, prec, srel, act, me0, ml0, me1,
-               ml1, oe0, ol0, oe1, ol1, mp, deg, r, p);
+  messages_row<S, Sh::DA, Sh::DB, Sh::ZD, HUBER_ROW, Sh::GSLOT>(
+      tab + gidx[r] * F_G, lmk_tab, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0,
+      oe1, ol1, mp, deg, r, p);
 }
 
 template <typename S, class L>
@@ -113,21 +121,25 @@ segsum_kernel(const S* __restrict__ me, int64_t me_ld, const S* __restrict__ ml,
 }
 
 template <typename S>
-int relin(const S* cam_mean, int n_cam, const S* lmk_mean, int nv, const int* gidx,
-          const S* z, const S* lp, const S* jac, const S* r0, const S* srel,
+int relin(int model, int gslot, const S* cam_mean, int n_cam, const S* lmk_mean, int nv,
+          const int* gidx, const S* z, const S* lp, const S* jac, const S* r0, const S* srel,
           const S* act, S* olp, S* ojac, S* or0, S* osrel, int64_t mp, int deg,
           double beta, double min_linear, void* stream) {
   (void)nv;
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = static_cast<size_t>(n_cam) * D0 * sizeof(S);
-  relin_kernel<S><<<n_blocks(mp), BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
-      cam_mean, n_cam, lmk_mean, gidx, z, lp, jac, r0, srel, act, olp, ojac, or0,
-      osrel, mp, deg, static_cast<S>(beta), static_cast<S>(min_linear));
-  return static_cast<int>(cudaGetLastError());
+  const bool known = with_model(model, [&](auto m) {
+    using M = decltype(m);
+    const size_t smem = static_cast<size_t>(n_cam) * gathered_dofs<M>(gslot) * sizeof(S);
+    relin_kernel<S, M><<<n_blocks(mp), BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+        cam_mean, n_cam, lmk_mean, gidx, z, lp, jac, r0, srel, act, olp, ojac, or0,
+        osrel, mp, deg, gslot, static_cast<S>(beta), static_cast<S>(min_linear));
+  });
+  return known ? static_cast<int>(cudaGetLastError()) : -2;
 }
 
 template <typename S>
-int messages(const S* cam_tab, int n_cam, const S* lmk_tab, int nv, const int* gidx,
+int messages(int da, int db, int zd, int gslot, int huber_row, const S* cam_tab, int n_cam,
+             const S* lmk_tab, int nv, const int* gidx,
              const S* jac, const S* lp, const S* r0, const S* prec, const S* srel,
              const S* act, const S* me0, const S* ml0, const S* me1, const S* ml1,
              S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp, int deg, double eta_damping,
@@ -135,12 +147,23 @@ int messages(const S* cam_tab, int n_cam, const S* lmk_tab, int nv, const int* g
              int has_huber, double huber, void* stream) {
   (void)nv;
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = static_cast<size_t>(n_cam) * F_CAM * sizeof(S);
-  messages_kernel<S><<<n_blocks(mp), BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
-      cam_tab, n_cam, lmk_tab, gidx, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1,
-      oe0, ol0, oe1, ol1, mp, deg,
-      msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber));
-  return static_cast<int>(cudaGetLastError());
+  const auto p =
+      msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
+    using Sh = decltype(sh);
+    const size_t smem = static_cast<size_t>(n_cam) * Sh::F_G * sizeof(S);
+    if (huber_row) {
+      messages_kernel<S, Sh, true><<<n_blocks(mp), BLOCK, smem, st>>>(
+          cam_tab, n_cam, lmk_tab, gidx, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1,
+          oe0, ol0, oe1, ol1, mp, deg, p);
+    } else {
+      messages_kernel<S, Sh, false><<<n_blocks(mp), BLOCK, smem, st>>>(
+          cam_tab, n_cam, lmk_tab, gidx, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1,
+          oe0, ol0, oe1, ol1, mp, deg, p);
+    }
+  });
+  return known ? static_cast<int>(cudaGetLastError()) : -2;
 }
 
 template <typename S>
@@ -164,25 +187,26 @@ int segsum(const S* me, int64_t me_ld, const S* ml, int64_t ml_ld, int d, int rm
 
 #define GBP_ENTRIES(SFX, S)                                                          \
   extern "C" int gbp_relin_cm_tab_ell_##SFX(                                         \
-      const S* cam_mean, int n_cam, const S* lmk_mean, int nv, const int* gidx,      \
-      const S* z, const S* lp, const S* jac, const S* r0, const S* srel,             \
-      const S* act, S* olp, S* ojac, S* or0, S* osrel, int64_t mp, int deg,          \
-      double beta, double min_linear, void* stream) {                                \
-    return gbp::relin<S>(cam_mean, n_cam, lmk_mean, nv, gidx, z, lp, jac, r0, srel,  \
-                         act, olp, ojac, or0, osrel, mp, deg, beta, min_linear,      \
-                         stream);                                                    \
+      int model, int gslot, const S* cam_mean, int n_cam, const S* lmk_mean, int nv, \
+      const int* gidx, const S* z, const S* lp, const S* jac, const S* r0,           \
+      const S* srel, const S* act, S* olp, S* ojac, S* or0, S* osrel, int64_t mp,    \
+      int deg, double beta, double min_linear, void* stream) {                       \
+    return gbp::relin<S>(model, gslot, cam_mean, n_cam, lmk_mean, nv, gidx, z, lp,   \
+                         jac, r0, srel, act, olp, ojac, or0, osrel, mp, deg, beta,   \
+                         min_linear, stream);                                        \
   }                                                                                  \
   extern "C" int gbp_messages_cm_tab_ell_##SFX(                                      \
-      const S* cam_tab, int n_cam, const S* lmk_tab, int nv, const int* gidx,        \
+      int da, int db, int zd, int gslot, int huber_row, const S* cam_tab, int n_cam, \
+      const S* lmk_tab, int nv, const int* gidx,                                     \
       const S* jac, const S* lp, const S* r0, const S* prec, const S* srel,          \
       const S* act, const S* me0, const S* ml0, const S* me1, const S* ml1,          \
       S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp, int deg, double eta_damping,       \
       double lam_damping, double num_undamped, double floor, double jitter,          \
       int has_huber, double huber, void* stream) {                                   \
-    return gbp::messages<S>(cam_tab, n_cam, lmk_tab, nv, gidx, jac, lp, r0, prec,    \
-                            srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp,   \
-                            deg, eta_damping, lam_damping, num_undamped, floor,      \
-                            jitter, has_huber, huber, stream);                       \
+    return gbp::messages<S>(da, db, zd, gslot, huber_row, cam_tab, n_cam, lmk_tab,   \
+                            nv, gidx, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, \
+                            oe0, ol0, oe1, ol1, mp, deg, eta_damping, lam_damping,   \
+                            num_undamped, floor, jitter, has_huber, huber, stream);  \
   }                                                                                  \
   extern "C" int gbp_segsum_by_id_##SFX(                                             \
       const S* me, int64_t me_ld, const S* ml, int64_t ml_ld, int d, int rm,         \

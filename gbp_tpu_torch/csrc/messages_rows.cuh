@@ -2,12 +2,17 @@
 //
 // One thread owns one factor row r.  The kernels differ only in how the
 // row's beliefs reach the thread and in the layout of the per-factor
-// operands: messages.cu stages the whole per-camera table in shared memory,
-// windows.cu stages the row's tile window of it (both component-major, the
-// landmark's belief read at r / deg), rows.cu reads both slots' beliefs
-// from expanded per-row operands in either layout.  All of them run
+// operands: messages.cu stages the whole gathered-slot table in shared
+// memory, windows.cu stages the row's tile window of it (both
+// component-major, the ELL slot's belief read at r / deg), unfused.cu reads
+// the ELL slot from expanded operands instead, rows.cu reads both slots'
+// beliefs from expanded per-row operands in either layout.  All of them run
 // `relin_core` and `messages_core`, so the arithmetic (operation order, the
-// separately rounded beta and Huber decisions) is the same code.
+// separately rounded beta and Huber decisions) is the same code.  The slot
+// dofs, the measurement dim and the measurement model are template
+// parameters: (6, 3, 2) `ReprojectionNormalized` (cameras and landmarks),
+// (3, 3, 3) `Se2Between` and (6, 6, 6) `Se3Between` (pose graphs, both slots
+// on one variable block).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -17,13 +22,20 @@
 
 namespace gbp {
 
-constexpr int D0 = 6;
-constexpr int D1 = 3;
-constexpr int Z = 2;
-constexpr int T9 = D0 + D1;
-constexpr int F_CAM = D0 + D0 * D0;
-constexpr int F_LMK = D1 + D1 * D1;
 constexpr int BLOCK = 256;
+// Model ids of the C entries.
+enum ModelId { MODEL_REPROJECTION = 0, MODEL_SE2 = 1, MODEL_SE3 = 2 };
+
+// Call `fn(Model{})` for the model `id`; false for an unknown id.
+template <class F>
+inline bool with_model(int id, F&& fn) {
+  switch (id) {
+    case MODEL_REPROJECTION: fn(ReprojectionNormalized{}); return true;
+    case MODEL_SE2: fn(Se2Between{}); return true;
+    case MODEL_SE3: fn(Se3Between{}); return true;
+    default: return false;
+  }
+}
 
 // Where component k of row r of an operand lies, `ld` being the operand's
 // leading stride: component-major [F, ld] or row-major [m, ld].
@@ -82,66 +94,95 @@ struct ExpandedBelief {
   __device__ __forceinline__ S lam(int i, int k) const { return bl[L::at(i * D + k, r, bl_ld)]; }
 };
 
-// Masked relinearization of row r at the adjacent means x (the
-// `reprojection_normalized` model).
-template <typename S, class L, class LD>
+// Masked relinearization of row r at the adjacent means x under the
+// measurement model M (its `residual` replaces r = z - h where the factor
+// type wraps an angle or takes a manifold log).
+template <typename S, class M, class L, class LD>
 __device__ __forceinline__ void relin_core(
-    const S (&x)[T9], const S* __restrict__ z, const S* __restrict__ lp,
+    const S (&x)[M::DA + M::DB], const S* __restrict__ z, const S* __restrict__ lp,
     const S* __restrict__ jac, const S* __restrict__ r0, const S* __restrict__ srel,
     const S* __restrict__ act, S* __restrict__ olp, S* __restrict__ ojac, S* __restrict__ or0,
     S* __restrict__ osrel, const LD& ld, int64_t r, S beta, S min_linear) {
-  S lp_o[T9];
+  constexpr int TD = M::DA + M::DB;
+  constexpr int ZD = M::ZD;
+  S lp_o[TD];
 #pragma unroll
-  for (int i = 0; i < T9; ++i) lp_o[i] = lp[L::at(i, r, ld[R_LP])];
+  for (int i = 0; i < TD; ++i) lp_o[i] = lp[L::at(i, r, ld[R_LP])];
   // Separately rounded, in the plain version's order: the beta decision
   // must not flip between the kernel and its plain version.
   S dist2 = mul_rn(x[0] - lp_o[0], x[0] - lp_o[0]);
 #pragma unroll
-  for (int i = 1; i < T9; ++i) dist2 = add_rn(dist2, mul_rn(x[i] - lp_o[i], x[i] - lp_o[i]));
+  for (int i = 1; i < TD; ++i) dist2 = add_rn(dist2, mul_rn(x[i] - lp_o[i], x[i] - lp_o[i]));
   const S sr = srel[L::at(0, r, ld[R_SREL])];
   const bool eligible = (dist2 > mul_rn(beta, beta)) && (sr >= min_linear) &&
                         (act[L::at(0, r, ld[R_ACT])] > S(0.5));
 
   if (eligible) {
-    S h[Z], jn[Z][T9];
-    reprojection_normalized(x, h, jn);
+    S h[ZD], jn[ZD][TD], zm[ZD], rn[ZD];
+    M::eval(x, h, jn);
 #pragma unroll
-    for (int i = 0; i < T9; ++i) olp[L::at(i, r, ld[R_OLP])] = x[i];
+    for (int i = 0; i < ZD; ++i) zm[i] = z[L::at(i, r, ld[R_Z])];
+    M::residual(zm, h, rn);
 #pragma unroll
-    for (int i = 0; i < Z; ++i) {
-      or0[L::at(i, r, ld[R_OR0])] = z[L::at(i, r, ld[R_Z])] - h[i];
+    for (int i = 0; i < TD; ++i) olp[L::at(i, r, ld[R_OLP])] = x[i];
 #pragma unroll
-      for (int j = 0; j < T9; ++j) ojac[L::at(i * T9 + j, r, ld[R_OJAC])] = jn[i][j];
+    for (int i = 0; i < ZD; ++i) {
+      or0[L::at(i, r, ld[R_OR0])] = rn[i];
+#pragma unroll
+      for (int j = 0; j < TD; ++j) ojac[L::at(i * TD + j, r, ld[R_OJAC])] = jn[i][j];
     }
     osrel[L::at(0, r, ld[R_OSREL])] = S(0.0);
   } else {
 #pragma unroll
-    for (int i = 0; i < T9; ++i) olp[L::at(i, r, ld[R_OLP])] = lp_o[i];
+    for (int i = 0; i < TD; ++i) olp[L::at(i, r, ld[R_OLP])] = lp_o[i];
 #pragma unroll
-    for (int i = 0; i < Z; ++i) or0[L::at(i, r, ld[R_OR0])] = r0[L::at(i, r, ld[R_R0])];
+    for (int i = 0; i < ZD; ++i) or0[L::at(i, r, ld[R_OR0])] = r0[L::at(i, r, ld[R_R0])];
 #pragma unroll
-    for (int k = 0; k < Z * T9; ++k) ojac[L::at(k, r, ld[R_OJAC])] = jac[L::at(k, r, ld[R_JAC])];
+    for (int k = 0; k < ZD * TD; ++k) ojac[L::at(k, r, ld[R_OJAC])] = jac[L::at(k, r, ld[R_JAC])];
     osrel[L::at(0, r, ld[R_OSREL])] = sr + S(1.0);
   }
 }
 
-// The table form on component-major [F, mp] state.  cam: the camera's mean
-// [D0]; the landmark mean is read at r / deg.
-template <typename S>
+// The adjacent means x of a row from its gathered variable's mean `gat` and
+// its ELL variable's mean `ell`, in slot order: the gathered slot is slot
+// `gslot`, the ELL slot the other.
+template <typename S, class M>
+__device__ __forceinline__ void slot_means(const S* __restrict__ gat, const S* __restrict__ ell,
+                                           int64_t ell_stride, int gslot,
+                                           S (&x)[M::DA + M::DB]) {
+  if (gslot == 0) {
+#pragma unroll
+    for (int i = 0; i < M::DA; ++i) x[i] = gat[i];
+#pragma unroll
+    for (int i = 0; i < M::DB; ++i) x[M::DA + i] = ell[i * ell_stride];
+  } else {
+#pragma unroll
+    for (int i = 0; i < M::DA; ++i) x[i] = ell[i * ell_stride];
+#pragma unroll
+    for (int i = 0; i < M::DB; ++i) x[M::DA + i] = gat[i];
+  }
+}
+
+// Dofs of the gathered slot of model M.
+template <class M>
+__host__ __device__ constexpr int gathered_dofs(int gslot) {
+  return gslot == 0 ? M::DA : M::DB;
+}
+
+// The table form on component-major [F, mp] state.  gat: the gathered
+// slot's mean; the ELL slot's mean is read at r / deg.
+template <typename S, class M>
 __device__ __forceinline__ void relin_row(
-    const S* __restrict__ cam, const S* __restrict__ lmk_mean, const S* __restrict__ z,
+    const S* __restrict__ gat, const S* __restrict__ ell_mean, const S* __restrict__ z,
     const S* __restrict__ lp, const S* __restrict__ jac, const S* __restrict__ r0,
     const S* __restrict__ srel, const S* __restrict__ act, S* __restrict__ olp,
     S* __restrict__ ojac, S* __restrict__ or0, S* __restrict__ osrel, int64_t mp, int deg,
-    int64_t r, S beta, S min_linear) {
+    int gslot, int64_t r, S beta, S min_linear) {
   const int64_t l = r / deg;
-  S x[T9];
-#pragma unroll
-  for (int i = 0; i < D0; ++i) x[i] = cam[i];
-#pragma unroll
-  for (int i = 0; i < D1; ++i) x[D0 + i] = lmk_mean[l * D1 + i];
-  relin_core<S, ColMajor>(x, z, lp, jac, r0, srel, act, olp, ojac, or0, osrel, UniformLd{mp}, r,
-                          beta, min_linear);
+  S x[M::DA + M::DB];
+  slot_means<S, M>(gat, ell_mean + l * (M::DA + M::DB - gathered_dofs<M>(gslot)), 1, gslot, x);
+  relin_core<S, M, ColMajor>(x, z, lp, jac, r0, srel, act, olp, ojac, or0, osrel, UniformLd{mp},
+                             r, beta, min_linear);
 }
 
 // Cavity of one slot and its projection through that slot's Jacobian:
@@ -365,22 +406,51 @@ __device__ __forceinline__ void messages_core(
                      ld[M_OE1], ol1, ld[M_OL1], r, damp, ldamp, on);
 }
 
-// The table form on component-major [F, mp] state, diagonal precision.  cam:
-// the camera's packed belief row (eta | lam) [F_CAM]; the landmark's is read
-// at r / deg.
-template <typename S>
+// The table form on component-major [F, mp] state, diagonal precision.  gat:
+// the gathered slot's packed belief row (eta | lam); the ELL slot's is read
+// at r / deg.  The gathered slot is slot GSLOT.
+template <typename S, int DA, int DB, int ZD, bool HUBER_ROW, int GSLOT>
 __device__ __forceinline__ void messages_row(
-    const S* __restrict__ cam, const S* __restrict__ lmk_tab, const S* __restrict__ jac,
+    const S* __restrict__ gat, const S* __restrict__ ell_tab, const S* __restrict__ jac,
     const S* __restrict__ lp, const S* __restrict__ r0g, const S* __restrict__ prec,
     const S* __restrict__ srel, const S* __restrict__ act, const S* __restrict__ me0,
     const S* __restrict__ ml0, const S* __restrict__ me1, const S* __restrict__ ml1,
     S* __restrict__ oe0, S* __restrict__ ol0, S* __restrict__ oe1, S* __restrict__ ol1,
     int64_t mp, int deg, int64_t r, const MsgParams<S>& p) {
-  const PackedBelief<S, D0> b0{cam};
-  const EllBelief<S, D1> b1{lmk_tab, r, deg};
-  messages_core<S, D0, D1, Z, ColMajor, false, false>(
-      b0, b1, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1,
-      UniformLd{mp}, r, p);
+  if constexpr (GSLOT == 0) {
+    const PackedBelief<S, DA> b0{gat};
+    const EllBelief<S, DB> b1{ell_tab, r, deg};
+    messages_core<S, DA, DB, ZD, ColMajor, false, HUBER_ROW>(
+        b0, b1, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1,
+        UniformLd{mp}, r, p);
+  } else {
+    const EllBelief<S, DA> b0{ell_tab, r, deg};
+    const PackedBelief<S, DB> b1{gat};
+    messages_core<S, DA, DB, ZD, ColMajor, false, HUBER_ROW>(
+        b0, b1, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1,
+        UniformLd{mp}, r, p);
+  }
+}
+
+// A table kernel's shape: slot dofs, measurement dim, and which slot is the
+// gathered one; F_G is the gathered slot's packed (eta | lam) row.
+template <int A, int B, int Z_, int G>
+struct Shape {
+  static constexpr int DA = A, DB = B, ZD = Z_, GSLOT = G;
+  static constexpr int DG = G == 0 ? A : B;
+  static constexpr int F_G = DG + DG * DG;
+};
+// Call `fn(Shape{})` for an instantiated shape; false otherwise.  Cameras and
+// landmarks are instantiated with the cameras gathered; a pose graph's ELL
+// layout may group by either end of its between factors.
+template <class F>
+inline bool with_table_shape(int da, int db, int zd, int gslot, F&& fn) {
+  if (da == 6 && db == 3 && zd == 2 && gslot == 0) { fn(Shape<6, 3, 2, 0>{}); return true; }
+  if (da == 3 && db == 3 && zd == 3 && gslot == 0) { fn(Shape<3, 3, 3, 0>{}); return true; }
+  if (da == 3 && db == 3 && zd == 3 && gslot == 1) { fn(Shape<3, 3, 3, 1>{}); return true; }
+  if (da == 6 && db == 6 && zd == 6 && gslot == 0) { fn(Shape<6, 6, 6, 0>{}); return true; }
+  if (da == 6 && db == 6 && zd == 6 && gslot == 1) { fn(Shape<6, 6, 6, 1>{}); return true; }
+  return false;
 }
 
 inline unsigned int n_blocks(int64_t threads) {

@@ -1,6 +1,7 @@
 // The windowed large-scene kernels for Hopper (sm_90a): city and venice
-// bundle adjustment, where the camera table no longer fits one block's
-// shared memory.
+// bundle adjustment, and long pose chains, where the gathered slot's table
+// no longer fits one block's shared memory.  Shapes and models as in
+// messages.cu ((6, 3, 2), (3, 3, 3), (6, 6, 6); scalar or per-row Huber).
 //
 // Rows are cut into tiles of TILE = 1024 factor rows.  After the locality
 // sort of core/sweep_cm.py every camera id of tile i lies in the window
@@ -62,16 +63,16 @@ namespace gbp {
 constexpr int TILE = 1024;
 constexpr int RED_BLOCK = 128;
 
-// Stage rows [start, start + n_in) of a row-major [n_cam, F] table.
-template <typename S, int F>
-__device__ __forceinline__ void stage_window(const S* __restrict__ table, int start, int n_in,
-                                             S* __restrict__ tab) {
-  const S* src = table + static_cast<int64_t>(start) * F;
-  for (int i = threadIdx.x; i < n_in * F; i += blockDim.x) tab[i] = src[i];
+// Stage rows [start, start + n_in) of a row-major [n_cam, f] table.
+template <typename S>
+__device__ __forceinline__ void stage_window(const S* __restrict__ table, int f, int start,
+                                             int n_in, S* __restrict__ tab) {
+  const S* src = table + static_cast<int64_t>(start) * f;
+  for (int i = threadIdx.x; i < n_in * f; i += blockDim.x) tab[i] = src[i];
   __syncthreads();
 }
 
-template <typename S>
+template <typename S, class M>
 __global__ void __launch_bounds__(BLOCK)
 relin_win_kernel(const S* __restrict__ cam_mean, int n_cam,
                  const S* __restrict__ lmk_mean, const int* __restrict__ gidx,
@@ -80,25 +81,27 @@ relin_win_kernel(const S* __restrict__ cam_mean, int n_cam,
                  const S* __restrict__ jac, const S* __restrict__ r0,
                  const S* __restrict__ srel, const S* __restrict__ act,
                  S* __restrict__ olp, S* __restrict__ ojac, S* __restrict__ or0,
-                 S* __restrict__ osrel, int64_t mp, int deg, S beta, S min_linear) {
+                 S* __restrict__ osrel, int64_t mp, int deg, int gslot, S beta,
+                 S min_linear) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* tab = reinterpret_cast<S*>(smem_raw);
   const int start = starts[blockIdx.x];
   // The window may reach past the last camera (starts are cut against the
   // table padded to a multiple of 8); only rows that exist are staged.
   const int n_in = min(win_w, n_cam - start);
-  stage_window<S, D0>(cam_mean, start, n_in, tab);
+  const int dg = gathered_dofs<M>(gslot);
+  stage_window(cam_mean, dg, start, n_in, tab);
 #pragma unroll 1
   for (int s = 0; s < TILE / BLOCK; ++s) {
     const int64_t r = static_cast<int64_t>(blockIdx.x) * TILE + s * BLOCK + threadIdx.x;
     const int off = gidx[r] - start;
     if (off < 0 || off >= n_in) __trap();
-    relin_row(tab + off * D0, lmk_mean, z, lp, jac, r0, srel, act, olp, ojac, or0, osrel,
-              mp, deg, r, beta, min_linear);
+    relin_row<S, M>(tab + off * dg, lmk_mean, z, lp, jac, r0, srel, act, olp, ojac, or0,
+                    osrel, mp, deg, gslot, r, beta, min_linear);
   }
 }
 
-template <typename S>
+template <typename S, class Sh, bool HUBER_ROW>
 __global__ void __launch_bounds__(BLOCK)
 messages_win_kernel(const S* __restrict__ cam_tab, int n_cam,
                     const S* __restrict__ lmk_tab, const int* __restrict__ gidx,
@@ -111,18 +114,20 @@ messages_win_kernel(const S* __restrict__ cam_tab, int n_cam,
                     S* __restrict__ oe0, S* __restrict__ ol0,
                     S* __restrict__ oe1, S* __restrict__ ol1, int64_t mp, int deg,
                     MsgParams<S> p) {
+  constexpr int F_G = Sh::F_G;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* tab = reinterpret_cast<S*>(smem_raw);
   const int start = starts[blockIdx.x];
   const int n_in = min(win_w, n_cam - start);
-  stage_window<S, F_CAM>(cam_tab, start, n_in, tab);
+  stage_window(cam_tab, F_G, start, n_in, tab);
 #pragma unroll 1
   for (int s = 0; s < TILE / BLOCK; ++s) {
     const int64_t r = static_cast<int64_t>(blockIdx.x) * TILE + s * BLOCK + threadIdx.x;
     const int off = gidx[r] - start;
     if (off < 0 || off >= n_in) __trap();
-    messages_row(tab + off * F_CAM, lmk_tab, jac, lp, r0g, prec, srel, act, me0, ml0, me1,
-                 ml1, oe0, ol0, oe1, ol1, mp, deg, r, p);
+    messages_row<S, Sh::DA, Sh::DB, Sh::ZD, HUBER_ROW, Sh::GSLOT>(
+        tab + off * F_G, lmk_tab, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0,
+        oe1, ol1, mp, deg, r, p);
   }
 }
 
@@ -186,36 +191,56 @@ int blocks_per_sm(K kernel, size_t smem) {
 }
 
 template <typename S>
-int relin_win(const S* cam_mean, int n_cam, const S* lmk_mean, const int* gidx,
-              const int* starts, int win_w, const S* z, const S* lp, const S* jac,
+int relin_win(int model, int gslot, const S* cam_mean, int n_cam, const S* lmk_mean,
+              const int* gidx, const int* starts, int win_w, const S* z, const S* lp, const S* jac,
               const S* r0, const S* srel, const S* act, S* olp, S* ojac, S* or0, S* osrel,
               int64_t mp, int deg, double beta, double min_linear, void* stream) {
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = static_cast<size_t>(win_w) * D0 * sizeof(S);
-  if (int rc = allow_smem(relin_win_kernel<S>, smem)) return rc;
-  relin_win_kernel<S><<<static_cast<unsigned int>(mp / TILE), BLOCK, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      cam_mean, n_cam, lmk_mean, gidx, starts, win_w, z, lp, jac, r0, srel, act, olp, ojac,
-      or0, osrel, mp, deg, static_cast<S>(beta), static_cast<S>(min_linear));
-  return static_cast<int>(cudaGetLastError());
+  int rc = 0;
+  const bool known = with_model(model, [&](auto m) {
+    using M = decltype(m);
+    const size_t smem = static_cast<size_t>(win_w) * gathered_dofs<M>(gslot) * sizeof(S);
+    if ((rc = allow_smem(relin_win_kernel<S, M>, smem))) return;
+    relin_win_kernel<S, M><<<static_cast<unsigned int>(mp / TILE), BLOCK, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+        cam_mean, n_cam, lmk_mean, gidx, starts, win_w, z, lp, jac, r0, srel, act, olp, ojac,
+        or0, osrel, mp, deg, gslot, static_cast<S>(beta), static_cast<S>(min_linear));
+  });
+  if (!known) return -2;
+  return rc ? rc : static_cast<int>(cudaGetLastError());
 }
 
 template <typename S>
-int messages_win(const S* cam_tab, int n_cam, const S* lmk_tab, const int* gidx,
-                 const int* starts, int win_w, const S* jac, const S* lp, const S* r0,
+int messages_win(int da, int db, int zd, int gslot, int huber_row, const S* cam_tab,
+                 int n_cam, const S* lmk_tab, const int* gidx, const int* starts, int win_w,
+                 const S* jac, const S* lp, const S* r0,
                  const S* prec, const S* srel, const S* act, const S* me0, const S* ml0,
                  const S* me1, const S* ml1, S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp,
                  int deg, double eta_damping, double lam_damping, double num_undamped,
                  double floor, double jitter, int has_huber, double huber, void* stream) {
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = static_cast<size_t>(win_w) * F_CAM * sizeof(S);
-  if (int rc = allow_smem(messages_win_kernel<S>, smem)) return rc;
-  messages_win_kernel<S><<<static_cast<unsigned int>(mp / TILE), BLOCK, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      cam_tab, n_cam, lmk_tab, gidx, starts, win_w, jac, lp, r0, prec, srel, act, me0, ml0,
-      me1, ml1, oe0, ol0, oe1, ol1, mp, deg,
-      msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber));
-  return static_cast<int>(cudaGetLastError());
+  const auto p =
+      msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const unsigned int grid = static_cast<unsigned int>(mp / TILE);
+  int rc = 0;
+  const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
+    using Sh = decltype(sh);
+    const size_t smem = static_cast<size_t>(win_w) * Sh::F_G * sizeof(S);
+    if (huber_row) {
+      if ((rc = allow_smem(messages_win_kernel<S, Sh, true>, smem))) return;
+      messages_win_kernel<S, Sh, true><<<grid, BLOCK, smem, st>>>(
+          cam_tab, n_cam, lmk_tab, gidx, starts, win_w, jac, lp, r0, prec, srel, act, me0, ml0,
+          me1, ml1, oe0, ol0, oe1, ol1, mp, deg, p);
+    } else {
+      if ((rc = allow_smem(messages_win_kernel<S, Sh, false>, smem))) return;
+      messages_win_kernel<S, Sh, false><<<grid, BLOCK, smem, st>>>(
+          cam_tab, n_cam, lmk_tab, gidx, starts, win_w, jac, lp, r0, prec, srel, act, me0, ml0,
+          me1, ml1, oe0, ol0, oe1, ol1, mp, deg, p);
+    }
+  });
+  if (!known) return -2;
+  return rc ? rc : static_cast<int>(cudaGetLastError());
 }
 
 template <typename S>
@@ -244,26 +269,27 @@ int scatter_win(const S* part, const int* starts, const int* cov_tiles,
 
 #define GBP_WINDOW_ENTRIES(SFX, S)                                                     \
   extern "C" int gbp_relin_cm_tabblk_ell_##SFX(                                        \
-      const S* cam_mean, int n_cam, const S* lmk_mean, const int* gidx,                \
-      const int* starts, int win_w, const S* z, const S* lp, const S* jac,             \
-      const S* r0, const S* srel, const S* act, S* olp, S* ojac, S* or0, S* osrel,     \
-      int64_t mp, int deg, double beta, double min_linear, void* stream) {             \
-    return gbp::relin_win<S>(cam_mean, n_cam, lmk_mean, gidx, starts, win_w, z, lp,    \
-                             jac, r0, srel, act, olp, ojac, or0, osrel, mp, deg, beta, \
-                             min_linear, stream);                                      \
+      int model, int gslot, const S* cam_mean, int n_cam, const S* lmk_mean,           \
+      const int* gidx, const int* starts, int win_w, const S* z, const S* lp,          \
+      const S* jac, const S* r0, const S* srel, const S* act, S* olp, S* ojac, S* or0, \
+      S* osrel, int64_t mp, int deg, double beta, double min_linear, void* stream) {   \
+    return gbp::relin_win<S>(model, gslot, cam_mean, n_cam, lmk_mean, gidx, starts,    \
+                             win_w, z, lp, jac, r0, srel, act, olp, ojac, or0, osrel,  \
+                             mp, deg, beta, min_linear, stream);                       \
   }                                                                                    \
   extern "C" int gbp_messages_cm_tabblk_ell_##SFX(                                     \
-      const S* cam_tab, int n_cam, const S* lmk_tab, const int* gidx,                  \
+      int da, int db, int zd, int gslot, int huber_row, const S* cam_tab, int n_cam,   \
+      const S* lmk_tab, const int* gidx,                                               \
       const int* starts, int win_w, const S* jac, const S* lp, const S* r0,            \
       const S* prec, const S* srel, const S* act, const S* me0, const S* ml0,          \
       const S* me1, const S* ml1, S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp, int deg, \
       double eta_damping, double lam_damping, double num_undamped, double floor,       \
       double jitter, int has_huber, double huber, void* stream) {                      \
-    return gbp::messages_win<S>(cam_tab, n_cam, lmk_tab, gidx, starts, win_w, jac, lp, \
-                                r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0,     \
-                                oe1, ol1, mp, deg, eta_damping, lam_damping,           \
-                                num_undamped, floor, jitter, has_huber, huber,         \
-                                stream);                                               \
+    return gbp::messages_win<S>(da, db, zd, gslot, huber_row, cam_tab, n_cam, lmk_tab, \
+                                gidx, starts, win_w, jac, lp, r0, prec, srel, act, me0, ml0, \
+                                me1, ml1, oe0, ol0, oe1, ol1, mp, deg, eta_damping,    \
+                                lam_damping, num_undamped, floor, jitter, has_huber,   \
+                                huber, stream);                                        \
   }                                                                                    \
   extern "C" int gbp_segsum_cm_blk_##SFX(const S* me, const S* ml, int d,              \
                                          const int* rows, const int* offsets,          \
@@ -278,12 +304,14 @@ int scatter_win(const S* part, const int* starts, const int* cov_tiles,
                                stream);                                                \
   }                                                                                    \
   extern "C" int gbp_relin_cm_tabblk_ell_blocks_per_sm_##SFX(int win_w) {              \
-    return gbp::blocks_per_sm(gbp::relin_win_kernel<S>,                                \
-                              static_cast<size_t>(win_w) * gbp::D0 * sizeof(S));       \
+    using M = gbp::ReprojectionNormalized;                                             \
+    return gbp::blocks_per_sm(gbp::relin_win_kernel<S, M>,                             \
+                              static_cast<size_t>(win_w) * M::DA * sizeof(S));         \
   }                                                                                    \
   extern "C" int gbp_messages_cm_tabblk_ell_blocks_per_sm_##SFX(int win_w) {           \
-    return gbp::blocks_per_sm(gbp::messages_win_kernel<S>,                             \
-                              static_cast<size_t>(win_w) * gbp::F_CAM * sizeof(S));    \
+    using Sh = gbp::Shape<6, 3, 2, 0>;                                                 \
+    return gbp::blocks_per_sm(gbp::messages_win_kernel<S, Sh, false>,                  \
+                              static_cast<size_t>(win_w) * Sh::F_G * sizeof(S));       \
   }
 
 GBP_WINDOW_ENTRIES(f32, float)

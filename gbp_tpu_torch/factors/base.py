@@ -20,6 +20,13 @@ from typing import Any, Callable
 import torch
 
 
+def identity_jac(x, args):
+    """J = I [m, d, d]: the Jacobian of a unary factor h(x) = x."""
+    del args
+    d = x.shape[-1]
+    return torch.eye(d, dtype=x.dtype, device=x.device).expand(*x.shape[:-1], d, d)
+
+
 @dataclasses.dataclass(frozen=True)
 class FactorType:
     """A measurement model h(x) with an analytic Jacobian.

@@ -17,8 +17,14 @@ from gbp_tpu_torch import resolve_device
 from gbp_tpu_torch.core.graph import FactorBlock, Graph, Inbox, VariableBlock, adjacency_csr
 from gbp_tpu_torch.core.sweep import FactorState, GBPState, VariableState
 from gbp_tpu_torch.core.sweep_cm import CMFactorState, CMState
-from gbp_tpu_torch.factors import linear
-from gbp_tpu_torch.factors.reprojection import FACTOR_TYPES
+from gbp_tpu_torch.factors import linear, odometry, se3
+from gbp_tpu_torch.factors.reprojection import FACTOR_TYPES as BA_FACTOR_TYPES
+
+FACTOR_TYPES = {
+    **BA_FACTOR_TYPES,
+    "se2_between": odometry.se2_between, "se2_prior": odometry.se2_prior,
+    "se3_between": se3.se3_between, "se3_prior": se3.se3_prior,
+}
 
 LANE = 128  # the reference's trailing component-major dim
 
@@ -35,7 +41,7 @@ def factor_type(name: str):
                          ("observation", linear.observation)):
         if name.startswith(prefix) and name[len(prefix):].isdigit():
             return make(int(name[len(prefix):]))
-    raise NotImplementedError(f"factor type {name!r} is not ported yet (ROADMAP A7/A8)")
+    raise NotImplementedError(f"factor type {name!r} is not ported yet (ROADMAP A7)")
 
 
 def graph_from_numpy(g, device=None) -> Graph:
@@ -131,7 +137,8 @@ def cm_state_from_numpy(st, device=None) -> CMState:
     `rowperm` of the CMGraph); both packages' `prepare` derive the same
     permutations from the same graph, so the state converts leaf for leaf
     and no permutation is applied here.  User order is restored by
-    `to_gbp_state` on either side."""
+    `to_gbp_state` on either side.  A same-block (pose-graph) state has one
+    variable block and converts the same way."""
     device = resolve_device(device)
     f = st.f
     return CMState(

@@ -1,4 +1,4 @@
-"""The port's eleven kernels: wrappers, plain versions, launch counts.
+"""The port's fourteen kernels: wrappers, plain versions, launch counts.
 
 Each function dispatches on where its tensors lie: CUDA tensors go to the
 hand-written kernel in csrc/*.cu (built on first use by ops/_build.py), CPU
@@ -7,9 +7,15 @@ tensor that the kernel does not take raises.
 
 Layout: component-major, every per-factor operand is [F, mp] (component k
 of factor row r at [k, r]), the memory order of the reference's
-[F, mp/128, 128].  The two slots are fixed to the slice's BA shapes:
-slot 0 = camera (6 dof, gathered by id from a per-camera table), slot 1 =
-landmark (3 dof, ELL slot: row r belongs to landmark r // deg), z = 2.
+[F, mp/128, 128].  One slot is gathered by id from a per-variable table
+(slot `gslot`), the other is the ELL slot (row r belongs to variable
+r // deg).  The table kernels are instantiated for TABLE_SHAPES: (6, 3, 2)
+cameras and landmarks under `reprojection_normalized` with the cameras
+gathered (gslot 0), (3, 3, 3) SE(2) and (6, 6, 6) SE(3) poses under
+`se2_between` / `se3_between` (both slots on one variable block) with either
+slot gathered; a wrapper reads the shape off its operands.  The names of
+the arguments keep the bundle-adjustment words (cam = gathered slot, lmk =
+ELL slot).
 
   relin_cm_tab_ell     replaces gbp_tpu.ops.messages_pallas.fused_relin_cm_tab_ell
   messages_cm_tab_ell  replaces gbp_tpu.ops.messages_pallas.fused_messages_cm_tab_ell
@@ -41,6 +47,16 @@ stride, so slices of wider arrays are taken in place.
   fused_relin_messages  replaces fused_relin_messages   (operands [m, F]): the
                         relinearization kernel, then `fused_messages` on the
                         new linearization
+
+The unfused table path (csrc/unfused.cu; `prepare(ell_fused=False)`, and by
+itself at ELL degree 1): the gathered slot from the table in shared memory,
+the ELL slot from expanded operands.
+
+  expand_ell_blk   replaces expand_ell_blk: the packed ELL-slot table
+                   [nv, f] expanded to [f, mp], out[k, r] = tab[r // deg, k]
+  relin_cm_tab     replaces fused_relin_cm_tab
+  messages_cm_tab  replaces fused_messages_cm_tab (no sum folded in: the
+                   sweep calls `segsum_by_id`)
 """
 from __future__ import annotations
 
@@ -51,23 +67,30 @@ import numpy as np
 import torch
 
 from gbp_tpu_torch.ops import comp_linalg as cl
-from gbp_tpu_torch.ops.comp_factors import comp_model
+from gbp_tpu_torch.ops.comp_factors import comp_model, comp_residual
 
-D0, D1, Z = 6, 3, 2  # camera dofs, landmark dofs, measurement dim
-T = D0 + D1
+D0, D1, Z = 6, 3, 2  # bundle adjustment: camera dofs, landmark dofs, measurement dim
 F_CAM = D0 + D0 * D0  # packed camera belief row: eta | lam
-F_LMK = D1 + D1 * D1  # packed landmark belief row: eta | lam
 TILE = 1024  # rows per window tile, the reference's grid tile (8 x 128)
-# The most dynamic shared memory one block can ask for on sm_90.
+# The most dynamic shared memory one block can ask for on sm_90 (the windowed
+# kernels' limit), and the static shared memory the full-table kernels stage
+# their table in.
 SMEM_WINDOW_BYTES = 232448
+SMEM_TABLE_BYTES = 48 * 1024
 KERNELS = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id",
            "relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
            "scatter_windows_cm", "messages_cm", "relin_cm", "fused_messages",
-           "fused_relin_messages")
+           "fused_relin_messages", "messages_cm_tab", "relin_cm_tab", "expand_ell_blk")
 # (d0, d1, z) the expanded-operand messages kernel is instantiated for, and
 # the ROADMAP items that add the others.
-ROW_SHAPES = ((6, 3, 2), (1, 1, 1))
-ROW_SHAPES_QUEUED = {(9, 3, 2): "A7", (3, 3, 3): "A8", (6, 6, 6): "A8"}
+ROW_SHAPES = ((6, 3, 2), (1, 1, 1), (3, 3, 3), (6, 6, 6))
+ROW_SHAPES_QUEUED = {(9, 3, 2): "A7"}
+# (d0, d1, z) of the table kernels, and the measurement models of the
+# relinearization kernels with their ids in the C entries.
+TABLE_SHAPES = ((6, 3, 2), (3, 3, 3), (6, 6, 6))
+MODELS = {"reprojection_normalized": (0, (6, 3, 2)), "se2_between": (1, (3, 3, 3)),
+          "se3_between": (2, (6, 6, 6))}
+BA_MODEL = "reprojection_normalized"
 
 
 @dataclasses.dataclass
@@ -107,41 +130,64 @@ def _relin_math(params, x, z, lp_o, jac_o, r0_o, srel, act, comp_name):
     lists: x the adjacent means, srel and act one tensor each.
 
     eligible = ||x - lp||^2 > beta^2 and srel >= min_linear_iters and act.
-    Eligible rows take lp = x, the new (J, r0 = z - h) and srel = 0; the
-    others keep their state and srel + 1.  Returns (lp, jac, r0) as lists
-    and the new srel."""
+    Eligible rows take lp = x, the new (J, r0 = z - h, or the factor type's
+    own residual: angle wrap, manifold log) and srel = 0; the others keep
+    their state and srel + 1.  Returns (lp, jac, r0) as lists and the new
+    srel."""
     comp_fn = comp_model(comp_name)
+    res_fn = comp_residual(comp_name)
     t, zd = len(x), len(z)
     beta = _scalar(params[4], lp_o[0])
     dist2 = sum((x[i] - lp_o[i]) * (x[i] - lp_o[i]) for i in range(t))
     eligible = (dist2 > beta * beta) & (srel >= params[5]) & (act > 0.5)
     h, j_new = comp_fn(x)
-    r_new = [z[i] - h[i] for i in range(zd)]
+    r_new = res_fn(z, h) if res_fn is not None else [z[i] - h[i] for i in range(zd)]
     jac_new = [j_new[i][j] for i in range(zd) for j in range(t)]
     sel = lambda new, old: [torch.where(eligible, a, b) for a, b in zip(new, old)]
     return (sel(x, lp_o), sel(jac_new, jac_o), sel(r_new, r0_o),
             torch.where(eligible, torch.zeros_like(srel), srel + 1.0))
 
 
-def _relin_plain(params, cam_rows, lmk_mean, z, lp, jac, r0, srel, act, *, deg):
-    """`_relin_math` on component-major state with the camera means already
-    read per row, cam_rows [mp, 6]: x = [cam_rows[r], lmk_mean[r // deg]]."""
-    mp = lp.shape[1]
-    rows = torch.arange(mp, device=lp.device) // deg
-    x = _rows(cam_rows.T) + _rows(lmk_mean[rows].T)
+def _relin_cm(params, x, z, lp, jac, r0, srel, act, comp_name):
+    """`_relin_math` on component-major state, x the adjacent means as a
+    component list."""
     lp_n, jac_n, r0_n, srel_n = _relin_math(
-        params, x, _rows(z), _rows(lp), _rows(jac), _rows(r0), srel[0], act[0],
-        "reprojection_normalized")
+        params, x, _rows(z), _rows(lp), _rows(jac), _rows(r0), srel[0], act[0], comp_name)
     return torch.stack(lp_n), torch.stack(jac_n), torch.stack(r0_n), srel_n[None]
 
 
+def _by_slot(gat, ell, gslot):
+    """(slot 0's, slot 1's) of the gathered and the ELL slot's operand."""
+    return (gat, ell) if gslot == 0 else (ell, gat)
+
+
+def _relin_plain(params, cam_rows, lmk_mean, z, lp, jac, r0, srel, act, *, deg, comp_name,
+                 gslot):
+    """`_relin_cm` with the gathered slot's means already read per row,
+    cam_rows [mp, d_g]: x joins cam_rows[r] and lmk_mean[r // deg] in slot
+    order."""
+    rows = torch.arange(lp.shape[1], device=lp.device) // deg
+    x0, x1 = _by_slot(_rows(cam_rows.T), _rows(lmk_mean[rows].T), gslot)
+    return _relin_cm(params, x0 + x1, z, lp, jac, r0, srel, act, comp_name)
+
+
 def relin_cm_tab_ell_plain(params, cam_mean, lmk_mean, gidx, z, lp, jac, r0,
-                           srel, act, *, deg):
-    """Plain version of `relin_cm_tab_ell`: camera means read by id from the
-    whole table."""
+                           srel, act, *, deg, comp_name=BA_MODEL, gslot=0):
+    """Plain version of `relin_cm_tab_ell`: gathered-slot means read by id
+    from the whole table."""
     COUNTS.plain["relin_cm_tab_ell"] += 1
     return _relin_plain(params, cam_mean[gidx.long()], lmk_mean, z, lp, jac, r0,
-                        srel, act, deg=deg)
+                        srel, act, deg=deg, comp_name=comp_name, gslot=gslot)
+
+
+def relin_cm_tab_plain(params, x_other, mtab, gidx, z, fargs, lp, jac, r0, srel, act, *,
+                       comp_name, gslot=0):
+    """Plain version of `relin_cm_tab`: x joins mtab[gidx[r]] and
+    x_other[:, r] in slot order."""
+    _no_fargs("relin_cm_tab", fargs)
+    COUNTS.plain["relin_cm_tab"] += 1
+    x0, x1 = _by_slot(_rows(mtab[gidx.long()].T), _rows(x_other), gslot)
+    return _relin_cm(params, x0 + x1, z, lp, jac, r0, srel, act, comp_name)
 
 
 def _window_rows(tab, gidx, win_starts, win_w):
@@ -155,12 +201,13 @@ def _window_rows(tab, gidx, win_starts, win_w):
 
 
 def relin_cm_tabblk_ell_plain(params, cam_mean, lmk_mean, gidx, win_starts, z, lp,
-                              jac, r0, srel, act, *, deg, win_w):
-    """Plain version of `relin_cm_tabblk_ell`: camera means read from each
-    row's tile window."""
+                              jac, r0, srel, act, *, deg, win_w, comp_name=BA_MODEL,
+                              gslot=0):
+    """Plain version of `relin_cm_tabblk_ell`: gathered-slot means read from
+    each row's tile window."""
     COUNTS.plain["relin_cm_tabblk_ell"] += 1
     return _relin_plain(params, _window_rows(cam_mean, gidx, win_starts, win_w), lmk_mean,
-                        z, lp, jac, r0, srel, act, deg=deg)
+                        z, lp, jac, r0, srel, act, deg=deg, comp_name=comp_name, gslot=gslot)
 
 
 def _message_math(params, jac, x0, r0_l, prec, srel, act, be0, bl0, be1, bl1,
@@ -241,47 +288,78 @@ def _message_math(params, jac, x0, r0_l, prec, srel, act, be0, bl0, be1, bl1,
     return oe0, ol0, oe1, ol1
 
 
-def _messages_plain(params, cam_rows, lmk_tab, jac, lp, r0, prec, srel,
-                    act, me0, ml0, me1, ml1, *, deg, huber):
-    """`_message_math` on component-major state (diagonal prec) with the
-    packed camera beliefs already read per row, cam_rows [mp, 42], and the
-    landmark beliefs read at r // deg."""
-    mp = jac.shape[1]
-    rows = torch.arange(mp, device=jac.device) // deg
-    cam = _rows(cam_rows.T)
-    lmk = _rows(lmk_tab[rows].T)
+def _messages_cm(params, be0, bl0, be1, bl1, jac, lp, r0, prec, srel, act, me0, ml0, me1,
+                 ml1, huber):
+    """`_message_math` on component-major state (diagonal prec; with huber
+    "row" the thresholds ride as prec's last component), the two slots'
+    beliefs as component lists; the shape is read off the operands."""
     out = _message_math(
         params, _rows(jac), _rows(lp), _rows(r0), _rows(prec), srel[0], act[0],
-        cam[:D0], cam[D0:], lmk[:D1], lmk[D1:], _rows(me0), _rows(ml0), _rows(me1),
-        _rows(ml1), d0=D0, d1=D1, z=Z, prec_full=False, huber=huber)
+        be0, bl0, be1, bl1, _rows(me0), _rows(ml0), _rows(me1), _rows(ml1),
+        d0=me0.shape[0], d1=me1.shape[0], z=r0.shape[0], prec_full=False, huber=huber)
     return tuple(torch.stack(o) for o in out)
+
+
+def _messages_plain(params, cam_rows, lmk_tab, jac, lp, r0, prec, srel,
+                    act, me0, ml0, me1, ml1, *, deg, huber, gslot):
+    """`_messages_cm` with the gathered slot's packed beliefs already read
+    per row, cam_rows [mp, d_g + d_g * d_g], and the ELL slot's read at
+    r // deg."""
+    d_g, d_e = _by_slot(me0.shape[0], me1.shape[0], gslot)
+    rows = torch.arange(jac.shape[1], device=jac.device) // deg
+    cam = _rows(cam_rows.T)
+    lmk = _rows(lmk_tab[rows].T)
+    (be0, bl0), (be1, bl1) = _by_slot((cam[:d_g], cam[d_g:]), (lmk[:d_e], lmk[d_e:]), gslot)
+    return _messages_cm(params, be0, bl0, be1, bl1, jac, lp, r0, prec, srel, act, me0, ml0,
+                        me1, ml1, huber)
+
+
+def messages_cm_tab_plain(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab, gidx,
+                          me0, ml0, me1, ml1, *, huber, gslot=0):
+    """Plain version of `messages_cm_tab`: the gathered slot's beliefs are
+    btab[gidx[r]], the other slot's the expanded operands."""
+    COUNTS.plain["messages_cm_tab"] += 1
+    d_g = (me0, me1)[gslot].shape[0]
+    gat = _rows(btab[gidx.long()].T)
+    (be0, bl0), (be1, bl1) = _by_slot((gat[:d_g], gat[d_g:]), (_rows(be_o), _rows(bl_o)), gslot)
+    return _messages_cm(params, be0, bl0, be1, bl1, jac, lp, r0, prec, srel, act, me0, ml0,
+                        me1, ml1, huber)
+
+
+def expand_ell_blk_plain(tab, *, deg):
+    """Plain version of `expand_ell_blk`: the transposed table broadcast over
+    the degree axis, out[k, r] = tab[r // deg, k] (the reference's
+    broadcast-reshape at lane-aligned degrees)."""
+    COUNTS.plain["expand_ell_blk"] += 1
+    nv, f = tab.shape
+    return tab.T[:, :, None].expand(f, nv, deg).reshape(f, nv * deg)
 
 
 def messages_cm_tab_ell_plain(params, cam_tab, lmk_tab, gidx, jac, lp, r0,
                               prec, srel, act, me0, ml0, me1, ml1, seg_rows,
-                              seg_offsets, *, deg, huber):
+                              seg_offsets, *, deg, huber, gslot=0):
     """Plain version of `messages_cm_tab_ell`: the four new messages and the
-    camera-side sum of the new camera messages [F_CAM, n_cam]."""
+    sum of the new gathered-slot messages per variable [d_g + d_g * d_g, n]."""
     COUNTS.plain["messages_cm_tab_ell"] += 1
-    oe0, ol0, oe1, ol1 = _messages_plain(
+    out = _messages_plain(
         params, cam_tab[gidx.long()], lmk_tab, jac, lp, r0, prec, srel, act,
-        me0, ml0, me1, ml1, deg=deg, huber=huber)
-    return oe0, ol0, oe1, ol1, segsum_by_id_plain(oe0, ol0, seg_rows, seg_offsets)
+        me0, ml0, me1, ml1, deg=deg, huber=huber, gslot=gslot)
+    return (*out, segsum_by_id_plain(out[2 * gslot], out[2 * gslot + 1], seg_rows, seg_offsets))
 
 
 def messages_cm_tabblk_ell_plain(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp,
                                  r0, prec, srel, act, me0, ml0, me1, ml1, win_rows,
-                                 win_offsets, *, deg, huber, win_w):
+                                 win_offsets, *, deg, huber, win_w, gslot=0):
     """Plain version of `messages_cm_tabblk_ell`: the four new messages and
-    the per-tile window partials of the new camera messages
-    [n_tiles, F_CAM, win_w]."""
+    the per-tile window partials of the new gathered-slot messages
+    [n_tiles, d_g + d_g * d_g, win_w]."""
     COUNTS.plain["messages_cm_tabblk_ell"] += 1
-    oe0, ol0, oe1, ol1 = _messages_plain(
+    out = _messages_plain(
         params, _window_rows(cam_tab, gidx, win_starts, win_w), lmk_tab, jac, lp, r0,
-        prec, srel, act, me0, ml0, me1, ml1, deg=deg, huber=huber)
-    part = segsum_cm_blk_plain(oe0, ol0, win_rows, win_offsets,
+        prec, srel, act, me0, ml0, me1, ml1, deg=deg, huber=huber, gslot=gslot)
+    part = segsum_cm_blk_plain(out[2 * gslot], out[2 * gslot + 1], win_rows, win_offsets,
                                n_tiles=jac.shape[1] // TILE, w=win_w)
-    return oe0, ol0, oe1, ol1, part
+    return (*out, part)
 
 
 def _csr_sum(me, ml, rows, offsets, row_major=False):
@@ -379,8 +457,14 @@ def window_cover_csr(win_starts, w, n_seg):
 # --- kernel wrappers --------------------------------------------------------
 
 
+def _on_card(t) -> bool:
+    """Whether a wrapper launches its kernel for `t` (a CUDA tensor) or runs
+    its plain version (a CPU tensor): the one place that decides."""
+    return t.is_cuda
+
+
 def _check(name, t, shape, dtype):
-    if not t.is_cuda:
+    if not _on_card(t):
         raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -408,29 +492,106 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
+def _table_shape(name, d0, d1, z, gslot=0):
+    """Raise unless the table kernels are instantiated for (d0, d1, z) with
+    slot `gslot` gathered: every TABLE_SHAPES entry with slot 0 gathered, the
+    shapes of equal slots (pose graphs) also with slot 1."""
+    if gslot not in (0, 1):
+        raise ValueError(f"{name}: gslot must be 0 or 1, got {gslot}")
+    if (d0, d1, z) not in TABLE_SHAPES:
+        raise NotImplementedError(
+            f"{name}: the kernel is not instantiated for (d0, d1, z) = ({d0}, {d1}, {z}); "
+            f"it has {TABLE_SHAPES}")
+    if gslot == 1 and d0 != d1:
+        raise NotImplementedError(
+            f"{name}: at (d0, d1, z) = ({d0}, {d1}, {z}) only slot 0 is gathered (cameras in "
+            f"the ELL slot: ROADMAP A7)")
+
+
+def _model(name, comp_name, d0, d1, z, gslot=0):
+    """The C entries' id of the measurement model `comp_name`, checked
+    against the operands' shape."""
+    comp_model(comp_name)  # raises for a model that is not ported
+    model, shape = MODELS[comp_name]
+    if shape != (d0, d1, z):
+        raise ValueError(f"{name}: model {comp_name!r} has (d0, d1, z) = {shape}, the operands "
+                         f"({d0}, {d1}, {z})")
+    _table_shape(name, d0, d1, z, gslot)
+    return model
+
+
+def _shape_args(d0, d1, zd, gslot, huber):
+    """The messages entries' leading arguments: d0, d1, z, gslot and the
+    per-row Huber flag."""
+    return [ctypes.c_int(v) for v in (d0, d1, zd, gslot, int(_huber_mode(huber, False)[0]))]
+
+
+def _relin_outputs(lp, z):
+    t, zd = lp.shape[0], z.shape[0]
+    return [torch.empty((f, lp.shape[1]), dtype=lp.dtype, device=lp.device)
+            for f in (t, zd * t, zd, 1)]
+
+
+def _message_outputs(me0, me1):
+    d0, d1 = me0.shape[0], me1.shape[0]
+    return [torch.empty((f, me0.shape[1]), dtype=me0.dtype, device=me0.device)
+            for f in (d0, d0 * d0, d1, d1 * d1)]
+
+
+def _relin_state_args(z, lp, jac, r0, srel, act, d0, d1, zd):
+    """The relinearization kernels' six state operands, checked."""
+    dt, mp, t = lp.dtype, lp.shape[1], d0 + d1
+    return [_check("z", z, (zd, mp), dt), _check("lp", lp, (t, mp), dt),
+            _check("jac", jac, (zd * t, mp), dt), _check("r0", r0, (zd, mp), dt),
+            _check("srel", srel, (1, mp), dt), _check("act", act, (1, mp), dt)]
+
+
+def _message_state_args(jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, d0, d1, zd, huber):
+    """The messages kernels' ten state operands, checked; prec carries the
+    per-row thresholds as one more component under huber "row"."""
+    dt, mp, t = jac.dtype, jac.shape[1], d0 + d1
+    return [
+        _check("jac", jac, (zd * t, mp), dt), _check("lp", lp, (t, mp), dt),
+        _check("r0", r0, (zd, mp), dt),
+        _check("prec", prec, (_prec_comps(zd, False, huber), mp), dt),
+        _check("srel", srel, (1, mp), dt), _check("act", act, (1, mp), dt),
+        _check("me0", me0, (d0, mp), dt), _check("ml0", ml0, (d0 * d0, mp), dt),
+        _check("me1", me1, (d1, mp), dt), _check("ml1", ml1, (d1 * d1, mp), dt)]
+
+
+def _message_scalars(params, huber):
+    eta_damping, lam_damping, num_undamped, floor, _, _, jitter = params
+    _, has_huber, huber_val = _huber_mode(huber, False)
+    return [ctypes.c_double(eta_damping), ctypes.c_double(lam_damping),
+            ctypes.c_double(num_undamped), ctypes.c_double(floor), ctypes.c_double(jitter),
+            ctypes.c_int(has_huber), ctypes.c_double(huber_val), _stream()]
+
+
 def relin_cm_tab_ell(params, cam_mean, lmk_mean, gidx, z, lp, jac, r0, srel,
-                     act, *, deg):
-    """Masked relinearization; returns new (lp [9, mp], jac [18, mp],
-    r0 [2, mp], srel [1, mp]).  cam_mean [n_cam, 6], lmk_mean [nv, 3] with
-    nv = mp // deg, gidx [mp] int32 camera ids."""
-    if not lp.is_cuda:
-        return relin_cm_tab_ell_plain(params, cam_mean, lmk_mean, gidx, z, lp,
-                                      jac, r0, srel, act, deg=deg)
+                     act, *, deg, comp_name=BA_MODEL, gslot=0):
+    """Masked relinearization; returns new (lp [t, mp], jac [z * t, mp],
+    r0 [z, mp], srel [1, mp]).  cam_mean [n, d_g] the gathered slot's means
+    (slot `gslot`), lmk_mean [nv, d_e] the ELL slot's with nv = mp // deg,
+    gidx [mp] int32 ids into cam_mean; comp_name the measurement model."""
+    if not _on_card(lp):
+        return relin_cm_tab_ell_plain(params, cam_mean, lmk_mean, gidx, z, lp, jac, r0, srel,
+                                      act, deg=deg, comp_name=comp_name, gslot=gslot)
     from gbp_tpu_torch.ops._build import library
 
     dt = lp.dtype
     mp = lp.shape[1]
-    n_cam, nv = cam_mean.shape[0], lmk_mean.shape[0]
+    (n_cam, d_g), (nv, d_e), zd = cam_mean.shape, lmk_mean.shape, z.shape[0]
+    d0, d1 = _by_slot(d_g, d_e, gslot)
+    model = _model("relin_cm_tab_ell", comp_name, d0, d1, zd, gslot)
     if mp != nv * deg:
         raise ValueError(f"relin_cm_tab_ell: mp={mp} != nv*deg={nv}*{deg}")
-    out = [torch.empty((f, mp), dtype=dt, device=lp.device) for f in (T, Z * T, Z, 1)]
+    out = _relin_outputs(lp, z)
     args = [
-        _check("cam_mean", cam_mean, (n_cam, D0), dt), ctypes.c_int(n_cam),
-        _check("lmk_mean", lmk_mean, (nv, D1), dt), ctypes.c_int(nv),
+        ctypes.c_int(model), ctypes.c_int(gslot),
+        _check("cam_mean", cam_mean, (n_cam, d_g), dt), ctypes.c_int(n_cam),
+        _check("lmk_mean", lmk_mean, (nv, d_e), dt), ctypes.c_int(nv),
         _check("gidx", gidx, (mp,), torch.int32),
-        _check("z", z, (Z, mp), dt), _check("lp", lp, (T, mp), dt),
-        _check("jac", jac, (Z * T, mp), dt), _check("r0", r0, (Z, mp), dt),
-        _check("srel", srel, (1, mp), dt), _check("act", act, (1, mp), dt),
+        *_relin_state_args(z, lp, jac, r0, srel, act, d0, d1, zd),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
         ctypes.c_int64(mp), ctypes.c_int(deg),
         ctypes.c_double(params[4]), ctypes.c_double(params[5]), _stream(),
@@ -443,53 +604,150 @@ def relin_cm_tab_ell(params, cam_mean, lmk_mean, gidx, z, lp, jac, r0, srel,
 
 def messages_cm_tab_ell(params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec,
                         srel, act, me0, ml0, me1, ml1, seg_rows, seg_offsets,
-                        *, deg, huber):
-    """Factor -> variable messages; returns (eta0 [6, mp], lam0 [36, mp],
-    eta1 [3, mp], lam1 [9, mp], camera sum [42, n_cam]) like the reference.
+                        *, deg, huber, gslot=0):
+    """Factor -> variable messages; returns (eta0 [d0, mp], lam0 [d0 * d0,
+    mp], eta1 [d1, mp], lam1 [d1 * d1, mp], gathered-slot sum [d_g + d_g *
+    d_g, n]) like the reference.
 
-    cam_tab [n_cam, 42] and lmk_tab [nv, 12] are the packed (eta | lam)
-    beliefs; huber is None or the scalar Mahalanobis threshold."""
-    if not jac.is_cuda:
+    cam_tab [n, d_g + d_g * d_g] and lmk_tab [nv, d_e + d_e * d_e] are the
+    packed (eta | lam) beliefs of the gathered slot (slot `gslot`) and the
+    ELL slot; huber is None, the scalar Mahalanobis threshold, or "row"
+    (per-row thresholds as prec's last component, 0 = off)."""
+    if not _on_card(jac):
         return messages_cm_tab_ell_plain(
-            params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec, srel, act,
-            me0, ml0, me1, ml1, seg_rows, seg_offsets, deg=deg, huber=huber)
+            params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1,
+            seg_rows, seg_offsets, deg=deg, huber=huber, gslot=gslot)
     from gbp_tpu_torch.ops._build import library
 
     dt = jac.dtype
     mp = jac.shape[1]
+    d0, d1, zd = me0.shape[0], me1.shape[0], r0.shape[0]
+    _table_shape("messages_cm_tab_ell", d0, d1, zd, gslot)
+    d_g, d_e = _by_slot(d0, d1, gslot)
     n_cam, nv = cam_tab.shape[0], lmk_tab.shape[0]
     if mp != nv * deg:
         raise ValueError(f"messages_cm_tab_ell: mp={mp} != nv*deg={nv}*{deg}")
-    out = [torch.empty((f, mp), dtype=dt, device=jac.device)
-           for f in (D0, D0 * D0, D1, D1 * D1)]
-    eta_damping, lam_damping, num_undamped, floor, _, _, jitter = params
+    out = _message_outputs(me0, me1)
     args = [
-        _check("cam_tab", cam_tab, (n_cam, F_CAM), dt), ctypes.c_int(n_cam),
-        _check("lmk_tab", lmk_tab, (nv, F_LMK), dt), ctypes.c_int(nv),
+        *_shape_args(d0, d1, zd, gslot, huber),
+        _check("cam_tab", cam_tab, (n_cam, d_g + d_g * d_g), dt), ctypes.c_int(n_cam),
+        _check("lmk_tab", lmk_tab, (nv, d_e + d_e * d_e), dt), ctypes.c_int(nv),
         _check("gidx", gidx, (mp,), torch.int32),
-        _check("jac", jac, (Z * T, mp), dt), _check("lp", lp, (T, mp), dt),
-        _check("r0", r0, (Z, mp), dt), _check("prec", prec, (Z, mp), dt),
-        _check("srel", srel, (1, mp), dt), _check("act", act, (1, mp), dt),
-        _check("me0", me0, (D0, mp), dt), _check("ml0", ml0, (D0 * D0, mp), dt),
-        _check("me1", me1, (D1, mp), dt), _check("ml1", ml1, (D1 * D1, mp), dt),
+        *_message_state_args(jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, d0, d1, zd,
+                             huber),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
-        ctypes.c_int64(mp), ctypes.c_int(deg),
-        ctypes.c_double(eta_damping), ctypes.c_double(lam_damping),
-        ctypes.c_double(num_undamped), ctypes.c_double(floor),
-        ctypes.c_double(jitter), ctypes.c_int(huber is not None),
-        ctypes.c_double(0.0 if huber is None else huber), _stream(),
+        ctypes.c_int64(mp), ctypes.c_int(deg), *_message_scalars(params, huber),
     ]
     fn = getattr(library(), f"gbp_messages_cm_tab_ell_{_suffix(dt)}")
     _raise_on(fn(*args), "messages_cm_tab_ell")
     COUNTS.kernel["messages_cm_tab_ell"] += 1
-    return (*out, segsum_by_id(out[0], out[1], seg_rows, seg_offsets))
+    return (*out, segsum_by_id(out[2 * gslot], out[2 * gslot + 1], seg_rows, seg_offsets))
+
+
+def _table_smem(name, n, width, dt):
+    """Raise unless a table of `n` rows of `width` values fits the static
+    shared memory the full-table kernels stage it in."""
+    need = n * width * torch.empty((), dtype=dt).element_size()
+    if need > SMEM_TABLE_BYTES:
+        raise ValueError(
+            f"{name}: a table of {n} rows x {width} values of {dt} takes {need} bytes of "
+            f"shared memory; the full-table kernels stage {SMEM_TABLE_BYTES}")
+
+
+def expand_ell_blk(tab, *, deg):
+    """The packed ELL-slot table tab [nv, f] expanded to per-row operands
+    [f, nv * deg]: out[k, r] = tab[r // deg, k]."""
+    if not _on_card(tab):
+        return expand_ell_blk_plain(tab, deg=deg)
+    from gbp_tpu_torch.ops._build import library
+
+    dt = tab.dtype
+    nv, f = tab.shape
+    if deg <= 0:
+        raise ValueError(f"expand_ell_blk: deg={deg}")
+    out = torch.empty((f, nv * deg), dtype=dt, device=tab.device)
+    fn = getattr(library(), f"gbp_expand_ell_blk_{_suffix(dt)}")
+    _raise_on(fn(_check("tab", tab, (nv, f), dt), ctypes.c_int(f), ctypes.c_int(deg),
+                 ctypes.c_int64(nv * deg), ctypes.c_void_p(out.data_ptr()), _stream()),
+              "expand_ell_blk")
+    COUNTS.kernel["expand_ell_blk"] += 1
+    return out
+
+
+def relin_cm_tab(params, x_other, mtab, gidx, z, fargs, lp, jac, r0, srel, act, *,
+                 comp_name, gslot=0):
+    """Masked relinearization with slot `gslot`'s means read by id from the
+    table mtab [n, d_g] and the other slot's from the expanded operand
+    x_other [d_o, mp]; returns (lp, jac, r0, srel).  The table must fit the
+    static shared memory (SMEM_TABLE_BYTES)."""
+    if not _on_card(lp):
+        return relin_cm_tab_plain(params, x_other, mtab, gidx, z, fargs, lp, jac, r0, srel,
+                                  act, comp_name=comp_name, gslot=gslot)
+    from gbp_tpu_torch.ops._build import library
+
+    _no_fargs("relin_cm_tab", fargs)
+    dt = lp.dtype
+    mp = lp.shape[1]
+    (n_g, d_g), d_o, zd = mtab.shape, x_other.shape[0], z.shape[0]
+    d0, d1 = _by_slot(d_g, d_o, gslot)
+    model = _model("relin_cm_tab", comp_name, d0, d1, zd, gslot)
+    _table_smem("relin_cm_tab", n_g, d_g, dt)
+    out = _relin_outputs(lp, z)
+    args = [
+        ctypes.c_int(model), ctypes.c_int(gslot), _check("x_other", x_other, (d_o, mp), dt),
+        _check("mtab", mtab, (n_g, d_g), dt), ctypes.c_int(n_g),
+        _check("gidx", gidx, (mp,), torch.int32),
+        *_relin_state_args(z, lp, jac, r0, srel, act, d0, d1, zd),
+        *[ctypes.c_void_p(o.data_ptr()) for o in out],
+        ctypes.c_int64(mp), ctypes.c_double(params[4]), ctypes.c_double(params[5]), _stream(),
+    ]
+    fn = getattr(library(), f"gbp_relin_cm_tab_{_suffix(dt)}")
+    _raise_on(fn(*args), "relin_cm_tab")
+    COUNTS.kernel["relin_cm_tab"] += 1
+    return tuple(out)
+
+
+def messages_cm_tab(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab, gidx,
+                    me0, ml0, me1, ml1, *, huber, gslot=0):
+    """Factor -> variable messages with slot `gslot`'s packed beliefs read by
+    id from the table btab [n, d_g + d_g * d_g] and the other slot's from the
+    expanded operands be_o [d_o, mp], bl_o [d_o * d_o, mp]; returns (eta0,
+    lam0, eta1, lam1).  No sum is folded in.  The table must fit the static
+    shared memory (SMEM_TABLE_BYTES)."""
+    if not _on_card(jac):
+        return messages_cm_tab_plain(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab,
+                                     gidx, me0, ml0, me1, ml1, huber=huber, gslot=gslot)
+    from gbp_tpu_torch.ops._build import library
+
+    dt = jac.dtype
+    mp = jac.shape[1]
+    d0, d1, zd = me0.shape[0], me1.shape[0], r0.shape[0]
+    _table_shape("messages_cm_tab", d0, d1, zd, gslot)
+    d_g, d_o = _by_slot(d0, d1, gslot)
+    n_g = btab.shape[0]
+    _table_smem("messages_cm_tab", n_g, d_g + d_g * d_g, dt)
+    out = _message_outputs(me0, me1)
+    args = [
+        *_shape_args(d0, d1, zd, gslot, huber),
+        _check("btab", btab, (n_g, d_g + d_g * d_g), dt), ctypes.c_int(n_g),
+        _check("gidx", gidx, (mp,), torch.int32),
+        _check("be_o", be_o, (d_o, mp), dt), _check("bl_o", bl_o, (d_o * d_o, mp), dt),
+        *_message_state_args(jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, d0, d1, zd,
+                             huber),
+        *[ctypes.c_void_p(o.data_ptr()) for o in out],
+        ctypes.c_int64(mp), *_message_scalars(params, huber),
+    ]
+    fn = getattr(library(), f"gbp_messages_cm_tab_{_suffix(dt)}")
+    _raise_on(fn(*args), "messages_cm_tab")
+    COUNTS.kernel["messages_cm_tab"] += 1
+    return tuple(out)
 
 
 def _check_op(name, t, rows, comps, dtype, row_major):
     """A per-factor operand of `comps` components and `rows` rows, [rows,
     comps] (row_major) or [comps, rows], unit stride along the trailing axis;
     returns (pointer, leading stride).  A slice of a wider array passes."""
-    if not t.is_cuda:
+    if not _on_card(t):
         raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -509,7 +767,7 @@ def segsum_by_id(me, ml, seg_rows, seg_offsets, *, row_major=False):
     segment, seg_offsets [n_seg + 1]): component-major me [d, mp], ml
     [d*d, mp] -> [d + d*d, n_seg], or with row_major me [m, d], ml [m, d*d]
     -> [n_seg, d + d*d].  Two runs give the same bits: no atomics."""
-    if not me.is_cuda:
+    if not _on_card(me):
         return segsum_by_id_plain(me, ml, seg_rows, seg_offsets, row_major=row_major)
     from gbp_tpu_torch.ops._build import library
 
@@ -562,32 +820,35 @@ def _tiles(name, mp):
 
 
 def relin_cm_tabblk_ell(params, cam_mean, lmk_mean, gidx, win_starts, z, lp, jac, r0,
-                        srel, act, *, deg, win_w):
+                        srel, act, *, deg, win_w, comp_name=BA_MODEL, gslot=0):
     """`relin_cm_tab_ell` for large scenes: the block of tile i stages rows
     [win_starts[i], win_starts[i] + win_w) of cam_mean and a row reads its
-    camera at gidx[r] - win_starts[i].  win_starts [mp / TILE] int32.  An id
-    outside its tile's window stops the kernel (a fault of `prepare`)."""
-    if not lp.is_cuda:
+    gathered variable at gidx[r] - win_starts[i].  win_starts [mp / TILE]
+    int32.  An id outside its tile's window stops the kernel (a fault of
+    `prepare`)."""
+    if not _on_card(lp):
         return relin_cm_tabblk_ell_plain(params, cam_mean, lmk_mean, gidx, win_starts, z,
-                                         lp, jac, r0, srel, act, deg=deg, win_w=win_w)
+                                         lp, jac, r0, srel, act, deg=deg, win_w=win_w,
+                                         comp_name=comp_name, gslot=gslot)
     from gbp_tpu_torch.ops._build import library
 
     dt = lp.dtype
     mp = lp.shape[1]
-    n_cam, nv = cam_mean.shape[0], lmk_mean.shape[0]
+    (n_cam, d_g), (nv, d_e), zd = cam_mean.shape, lmk_mean.shape, z.shape[0]
+    d0, d1 = _by_slot(d_g, d_e, gslot)
+    model = _model("relin_cm_tabblk_ell", comp_name, d0, d1, zd, gslot)
     n_tiles = _tiles("relin_cm_tabblk_ell", mp)
     if mp != nv * deg:
         raise ValueError(f"relin_cm_tabblk_ell: mp={mp} != nv*deg={nv}*{deg}")
-    _window_smem("relin_cm_tabblk_ell", win_w, D0, dt)
-    out = [torch.empty((f, mp), dtype=dt, device=lp.device) for f in (T, Z * T, Z, 1)]
+    _window_smem("relin_cm_tabblk_ell", win_w, d_g, dt)
+    out = _relin_outputs(lp, z)
     args = [
-        _check("cam_mean", cam_mean, (n_cam, D0), dt), ctypes.c_int(n_cam),
-        _check("lmk_mean", lmk_mean, (nv, D1), dt),
+        ctypes.c_int(model), ctypes.c_int(gslot),
+        _check("cam_mean", cam_mean, (n_cam, d_g), dt), ctypes.c_int(n_cam),
+        _check("lmk_mean", lmk_mean, (nv, d_e), dt),
         _check("gidx", gidx, (mp,), torch.int32),
         _check("win_starts", win_starts, (n_tiles,), torch.int32), ctypes.c_int(win_w),
-        _check("z", z, (Z, mp), dt), _check("lp", lp, (T, mp), dt),
-        _check("jac", jac, (Z * T, mp), dt), _check("r0", r0, (Z, mp), dt),
-        _check("srel", srel, (1, mp), dt), _check("act", act, (1, mp), dt),
+        *_relin_state_args(z, lp, jac, r0, srel, act, d0, d1, zd),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
         ctypes.c_int64(mp), ctypes.c_int(deg),
         ctypes.c_double(params[4]), ctypes.c_double(params[5]), _stream(),
@@ -600,55 +861,53 @@ def relin_cm_tabblk_ell(params, cam_mean, lmk_mean, gidx, win_starts, z, lp, jac
 
 def messages_cm_tabblk_ell(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, r0,
                            prec, srel, act, me0, ml0, me1, ml1, win_rows, win_offsets,
-                           *, deg, huber, win_w):
+                           *, deg, huber, win_w, gslot=0):
     """`messages_cm_tab_ell` for large scenes; returns (eta0, lam0, eta1,
-    lam1, part) like the reference: part [mp / TILE, 42, win_w] holds the
-    per-tile window partials of the new camera messages (`segsum_cm_blk` on
-    the outputs), to be combined by `scatter_windows_cm`."""
-    if not jac.is_cuda:
+    lam1, part) like the reference: part [mp / TILE, d_g + d_g * d_g, win_w]
+    holds the per-tile window partials of the new gathered-slot messages
+    (`segsum_cm_blk` on the outputs), to be combined by
+    `scatter_windows_cm`."""
+    if not _on_card(jac):
         return messages_cm_tabblk_ell_plain(
             params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, r0, prec, srel, act,
-            me0, ml0, me1, ml1, win_rows, win_offsets, deg=deg, huber=huber, win_w=win_w)
+            me0, ml0, me1, ml1, win_rows, win_offsets, deg=deg, huber=huber, win_w=win_w,
+            gslot=gslot)
     from gbp_tpu_torch.ops._build import library
 
     dt = jac.dtype
     mp = jac.shape[1]
+    d0, d1, zd = me0.shape[0], me1.shape[0], r0.shape[0]
+    _table_shape("messages_cm_tabblk_ell", d0, d1, zd, gslot)
+    d_g, d_e = _by_slot(d0, d1, gslot)
     n_cam, nv = cam_tab.shape[0], lmk_tab.shape[0]
     n_tiles = _tiles("messages_cm_tabblk_ell", mp)
     if mp != nv * deg:
         raise ValueError(f"messages_cm_tabblk_ell: mp={mp} != nv*deg={nv}*{deg}")
-    _window_smem("messages_cm_tabblk_ell", win_w, F_CAM, dt)
-    out = [torch.empty((f, mp), dtype=dt, device=jac.device)
-           for f in (D0, D0 * D0, D1, D1 * D1)]
-    eta_damping, lam_damping, num_undamped, floor, _, _, jitter = params
+    _window_smem("messages_cm_tabblk_ell", win_w, d_g + d_g * d_g, dt)
+    out = _message_outputs(me0, me1)
     args = [
-        _check("cam_tab", cam_tab, (n_cam, F_CAM), dt), ctypes.c_int(n_cam),
-        _check("lmk_tab", lmk_tab, (nv, F_LMK), dt),
+        *_shape_args(d0, d1, zd, gslot, huber),
+        _check("cam_tab", cam_tab, (n_cam, d_g + d_g * d_g), dt), ctypes.c_int(n_cam),
+        _check("lmk_tab", lmk_tab, (nv, d_e + d_e * d_e), dt),
         _check("gidx", gidx, (mp,), torch.int32),
         _check("win_starts", win_starts, (n_tiles,), torch.int32), ctypes.c_int(win_w),
-        _check("jac", jac, (Z * T, mp), dt), _check("lp", lp, (T, mp), dt),
-        _check("r0", r0, (Z, mp), dt), _check("prec", prec, (Z, mp), dt),
-        _check("srel", srel, (1, mp), dt), _check("act", act, (1, mp), dt),
-        _check("me0", me0, (D0, mp), dt), _check("ml0", ml0, (D0 * D0, mp), dt),
-        _check("me1", me1, (D1, mp), dt), _check("ml1", ml1, (D1 * D1, mp), dt),
+        *_message_state_args(jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, d0, d1, zd,
+                             huber),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
-        ctypes.c_int64(mp), ctypes.c_int(deg),
-        ctypes.c_double(eta_damping), ctypes.c_double(lam_damping),
-        ctypes.c_double(num_undamped), ctypes.c_double(floor),
-        ctypes.c_double(jitter), ctypes.c_int(huber is not None),
-        ctypes.c_double(0.0 if huber is None else huber), _stream(),
+        ctypes.c_int64(mp), ctypes.c_int(deg), *_message_scalars(params, huber),
     ]
     fn = getattr(library(), f"gbp_messages_cm_tabblk_ell_{_suffix(dt)}")
     _raise_on(fn(*args), "messages_cm_tabblk_ell")
     COUNTS.kernel["messages_cm_tabblk_ell"] += 1
-    return (*out, segsum_cm_blk(out[0], out[1], win_rows, win_offsets, n_tiles=n_tiles, w=win_w))
+    return (*out, segsum_cm_blk(out[2 * gslot], out[2 * gslot + 1], win_rows, win_offsets,
+                                n_tiles=n_tiles, w=win_w))
 
 
 def segsum_cm_blk(me, ml, win_rows, win_offsets, *, n_tiles, w):
     """Deterministic per-tile window partials [n_tiles, d + d*d, w] of
     me [d, mp] | ml [d*d, mp] over the CSR of `window_rows_csr`: one thread
     per output adds its rows in CSR order.  Two runs give the same bits."""
-    if not me.is_cuda:
+    if not _on_card(me):
         return segsum_cm_blk_plain(me, ml, win_rows, win_offsets, n_tiles=n_tiles, w=w)
     from gbp_tpu_torch.ops._build import library
 
@@ -678,7 +937,7 @@ def scatter_windows_cm(part, win_starts, cov_tiles, cov_offsets, *, n_seg):
     out[k, c] = sum over the tiles i covering c of part[i, k, c -
     win_starts[i]], in ascending i.  (cov_tiles, cov_offsets) are the cover
     lists of `window_cover_csr`; starts are int32.  Deterministic."""
-    if not part.is_cuda:
+    if not _on_card(part):
         return scatter_windows_cm_plain(part, win_starts, cov_tiles, cov_offsets, n_seg=n_seg)
     from gbp_tpu_torch.ops._build import library
 
@@ -811,23 +1070,20 @@ def _relin_any(name, params, ops, *, row_major, d0, d1, z, comp_name):
     `ops` are (x, z_meas, lp, jac, r0, srel, act)."""
     from gbp_tpu_torch.ops._build import library
 
-    comp_model(comp_name)  # raises for a model that is not ported
-    if (d0, d1, z) != (D0, D1, Z):
-        raise NotImplementedError(
-            f"{name}: the kernel holds the reprojection_normalized model, (d0, d1, z) = "
-            f"({D0}, {D1}, {Z}); got ({d0}, {d1}, {z}) (ROADMAP A7/A8)")
+    model = _model(name, comp_name, d0, d1, z)
     x = ops[0]
     dt = x.dtype
     m = x.shape[0] if row_major else x.shape[1]
+    t = d0 + d1
     ops = list(ops)
     ops[5], ops[6] = _as_col(ops[5], dt, row_major), _as_col(ops[6], dt, row_major)
     names = ("x", "z", "lp", "jac", "r0", "srel", "act")
     checked = [_check_op(f"{name}: {n}", a, m, w, dt, row_major)
-               for n, a, w in zip(names, ops, (T, Z, T, Z * T, Z, 1, 1))]
+               for n, a, w in zip(names, ops, (t, z, t, z * t, z, 1, 1))]
     out = [torch.empty((m, w) if row_major else (w, m), dtype=dt, device=x.device)
-           for w in (T, Z * T, Z, 1)]
+           for w in (t, z * t, z, 1)]
     fn = getattr(library(), f"gbp_relin_rows_{_suffix(dt)}")
-    rc = fn(int(row_major),
+    rc = fn(model, int(row_major),
             (ctypes.c_void_p * 7)(*[p for p, _ in checked]),
             (ctypes.c_int64 * 7)(*[ld for _, ld in checked]),
             (ctypes.c_void_p * 4)(*[o.data_ptr() for o in out]),
@@ -860,7 +1116,7 @@ def messages_cm(params, jac, x0, r0, prec, srel, act, be0, bl0, be1, bl1,
     returns (eta0, lam0, eta1, lam1), component-major.  prec [z | z*z (+1),
     mp]; huber None, the scalar threshold, or "row"."""
     ops = (jac, x0, r0, prec, srel, act, be0, bl0, be1, bl1, me0, ml0, me1, ml1)
-    if not jac.is_cuda:
+    if not _on_card(jac):
         return messages_cm_plain(params, *ops, d0=d0, d1=d1, z=z, prec_full=prec_full,
                                  huber=huber)
     return _messages_any("messages_cm", params, ops, row_major=False, d0=d0, d1=d1, z=z,
@@ -881,7 +1137,7 @@ def relin_cm(params, x, z_meas, fargs, linpoint, jac, r0, srel, act, *,
              d0, d1, z, comp_name):
     """Masked relinearization on component-major operands [F, mp], the
     adjacent means x [t, mp] expanded per row; returns (lp, jac, r0, srel)."""
-    if not x.is_cuda:
+    if not _on_card(x):
         return relin_cm_plain(params, x, z_meas, fargs, linpoint, jac, r0, srel, act,
                               d0=d0, d1=d1, z=z, comp_name=comp_name)
     _no_fargs("relin_cm", fargs)
@@ -905,7 +1161,7 @@ def fused_messages(params, jac, x0, r0, prec, since_relin, active, be0, bl0, be1
     operands, matrices flattened ([m, z*t], [m, d*d], ...); since_relin and
     active are [m].  Returns (eta0 [m, d0], lam0 [m, d0*d0], eta1, lam1)."""
     ops = (jac, x0, r0, prec, since_relin, active, be0, bl0, be1, bl1, me0, ml0, me1, ml1)
-    if not jac.is_cuda:
+    if not _on_card(jac):
         return fused_messages_plain(params, *ops, d0=d0, d1=d1, z=z, prec_full=prec_full,
                                     huber=huber)
     return _messages_any("fused_messages", params, ops, row_major=True, d0=d0, d1=d1, z=z,
@@ -934,7 +1190,7 @@ def fused_relin_messages(params, x, z_meas, fargs, linpoint, jac, r0, prec, sinc
     message update on the new linearization (`fused_messages`), row-major.
     Returns (eta0, lam0, eta1, lam1, linpoint, jac [m, z*t], r0, since_relin
     [m, 1] as float)."""
-    if not x.is_cuda:
+    if not _on_card(x):
         return fused_relin_messages_plain(
             params, x, z_meas, fargs, linpoint, jac, r0, prec, since_relin, active, be0, bl0,
             be1, bl1, me0, ml0, me1, ml1, d0=d0, d1=d1, z=z, prec_full=prec_full,

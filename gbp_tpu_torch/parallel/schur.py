@@ -1,7 +1,9 @@
-"""Camera-block Schur-complement Gauss-Newton for bundle adjustment.
+"""Gauss-Newton MAP targets: the camera-block Schur-complement step for
+bundle adjustment and the full-system PCG step for pose graphs.
 
-Counterpart of `gauss_newton_step` in gbp_tpu/parallel/schur.py: the MAP
-target the GBP run is held against.  Landmarks are eliminated,
+Counterpart of gbp_tpu/parallel/schur.py (`gauss_newton_step`, `solve`,
+`gauss_newton_step_pcg`, `solve_pcg`): the MAP targets the GBP runs are held
+against.  In the BA step landmarks are eliminated,
 
     S dc = r,   S = Hcc - Hcl Hll^-1 Hlc,   dl = Hll^-1 (bl - Hlc dc),
 
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from gbp_tpu_torch.core.graph import Graph
-from gbp_tpu_torch.core.sweep import huber_weight, linearize_block
+from gbp_tpu_torch.core.sweep import _apply_prec, huber_weight, linearize_block
 from gbp_tpu_torch.utils.smalllinalg import bmm, bmv, bT, scaled_sym_inv
 
 
@@ -91,3 +93,85 @@ def gauss_newton_step(graph: Graph, means: tuple, cg_iters: int = 50):
     new_means[cam_vi] = means[cam_vi] + dc
     new_means[lmk_vi] = means[lmk_vi] + dl
     return tuple(new_means)
+
+
+def solve(graph: Graph, means: tuple, n_steps: int = 5, cg_iters: int = 50):
+    """n_steps Schur/CG Gauss-Newton iterations (relinearizing each step)."""
+    for _ in range(n_steps):
+        means = gauss_newton_step(graph, means, cg_iters=cg_iters)
+    return means
+
+
+def gauss_newton_step_pcg(graph: Graph, means: tuple, fi: int = 0, cg_iters: int = 100):
+    """One Gauss-Newton step by block-Jacobi PCG on the FULL normal
+    equations; returns the new means tuple.
+
+    Works for any 2-slot factor block, in particular same-variable-block
+    pose graphs, where the camera/landmark elimination above does not apply:
+    the MAP target of the pose-graph runs.  Diagonal or full measurement
+    precision."""
+    fb = graph.fblocks[fi]
+    ids = [a.long() for a in fb.adj]
+    x = torch.cat([means[vb][ids[k]] for k, vb in enumerate(fb.vblocks)], dim=-1)
+    jac, r0 = linearize_block(fb, x)
+    if fb.valid is not None:
+        jac = torch.where(fb.valid[:, None, None], jac, torch.zeros_like(jac))
+        r0 = torch.where(fb.valid[:, None], r0, torch.zeros_like(r0))
+    w = huber_weight(fb, r0)
+    wmul = lambda u: _apply_prec(fb.prec, u) * w[:, None]  # Lam_meas-weighted [m, z]
+    js = [jac[:, :, o:o + d] for o, d in zip(fb.offsets, fb.dofs)]
+    segs = [lambda a, k=k, vb=vb: _segment_sum(a, ids[k], graph.vblocks[vb].count)
+            for k, vb in enumerate(fb.vblocks)]
+
+    # rhs b = J^T W r0 + prior pull (per variable block, summed over slots).
+    rhs = [vb.prior_eta - bmv(vb.prior_lam, mu) for vb, mu in zip(graph.vblocks, means)]
+    wr = wmul(r0)
+    for k, vb in enumerate(fb.vblocks):
+        rhs[vb] = rhs[vb] + segs[k](bmv(bT(js[k]), wr))
+
+    def h_matvec(v):
+        u = sum(bmv(js[k], v[vb][ids[k]]) for k, vb in enumerate(fb.vblocks))
+        wu = wmul(u)
+        out = [bmv(vb.prior_lam, vk) for vb, vk in zip(graph.vblocks, v)]
+        for k, vb in enumerate(fb.vblocks):
+            out[vb] = out[vb] + segs[k](bmv(bT(js[k]), wu))
+        return tuple(out)
+
+    # Block-Jacobi preconditioner: per-variable diagonal blocks of H.
+    pinv = []
+    for vi, vb in enumerate(graph.vblocks):
+        blk = vb.prior_lam
+        for k, tvb in enumerate(fb.vblocks):
+            if tvb == vi:
+                wjk = _apply_prec(fb.prec, js[k]) * w[:, None, None]
+                blk = blk + segs[k](bmm(bT(wjk), js[k]))
+        pinv.append(scaled_sym_inv(blk, vb.dof))
+
+    tdot = lambda u, v: sum((a * b).sum() for a, b in zip(u, v))
+    papply = lambda r: tuple(bmv(p, rk) for p, rk in zip(pinv, r))
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+
+    xk = tuple(torch.zeros_like(b) for b in rhs)
+    r = tuple(b - h for b, h in zip(rhs, h_matvec(xk)))
+    z = papply(r)
+    p = z
+    rz = tdot(r, z)
+    for _ in range(cg_iters):
+        hp = h_matvec(p)
+        denom = tdot(p, hp)
+        alpha = torch.where(denom > 0, rz / denom, zero)
+        xk = tuple(a + alpha * b for a, b in zip(xk, p))
+        r = tuple(a - alpha * b for a, b in zip(r, hp))
+        z = papply(r)
+        rz_new = tdot(r, z)
+        beta = torch.where(rz > 0, rz_new / rz, zero)
+        p = tuple(a + beta * b for a, b in zip(z, p))
+        rz = rz_new
+    return tuple(mu + d for mu, d in zip(means, xk))
+
+
+def solve_pcg(graph: Graph, means: tuple, n_steps: int = 5, fi: int = 0, cg_iters: int = 100):
+    """n_steps full-system PCG Gauss-Newton iterations (relinearizing)."""
+    for _ in range(n_steps):
+        means = gauss_newton_step_pcg(graph, means, fi=fi, cg_iters=cg_iters)
+    return means

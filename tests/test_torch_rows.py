@@ -105,7 +105,8 @@ def test_gather_modes_agree(small):
         outs.append(P.run(cmg, P.init_state(cmg, pm), PS.GBPConfig(message_form="pallas"), 8))
         used = {k for k, v in M.COUNTS.plain.items() if v}
         assert used == ({"relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id"}
-                        if mode == "table" else {"relin_cm", "messages_cm", "segsum_by_id"})
+                        if mode == "table" else {"relin_cm", "messages_cm", "segsum_by_id",
+                                                 "expand_ell_blk"})
     for o in outs[1:]:
         for a, b in zip(outs[0].v, o.v):
             assert (a.mean - b.mean).abs().max() <= 1e-12

@@ -174,7 +174,8 @@ def test_prepare_rejects_what_is_not_ported(f64, case):
     """What the reference's fast path takes and the port's does not yet
     raises, naming its ROADMAP item; what the reference declines returns
     None (the caller runs the generic sweep); a camera table beyond shared
-    memory without camera locality lands on the expanded operands."""
+    memory without camera locality lands on the expanded operands; per-factor
+    Huber thresholds and `ell_fused=False` are taken."""
     _, _, (pg, _, _) = f64
     fb = pg.fblocks[0]
     kw = {}
@@ -200,8 +201,16 @@ def test_prepare_rejects_what_is_not_ported(f64, case):
     elif case == "cam_table":
         cmg = P.prepare(pg, **kw)
         assert cmg.gather_mode == "rows" and cmg.win_w == 0 and cmg.gidx_rm is not None
+    elif case == "huber_arr":
+        # The thresholds ride as one more component of prec (pad fill 1.0).
+        cmg = P.prepare(pg, **kw)
+        assert cmg.gather_mode == "table" and cmg.prec.shape == (3, cmg.mp)
+        assert bool((cmg.prec[2, :fb.count] == 1.0).all()) and bool((cmg.prec[:, fb.count:] == 1).all())
+    elif case == "ell_fused":
+        cmg = P.prepare(pg, **kw)
+        assert cmg.gather_mode == "table" and not cmg.ell_fused and P.prepare(pg).ell_fused
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP (A|B4)"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A(7|11)"):
             P.prepare(pg, **kw)
 
 
