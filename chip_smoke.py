@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Drive the PyTorch/CUDA port's paths on one GPU: the bundle-adjustment fast
-paths (camera table, windows, expanded operands, the unfused table kernels),
-the generic engine, and pose-graph SLAM (SE(2) and SE(3)).
+paths (camera table, windows, expanded operands, the unfused table kernels,
+whole-table and windowed), the BA command line on BAL files with in-engine
+annealing, the generic engine, and pose-graph SLAM (SE(2) and SE(3)).
 
     python3 chip_smoke.py
 
@@ -108,6 +109,33 @@ non-zero; no phase is caught):
      `build_g2o` and the generic engine, energy decreasing.
  16. the kernels' JSON line, the card line, and the last line
      {"ok": true, "device": {...}}.
+ 17. kernel vs plain, windowed unfused kernels (csrc/unfused_win.cu): inside
+     phase 4, from the same states (280 cameras in float64 and float32, the
+     windows widened to 256 cameras in float64, city widened to 384 and city
+     in float32) and inside phase 13 on the 1,500-pose graph at (3, 3, 3)
+     with per-row thresholds: `relin_cm_tabblk` in both regimes,
+     `messages_cm_tabblk` with and without Huber; timed with their bounds at
+     the city scene.
+ 18. kernel vs plain, BAL models: on data/ladybug49_sim.txt.gz after 8 plain
+     sweeps, float64 and float32, every relinearization and messages entry
+     the graph reaches (full-table, unfused, expanded operands in both
+     layouts) with `bal_reprojection_normalized` and its per-row arguments
+     at (6, 3, 2), and with `bal_reprojection_intrinsics` at (9, 3, 2).
+ 19. windowed unfused path: city and venice with `prepare(window=True,
+     ell_fused=False)`, 50 sweeps through `relin_cm_tabblk`,
+     `messages_cm_tabblk`, `expand_ell_blk`, `segsum_cm_blk` and
+     `scatter_windows_cm` (launch counts 50 each, plain calls 0), ARE
+     finite and falling; at city within 1e-3 px of the fused windowed run
+     and a bitwise rerun; seconds per sweep beside the fused path's.
+ 20. BAL path: `python -m gbp_tpu_torch.ba --bal_file
+     data/ladybug49_sim.txt.gz --n_iters 100 --oracle` in this process, with
+     and without --optimize_intrinsics: launch counts 100, plain calls 0,
+     final ARE <= 1.05x the dense-MAP ARE, the ARE every 10 sweeps beside
+     the reference's CPU run, a bitwise rerun, sweeps/s; then
+     data/corridor_sim.txt.gz with --prior_prec 1000 under the full default
+     schedule in float32: ARE finite and falling.
+ 21. `run_annealed_cm` on the city scene, 50 sweeps through the windowed
+     kernels: launch counts, ARE finite and below the initial one.
 """
 import contextlib
 import dataclasses
@@ -122,11 +150,12 @@ import numpy as np
 import torch
 
 import gbp_tpu_torch
+from gbp_tpu_torch import ba as ba_cli
 from gbp_tpu_torch.bench import BIG_BUILD as BIG
 from gbp_tpu_torch.bench import CFG, CITY, VENICE, card_line
-from gbp_tpu_torch.core import oracle, sweep, sweep_cm
+from gbp_tpu_torch.core import anneal, oracle, sweep, sweep_cm
 from gbp_tpu_torch.core.sweep import _kernel_params
-from gbp_tpu_torch.io import g2o
+from gbp_tpu_torch.io import bal, g2o
 from gbp_tpu_torch.models import ba, pose_graph, toy
 from gbp_tpu_torch.ops import _build
 from gbp_tpu_torch.ops import messages as M
@@ -143,6 +172,9 @@ WINDOWED = ("relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
             "scatter_windows_cm")
 ROWS = ("messages_cm", "relin_cm", "fused_messages", "fused_relin_messages")
 UNFUSED = ("relin_cm_tab", "messages_cm_tab", "expand_ell_blk")
+UNFUSED_WIN = ("relin_cm_tabblk", "messages_cm_tabblk")
+# One sweep of the windowed unfused path.
+UNFUSED_WIN_PATH = (*UNFUSED_WIN, "expand_ell_blk", "segsum_cm_blk", "scatter_windows_cm")
 ROWS_MODE = ("relin_cm", "messages_cm", "segsum_by_id", "expand_ell_blk")
 NONLOCAL = dict(n_cams=512, n_lmks=2000, pix_sigma=1.0, seed=0)
 # Manhattan pose graphs: the kernel checks' (500 poses fill the 48 KB table
@@ -156,12 +188,23 @@ M200 = dict(n_poses=200, seed=1, loop_prob=0.5, loop_radius=3.0)
 # Sweeps before a pose graph's kernel checks: with min_linear_iters = 5 rows
 # relinearize in sweep 6 and are eligible again from sweep 12 on.
 POSE_WARM = 11
-G2O_FILE = Path(__file__).resolve().parent / "data" / "manhattan_sim.g2o"
+DATA = Path(__file__).resolve().parent / "data"
+G2O_FILE = DATA / "manhattan_sim.g2o"
+LADYBUG = DATA / "ladybug49_sim.txt.gz"
+CORRIDOR = DATA / "corridor_sim.txt.gz"
+# The reference's command line on ladybug49 (`python ba.py --bal_file
+# data/ladybug49_sim.txt.gz --n_iters 100 --oracle`, JAX on a CPU in float32,
+# Pallas in interpret mode): the ARE every 10 sweeps, printed beside the
+# port's for comparison, not held.
+LADYBUG_REFERENCE_CPU = {"": {0: 21.3756, 10: 1.2461, 20: 1.2331, 50: 1.2325, 100: 1.2323},
+                         "--optimize_intrinsics": {0: 21.3756, 10: 1.2511, 20: 1.2345,
+                                                   50: 1.2338, 60: 1.2337}}
 PCFG = pose_graph.default_config()
 SOURCE = {**dict.fromkeys(FULL, "gbp_tpu_torch/csrc/messages.cu"),
           **dict.fromkeys(WINDOWED, "gbp_tpu_torch/csrc/windows.cu"),
           **dict.fromkeys(ROWS, "gbp_tpu_torch/csrc/rows.cu"),
-          **dict.fromkeys(UNFUSED, "gbp_tpu_torch/csrc/unfused.cu")}
+          **dict.fromkeys(UNFUSED, "gbp_tpu_torch/csrc/unfused.cu"),
+          **dict.fromkeys(UNFUSED_WIN, "gbp_tpu_torch/csrc/unfused_win.cu")}
 REPLACES = {
     "relin_cm_tab_ell": "gbp_tpu/ops/messages_pallas.py:1118",
     "messages_cm_tab_ell": "gbp_tpu/ops/messages_pallas.py:1054",
@@ -177,6 +220,8 @@ REPLACES = {
     "messages_cm_tab": "gbp_tpu/ops/messages_pallas.py:446",
     "relin_cm_tab": "gbp_tpu/ops/messages_pallas.py:491",
     "expand_ell_blk": "gbp_tpu/ops/messages_pallas.py:1469",
+    "messages_cm_tabblk": "gbp_tpu/ops/messages_pallas.py:734",
+    "relin_cm_tabblk": "gbp_tpu/ops/messages_pallas.py:787",
 }
 # The card's published peaks (H100 SXM data sheet): device memory rate and
 # float32 rate outside the tensor cores.
@@ -404,6 +449,8 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
     if not win:
         check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings)
         check_unfused_kernels(tag, cmg, st, dtype, compare, timings)
+    else:
+        check_unfused_win_kernels(tag, cmg, st, dtype, compare, timings)
     if timings is None:
         return errs
     vals = torch.cat([me, ml])
@@ -602,6 +649,62 @@ def check_unfused_kernels(tag, cmg, st, dtype, compare, timings):
               + ("none" if lib_ms is None else f"{lib_ms:.4f} ms"))
 
 
+def check_unfused_win_kernels(tag, cmg, st, dtype, compare, timings):
+    """Phase 17 for one windowed scene and dtype, from the state `st` of the
+    windowed checks: `relin_cm_tabblk` (both regimes) and
+    `messages_cm_tabblk` (Huber none and scalar) against their plain
+    versions, the ELL slot expanded by `expand_ell_blk`; timed with their
+    bounds when `timings` is given."""
+    fs, fb = st.f, cmg.fb
+    deg = fb.ell_deg
+    vs_c, vs_l = st.v[fb.vblocks[0]], st.v[fb.vblocks[1]]
+    pk = sweep_cm._with_identity_rows(sweep_cm._pack_beliefs(vs_l), fb.dofs[1],
+                                      cmg.nv - vs_l.eta.shape[0]).contiguous()
+    be1, bl1, mean1 = sweep_cm._split(sync(M.expand_ell_blk(pk, deg=deg)), fb.dofs[1])
+    mtab, btab = vs_c.mean.contiguous(), sweep_cm._packed(vs_c).contiguous()
+    w_kw = dict(win_w=cmg.win_w)
+    x = torch.cat([mtab[cmg.gidx.long()].T, mean1])
+    on = cmg.act[0] > 0.5
+    beta_mid = float(((x - fs.lp) ** 2).sum(0).sqrt()[on].double().median())
+    for beta in (beta_mid, CFG.beta):
+        params = _kernel_params(dataclasses.replace(CFG, beta=beta), dtype)
+        relin_args = (params, mean1, mtab, cmg.gidx, cmg.win_starts, cmg.z, cmg.args, fs.lp,
+                      fs.jac, fs.r0, fs.srel, cmg.act)
+        r_kw = dict(comp_name=fb.ftype.name, **w_kw)
+        ref_r = sync(M.relin_cm_tabblk_plain(*relin_args, **r_kw))
+        n_relin = int((ref_r[3] == 0).sum())
+        if n_relin == 0 or (beta == beta_mid and n_relin == int(on.sum())):
+            raise AssertionError(f"{tag}: the relinearization check needs both kinds of rows")
+        compare("relin_cm_tabblk", sync(M.relin_cm_tabblk(*relin_args, **r_kw)), ref_r,
+                key="relin_cm_tabblk")
+    lp, jac, r0, srel = ref_r
+    msg_args = (_kernel_params(CFG, dtype), jac, lp, r0, cmg.prec, srel, cmg.act, be1, bl1, btab,
+                cmg.gidx, cmg.win_starts, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1],
+                fs.msg_lam[1])
+    for huber in (1.0, None):
+        got_m = sync(M.messages_cm_tabblk(*msg_args, huber=huber, **w_kw))
+        compare(f"messages_cm_tabblk[huber={huber}]", got_m,
+                sync(M.messages_cm_tabblk_plain(*msg_args, huber=huber, **w_kw)),
+                key="messages_cm_tabblk")
+    if timings is None:
+        return
+    n_relin_cfg = int((ref_r[3] == 0).sum())
+    timed = [
+        ("relin_cm_tabblk", M.relin_cm_tabblk, M.relin_cm_tabblk_plain, relin_args, r_kw, ref_r,
+         RELIN_TEST_FLOPS * cmg.mp + RELIN_ROW_FLOPS * n_relin_cfg),
+        ("messages_cm_tabblk", M.messages_cm_tabblk, M.messages_cm_tabblk_plain, msg_args,
+         dict(huber=None, **w_kw), got_m, MESSAGES_ROW_FLOPS * cmg.mp),
+    ]
+    for name, kern, plain, args, kw, outs, flops in timed:
+        ms = time_ms(lambda: kern(*args, **kw), 20)
+        plain_ms = time_ms(lambda: plain(*args, **kw), 3)
+        b_ms, b_by = bound_ms(args, outs, flops)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None)
+        print(f"[kernels] {tag} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), no single library call")
+
+
 def check_pose_kernels(tag, build, dtype, dev, ptimes):
     """Phase 13 for one pose graph and dtype.  `build(dtype, device)` gives
     (graph, means).  From the state after POSE_WARM plain sweeps on the CPU
@@ -738,6 +841,21 @@ def check_pose_kernels(tag, build, dtype, dev, ptimes):
             hold("messages_cm_tab", sync(M.messages_cm_tab(*m_args, huber=h, gslot=g)),
                  M.messages_cm_tab_plain(*m_args, huber=h, gslot=g))
         timed("messages_cm_tab", lambda: M.messages_cm_tab(*m_args, huber=h, gslot=g))
+    else:
+        mtab, btab = vs_c.mean.contiguous(), sweep_cm._packed(vs_c).contiguous()
+        w_kw = dict(win_w=cmg.win_w, gslot=g)
+        u_args = lambda beta: (params_at(beta), mean_l, mtab, cmg.gidx, cmg.win_starts, cmg.z,
+                               None, *state_ops[1:])
+        for beta in betas:
+            hold("relin_cm_tabblk",
+                 sync(M.relin_cm_tabblk(*u_args(beta), comp_name=model, **w_kw)),
+                 M.relin_cm_tabblk_plain(*u_args(beta), comp_name=model, **w_kw))
+        for h in hubers:
+            m_args = (params, jac, lp, r0, prec_of(h), srel, cmg.act, be_l, bl_l, btab,
+                      cmg.gidx, cmg.win_starts, *msgs)
+            hold("messages_cm_tabblk", sync(M.messages_cm_tabblk(*m_args, huber=h, **w_kw)),
+                 M.messages_cm_tabblk_plain(*m_args, huber=h, **w_kw))
+        timed("messages_cm_tabblk", lambda: M.messages_cm_tabblk(*m_args, huber=h, **w_kw))
     rows_cmg = cmg._replace(gather_mode="rows", gidx_rm=cmg.gidx.long())
     be_c, bl_c, mean_c = sweep_cm._expand_gather(rows_cmg, vs_c)
     (be0, be1), (bl0, bl1) = by_slot(be_c, be_l), by_slot(bl_c, bl_l)
@@ -776,6 +894,101 @@ def check_pose_kernels(tag, build, dtype, dev, ptimes):
          M.fused_messages_plain(*fp_args, **fp_kw))
     timed("messages_cm", lambda: M.messages_cm(*cm_args, **kw))
     timed("fused_messages", lambda: M.fused_messages(*rm_args, **kw))
+    print(f"[kernels] {tag}: worst rel err per kernel "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (tolerance {tol:g})")
+
+
+def check_bal_kernels(tag, intrinsics, dtype, dev):
+    """Phase 18 on ladybug49 for one camera model and dtype: from the state
+    after 8 plain sweeps on the CPU, every relinearization and messages
+    entry the BAL graph reaches (the full-table kernels, the unfused table
+    kernels with the expansion, the expanded-operand kernels in both
+    layouts) against its plain version on identical CUDA inputs, with the
+    BAL model's per-row arguments [k1, k2] (6-dof cameras) or at (9, 3, 2)
+    (9-dof cameras); relinearization in both regimes, Huber none and
+    scalar."""
+    tol = TOL[dtype]
+    sim = bal.to_sim(bal.prune(bal.read_bal(LADYBUG)))
+    build = lambda device: ba.build_bal(sim, dtype=dtype, device=device,
+                                        optimize_intrinsics=intrinsics)[:2]
+    g_cpu, m_cpu = build("cpu")
+    cmg_cpu = sweep_cm.prepare(g_cpu)
+    st = to_device(sweep_cm.run(cmg_cpu, sweep_cm.init_state(cmg_cpu, m_cpu), CFG, 8), dev)
+    cmg = sweep_cm.prepare(build(dev)[0])
+    fs, fb = st.f, cmg.fb
+    model, deg = fb.ftype.name, fb.ell_deg
+    shape = dict(d0=fb.dofs[0], d1=fb.dofs[1], z=cmg.z.shape[0])
+    tag = f"{tag} {str(dtype)[6:]} {tuple(shape.values())}"
+    if cmg.gather_mode != "table" or cmg.win_w or not cmg.ell_fused:
+        raise AssertionError(f"{tag}: prepare chose {cmg.gather_mode!r}, win_w {cmg.win_w}")
+    print(f"[kernels] {tag}: {model}, {cmg.mp} rows (deg {deg}), args "
+          f"{None if cmg.args is None else tuple(cmg.args.shape)}")
+    worst = {}
+
+    def hold(name, got, ref):
+        for i, (a, b) in enumerate(zip(got, ref)):
+            rel, _ = rel_err(a, b)
+            if not rel <= tol:
+                raise AssertionError(f"{name} {tag} out{i}: rel err {rel:.3e} > {tol:g}")
+            worst[name] = max(worst.get(name, 0.0), rel)
+
+    cam_mean, lmk_mean, cam_tab, lmk_tab = sweep_cm.belief_tables(cmg, st)
+    x = sweep_cm.expand_means(cmg, st)
+    on = cmg.act[0] > 0.5
+    beta_mid = float(((x - fs.lp) ** 2).sum(0).sqrt()[on].double().median())
+    params_at = lambda beta: _kernel_params(dataclasses.replace(CFG, beta=beta), dtype)
+    params = params_at(CFG.beta)
+    state_ops = (cmg.z, fs.lp, fs.jac, fs.r0, fs.srel, cmg.act)
+    msgs = (fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])
+    for beta in (beta_mid, CFG.beta):
+        r_args = (params_at(beta), cam_mean, lmk_mean, cmg.gidx, *state_ops)
+        r_kw = dict(deg=deg, comp_name=model, fargs=cmg.args)
+        ref_r = sync(M.relin_cm_tab_ell_plain(*r_args, **r_kw))
+        n_relin = int((ref_r[3] == 0).sum())
+        if n_relin == 0 or (beta == beta_mid and n_relin == int(on.sum())):
+            raise AssertionError(f"{tag}: the relinearization check needs both kinds of rows")
+        hold("relin_cm_tab_ell", sync(M.relin_cm_tab_ell(*r_args, **r_kw)), ref_r)
+    lp, jac, r0, srel = ref_r
+    for h in (None, 1.0):
+        m_args = (params, cam_tab, lmk_tab, cmg.gidx, jac, lp, r0, cmg.prec, srel, cmg.act, *msgs,
+                  cmg.seg_rows, cmg.seg_offsets)
+        hold("messages_cm_tab_ell", sync(M.messages_cm_tab_ell(*m_args, deg=deg, huber=h)),
+             M.messages_cm_tab_ell_plain(*m_args, deg=deg, huber=h))
+    vs_c, vs_l = st.v[0], st.v[1]
+    pk = sweep_cm._with_identity_rows(sweep_cm._pack_beliefs(vs_l), 3,
+                                      cmg.nv - vs_l.eta.shape[0]).contiguous()
+    be1, bl1, mean1 = sweep_cm._split(sync(M.expand_ell_blk(pk, deg=deg)), 3)
+    mtab, btab = vs_c.mean.contiguous(), sweep_cm._packed(vs_c).contiguous()
+    for beta in (beta_mid, CFG.beta):
+        u_args = (params_at(beta), mean1, mtab, cmg.gidx, cmg.z, cmg.args, *state_ops[1:])
+        hold("relin_cm_tab", sync(M.relin_cm_tab(*u_args, comp_name=model)),
+             M.relin_cm_tab_plain(*u_args, comp_name=model))
+    for h in (None, 1.0):
+        m_args = (params, jac, lp, r0, cmg.prec, srel, cmg.act, be1, bl1, btab, cmg.gidx, *msgs)
+        hold("messages_cm_tab", sync(M.messages_cm_tab(*m_args, huber=h)),
+             M.messages_cm_tab_plain(*m_args, huber=h))
+    rows_cmg = cmg._replace(gather_mode="rows", gidx_rm=cmg.gidx.long())
+    be0, bl0, mean0 = sweep_cm._expand_gather(rows_cmg, vs_c)
+    x_cm = torch.cat([mean0, mean1])
+    rm = lambda a: None if a is None else a.T.contiguous()
+    for beta in (beta_mid, CFG.beta):
+        rr_args = (params_at(beta), x_cm, cmg.z, cmg.args, *state_ops[1:])
+        hold("relin_cm", sync(M.relin_cm(*rr_args, comp_name=model, **shape)),
+             M.relin_cm_plain(*rr_args, comp_name=model, **shape))
+        frm_args = (params_at(beta), rm(x_cm), rm(cmg.z), rm(cmg.args), rm(fs.lp), rm(fs.jac),
+                    rm(fs.r0), rm(cmg.prec), fs.srel[0], cmg.act[0],
+                    *(rm(a) for a in (be0, bl0, be1, bl1)), *(rm(a) for a in msgs))
+        frm_kw = dict(prec_full=False, huber=None, comp_name=model, **shape)
+        hold("fused_relin_messages", sync(M.fused_relin_messages(*frm_args, **frm_kw)),
+             M.fused_relin_messages_plain(*frm_args, **frm_kw))
+    for h in (None, 1.0):
+        cm_args = (params, jac, lp, r0, cmg.prec, srel, cmg.act, be0, bl0, be1, bl1, *msgs)
+        kw = dict(prec_full=False, huber=h, **shape)
+        hold("messages_cm", sync(M.messages_cm(*cm_args, **kw)), M.messages_cm_plain(*cm_args, **kw))
+        rm_args = (params, *(rm(a) for a in cm_args[1:5]), srel[0], cmg.act[0],
+                   *(rm(a) for a in cm_args[7:]))
+        hold("fused_messages", sync(M.fused_messages(*rm_args, **kw)),
+             M.fused_messages_plain(*rm_args, **kw))
     print(f"[kernels] {tag}: worst rel err per kernel "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (tolerance {tol:g})")
 
@@ -830,6 +1043,7 @@ def window_vs_full():
 
 
 def timed_sweeps(tag, cmg, init, n, n_valid, card, cfg=CFG):
+    """Time n sweeps from `init`; returns the seconds per sweep."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sync(sweep_cm.run(cmg, init, cfg, n))
@@ -837,6 +1051,7 @@ def timed_sweeps(tag, cmg, init, n, n_valid, card, cfg=CFG):
     print(f"[{tag}] timed {n} sweeps: {dt:.4f} s -> {n / dt:.2f} sweeps/s, "
           f"{dt / n / n_valid * 1e9:.4f} ns per valid factor (informational; {card}); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return dt / n
 
 
 def bench_path(card):
@@ -935,8 +1150,8 @@ def big_path(tag, scene, card, against_plain):
     if late:
         print(f"[{tag}] past {VENICE_TIMING_DEADLINE_S:.0f} s of script time: timing {n} "
               f"sweeps instead of {SWEEPS}")
-    timed_sweeps(tag, cmg, init, n, n_valid, card)
-    return launches
+    per_sweep = timed_sweeps(tag, cmg, init, n, n_valid, card)
+    return launches, (are, per_sweep)
 
 
 def map_are(graph, state, means, k):
@@ -1095,12 +1310,104 @@ def unfused_path(card):
     return launches
 
 
+def unfused_big_path(tag, scene, card, fused):
+    """Phase 19 for one merged-blocks scene: `prepare(window=True,
+    ell_fused=False)`, the windowed unfused kernels (kernels 8 and 9 of the
+    reference) with the expansion and the windowed camera sum.  `fused` is
+    (ARE after QUALITY_SWEEPS sweeps, seconds per sweep) of the fused
+    windowed run of `big_path`; with `against_fused` the ARE is held to
+    1e-3 px of it and a rerun must repeat bit for bit."""
+    sim = ba.simulate_blocks(**scene)
+    graph, means = ba.build(sim, dtype=torch.float32, **BIG)
+    cmg = sweep_cm.prepare(graph, window=True, ell_fused=False)
+    n_valid = graph.fblocks[0].n_valid
+    if not cmg.win_w or cmg.ell_fused or cmg.gather_mode != "table":
+        raise AssertionError(f"{tag}: prepare(ell_fused=False) gave win_w {cmg.win_w}, "
+                             f"ell_fused {cmg.ell_fused}, mode {cmg.gather_mode!r}")
+    init = sweep_cm.init_state(cmg, means)
+    are0 = are_px(graph, cmg, init, sim["k"])
+    sync(sweep_cm.run(cmg, init, CFG, 2))
+    M.COUNTS.reset()
+    t0 = time.perf_counter()
+    state = sync(sweep_cm.run(cmg, init, CFG, QUALITY_SWEEPS))
+    dt = time.perf_counter() - t0
+    launches = check_counts(f"the {tag} unfused path", UNFUSED_WIN_PATH, QUALITY_SWEEPS)
+    are = are_px(graph, cmg, state, sim["k"])
+    print(f"[{tag}_unfused] {n_valid} factors in {cmg.mp} rows, win_w {cmg.win_w}: "
+          f"{QUALITY_SWEEPS} sweeps, launches { {k: launches[k] for k in UNFUSED_WIN_PATH} }; "
+          f"plain calls 0; ARE {are0:.6f} -> {are:.6f} px vs fused {fused[0]:.6f} px; "
+          f"{dt / QUALITY_SWEEPS * 1e3:.4f} ms per sweep ({QUALITY_SWEEPS / dt:.2f} sweeps/s) vs "
+          f"fused {fused[1] * 1e3:.4f} ms ({1 / fused[1]:.2f} sweeps/s) ({card})")
+    if not (math.isfinite(are) and are < are0):
+        raise AssertionError(f"{tag} unfused: ARE {are} is not finite and below {are0}")
+    if tag == "city":
+        if not abs(are - fused[0]) <= 1e-3:
+            raise AssertionError(f"city unfused: ARE {are} vs the fused path's {fused[0]}")
+        same_means("city_unfused", state, sync(sweep_cm.run(cmg, init, CFG, QUALITY_SWEEPS)))
+    return launches
+
+
+def bal_path(card):
+    """Phase 20: the BA command line (`python -m gbp_tpu_torch.ba`) in this
+    process, on the card: ladybug49 with and without its intrinsics in the
+    state, 100 annealed sweeps and the dense MAP; then the corridor file
+    under the full default schedule."""
+    out = {}
+    for extra in ("", "--optimize_intrinsics"):
+        argv = ["--bal_file", str(LADYBUG), "--n_iters", "100", "--oracle", *extra.split()]
+        M.COUNTS.reset()
+        res = ba_cli.main(argv)
+        launches = check_counts(f"ladybug49 {extra or 'fixed intrinsics'}", FULL, 100)
+        final, are_map = res["are"][-1][1], res["are_map"]
+        ref = LADYBUG_REFERENCE_CPU[extra]
+        print(f"[bal] ladybug49 {extra or '(fixed intrinsics)'}: launches "
+              f"{ {k: launches[k] for k in FULL} }; plain calls 0; ARE per 10 sweeps on the card "
+              f"vs the reference's CPU run: "
+              + ", ".join(f"{i}: {a:.4f}" + (f" ({ref[i]:.4f})" if i in ref else "")
+                          for i, a in res["are"])
+              + f"; final {final:.6f} px, dense MAP {are_map:.6f} px, ratio "
+              f"{final / are_map:.6f}; {res['sweeps_per_s']:.2f} sweeps/s ({card})")
+        if not (math.isfinite(final) and final <= 1.05 * are_map):
+            raise AssertionError(f"ladybug49 {extra}: ARE {final} not within 1.05x of {are_map}")
+        again = ba_cli.main([a for a in argv if a != "--oracle"])
+        same_means(f"ladybug49 {extra or 'fixed'}", res["state"], again["state"])
+        out[extra] = launches
+    res = ba_cli.main(["--bal_file", str(CORRIDOR), "--prior_prec", "1000"])
+    ares = [a for _, a in res["are"]]
+    print(f"[bal] corridor_sim, prior_prec 1000, float32, default schedule: ARE "
+          + ", ".join(f"{a:.4f}" for a in ares))
+    if not (all(map(math.isfinite, ares)) and ares[-1] < ares[0]):
+        raise AssertionError(f"corridor: ARE {ares} not finite and falling")
+    return out[""]
+
+
+def annealed_city(card):
+    """Phase 21: `run_annealed_cm` on the city scene, 50 sweeps through the
+    windowed kernels under the default schedule (the reference's
+    tests/test_table_window.py runs the same on its city scene)."""
+    sim = ba.simulate_blocks(**CITY)
+    graph, means = ba.build(sim, dtype=torch.float32, **BIG)
+    cmg = sweep_cm.prepare(graph, window=True)
+    init = sweep_cm.init_state(cmg, means)
+    are0 = are_px(graph, cmg, init, sim["k"])
+    M.COUNTS.reset()
+    t0 = time.perf_counter()
+    st = sync(anneal.run_annealed_cm(cmg, init, CFG, QUALITY_SWEEPS))
+    dt = time.perf_counter() - t0
+    check_counts("annealed city", WINDOWED, QUALITY_SWEEPS)
+    are = are_px(graph, cmg, st, sim["k"])
+    print(f"[anneal] city, {QUALITY_SWEEPS} annealed sweeps in {dt:.3f} s (first call): ARE "
+          f"{are0:.6f} -> {are:.6f} px ({card})")
+    if not (math.isfinite(are) and are < are0):
+        raise AssertionError(f"annealed city: ARE {are} not finite and below {are0}")
+
+
 def mode_kernels(cmg):
     """The kernels one sweep of the prepared graph launches, once each."""
     if cmg.gather_mode != "table":
         return ROWS_MODE
     if not cmg.ell_fused:
-        return (*UNFUSED, "segsum_by_id")
+        return UNFUSED_WIN_PATH if cmg.win_w else (*UNFUSED, "segsum_by_id")
     return WINDOWED if cmg.win_w else FULL
 
 
@@ -1333,15 +1640,26 @@ def main():
               + ", ".join(f"{shape} {ms:.4f} ms" for shape, ms in by_shape.items()))
     print(f"[kernels] pose shapes done at {time.perf_counter() - T_START:.1f} s")
 
+    # The BAL models: per-row arguments at (6, 3, 2), the 9-dof camera.
+    for intrinsics in (False, True):
+        for dtype in (f64, f32):
+            check_bal_kernels("ladybug49", intrinsics, dtype, dev)
+    print(f"[kernels] BAL models done at {time.perf_counter() - T_START:.1f} s")
+
     launches = bench_path(card)
     unfused = unfused_path(card)
-    city = big_path("city", CITY, card, against_plain=True)
+    city, city_fused = big_path("city", CITY, card, against_plain=True)
+    city_unfused = unfused_big_path("city", CITY, card, city_fused)
     torch.cuda.empty_cache()
-    venice = big_path("venice", VENICE, card, against_plain=False)
+    venice, venice_fused = big_path("venice", VENICE, card, against_plain=False)
     if any(venice[k] != city[k] for k in WINDOWED):
         raise AssertionError(f"venice launches {venice} differ from the city's {city}")
-    launches = {**{k: launches[k] for k in FULL}, **{k: city[k] for k in WINDOWED}}
+    unfused_big_path("venice", VENICE, card, venice_fused)
+    launches = {**{k: launches[k] for k in FULL}, **{k: city[k] for k in WINDOWED},
+                **{k: city_unfused[k] for k in UNFUSED_WIN}}
     torch.cuda.empty_cache()
+    annealed_city(card)
+    bal_path(card)
     generic = generic_path(card)
     rows = rows_path(card)
     linear_path()

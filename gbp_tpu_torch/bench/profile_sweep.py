@@ -2,13 +2,17 @@
 steady sweeps of one scene.
 
     python -m gbp_tpu_torch.bench.profile_sweep
-        [--scene bench64|bench64_unfused|bench64_generic|nonlocal512|city|venice|
-                 manhattan4000]
+        [--scene bench64|bench64_unfused|bench64_generic|nonlocal512|city|city1280_unfused|
+                 venice|venice10240_unfused|manhattan4000|ladybug49]
         [--sweeps 20] [--warm 10] [--out trace.json]
 
 bench64, city and venice run the component-major fast path as `prepare`
-sets it up (camera table, or windows); bench64_unfused the bench scene with
-`prepare(ell_fused=False)` (the unfused table kernels and the expansion);
+sets it up (camera table, or windows); bench64_unfused, city1280_unfused
+and venice10240_unfused those scenes with `prepare(ell_fused=False)` (the
+unfused table kernels, or their windowed form, and the expansion); ladybug49 is
+data/ladybug49_sim.txt.gz through `io.bal` and `build_bal` (the BAL model
+with its per-row distortion arguments) under the in-engine annealing of
+core/anneal.py, as `python -m gbp_tpu_torch.ba` runs it;
 nonlocal512 (512 cameras that all see every landmark) lands on its expanded
 operands (gather_mode "rows"); bench64_generic runs the bench scene through
 the generic row-major sweep under message_form="pallas"; manhattan4000 a
@@ -32,7 +36,8 @@ import dataclasses
 
 import gbp_tpu_torch
 from gbp_tpu_torch.bench import BIG_BUILD, CFG, CITY, VENICE, card_line
-from gbp_tpu_torch.core import sweep, sweep_cm
+from gbp_tpu_torch.core import anneal, sweep, sweep_cm
+from gbp_tpu_torch.io import bal
 from gbp_tpu_torch.models import ba, pose_graph
 
 BENCH64 = dict(n_cams=64, n_lmks=8000, pix_sigma=1.0, seed=0)
@@ -44,8 +49,12 @@ SCENES = {
         n_poses=4000, seed=0, loop_prob=0.3, loop_radius=3.0), {"layout": "ell"}),
     "nonlocal512": (lambda: ba.simulate(n_cams=512, n_lmks=2000, pix_sigma=1.0, seed=0), {}),
     "city": (lambda: ba.simulate_blocks(**CITY), BIG_BUILD),
+    "city1280_unfused": (lambda: ba.simulate_blocks(**CITY), BIG_BUILD),
     "venice": (lambda: ba.simulate_blocks(**VENICE), BIG_BUILD),
+    "venice10240_unfused": (lambda: ba.simulate_blocks(**VENICE), BIG_BUILD),
+    "ladybug49": (lambda: bal.to_sim(bal.prune(bal.read_bal(LADYBUG))), {"layout": "ell"}),
 }
+LADYBUG = "data/ladybug49_sim.txt.gz"
 
 
 def main(argv=None):
@@ -60,7 +69,8 @@ def main(argv=None):
     gbp_tpu_torch.set_exact_f32()
     card = card_line()
     make, build_kw = SCENES[args.scene]
-    build = pose_graph.build if args.scene == "manhattan4000" else ba.build
+    build = {"manhattan4000": pose_graph.build,
+             "ladybug49": lambda *a, **k: ba.build_bal(*a, **k)[:2]}.get(args.scene, ba.build)
     sweep_cfg = pose_graph.default_config() if args.scene == "manhattan4000" else CFG
     graph, means = build(make(), dtype=torch.float32, device=device, **build_kw)
     if args.scene == "bench64_generic":
@@ -70,8 +80,13 @@ def main(argv=None):
         rows, win_w, mode = graph.fblocks[0].count, 0, "generic"
     else:
         cmg = sweep_cm.prepare(graph, window=True,
-                               ell_fused=False if args.scene == "bench64_unfused" else None)
-        run = lambda st, n: sweep_cm.run(cmg, st, sweep_cfg, n)
+                               ell_fused=False if args.scene.endswith("_unfused") else None)
+        if args.scene == "ladybug49":
+            # The annealed run from its first schedule level on (sweeps past
+            # the warm-up index keep the schedule's last level).
+            run = lambda st, n: anneal.run_annealed_cm(cmg, st, sweep_cfg, n, i0=args.warm)
+        else:
+            run = lambda st, n: sweep_cm.run(cmg, st, sweep_cfg, n)
         state = run(sweep_cm.init_state(cmg, means), args.warm)
         rows, win_w, mode = cmg.mp, cmg.win_w, cmg.gather_mode
     torch.cuda.synchronize()

@@ -56,8 +56,13 @@ the reference does the same): the landmark slot's packed beliefs are
 expanded to per-row operands by `expand_ell_blk`, `relin_cm_tab` and
 `messages_cm_tab` read the cameras from the shared-memory table and the
 landmarks from those operands, and the camera sum is the standalone
-`segsum_by_id`.  Full table only: with camera windows this form needs the
-reference's kernels 8 and 9 (ROADMAP B5).
+`segsum_by_id`.  With camera windows `relin_cm_tabblk` and
+`messages_cm_tabblk` read the cameras from the tile's window instead, and
+the camera sum is `segsum_cm_blk` then `scatter_windows_cm`.
+
+Factor types whose model reads per-row arguments (the BAL model's
+distortion [k1, k2]) carry them as one more resident operand, `args`
+[n_args, mp], handed to every relinearization kernel.
 
 The reference's one-hot table dots and per-tile table stacks exist because
 a TPU kernel has no lane-dynamic gather; an index read does their job here.
@@ -84,7 +89,7 @@ from gbp_tpu_torch.core.sweep import (
     linearize_block,
 )
 from gbp_tpu_torch.gaussians import packed_identity_row
-from gbp_tpu_torch.ops.comp_factors import COMP_FACTORS, COMP_FACTORS_QUEUED
+from gbp_tpu_torch.ops.comp_factors import COMP_FACTORS, comp_n_args
 from gbp_tpu_torch.ops.messages import (
     ROW_SHAPES,
     SMEM_TABLE_BYTES,
@@ -95,13 +100,16 @@ from gbp_tpu_torch.ops.messages import (
     messages_cm,
     messages_cm_tab,
     messages_cm_tab_ell,
+    messages_cm_tabblk,
     messages_cm_tabblk_ell,
     relin_cm,
     relin_cm_tab,
     relin_cm_tab_ell,
+    relin_cm_tabblk,
     relin_cm_tabblk_ell,
     scatter_windows_cm,
     segsum_by_id,
+    segsum_cm_blk,
     window_cover_csr,
     window_rows_csr,
 )
@@ -175,6 +183,10 @@ class CMGraph(NamedTuple):
     vperm: torch.Tensor | None = None  # [n_lmk] int64
     vinv: torch.Tensor | None = None  # [n_lmk] int64
     rowperm: torch.Tensor | None = None  # [m] int64
+    # Per-row factor arguments [n_args, mp] of models that read them
+    # (`bal_reprojection_normalized`: k1, k2), in resident row order; None
+    # for the others.
+    args: torch.Tensor | None = None
 
     @property
     def fb(self):
@@ -218,15 +230,16 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     precision, or degenerate ELL padding.  The caller then runs the generic
     sweep (core/sweep.py), as with the reference.
 
-    Taken: one block of `reprojection_normalized`, `se2_between` or
+    Taken: one block of `reprojection_normalized`,
+    `bal_reprojection_normalized` (per-row arguments [k1, k2]),
+    `bal_reprojection_intrinsics` (9-dof cameras), `se2_between` or
     `se3_between` factors in ELL layout (cameras and landmarks grouped by
     landmark; between factors by either end), diagonal precision, no Huber, a
     scalar threshold or per-factor thresholds, the two slots on two variable
-    blocks or on one (pose graphs).  What the
-    reference's fast path takes and this one does not yet raises
-    NotImplementedError naming the ROADMAP item: the degree-class segmented
-    layout (A11), the BAL factor types and cameras in the ELL slot (A7),
-    `ell_fused=False` with engaged camera windows (B5).
+    blocks or on one (pose graphs).  What the reference's fast path takes
+    and this one does not yet raises NotImplementedError naming the ROADMAP
+    item: the degree-class segmented layout (A11) and cameras in the ELL
+    slot (A7).
 
     gather_mode "auto" (and "table") picks "table" when the camera windows
     engage or the whole packed camera table fits a block's shared memory
@@ -240,9 +253,9 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     "table" mode only.
 
     ell_fused None fuses the ELL slot into the table kernels at ELL degree
-    > 1 and takes the unfused kernels at degree 1 (the reference's rule; at
-    degree 1 no window is tried here, where the reference would run its
-    windowed unfused kernels, B5); False forces the unfused kernels.
+    > 1 and takes the unfused kernels at degree 1 (the reference's rule,
+    with windows tried at every degree, as there); False forces the unfused
+    kernels, windowed or not.
 
     segsum_exact is accepted for the reference's signature and ignored: the
     camera-side sum always runs at full precision (the reference's bf16
@@ -256,8 +269,6 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
         return None
     fb = graph.fblocks[0]
     name = getattr(fb.ftype, "name", None)
-    if name in COMP_FACTORS_QUEUED:
-        raise _unsupported(f"factor type {name!r}", COMP_FACTORS_QUEUED[name])
     entry = COMP_FACTORS.get(name)
     if (len(fb.dofs) != 2 or fb.ell_slot is None or entry is None
             or (fb.ftype.residual_fn is not None and len(entry) < 3) or fb.prec.ndim != 2):
@@ -290,9 +301,7 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     win, rowperm, order = None, None, None
     fused = deg > 1 if ell_fused is None else bool(ell_fused)
     if gather_mode in ("auto", "table"):
-        # At degree 1 the unfused kernels run by themselves; they have no
-        # windowed form yet, so no window is tried.
-        if window and (fused or ell_fused is not None):
+        if window:
             win = _windows(edge_pad(gidx), n_cam, itemsize, width)
             if win is None and not same_block:
                 # The natural landmark order is not camera-local (random
@@ -308,9 +317,6 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
                     rowperm = order = None
         fits = n_cam * width * itemsize <= SMEM_TABLE_BYTES
         gather_mode = "table" if win is not None or fits else "rows"
-    if gather_mode == "table" and not fused and win is not None:
-        raise _unsupported("the windowed table kernels without the fused ELL slot "
-                           "(ell_fused=False with engaged camera windows)", "B5")
 
     as_i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
     as_i64 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=dev)
@@ -352,6 +358,9 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     # fill 1.0 keeps padded rows' weight finite (act masks them anyway).
     prec = fb.prec if fb.huber_arr is None else torch.cat(
         [fb.prec, fb.huber_arr[:, None].to(dt)], dim=1)
+    n_args = comp_n_args(name)
+    if n_args:
+        extra["args"] = to_cm(fb.args.reshape(m, -1)[:, :n_args].to(dt))
     return CMGraph(
         base=graph,
         z=to_cm(fb.z),
@@ -531,17 +540,29 @@ def sweep(cmg: CMGraph, state: CMState, cfg: GBPConfig,
         be_c, bl_c, mean_c = _expand_gather(cmg, vs_c)
         shape = dict(d0=fb.dofs[0], d1=fb.dofs[1], z=cmg.z.shape[0])
         lp, jac, r0, srel = relin_cm(
-            params, torch.cat(by_slot(mean_c, mean_l)), cmg.z, None, fs.lp, fs.jac, fs.r0,
+            params, torch.cat(by_slot(mean_c, mean_l)), cmg.z, cmg.args, fs.lp, fs.jac, fs.r0,
             fs.srel, act, comp_name=model, **shape)
         (be0, be1), (bl0, bl1) = by_slot(be_c, be_l), by_slot(bl_c, bl_l)
         out = messages_cm(
             params, jac, lp, r0, cmg.prec, srel, act, be0, bl0, be1, bl1, *msgs,
             prec_full=False, huber=huber, **shape)
         sum_c = segsum_by_id(out[2 * g], out[2 * g + 1], cmg.seg_rows, cmg.seg_offsets)
+    elif not cmg.ell_fused and cmg.win_w:
+        be_l, bl_l, mean_l = _expand_ell(cmg, vs_l)
+        lp, jac, r0, srel = relin_cm_tabblk(
+            params, mean_l, vs_c.mean.contiguous(), cmg.gidx, cmg.win_starts, cmg.z, cmg.args,
+            fs.lp, fs.jac, fs.r0, fs.srel, act, win_w=cmg.win_w, comp_name=model, gslot=g)
+        out = messages_cm_tabblk(
+            params, jac, lp, r0, cmg.prec, srel, act, be_l, bl_l, _packed(vs_c).contiguous(),
+            cmg.gidx, cmg.win_starts, *msgs, huber=huber, win_w=cmg.win_w, gslot=g)
+        part = segsum_cm_blk(out[2 * g], out[2 * g + 1], cmg.win_rows, cmg.win_offsets,
+                             n_tiles=cmg.mp // TILE, w=cmg.win_w)
+        sum_c = scatter_windows_cm(part, cmg.win_starts, cmg.cov_tiles, cmg.cov_offsets,
+                                   n_seg=n_cam)
     elif not cmg.ell_fused:
         be_l, bl_l, mean_l = _expand_ell(cmg, vs_l)
         lp, jac, r0, srel = relin_cm_tab(
-            params, mean_l, vs_c.mean.contiguous(), cmg.gidx, cmg.z, None, fs.lp, fs.jac,
+            params, mean_l, vs_c.mean.contiguous(), cmg.gidx, cmg.z, cmg.args, fs.lp, fs.jac,
             fs.r0, fs.srel, act, comp_name=model, gslot=g)
         out = messages_cm_tab(
             params, jac, lp, r0, cmg.prec, srel, act, be_l, bl_l, _packed(vs_c).contiguous(),
@@ -551,7 +572,8 @@ def sweep(cmg: CMGraph, state: CMState, cfg: GBPConfig,
         cam_mean, lmk_mean, cam_tab, lmk_tab = belief_tables(cmg, state)
         lp, jac, r0, srel = relin_cm_tabblk_ell(
             params, cam_mean, lmk_mean, cmg.gidx, cmg.win_starts, cmg.z, fs.lp, fs.jac,
-            fs.r0, fs.srel, act, deg=deg, win_w=cmg.win_w, comp_name=model, gslot=g)
+            fs.r0, fs.srel, act, deg=deg, win_w=cmg.win_w, comp_name=model, gslot=g,
+            fargs=cmg.args)
         *out, part = messages_cm_tabblk_ell(
             params, cam_tab, lmk_tab, cmg.gidx, cmg.win_starts, jac, lp, r0, cmg.prec,
             srel, act, *msgs, cmg.win_rows, cmg.win_offsets, deg=deg, huber=huber,
@@ -562,7 +584,7 @@ def sweep(cmg: CMGraph, state: CMState, cfg: GBPConfig,
         cam_mean, lmk_mean, cam_tab, lmk_tab = belief_tables(cmg, state)
         lp, jac, r0, srel = relin_cm_tab_ell(
             params, cam_mean, lmk_mean, cmg.gidx, cmg.z, fs.lp, fs.jac, fs.r0,
-            fs.srel, act, deg=deg, comp_name=model, gslot=g)
+            fs.srel, act, deg=deg, comp_name=model, gslot=g, fargs=cmg.args)
         *out, sum_c = messages_cm_tab_ell(
             params, cam_tab, lmk_tab, cmg.gidx, jac, lp, r0, cmg.prec, srel,
             act, *msgs, cmg.seg_rows, cmg.seg_offsets, deg=deg, huber=huber, gslot=g)

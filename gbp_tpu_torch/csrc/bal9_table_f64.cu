@@ -1,0 +1,10 @@
+// The table families' messages kernels (table_kernels.cuh) instantiated at
+// (9, 3, 2), the 9-dof BAL camera of `bal_reprojection_intrinsics`, in
+// double: a source of its own, so that its compiler runs beside the others'.
+#include "table_kernels.cuh"
+
+namespace gbp {
+
+GBP_BAL9_TABLE_LAUNCHERS(, double)
+
+}  // namespace gbp

@@ -1,6 +1,7 @@
 // Component-form measurement models for one factor per CUDA thread.
 //
 // The CUDA counterparts of `reprojection_normalized_comp`,
+// `bal_reprojection_normalized_comp`, `bal_reprojection_intrinsics_comp`,
 // `se2_between_comp` / `se2_between_res` and `se3_between_comp` /
 // `se3_between_res` in gbp_tpu/ops/comp_factors.py, with the same Taylor
 // guards, the same sign-preserving depth floor, the same floor-form angle
@@ -10,7 +11,9 @@
 // in the plain versions.
 //
 // A model is a struct with the slot dofs DA, DB, the measurement dim ZD,
-// `eval(x, h, jac)` and `residual(z, h, r)`; the relinearization bodies of
+// the number NA of per-row factor arguments it reads (the BAL distortion
+// [k1, k2]; 0 for the others), `eval(x, a, h, jac)` with `a` the row's NA
+// arguments, and `residual(z, h, r)`; the relinearization bodies of
 // messages_rows.cuh take it as a template parameter.
 #pragma once
 
@@ -72,29 +75,25 @@ GBP_HD T safe_z(T zc) {
   return zc >= T(0.0) ? max_nan(zc, T(1e-2)) : min_nan(zc, T(-1e-2));
 }
 
-// x = [omega (3), t (3), X (3)] -> h = Xc.xy / Xc.z, jac = dh/dx [2][9]
-// with Xc = R(omega) X + t.
+// R = R(omega) and Xc = R X + t of the camera (w, t) and the point X.
 template <typename T>
-GBP_HD void reprojection_normalized(const T (&x)[9], T (&h)[2], T (&jac)[2][9]) {
-  const T w[3] = {x[0], x[1], x[2]};
-  const T pt[3] = {x[6], x[7], x[8]};
-  T r[3][3];
+GBP_HD void cam_point(const T (&w)[3], const T (&t)[3], const T (&pt)[3], T (&r)[3][3],
+                      T (&xc)[3]) {
   so3_exp(w, r);
   T rp[3];
   mv(r, pt, rp);
-  const T xc[3] = {rp[0] + x[3], rp[1] + x[4], rp[2] + x[5]};
-  const T inv_z = T(1.0) / safe_z(xc[2]);
-  h[0] = xc[0] * inv_z;
-  h[1] = xc[1] * inv_z;
-  const T dpi[2][3] = {{inv_z, T(0.0), -xc[0] * inv_z * inv_z},
-                       {T(0.0), inv_z, -xc[1] * inv_z * inv_z}};
-  // d(Xc)/d(omega) = -R [X]x Jr(omega);  d(Xc)/dt = I;  d(Xc)/dX = R.
+#pragma unroll
+  for (int i = 0; i < 3; ++i) xc[i] = rp[i] + t[i];
+}
+
+// d(Xc)/d(omega, t, X) [3][9]: -R [X]x Jr(omega) | I | R.
+template <typename T>
+GBP_HD void dxc_dx(const T (&w)[3], const T (&pt)[3], const T (&r)[3][3], T (&dxc)[3][9]) {
   T k[3][3], rk[3][3], jr[3][3], rkj[3][3];
   hat(pt, k);
   mm(r, k, rk);
   right_jacobian(w, jr);
   mm(rk, jr, rkj);
-  T dxc[3][9];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
 #pragma unroll
@@ -104,7 +103,57 @@ GBP_HD void reprojection_normalized(const T (&x)[9], T (&h)[2], T (&jac)[2][9]) 
       dxc[i][6 + j] = r[i][j];
     }
   }
+}
+
+// x = [omega (3), t (3), X (3)] -> h = Xc.xy / Xc.z, jac = dh/dx [2][9]
+// with Xc = R(omega) X + t.
+template <typename T>
+GBP_HD void reprojection_normalized(const T (&x)[9], T (&h)[2], T (&jac)[2][9]) {
+  const T w[3] = {x[0], x[1], x[2]};
+  const T t[3] = {x[3], x[4], x[5]};
+  const T pt[3] = {x[6], x[7], x[8]};
+  T r[3][3], xc[3];
+  cam_point(w, t, pt, r, xc);
+  const T inv_z = T(1.0) / safe_z(xc[2]);
+  h[0] = xc[0] * inv_z;
+  h[1] = xc[1] * inv_z;
+  const T dpi[2][3] = {{inv_z, T(0.0), -xc[0] * inv_z * inv_z},
+                       {T(0.0), inv_z, -xc[1] * inv_z * inv_z}};
+  T dxc[3][9];
+  dxc_dx(w, pt, r, dxc);
   mm(dpi, dxc, jac);
+}
+
+// The BAL projection p = -Xc.xy / Xc.z with radial distortion dist = 1 +
+// k1 r2 + k2 r2^2 (r2 = |p|^2): h = rf * dist * p (rf = 1 when !SCALED)
+// and dh/dXc [2][3] = rf * (dist I + 2 (k1 + 2 k2 r2) p p^T) . dp/dXc, in
+// the operation order of `_bal_chain` in ops/comp_factors.py.
+template <typename T, bool SCALED>
+GBP_HD void bal_chain(const T (&xc)[3], T k1, T k2, T rf, T (&h)[2], T (&dh_dxc)[2][3],
+                      T (&p)[2], T& r2, T& dist) {
+  const T inv_z = T(1.0) / safe_z(xc[2]);
+  p[0] = -xc[0] * inv_z;
+  p[1] = -xc[1] * inv_z;
+  r2 = p[0] * p[0] + p[1] * p[1];
+  dist = T(1.0) + r2 * (k1 + k2 * r2);
+  const T dp[2][3] = {{-inv_z, T(0.0), xc[0] * inv_z * inv_z},
+                      {T(0.0), -inv_z, xc[1] * inv_z * inv_z}};
+  const T ddist = k1 + T(2.0) * k2 * r2;
+  T dh_dp[2][2] = {{dist + p[0] * ddist * T(2.0) * p[0], p[0] * ddist * T(2.0) * p[1]},
+                   {p[1] * ddist * T(2.0) * p[0], dist + p[1] * ddist * T(2.0) * p[1]}};
+  if constexpr (SCALED) {
+    h[0] = rf * dist * p[0];
+    h[1] = rf * dist * p[1];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) dh_dp[i][j] = rf * dh_dp[i][j];
+    }
+  } else {
+    h[0] = dist * p[0];
+    h[1] = dist * p[1];
+  }
+  mm(dh_dp, dp, dh_dxc);
 }
 
 // r = z - h, the default residual.
@@ -115,10 +164,68 @@ GBP_HD void residual_diff(const T (&z)[ZD], const T (&h)[ZD], T (&r)[ZD]) {
 }
 
 struct ReprojectionNormalized {
-  static constexpr int DA = 6, DB = 3, ZD = 2;
+  static constexpr int DA = 6, DB = 3, ZD = 2, NA = 0;
   template <typename T>
-  GBP_HD static void eval(const T (&x)[9], T (&h)[2], T (&jac)[2][9]) {
+  GBP_HD static void eval(const T (&x)[9], const T* /*a*/, T (&h)[2], T (&jac)[2][9]) {
     reprojection_normalized(x, h, jac);
+  }
+  template <typename T>
+  GBP_HD static void residual(const T (&z)[2], const T (&h)[2], T (&r)[2]) {
+    residual_diff(z, h, r);
+  }
+};
+
+// x = [omega (3), t (3), X (3)], a = [k1, k2] -> h = dist * p (BAL, divided
+// by the focal), jac [2][9].
+struct BalReprojectionNormalized {
+  static constexpr int DA = 6, DB = 3, ZD = 2, NA = 2;
+  template <typename T>
+  GBP_HD static void eval(const T (&x)[9], const T* a, T (&h)[2], T (&jac)[2][9]) {
+    const T w[3] = {x[0], x[1], x[2]};
+    const T t[3] = {x[3], x[4], x[5]};
+    const T pt[3] = {x[6], x[7], x[8]};
+    T r[3][3], xc[3];
+    cam_point(w, t, pt, r, xc);
+    T dh_dxc[2][3], p[2], r2, dist;
+    bal_chain<T, false>(xc, a[0], a[1], T(1.0), h, dh_dxc, p, r2, dist);
+    T dxc[3][9];
+    dxc_dx(w, pt, r, dxc);
+    mm(dh_dxc, dxc, jac);
+  }
+  template <typename T>
+  GBP_HD static void residual(const T (&z)[2], const T (&h)[2], T (&r)[2]) {
+    residual_diff(z, h, r);
+  }
+};
+
+// x = [omega (3), t (3), rf, k1, k2, X (3)] -> h = rf * dist * p (the 9-dof
+// BAL camera, rf = f / f0), jac [2][12] with the intrinsics columns at 6..8.
+struct BalReprojectionIntrinsics {
+  static constexpr int DA = 9, DB = 3, ZD = 2, NA = 0;
+  template <typename T>
+  GBP_HD static void eval(const T (&x)[12], const T* /*a*/, T (&h)[2], T (&jac)[2][12]) {
+    const T w[3] = {x[0], x[1], x[2]};
+    const T t[3] = {x[3], x[4], x[5]};
+    const T rf = x[6];
+    const T pt[3] = {x[9], x[10], x[11]};
+    T r[3][3], xc[3];
+    cam_point(w, t, pt, r, xc);
+    T dh_dxc[2][3], p[2], r2, dist;
+    bal_chain<T, true>(xc, x[7], x[8], rf, h, dh_dxc, p, r2, dist);
+    T dxc[3][9], d_pose_pt[2][9];
+    dxc_dx(w, pt, r, dxc);
+    mm(dh_dxc, dxc, d_pose_pt);
+    const T r4 = r2 * r2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 6; ++j) jac[i][j] = d_pose_pt[i][j];
+      jac[i][6] = dist * p[i];
+      jac[i][7] = rf * r2 * p[i];
+      jac[i][8] = rf * r4 * p[i];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) jac[i][9 + j] = d_pose_pt[i][6 + j];
+    }
   }
   template <typename T>
   GBP_HD static void residual(const T (&z)[2], const T (&h)[2], T (&r)[2]) {
@@ -137,9 +244,9 @@ GBP_HD T wrap_angle(T theta) {
 // x = [xi, yi, ti, xj, yj, tj] -> h = the pose of j in frame i [3],
 // jac [3][6]; the residual wraps its angle component.
 struct Se2Between {
-  static constexpr int DA = 3, DB = 3, ZD = 3;
+  static constexpr int DA = 3, DB = 3, ZD = 3, NA = 0;
   template <typename T>
-  GBP_HD static void eval(const T (&x)[6], T (&h)[3], T (&jac)[3][6]) {
+  GBP_HD static void eval(const T (&x)[6], const T* /*a*/, T (&h)[3], T (&jac)[3][6]) {
     const T c = g_cos(x[2]), s = g_sin(x[2]);
     const T dx = x[3] - x[0];
     const T dy = x[4] - x[1];
@@ -236,9 +343,9 @@ GBP_HD void transpose3(const T (&a)[3][3], T (&out)[3][3]) {
 // jac [6][12] (the analytic blocks of ops/comp_factors.se3_between_comp);
 // the residual's rotation block is log(R(h_w)^T R(z_w)).
 struct Se3Between {
-  static constexpr int DA = 6, DB = 6, ZD = 6;
+  static constexpr int DA = 6, DB = 6, ZD = 6, NA = 0;
   template <typename T>
-  GBP_HD static void eval(const T (&x)[12], T (&h)[6], T (&jac)[6][12]) {
+  GBP_HD static void eval(const T (&x)[12], const T* /*a*/, T (&h)[6], T (&jac)[6][12]) {
     const T wi[3] = {x[3], x[4], x[5]};
     const T wj[3] = {x[9], x[10], x[11]};
     T ri[3][3], rit[3][3], rj[3][3];

@@ -5,9 +5,11 @@
 // is gathered by id from a per-variable table staged in shared memory
 // (cameras; poses), slot 1 is the ELL slot: row r belongs to variable
 // r / deg (landmarks; the same poses).  Instantiated for (d0, d1, z) =
-// (6, 3, 2) reprojection, (3, 3, 3) SE(2) and (6, 6, 6) SE(3) between
+// (6, 3, 2) reprojection (normalized or BAL), (9, 3, 2) the 9-dof BAL
+// camera (in bal9_table_*.cu), (3, 3, 3) SE(2) and (6, 6, 6) SE(3) between
 // factors, with a scalar or a per-row Huber threshold.  The per-row
-// arithmetic is in messages_rows.cuh, shared with windows.cu, unfused.cu and
+// arithmetic is in messages_rows.cuh and the messages kernels are in
+// table_kernels.cuh, shared with windows.cu, unfused.cu, unfused_win.cu and
 // rows.cu; the wrappers and plain versions are in
 // gbp_tpu_torch/ops/messages.py.  Kernels allocate nothing and launch on the
 // caller's stream; each C entry returns cudaGetLastError(), or -2 for a
@@ -23,6 +25,8 @@
 //   per-row camera read is a shared-memory index instead of the TPU's
 //   one-hot matrix dots; landmark means are read at r / deg, which
 //   neighbouring threads share (deg rows per landmark), so they hit L1.
+//   A model with per-row arguments (the BAL distortion) reads them from
+//   args [n_args, mp] in the relinearizing branch only.
 //
 // messages_cm_tab_ell
 //   Replaces `fused_messages_cm_tab_ell`'s first four outputs
@@ -47,7 +51,7 @@
 //   tree combines them, so two runs give the same bits.  Any slot width d
 //   and either layout (component-major in and out for the fast path,
 //   row-major in and out for the generic sweep's scatter lowering).
-#include "messages_rows.cuh"
+#include "table_kernels.cuh"
 
 namespace gbp {
 
@@ -55,7 +59,7 @@ template <typename S, class M>
 __global__ void __launch_bounds__(BLOCK)
 relin_kernel(const S* __restrict__ cam_mean, int n_cam,
              const S* __restrict__ lmk_mean, const int* __restrict__ gidx,
-             const S* __restrict__ z, const S* __restrict__ lp,
+             const S* __restrict__ z, const S* __restrict__ args, const S* __restrict__ lp,
              const S* __restrict__ jac, const S* __restrict__ r0,
              const S* __restrict__ srel, const S* __restrict__ act,
              S* __restrict__ olp, S* __restrict__ ojac, S* __restrict__ or0,
@@ -68,32 +72,8 @@ relin_kernel(const S* __restrict__ cam_mean, int n_cam,
   __syncthreads();
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= mp) return;
-  relin_row<S, M>(tab + gidx[r] * dg, lmk_mean, z, lp, jac, r0, srel, act, olp, ojac, or0,
-                  osrel, mp, deg, gslot, r, beta, min_linear);
-}
-
-template <typename S, class Sh, bool HUBER_ROW>
-__global__ void __launch_bounds__(BLOCK)
-messages_kernel(const S* __restrict__ cam_tab, int n_cam,
-                const S* __restrict__ lmk_tab, const int* __restrict__ gidx,
-                const S* __restrict__ jac, const S* __restrict__ lp,
-                const S* __restrict__ r0g, const S* __restrict__ prec,
-                const S* __restrict__ srel, const S* __restrict__ act,
-                const S* __restrict__ me0, const S* __restrict__ ml0,
-                const S* __restrict__ me1, const S* __restrict__ ml1,
-                S* __restrict__ oe0, S* __restrict__ ol0,
-                S* __restrict__ oe1, S* __restrict__ ol1, int64_t mp, int deg,
-                MsgParams<S> p) {
-  constexpr int F_G = Sh::F_G;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* tab = reinterpret_cast<S*>(smem_raw);
-  for (int i = threadIdx.x; i < n_cam * F_G; i += blockDim.x) tab[i] = cam_tab[i];
-  __syncthreads();
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= mp) return;
-  messages_row<S, Sh::DA, Sh::DB, Sh::ZD, HUBER_ROW, Sh::GSLOT>(
-      tab + gidx[r] * F_G, lmk_tab, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0,
-      oe1, ol1, mp, deg, r, p);
+  relin_row<S, M>(tab + gidx[r] * dg, lmk_mean, z, args, lp, jac, r0, srel, act, olp, ojac,
+                  or0, osrel, mp, deg, gslot, r, beta, min_linear);
 }
 
 template <typename S, class L>
@@ -122,8 +102,8 @@ segsum_kernel(const S* __restrict__ me, int64_t me_ld, const S* __restrict__ ml,
 
 template <typename S>
 int relin(int model, int gslot, const S* cam_mean, int n_cam, const S* lmk_mean, int nv,
-          const int* gidx, const S* z, const S* lp, const S* jac, const S* r0, const S* srel,
-          const S* act, S* olp, S* ojac, S* or0, S* osrel, int64_t mp, int deg,
+          const int* gidx, const S* z, const S* args, const S* lp, const S* jac, const S* r0,
+          const S* srel, const S* act, S* olp, S* ojac, S* or0, S* osrel, int64_t mp, int deg,
           double beta, double min_linear, void* stream) {
   (void)nv;
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
@@ -131,7 +111,7 @@ int relin(int model, int gslot, const S* cam_mean, int n_cam, const S* lmk_mean,
     using M = decltype(m);
     const size_t smem = static_cast<size_t>(n_cam) * gathered_dofs<M>(gslot) * sizeof(S);
     relin_kernel<S, M><<<n_blocks(mp), BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
-        cam_mean, n_cam, lmk_mean, gidx, z, lp, jac, r0, srel, act, olp, ojac, or0,
+        cam_mean, n_cam, lmk_mean, gidx, z, args, lp, jac, r0, srel, act, olp, ojac, or0,
         osrel, mp, deg, gslot, static_cast<S>(beta), static_cast<S>(min_linear));
   });
   return known ? static_cast<int>(cudaGetLastError()) : -2;
@@ -149,19 +129,10 @@ int messages(int da, int db, int zd, int gslot, int huber_row, const S* cam_tab,
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
   const auto p =
       msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber);
-  const auto st = static_cast<cudaStream_t>(stream);
+  const MsgOps<S> o{jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1};
   const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
-    using Sh = decltype(sh);
-    const size_t smem = static_cast<size_t>(n_cam) * Sh::F_G * sizeof(S);
-    if (huber_row) {
-      messages_kernel<S, Sh, true><<<n_blocks(mp), BLOCK, smem, st>>>(
-          cam_tab, n_cam, lmk_tab, gidx, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1,
-          oe0, ol0, oe1, ol1, mp, deg, p);
-    } else {
-      messages_kernel<S, Sh, false><<<n_blocks(mp), BLOCK, smem, st>>>(
-          cam_tab, n_cam, lmk_tab, gidx, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1,
-          oe0, ol0, oe1, ol1, mp, deg, p);
-    }
+    launch_messages_tab_ell<S, decltype(sh)>(huber_row != 0, cam_tab, n_cam, lmk_tab, gidx, o,
+                                             mp, deg, p, static_cast<cudaStream_t>(stream));
   });
   return known ? static_cast<int>(cudaGetLastError()) : -2;
 }
@@ -188,12 +159,12 @@ int segsum(const S* me, int64_t me_ld, const S* ml, int64_t ml_ld, int d, int rm
 #define GBP_ENTRIES(SFX, S)                                                          \
   extern "C" int gbp_relin_cm_tab_ell_##SFX(                                         \
       int model, int gslot, const S* cam_mean, int n_cam, const S* lmk_mean, int nv, \
-      const int* gidx, const S* z, const S* lp, const S* jac, const S* r0,           \
-      const S* srel, const S* act, S* olp, S* ojac, S* or0, S* osrel, int64_t mp,    \
-      int deg, double beta, double min_linear, void* stream) {                       \
-    return gbp::relin<S>(model, gslot, cam_mean, n_cam, lmk_mean, nv, gidx, z, lp,   \
-                         jac, r0, srel, act, olp, ojac, or0, osrel, mp, deg, beta,   \
-                         min_linear, stream);                                        \
+      const int* gidx, const S* z, const S* args, const S* lp, const S* jac,         \
+      const S* r0, const S* srel, const S* act, S* olp, S* ojac, S* or0, S* osrel,   \
+      int64_t mp, int deg, double beta, double min_linear, void* stream) {           \
+    return gbp::relin<S>(model, gslot, cam_mean, n_cam, lmk_mean, nv, gidx, z, args, \
+                         lp, jac, r0, srel, act, olp, ojac, or0, osrel, mp, deg,     \
+                         beta, min_linear, stream);                                  \
   }                                                                                  \
   extern "C" int gbp_messages_cm_tab_ell_##SFX(                                      \
       int da, int db, int zd, int gslot, int huber_row, const S* cam_tab, int n_cam, \

@@ -5,14 +5,18 @@
 // operands: messages.cu stages the whole gathered-slot table in shared
 // memory, windows.cu stages the row's tile window of it (both
 // component-major, the ELL slot's belief read at r / deg), unfused.cu reads
-// the ELL slot from expanded operands instead, rows.cu reads both slots'
-// beliefs from expanded per-row operands in either layout.  All of them run
+// the ELL slot from expanded operands instead, unfused_win.cu the gathered
+// slot from the tile's window and the ELL slot from expanded operands,
+// rows.cu both slots' beliefs from expanded per-row operands in either
+// layout.  All of them run
 // `relin_core` and `messages_core`, so the arithmetic (operation order, the
 // separately rounded beta and Huber decisions) is the same code.  The slot
 // dofs, the measurement dim and the measurement model are template
-// parameters: (6, 3, 2) `ReprojectionNormalized` (cameras and landmarks),
-// (3, 3, 3) `Se2Between` and (6, 6, 6) `Se3Between` (pose graphs, both slots
-// on one variable block).
+// parameters: (6, 3, 2) `ReprojectionNormalized` and
+// `BalReprojectionNormalized` (cameras and landmarks; the BAL model reads
+// two per-row arguments), (9, 3, 2) `BalReprojectionIntrinsics` (9-dof BAL
+// cameras), (3, 3, 3) `Se2Between` and (6, 6, 6) `Se3Between` (pose graphs,
+// both slots on one variable block).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -24,7 +28,8 @@ namespace gbp {
 
 constexpr int BLOCK = 256;
 // Model ids of the C entries.
-enum ModelId { MODEL_REPROJECTION = 0, MODEL_SE2 = 1, MODEL_SE3 = 2 };
+enum ModelId { MODEL_REPROJECTION = 0, MODEL_SE2 = 1, MODEL_SE3 = 2, MODEL_BAL_NORMALIZED = 3,
+               MODEL_BAL_INTRINSICS = 4 };
 
 // Call `fn(Model{})` for the model `id`; false for an unknown id.
 template <class F>
@@ -33,6 +38,8 @@ inline bool with_model(int id, F&& fn) {
     case MODEL_REPROJECTION: fn(ReprojectionNormalized{}); return true;
     case MODEL_SE2: fn(Se2Between{}); return true;
     case MODEL_SE3: fn(Se3Between{}); return true;
+    case MODEL_BAL_NORMALIZED: fn(BalReprojectionNormalized{}); return true;
+    case MODEL_BAL_INTRINSICS: fn(BalReprojectionIntrinsics{}); return true;
     default: return false;
   }
 }
@@ -60,7 +67,8 @@ struct OpLds {
   __device__ __forceinline__ int64_t operator[](int i) const { return v[i]; }
 };
 // Operand order of the strides: relinearization, then messages.
-enum RelinOp { R_Z, R_LP, R_JAC, R_R0, R_SREL, R_ACT, R_OLP, R_OJAC, R_OR0, R_OSREL, N_RELIN_OPS };
+enum RelinOp { R_Z, R_LP, R_JAC, R_R0, R_SREL, R_ACT, R_ARGS, R_OLP, R_OJAC, R_OR0, R_OSREL,
+               N_RELIN_OPS };
 enum MsgOp { M_JAC, M_LP, M_R0, M_PREC, M_SREL, M_ACT, M_ME0, M_ML0, M_ME1, M_ML1,
              M_OE0, M_OL0, M_OE1, M_OL1, N_MSG_OPS };
 
@@ -96,13 +104,15 @@ struct ExpandedBelief {
 
 // Masked relinearization of row r at the adjacent means x under the
 // measurement model M (its `residual` replaces r = z - h where the factor
-// type wraps an angle or takes a manifold log).
+// type wraps an angle or takes a manifold log).  `args` holds the model's
+// M::NA per-row arguments (unread, and may be null, when NA is 0).
 template <typename S, class M, class L, class LD>
 __device__ __forceinline__ void relin_core(
-    const S (&x)[M::DA + M::DB], const S* __restrict__ z, const S* __restrict__ lp,
-    const S* __restrict__ jac, const S* __restrict__ r0, const S* __restrict__ srel,
-    const S* __restrict__ act, S* __restrict__ olp, S* __restrict__ ojac, S* __restrict__ or0,
-    S* __restrict__ osrel, const LD& ld, int64_t r, S beta, S min_linear) {
+    const S (&x)[M::DA + M::DB], const S* __restrict__ z, const S* __restrict__ args,
+    const S* __restrict__ lp, const S* __restrict__ jac, const S* __restrict__ r0,
+    const S* __restrict__ srel, const S* __restrict__ act, S* __restrict__ olp,
+    S* __restrict__ ojac, S* __restrict__ or0, S* __restrict__ osrel, const LD& ld, int64_t r,
+    S beta, S min_linear) {
   constexpr int TD = M::DA + M::DB;
   constexpr int ZD = M::ZD;
   S lp_o[TD];
@@ -119,7 +129,10 @@ __device__ __forceinline__ void relin_core(
 
   if (eligible) {
     S h[ZD], jn[ZD][TD], zm[ZD], rn[ZD];
-    M::eval(x, h, jn);
+    S a[M::NA > 0 ? M::NA : 1] = {};
+#pragma unroll
+    for (int i = 0; i < M::NA; ++i) a[i] = args[L::at(i, r, ld[R_ARGS])];
+    M::eval(x, a, h, jn);
 #pragma unroll
     for (int i = 0; i < ZD; ++i) zm[i] = z[L::at(i, r, ld[R_Z])];
     M::residual(zm, h, rn);
@@ -174,15 +187,15 @@ __host__ __device__ constexpr int gathered_dofs(int gslot) {
 template <typename S, class M>
 __device__ __forceinline__ void relin_row(
     const S* __restrict__ gat, const S* __restrict__ ell_mean, const S* __restrict__ z,
-    const S* __restrict__ lp, const S* __restrict__ jac, const S* __restrict__ r0,
-    const S* __restrict__ srel, const S* __restrict__ act, S* __restrict__ olp,
-    S* __restrict__ ojac, S* __restrict__ or0, S* __restrict__ osrel, int64_t mp, int deg,
-    int gslot, int64_t r, S beta, S min_linear) {
+    const S* __restrict__ args, const S* __restrict__ lp, const S* __restrict__ jac,
+    const S* __restrict__ r0, const S* __restrict__ srel, const S* __restrict__ act,
+    S* __restrict__ olp, S* __restrict__ ojac, S* __restrict__ or0, S* __restrict__ osrel,
+    int64_t mp, int deg, int gslot, int64_t r, S beta, S min_linear) {
   const int64_t l = r / deg;
   S x[M::DA + M::DB];
   slot_means<S, M>(gat, ell_mean + l * (M::DA + M::DB - gathered_dofs<M>(gslot)), 1, gslot, x);
-  relin_core<S, M, ColMajor>(x, z, lp, jac, r0, srel, act, olp, ojac, or0, osrel, UniformLd{mp},
-                             r, beta, min_linear);
+  relin_core<S, M, ColMajor>(x, z, args, lp, jac, r0, srel, act, olp, ojac, or0, osrel,
+                             UniformLd{mp}, r, beta, min_linear);
 }
 
 // Cavity of one slot and its projection through that slot's Jacobian:
@@ -442,10 +455,13 @@ struct Shape {
 };
 // Call `fn(Shape{})` for an instantiated shape; false otherwise.  Cameras and
 // landmarks are instantiated with the cameras gathered; a pose graph's ELL
-// layout may group by either end of its between factors.
+// layout may group by either end of its between factors.  The messages
+// kernels at (9, 3, 2), the 9-dof BAL camera, are compiled in sources of
+// their own (bal9_table_*.cu).
 template <class F>
 inline bool with_table_shape(int da, int db, int zd, int gslot, F&& fn) {
   if (da == 6 && db == 3 && zd == 2 && gslot == 0) { fn(Shape<6, 3, 2, 0>{}); return true; }
+  if (da == 9 && db == 3 && zd == 2 && gslot == 0) { fn(Shape<9, 3, 2, 0>{}); return true; }
   if (da == 3 && db == 3 && zd == 3 && gslot == 0) { fn(Shape<3, 3, 3, 0>{}); return true; }
   if (da == 3 && db == 3 && zd == 3 && gslot == 1) { fn(Shape<3, 3, 3, 1>{}); return true; }
   if (da == 6 && db == 6 && zd == 6 && gslot == 0) { fn(Shape<6, 6, 6, 0>{}); return true; }

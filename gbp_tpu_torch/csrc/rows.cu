@@ -27,18 +27,20 @@
 //   shared memory is later work.
 //   Design: one thread per factor row, template on the slot dofs and the
 //   measurement dim <DA, DB, ZD>; instantiated (6, 3, 2) (reprojection),
-//   (1, 1, 1) (scalar displacement), (3, 3, 3) (SE(2) between) and (6, 6, 6)
-//   (SE(3) between); (9, 3, 2) is a further instantiation of this body.  The
-//   pose shapes are instantiated in sources of their own (rows_se2.cu,
-//   rows_se3_f32.cu, rows_se3_f64.cu), so that the compilers run side by
-//   side.  Full precision and the per-row Huber threshold are template
+//   (1, 1, 1) (scalar displacement), (3, 3, 3) (SE(2) between), (6, 6, 6)
+//   (SE(3) between) and (9, 3, 2) (the 9-dof BAL camera).  The pose shapes
+//   and (9, 3, 2) are instantiated in sources of their own (rows_se2.cu,
+//   rows_se3_f32.cu, rows_se3_f64.cu, bal9_rows_f32.cu, bal9_rows_f64.cu), so
+//   that the compilers run side by side.  Full precision and the per-row Huber threshold are template
 //   parameters, so an instantiation that does not use them pays nothing for
 //   them.
 //
 // relin_rows_kernel
 //   Replaces `fused_relin_cm` (component-major) and the first call of
 //   `fused_relin_messages` (row-major): `_kernel_relin` + `_relin_math` for
-//   the `reprojection_normalized`, `se2_between` and `se3_between` models.
+//   the `reprojection_normalized`, `bal_reprojection_normalized`,
+//   `bal_reprojection_intrinsics`, `se2_between` and `se3_between` models;
+//   per-row factor arguments ride as the eighth operand.
 //   Bound: device-memory bytes, 42 values read and 30 written per row at
 //   (6, 3, 2).
 //   Design: the adjacent means are the expanded operand x; the beta
@@ -66,6 +68,8 @@ int messages_rows(int da, int db, int zd, int rm, int prec_full, int huber_row,
     return dispatch_messages<S, 3, 3, 3>(rm != 0, prec_full != 0, huber_row != 0, a, m, p, st);
   if (da == 6 && db == 6 && zd == 6)
     return dispatch_messages<S, 6, 6, 6>(rm != 0, prec_full != 0, huber_row != 0, a, m, p, st);
+  if (da == 9 && db == 3 && zd == 2)
+    return dispatch_messages<S, 9, 3, 2>(rm != 0, prec_full != 0, huber_row != 0, a, m, p, st);
   return -2;
 }
 

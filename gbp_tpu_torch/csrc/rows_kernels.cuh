@@ -9,7 +9,7 @@
 namespace gbp {
 
 constexpr int N_MSG_IN = 14;   // jac lp r0 prec srel act be0 bl0 be1 bl1 me0 ml0 me1 ml1
-constexpr int N_RELIN_IN = 7;  // x z lp jac r0 srel act
+constexpr int N_RELIN_IN = 8;  // x z lp jac r0 srel act args
 constexpr int N_OUT = 4;
 
 // The operands of one launch as the C entries receive them: base pointers
@@ -65,11 +65,13 @@ relin_rows_kernel(RowArgs<S, N_RELIN_IN> a, int64_t m, S beta, S min_linear) {
   S x[TD];
 #pragma unroll
   for (int i = 0; i < TD; ++i) x[i] = a.in[0][L::at(i, r, a.in_ld[0])];
-  // Strides in RelinOp order: z lp jac r0 srel act, then the four outputs.
+  // Strides in RelinOp order: z lp jac r0 srel act args, then the four
+  // outputs.
   const OpLds<N_RELIN_OPS> ld{{a.in_ld[1], a.in_ld[2], a.in_ld[3], a.in_ld[4], a.in_ld[5],
-                              a.in_ld[6], a.out_ld[0], a.out_ld[1], a.out_ld[2], a.out_ld[3]}};
-  relin_core<S, M, L>(x, a.in[1], a.in[2], a.in[3], a.in[4], a.in[5], a.in[6], a.out[0], a.out[1],
-                   a.out[2], a.out[3], ld, r, beta, min_linear);
+                              a.in_ld[6], a.in_ld[7], a.out_ld[0], a.out_ld[1], a.out_ld[2],
+                              a.out_ld[3]}};
+  relin_core<S, M, L>(x, a.in[1], a.in[7], a.in[2], a.in[3], a.in[4], a.in[5], a.in[6],
+                      a.out[0], a.out[1], a.out[2], a.out[3], ld, r, beta, min_linear);
 }
 
 template <typename S, int DA, int DB, int ZD, bool RM, bool PREC_FULL>
@@ -102,7 +104,8 @@ int dispatch_messages(bool rm, bool prec_full, bool huber_row, const RowArgs<S, 
                    : launch_messages<S, DA, DB, ZD, false, false>(huber_row, a, m, p, stream);
 }
 
-// The pose shapes' dispatchers are compiled in sources of their own.
+// The pose shapes' and the 9-dof BAL camera's dispatchers are compiled in
+// sources of their own.
 extern template int dispatch_messages<float, 3, 3, 3>(bool, bool, bool,
                                                       const RowArgs<float, N_MSG_IN>&, int64_t,
                                                       const MsgParams<float>&, cudaStream_t);
@@ -113,6 +116,12 @@ extern template int dispatch_messages<float, 6, 6, 6>(bool, bool, bool,
                                                       const RowArgs<float, N_MSG_IN>&, int64_t,
                                                       const MsgParams<float>&, cudaStream_t);
 extern template int dispatch_messages<double, 6, 6, 6>(bool, bool, bool,
+                                                       const RowArgs<double, N_MSG_IN>&, int64_t,
+                                                       const MsgParams<double>&, cudaStream_t);
+extern template int dispatch_messages<float, 9, 3, 2>(bool, bool, bool,
+                                                      const RowArgs<float, N_MSG_IN>&, int64_t,
+                                                      const MsgParams<float>&, cudaStream_t);
+extern template int dispatch_messages<double, 9, 3, 2>(bool, bool, bool,
                                                        const RowArgs<double, N_MSG_IN>&, int64_t,
                                                        const MsgParams<double>&, cudaStream_t);
 

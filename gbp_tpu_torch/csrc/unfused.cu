@@ -5,10 +5,11 @@
 // pose chain without loop closures) and which A/B runs force.
 //
 // Layout, shapes and models as in messages.cu: component-major [F, mp], one
-// thread per factor row, (d0, d1, z) = (6, 3, 2), (3, 3, 3), (6, 6, 6),
-// scalar or per-row Huber; the gathered slot is slot 0, or for the pose
-// shapes either slot.  The per-row arithmetic is messages_rows.cuh, the same
-// code as every other kernel.  The wrappers and plain versions are in
+// thread per factor row, (d0, d1, z) = (6, 3, 2), (9, 3, 2), (3, 3, 3),
+// (6, 6, 6), scalar or per-row Huber; the gathered slot is slot 0, or for
+// the pose shapes either slot.  The per-row arithmetic is messages_rows.cuh,
+// the same code as every other kernel; the messages kernel is in
+// table_kernels.cuh.  The wrappers and plain versions are in
 // gbp_tpu_torch/ops/messages.py.  Kernels allocate nothing and launch on the
 // caller's stream; each C entry returns cudaGetLastError(), or -2 for a shape
 // or model that is not instantiated.
@@ -42,7 +43,7 @@
 //   row reads its variable's packed row, which the deg threads of a group
 //   share through L1, and writes the f components coalesced; there is no
 //   alignment to respect, so the sweep calls it at every degree.
-#include "messages_rows.cuh"
+#include "table_kernels.cuh"
 
 namespace gbp {
 
@@ -50,7 +51,7 @@ template <typename S, class M>
 __global__ void __launch_bounds__(BLOCK)
 relin_tab_kernel(const S* __restrict__ x_other, const S* __restrict__ mtab, int n_g,
                  const int* __restrict__ gidx, const S* __restrict__ z,
-                 const S* __restrict__ lp, const S* __restrict__ jac,
+                 const S* __restrict__ args, const S* __restrict__ lp, const S* __restrict__ jac,
                  const S* __restrict__ r0, const S* __restrict__ srel,
                  const S* __restrict__ act, S* __restrict__ olp, S* __restrict__ ojac,
                  S* __restrict__ or0, S* __restrict__ osrel, int64_t mp, int gslot, S beta,
@@ -64,42 +65,8 @@ relin_tab_kernel(const S* __restrict__ x_other, const S* __restrict__ mtab, int 
   if (r >= mp) return;
   S x[M::DA + M::DB];
   slot_means<S, M>(tab + gidx[r] * dg, x_other + r, mp, gslot, x);
-  relin_core<S, M, ColMajor>(x, z, lp, jac, r0, srel, act, olp, ojac, or0, osrel, UniformLd{mp},
-                             r, beta, min_linear);
-}
-
-template <typename S, class Sh, bool HUBER_ROW>
-__global__ void __launch_bounds__(BLOCK)
-messages_tab_kernel(const S* __restrict__ btab, int n_g, const int* __restrict__ gidx,
-                    const S* __restrict__ be_o, const S* __restrict__ bl_o,
-                    const S* __restrict__ jac, const S* __restrict__ lp,
-                    const S* __restrict__ r0g, const S* __restrict__ prec,
-                    const S* __restrict__ srel, const S* __restrict__ act,
-                    const S* __restrict__ me0, const S* __restrict__ ml0,
-                    const S* __restrict__ me1, const S* __restrict__ ml1,
-                    S* __restrict__ oe0, S* __restrict__ ol0, S* __restrict__ oe1,
-                    S* __restrict__ ol1, int64_t mp, MsgParams<S> p) {
-  constexpr int F_G = Sh::F_G;
-  constexpr int DA = Sh::DA, DB = Sh::DB, ZD = Sh::ZD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* tab = reinterpret_cast<S*>(smem_raw);
-  for (int i = threadIdx.x; i < n_g * F_G; i += blockDim.x) tab[i] = btab[i];
-  __syncthreads();
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= mp) return;
-  if constexpr (Sh::GSLOT == 0) {
-    const PackedBelief<S, DA> b0{tab + gidx[r] * F_G};
-    const ExpandedBelief<S, DB, ColMajor> b1{be_o, bl_o, mp, mp, r};
-    messages_core<S, DA, DB, ZD, ColMajor, false, HUBER_ROW>(
-        b0, b1, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1,
-        UniformLd{mp}, r, p);
-  } else {
-    const ExpandedBelief<S, DA, ColMajor> b0{be_o, bl_o, mp, mp, r};
-    const PackedBelief<S, DB> b1{tab + gidx[r] * F_G};
-    messages_core<S, DA, DB, ZD, ColMajor, false, HUBER_ROW>(
-        b0, b1, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1,
-        UniformLd{mp}, r, p);
-  }
+  relin_core<S, M, ColMajor>(x, z, args, lp, jac, r0, srel, act, olp, ojac, or0, osrel,
+                             UniformLd{mp}, r, beta, min_linear);
 }
 
 template <typename S>
@@ -113,7 +80,7 @@ expand_ell_kernel(const S* __restrict__ tab, int f, int deg, int64_t mp, S* __re
 
 template <typename S>
 int relin_tab(int model, int gslot, const S* x_other, const S* mtab, int n_g, const int* gidx,
-              const S* z, const S* lp, const S* jac, const S* r0, const S* srel,
+              const S* z, const S* args, const S* lp, const S* jac, const S* r0, const S* srel,
               const S* act, S* olp, S* ojac, S* or0, S* osrel, int64_t mp, double beta,
               double min_linear, void* stream) {
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
@@ -121,8 +88,8 @@ int relin_tab(int model, int gslot, const S* x_other, const S* mtab, int n_g, co
     using M = decltype(m);
     const size_t smem = static_cast<size_t>(n_g) * gathered_dofs<M>(gslot) * sizeof(S);
     relin_tab_kernel<S, M><<<n_blocks(mp), BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
-        x_other, mtab, n_g, gidx, z, lp, jac, r0, srel, act, olp, ojac, or0, osrel, mp, gslot,
-        static_cast<S>(beta), static_cast<S>(min_linear));
+        x_other, mtab, n_g, gidx, z, args, lp, jac, r0, srel, act, olp, ojac, or0, osrel, mp,
+        gslot, static_cast<S>(beta), static_cast<S>(min_linear));
   });
   return known ? static_cast<int>(cudaGetLastError()) : -2;
 }
@@ -137,19 +104,10 @@ int messages_tab(int da, int db, int zd, int gslot, int huber_row, const S* btab
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
   const auto p =
       msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber);
-  const auto st = static_cast<cudaStream_t>(stream);
+  const MsgOps<S> o{jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1};
   const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
-    using Sh = decltype(sh);
-    const size_t smem = static_cast<size_t>(n_g) * Sh::F_G * sizeof(S);
-    if (huber_row) {
-      messages_tab_kernel<S, Sh, true><<<n_blocks(mp), BLOCK, smem, st>>>(
-          btab, n_g, gidx, be_o, bl_o, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0,
-          ol0, oe1, ol1, mp, p);
-    } else {
-      messages_tab_kernel<S, Sh, false><<<n_blocks(mp), BLOCK, smem, st>>>(
-          btab, n_g, gidx, be_o, bl_o, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0,
-          ol0, oe1, ol1, mp, p);
-    }
+    launch_messages_tab<S, decltype(sh)>(huber_row != 0, btab, n_g, gidx, be_o, bl_o, o, mp, p,
+                                         static_cast<cudaStream_t>(stream));
   });
   return known ? static_cast<int>(cudaGetLastError()) : -2;
 }
@@ -167,11 +125,11 @@ int expand_ell(const S* tab, int f, int deg, int64_t mp, S* out, void* stream) {
 #define GBP_UNFUSED_ENTRIES(SFX, S)                                                     \
   extern "C" int gbp_relin_cm_tab_##SFX(                                                \
       int model, int gslot, const S* x_other, const S* mtab, int n_g, const int* gidx,  \
-      const S* z, const S* lp, const S* jac, const S* r0, const S* srel, const S* act,  \
-      S* olp, S* ojac, S* or0, S* osrel, int64_t mp, double beta, double min_linear,    \
-      void* stream) {                                                                   \
-    return gbp::relin_tab<S>(model, gslot, x_other, mtab, n_g, gidx, z, lp, jac, r0,    \
-                             srel, act, olp, ojac, or0, osrel, mp, beta, min_linear,    \
+      const S* z, const S* args, const S* lp, const S* jac, const S* r0, const S* srel, \
+      const S* act, S* olp, S* ojac, S* or0, S* osrel, int64_t mp, double beta,         \
+      double min_linear, void* stream) {                                                \
+    return gbp::relin_tab<S>(model, gslot, x_other, mtab, n_g, gidx, z, args, lp, jac,  \
+                             r0, srel, act, olp, ojac, or0, osrel, mp, beta, min_linear, \
                              stream);                                                   \
   }                                                                                     \
   extern "C" int gbp_messages_cm_tab_##SFX(                                             \

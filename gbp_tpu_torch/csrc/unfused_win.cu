@@ -1,0 +1,148 @@
+// The windowed unfused table kernels for Hopper (sm_90a): the gathered
+// slot from the tile's window of its table in shared memory, the ELL slot
+// from expanded per-row operands (`expand_ell_blk`).  This is the path of a
+// prepared graph whose camera windows engage with `ell_fused=False`, which
+// `prepare` takes by itself at ELL degree 1 and which A/B runs force on
+// large scenes (city, venice).
+//
+// Layout, shapes and models as in windows.cu: component-major [F, mp], rows
+// cut into tiles of TILE = 1024, every gathered id of tile i inside the
+// window [starts[i], starts[i] + w); (d0, d1, z) = (6, 3, 2), (9, 3, 2),
+// (3, 3, 3), (6, 6, 6), scalar or per-row Huber, either slot gathered for
+// the equal-slot shapes.  The per-row arithmetic is messages_rows.cuh and
+// the messages kernel is in table_kernels.cuh, the same code as every other
+// kernel.  The wrappers and plain versions are in
+// gbp_tpu_torch/ops/messages.py.  Kernels allocate nothing and launch on the
+// caller's stream; each C entry returns cudaGetLastError(), a CUDA error of
+// asking for dynamic shared memory, or -2 for a shape or model that is not
+// instantiated.
+//
+// messages_cm_tabblk
+//   Replaces gbp_tpu/ops/messages_pallas.py `fused_messages_cm_tabblk`
+//   (`_kernel_tab_blk` + `_message_math`).
+//   Bound: device-memory bytes and registers.  At (6, 3, 2) a row reads its
+//   18 + 9 + 2 + 2 + 1 + 1 state values, 12 expanded ELL-slot beliefs, 54
+//   old messages and its id, and writes 54 (about 150 values per row, 0.28
+//   GB at city's 451,584 rows in float32); the register load is that of
+//   messages_cm_tab.
+//   Design: one block per tile stages the tile's window of the packed
+//   (eta | lam) table, w x (d + d^2) values (21.5 KB at w = 128 in float32;
+//   above 48 KB the launch opts into dynamic shared memory), and walks the
+//   tile's 1024 rows in four passes of 256 threads; a row reads its
+//   gathered belief at gidx[r] - start and the other slot's from be_o / bl_o
+//   at column r, which neighbouring threads read side by side.  The TPU's
+//   per-tile window stacks and one-hot dots become that index read; an id
+//   outside its tile's window is a fault of the prepared graph and traps.
+//   No camera sum is folded in: the sweep calls `segsum_cm_blk` and
+//   `scatter_windows_cm` on the outputs.
+//
+// relin_cm_tabblk
+//   Replaces `fused_relin_cm_tabblk` (`_kernel_relin_tab_blk` +
+//   `_relin_math`).
+//   Bound: device-memory bytes (about 67 values per row at (6, 3, 2)).
+//   Design: the tile's window of the gathered slot's mean table in shared
+//   memory, the other slot's means from x_other [d_o, mp], per-row factor
+//   arguments (the BAL distortion) from args [n_args, mp].
+#include "table_kernels.cuh"
+
+namespace gbp {
+
+template <typename S, class M>
+__global__ void __launch_bounds__(BLOCK)
+relin_tabblk_kernel(const S* __restrict__ x_other, const S* __restrict__ mtab, int n_g,
+                    const int* __restrict__ gidx, const int* __restrict__ starts, int win_w,
+                    const S* __restrict__ z, const S* __restrict__ args,
+                    const S* __restrict__ lp, const S* __restrict__ jac,
+                    const S* __restrict__ r0, const S* __restrict__ srel,
+                    const S* __restrict__ act, S* __restrict__ olp, S* __restrict__ ojac,
+                    S* __restrict__ or0, S* __restrict__ osrel, int64_t mp, int gslot, S beta,
+                    S min_linear) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* tab = reinterpret_cast<S*>(smem_raw);
+  const int start = starts[blockIdx.x];
+  const int n_in = min(win_w, n_g - start);
+  const int dg = gathered_dofs<M>(gslot);
+  stage_window(mtab, dg, start, n_in, tab);
+#pragma unroll 1
+  for (int s = 0; s < TILE / BLOCK; ++s) {
+    const int64_t r = static_cast<int64_t>(blockIdx.x) * TILE + s * BLOCK + threadIdx.x;
+    const int off = gidx[r] - start;
+    if (off < 0 || off >= n_in) __trap();
+    S x[M::DA + M::DB];
+    slot_means<S, M>(tab + off * dg, x_other + r, mp, gslot, x);
+    relin_core<S, M, ColMajor>(x, z, args, lp, jac, r0, srel, act, olp, ojac, or0, osrel,
+                               UniformLd{mp}, r, beta, min_linear);
+  }
+}
+
+template <typename S>
+int relin_tabblk(int model, int gslot, const S* x_other, const S* mtab, int n_g,
+                 const int* gidx, const int* starts, int win_w, const S* z, const S* args,
+                 const S* lp, const S* jac, const S* r0, const S* srel, const S* act, S* olp,
+                 S* ojac, S* or0, S* osrel, int64_t mp, double beta, double min_linear,
+                 void* stream) {
+  if (mp <= 0) return static_cast<int>(cudaGetLastError());
+  int rc = 0;
+  const bool known = with_model(model, [&](auto m) {
+    using M = decltype(m);
+    const size_t smem = static_cast<size_t>(win_w) * gathered_dofs<M>(gslot) * sizeof(S);
+    if ((rc = allow_smem(relin_tabblk_kernel<S, M>, smem))) return;
+    relin_tabblk_kernel<S, M><<<static_cast<unsigned int>(mp / TILE), BLOCK, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+        x_other, mtab, n_g, gidx, starts, win_w, z, args, lp, jac, r0, srel, act, olp, ojac, or0,
+        osrel, mp, gslot, static_cast<S>(beta), static_cast<S>(min_linear));
+  });
+  if (!known) return -2;
+  return rc ? rc : static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int messages_tabblk(int da, int db, int zd, int gslot, int huber_row, const S* btab, int n_g,
+                    const int* gidx, const int* starts, int win_w, const S* be_o,
+                    const S* bl_o, const S* jac, const S* lp, const S* r0, const S* prec,
+                    const S* srel, const S* act, const S* me0, const S* ml0, const S* me1,
+                    const S* ml1, S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp,
+                    double eta_damping, double lam_damping, double num_undamped, double floor,
+                    double jitter, int has_huber, double huber, void* stream) {
+  if (mp <= 0) return static_cast<int>(cudaGetLastError());
+  const auto p =
+      msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber);
+  const MsgOps<S> o{jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1};
+  int rc = 0;
+  const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
+    rc = launch_messages_tabblk<S, decltype(sh)>(huber_row != 0, btab, n_g, gidx, starts, win_w,
+                                                 be_o, bl_o, o, mp, p,
+                                                 static_cast<cudaStream_t>(stream));
+  });
+  if (!known) return -2;
+  return rc ? rc : static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace gbp
+
+#define GBP_UNFUSED_WIN_ENTRIES(SFX, S)                                                     \
+  extern "C" int gbp_relin_cm_tabblk_##SFX(                                                 \
+      int model, int gslot, const S* x_other, const S* mtab, int n_g, const int* gidx,      \
+      const int* starts, int win_w, const S* z, const S* args, const S* lp, const S* jac,   \
+      const S* r0, const S* srel, const S* act, S* olp, S* ojac, S* or0, S* osrel,          \
+      int64_t mp, double beta, double min_linear, void* stream) {                           \
+    return gbp::relin_tabblk<S>(model, gslot, x_other, mtab, n_g, gidx, starts, win_w, z,   \
+                                args, lp, jac, r0, srel, act, olp, ojac, or0, osrel, mp,    \
+                                beta, min_linear, stream);                                  \
+  }                                                                                         \
+  extern "C" int gbp_messages_cm_tabblk_##SFX(                                              \
+      int da, int db, int zd, int gslot, int huber_row, const S* btab, int n_g,             \
+      const int* gidx, const int* starts, int win_w, const S* be_o, const S* bl_o,          \
+      const S* jac, const S* lp, const S* r0, const S* prec, const S* srel, const S* act,   \
+      const S* me0, const S* ml0, const S* me1, const S* ml1, S* oe0, S* ol0, S* oe1,       \
+      S* ol1, int64_t mp, double eta_damping, double lam_damping, double num_undamped,      \
+      double floor, double jitter, int has_huber, double huber, void* stream) {             \
+    return gbp::messages_tabblk<S>(da, db, zd, gslot, huber_row, btab, n_g, gidx, starts,   \
+                                   win_w, be_o, bl_o, jac, lp, r0, prec, srel, act, me0,    \
+                                   ml0, me1, ml1, oe0, ol0, oe1, ol1, mp, eta_damping,      \
+                                   lam_damping, num_undamped, floor, jitter, has_huber,     \
+                                   huber, stream);                                          \
+  }
+
+GBP_UNFUSED_WIN_ENTRIES(f32, float)
+GBP_UNFUSED_WIN_ENTRIES(f64, double)

@@ -1,7 +1,8 @@
 // The windowed large-scene kernels for Hopper (sm_90a): city and venice
 // bundle adjustment, and long pose chains, where the gathered slot's table
 // no longer fits one block's shared memory.  Shapes and models as in
-// messages.cu ((6, 3, 2), (3, 3, 3), (6, 6, 6); scalar or per-row Huber).
+// messages.cu ((6, 3, 2), (9, 3, 2), (3, 3, 3), (6, 6, 6); scalar or per-row
+// Huber); the messages kernel is in table_kernels.cuh.
 //
 // Rows are cut into tiles of TILE = 1024 factor rows.  After the locality
 // sort of core/sweep_cm.py every camera id of tile i lies in the window
@@ -56,28 +57,18 @@
 //   turned around: one thread per output (k, c) walks the list of tiles that
 //   cover camera c (built at prepare time, ascending).  Starts travel as
 //   int32, not through a float row.
-#include "messages_rows.cuh"
+#include "table_kernels.cuh"
 
 namespace gbp {
 
-constexpr int TILE = 1024;
 constexpr int RED_BLOCK = 128;
-
-// Stage rows [start, start + n_in) of a row-major [n_cam, f] table.
-template <typename S>
-__device__ __forceinline__ void stage_window(const S* __restrict__ table, int f, int start,
-                                             int n_in, S* __restrict__ tab) {
-  const S* src = table + static_cast<int64_t>(start) * f;
-  for (int i = threadIdx.x; i < n_in * f; i += blockDim.x) tab[i] = src[i];
-  __syncthreads();
-}
 
 template <typename S, class M>
 __global__ void __launch_bounds__(BLOCK)
 relin_win_kernel(const S* __restrict__ cam_mean, int n_cam,
                  const S* __restrict__ lmk_mean, const int* __restrict__ gidx,
                  const int* __restrict__ starts, int win_w,
-                 const S* __restrict__ z, const S* __restrict__ lp,
+                 const S* __restrict__ z, const S* __restrict__ args, const S* __restrict__ lp,
                  const S* __restrict__ jac, const S* __restrict__ r0,
                  const S* __restrict__ srel, const S* __restrict__ act,
                  S* __restrict__ olp, S* __restrict__ ojac, S* __restrict__ or0,
@@ -96,38 +87,8 @@ relin_win_kernel(const S* __restrict__ cam_mean, int n_cam,
     const int64_t r = static_cast<int64_t>(blockIdx.x) * TILE + s * BLOCK + threadIdx.x;
     const int off = gidx[r] - start;
     if (off < 0 || off >= n_in) __trap();
-    relin_row<S, M>(tab + off * dg, lmk_mean, z, lp, jac, r0, srel, act, olp, ojac, or0,
+    relin_row<S, M>(tab + off * dg, lmk_mean, z, args, lp, jac, r0, srel, act, olp, ojac, or0,
                     osrel, mp, deg, gslot, r, beta, min_linear);
-  }
-}
-
-template <typename S, class Sh, bool HUBER_ROW>
-__global__ void __launch_bounds__(BLOCK)
-messages_win_kernel(const S* __restrict__ cam_tab, int n_cam,
-                    const S* __restrict__ lmk_tab, const int* __restrict__ gidx,
-                    const int* __restrict__ starts, int win_w,
-                    const S* __restrict__ jac, const S* __restrict__ lp,
-                    const S* __restrict__ r0g, const S* __restrict__ prec,
-                    const S* __restrict__ srel, const S* __restrict__ act,
-                    const S* __restrict__ me0, const S* __restrict__ ml0,
-                    const S* __restrict__ me1, const S* __restrict__ ml1,
-                    S* __restrict__ oe0, S* __restrict__ ol0,
-                    S* __restrict__ oe1, S* __restrict__ ol1, int64_t mp, int deg,
-                    MsgParams<S> p) {
-  constexpr int F_G = Sh::F_G;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* tab = reinterpret_cast<S*>(smem_raw);
-  const int start = starts[blockIdx.x];
-  const int n_in = min(win_w, n_cam - start);
-  stage_window(cam_tab, F_G, start, n_in, tab);
-#pragma unroll 1
-  for (int s = 0; s < TILE / BLOCK; ++s) {
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * TILE + s * BLOCK + threadIdx.x;
-    const int off = gidx[r] - start;
-    if (off < 0 || off >= n_in) __trap();
-    messages_row<S, Sh::DA, Sh::DB, Sh::ZD, HUBER_ROW, Sh::GSLOT>(
-        tab + off * F_G, lmk_tab, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0,
-        oe1, ol1, mp, deg, r, p);
   }
 }
 
@@ -172,14 +133,6 @@ scatter_win_kernel(const S* __restrict__ part, const int* __restrict__ starts,
   out[static_cast<int64_t>(k) * n_seg + c] = acc;
 }
 
-// Shared memory above 48 KB is dynamic and has to be asked for.
-template <typename K>
-int allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-}
-
 // Blocks of `kernel` that one SM holds at once with `smem` bytes of window,
 // or minus the CUDA error.
 template <typename K>
@@ -192,9 +145,10 @@ int blocks_per_sm(K kernel, size_t smem) {
 
 template <typename S>
 int relin_win(int model, int gslot, const S* cam_mean, int n_cam, const S* lmk_mean,
-              const int* gidx, const int* starts, int win_w, const S* z, const S* lp, const S* jac,
-              const S* r0, const S* srel, const S* act, S* olp, S* ojac, S* or0, S* osrel,
-              int64_t mp, int deg, double beta, double min_linear, void* stream) {
+              const int* gidx, const int* starts, int win_w, const S* z, const S* args,
+              const S* lp, const S* jac, const S* r0, const S* srel, const S* act, S* olp,
+              S* ojac, S* or0, S* osrel, int64_t mp, int deg, double beta, double min_linear,
+              void* stream) {
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
   int rc = 0;
   const bool known = with_model(model, [&](auto m) {
@@ -203,8 +157,8 @@ int relin_win(int model, int gslot, const S* cam_mean, int n_cam, const S* lmk_m
     if ((rc = allow_smem(relin_win_kernel<S, M>, smem))) return;
     relin_win_kernel<S, M><<<static_cast<unsigned int>(mp / TILE), BLOCK, smem,
                              static_cast<cudaStream_t>(stream)>>>(
-        cam_mean, n_cam, lmk_mean, gidx, starts, win_w, z, lp, jac, r0, srel, act, olp, ojac,
-        or0, osrel, mp, deg, gslot, static_cast<S>(beta), static_cast<S>(min_linear));
+        cam_mean, n_cam, lmk_mean, gidx, starts, win_w, z, args, lp, jac, r0, srel, act, olp,
+        ojac, or0, osrel, mp, deg, gslot, static_cast<S>(beta), static_cast<S>(min_linear));
   });
   if (!known) return -2;
   return rc ? rc : static_cast<int>(cudaGetLastError());
@@ -221,23 +175,12 @@ int messages_win(int da, int db, int zd, int gslot, int huber_row, const S* cam_
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
   const auto p =
       msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const unsigned int grid = static_cast<unsigned int>(mp / TILE);
+  const MsgOps<S> o{jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1};
   int rc = 0;
   const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
-    using Sh = decltype(sh);
-    const size_t smem = static_cast<size_t>(win_w) * Sh::F_G * sizeof(S);
-    if (huber_row) {
-      if ((rc = allow_smem(messages_win_kernel<S, Sh, true>, smem))) return;
-      messages_win_kernel<S, Sh, true><<<grid, BLOCK, smem, st>>>(
-          cam_tab, n_cam, lmk_tab, gidx, starts, win_w, jac, lp, r0, prec, srel, act, me0, ml0,
-          me1, ml1, oe0, ol0, oe1, ol1, mp, deg, p);
-    } else {
-      if ((rc = allow_smem(messages_win_kernel<S, Sh, false>, smem))) return;
-      messages_win_kernel<S, Sh, false><<<grid, BLOCK, smem, st>>>(
-          cam_tab, n_cam, lmk_tab, gidx, starts, win_w, jac, lp, r0, prec, srel, act, me0, ml0,
-          me1, ml1, oe0, ol0, oe1, ol1, mp, deg, p);
-    }
+    rc = launch_messages_win<S, decltype(sh)>(huber_row != 0, cam_tab, n_cam, lmk_tab, gidx,
+                                              starts, win_w, o, mp, deg, p,
+                                              static_cast<cudaStream_t>(stream));
   });
   if (!known) return -2;
   return rc ? rc : static_cast<int>(cudaGetLastError());
@@ -270,12 +213,13 @@ int scatter_win(const S* part, const int* starts, const int* cov_tiles,
 #define GBP_WINDOW_ENTRIES(SFX, S)                                                     \
   extern "C" int gbp_relin_cm_tabblk_ell_##SFX(                                        \
       int model, int gslot, const S* cam_mean, int n_cam, const S* lmk_mean,           \
-      const int* gidx, const int* starts, int win_w, const S* z, const S* lp,          \
-      const S* jac, const S* r0, const S* srel, const S* act, S* olp, S* ojac, S* or0, \
-      S* osrel, int64_t mp, int deg, double beta, double min_linear, void* stream) {   \
+      const int* gidx, const int* starts, int win_w, const S* z, const S* args,        \
+      const S* lp, const S* jac, const S* r0, const S* srel, const S* act, S* olp,     \
+      S* ojac, S* or0, S* osrel, int64_t mp, int deg, double beta, double min_linear,  \
+      void* stream) {                                                                  \
     return gbp::relin_win<S>(model, gslot, cam_mean, n_cam, lmk_mean, gidx, starts,    \
-                             win_w, z, lp, jac, r0, srel, act, olp, ojac, or0, osrel,  \
-                             mp, deg, beta, min_linear, stream);                       \
+                             win_w, z, args, lp, jac, r0, srel, act, olp, ojac, or0,   \
+                             osrel, mp, deg, beta, min_linear, stream);                \
   }                                                                                    \
   extern "C" int gbp_messages_cm_tabblk_ell_##SFX(                                     \
       int da, int db, int zd, int gslot, int huber_row, const S* cam_tab, int n_cam,   \

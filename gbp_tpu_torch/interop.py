@@ -10,6 +10,8 @@ here; the memory order is the same, so the conversion is a reshape.
 """
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import torch
 
@@ -84,6 +86,30 @@ def graph_from_numpy(g, device=None) -> Graph:
                       fi=sp.fi, slot=sp.slot) for sp in specs)
             for specs in g.inboxes)
     return Graph(vblocks=vblocks, fblocks=tuple(fblocks), inboxes=inboxes)
+
+
+def graph_to_numpy(graph: Graph):
+    """The port's Graph as the same nested objects with numpy leaves that
+    `graph_from_numpy` takes (what `jax.tree.map(np.asarray, g)` makes of
+    the reference's): blocks of any dofs (9-dof BAL cameras), per-factor
+    args, priors, z, prec, adj, valid, huber_arr and the static fields; the
+    factor type travels by name."""
+    n = lambda t: None if t is None else t.detach().cpu().numpy()
+    ns = types.SimpleNamespace
+    vblocks = tuple(ns(prior_eta=n(vb.prior_eta), prior_lam=n(vb.prior_lam), name=vb.name)
+                    for vb in graph.vblocks)
+    fblocks = tuple(ns(adj=tuple(n(a) for a in fb.adj), z=n(fb.z), prec=n(fb.prec),
+                       args=n(fb.args), valid=n(fb.valid), huber_arr=n(fb.huber_arr),
+                       ftype=ns(name=fb.ftype.name), vblocks=tuple(fb.vblocks),
+                       dofs=tuple(fb.dofs), huber=fb.huber, name=fb.name, n_valid=fb.n_valid,
+                       ell_slot=fb.ell_slot, ell_deg=fb.ell_deg)
+                    for fb in graph.fblocks)
+    inboxes = None
+    if graph.inboxes is not None:
+        inboxes = tuple(None if specs is None else tuple(
+            ns(idx=n(sp.idx), mask=n(sp.mask), fi=sp.fi, slot=sp.slot) for sp in specs)
+            for specs in graph.inboxes)
+    return ns(vblocks=vblocks, fblocks=fblocks, inboxes=inboxes)
 
 
 def gbp_state_from_numpy(st, device=None) -> GBPState:

@@ -1,9 +1,10 @@
 """g2o pose-graph file IO (VERTEX_SE2/EDGE_SE2, VERTEX_SE3:QUAT/EDGE_SE3:QUAT).
 
 Counterpart of gbp_tpu/io/g2o.py: the standard benchmark format (M3500,
-intel, sphere2500, ...) for the pose-graph model.  `read_g2o` is the
-reference's line-by-line reader (its native tokenizer gives the same
-arrays and waits for ROADMAP A7); rotations go through the port's
+intel, sphere2500, ...) for the pose-graph model.  `read_g2o` parses with
+the port's native tokenizer (io/native/fastg2o.cpp, built with g++ on first
+use) and converts its raw rows vectorized; without a compiler it reads line
+by line in Python, with the same output.  Rotations go through the port's
 `utils.lie` on the CPU in float64.
 
 SE2 lines:
@@ -38,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gbp_tpu_torch.io import _native
 from gbp_tpu_torch.utils.lie import so3_exp, so3_log
 
 
@@ -85,8 +87,71 @@ def _quat_to_rotmat(q):
     ])
 
 
+def _unpack_upper_batch(vals, d):
+    """[m, d(d+1)/2] upper-triangular rows -> symmetric [m, d, d]."""
+    iu = np.triu_indices(d)
+    out = np.zeros((vals.shape[0], d, d))
+    out[:, iu[0], iu[1]] = vals
+    out[:, iu[1], iu[0]] = vals
+    return out
+
+
+def _quat_to_rotmat_batch(q):
+    """[m, 4] (qx, qy, qz, qw) -> [m, 3, 3]."""
+    q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    x, y, z, w = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        np.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        np.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], axis=1)
+
+
+def _dedupe_last(ids, rows):
+    """The last definition of each vertex id (the line reader's dict
+    semantics), rows in id order; the ids must be dense."""
+    order = np.argsort(ids, kind="stable")
+    ids_s, rows_s = ids[order], rows[order]
+    last = np.ones(ids_s.size, bool)
+    last[:-1] = ids_s[1:] != ids_s[:-1]
+    if ids_s[last].tolist() != list(range(int(last.sum()))):
+        raise ValueError("non-dense vertex ids")
+    return rows_s[last]
+
+
+def _assemble_native(raw):
+    """The native tokenizer's raw rows -> the read_g2o dict."""
+    if raw["v2_id"].size:
+        poses = _dedupe_last(raw["v2_id"], raw["v2"])
+        z = raw["e2"][:, :3]
+        info = _unpack_upper_batch(raw["e2"][:, 3:9], 3)
+        c, s = np.cos(z[:, 2]), np.sin(z[:, 2])
+        a = np.tile(np.eye(3), (z.shape[0], 1, 1))
+        a[:, 0, 0] = c
+        a[:, 0, 1] = -s
+        a[:, 1, 0] = s
+        a[:, 1, 1] = c
+        info = np.einsum("mij,mjk,mlk->mil", a, info, a)
+        return dict(kind="se2", poses=poses, edges_ij=raw["e2_ij"], edges_z=z, edges_info=info)
+    v3 = _dedupe_last(raw["v3_id"], raw["v3"])
+    poses = np.concatenate([v3[:, :3], _so3_log(_quat_to_rotmat_batch(v3[:, 3:7]))], axis=1)
+    e3 = raw["e3"]
+    if e3.shape[0]:
+        r_z = _quat_to_rotmat_batch(e3[:, 3:7])
+        z = np.concatenate([e3[:, :3], _so3_log(r_z)], axis=1)
+    else:
+        r_z, z = np.zeros((0, 3, 3)), np.zeros((0, 6))
+    info = _unpack_upper_batch(e3[:, 7:28], 6)
+    a = np.tile(np.eye(6), (e3.shape[0], 1, 1))
+    a[:, :3, :3] = r_z
+    info = np.einsum("mij,mjk,mlk->mil", a, info, a)
+    return dict(kind="se3", poses=poses, edges_ij=raw["e3_ij"], edges_z=z, edges_info=info)
+
+
 def read_g2o(path):
-    """Parse a g2o file -> dict.
+    """Parse a g2o file -> dict (the native tokenizer where g++ is present,
+    the line reader otherwise or where the native parse fails; the same
+    output either way).
 
     SE2 graphs:
       poses:   [n, 3] (x, y, theta), index = vertex id (ids must be dense)
@@ -97,6 +162,19 @@ def read_g2o(path):
       kind: "se2"
     For SE3 graphs the pose rows are [x, y, z, omega(3)] (angle-axis) with
     kind "se3" and 6x6 information; quaternions are converted on load."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        raw = _native.parse_g2o_bytes(data)
+    except ValueError:
+        raw = None
+    if raw is not None and (raw["v2_id"].size or raw["v3_id"].size):
+        return _assemble_native(raw)
+    return _read_g2o_python(path)
+
+
+def _read_g2o_python(path):
+    """The line reader (the same output as the native path)."""
     se2_v, se2_e = {}, []
     se3_v, se3_e = {}, []
     with open(path) as f:

@@ -33,9 +33,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 _ARGTYPES = {
-    # model, gslot, cam_mean, n_cam, lmk_mean, nv, gidx, z, lp, jac, r0, srel,
-    # act, olp, ojac, or0, osrel, mp, deg, beta, min_linear, stream
-    "gbp_relin_cm_tab_ell": [_I, _I, _P, _I, _P, _I] + [_P] * 7 + [_P] * 4
+    # model, gslot, cam_mean, n_cam, lmk_mean, nv, gidx, z, args, lp, jac, r0,
+    # srel, act, olp, ojac, or0, osrel, mp, deg, beta, min_linear, stream
+    "gbp_relin_cm_tab_ell": [_I, _I, _P, _I, _P, _I] + [_P] * 8 + [_P] * 4
     + [_I64, _I, _D, _D, _P],
     # d0, d1, z, gslot, huber_row, cam_tab, n_cam, lmk_tab, nv, gidx, jac, lp,
     # r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp, deg,
@@ -45,9 +45,10 @@ _ARGTYPES = {
     + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P],
     # me, me_ld, ml, ml_ld, d, row_major, rows, offsets, n_seg, out, stream
     "gbp_segsum_by_id": [_P, _I64, _P, _I64, _I, _I, _P, _P, _I, _P, _P],
-    # model, gslot, cam_mean, n_cam, lmk_mean, gidx, starts, win_w, z, lp, jac,
-    # r0, srel, act, olp, ojac, or0, osrel, mp, deg, beta, min_linear, stream
-    "gbp_relin_cm_tabblk_ell": [_I, _I, _P, _I, _P, _P, _P, _I] + [_P] * 6 + [_P] * 4
+    # model, gslot, cam_mean, n_cam, lmk_mean, gidx, starts, win_w, z, args,
+    # lp, jac, r0, srel, act, olp, ojac, or0, osrel, mp, deg, beta, min_linear,
+    # stream
+    "gbp_relin_cm_tabblk_ell": [_I, _I, _P, _I, _P, _P, _P, _I] + [_P] * 7 + [_P] * 4
     + [_I64, _I, _D, _D, _P],
     # d0, d1, z, gslot, huber_row, cam_tab, n_cam, lmk_tab, gidx, starts, win_w,
     # jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp,
@@ -63,12 +64,12 @@ _ARGTYPES = {
     # out_ld[4], m, eta_damping, lam_damping, num_undamped, floor, jitter,
     # has_huber, huber, stream
     "gbp_messages_rows": [_I] * 6 + [_P] * 4 + [_I64, _D, _D, _D, _D, _D, _I, _D, _P],
-    # model, row_major, in[7], in_ld[7], out[4], out_ld[4], m, beta,
-    # min_linear, stream
+    # model, row_major, in[8] (x z lp jac r0 srel act args), in_ld[8],
+    # out[4], out_ld[4], m, beta, min_linear, stream
     "gbp_relin_rows": [_I, _I] + [_P] * 4 + [_I64, _D, _D, _P],
-    # model, gslot, x_other, mtab, n_g, gidx, z, lp, jac, r0, srel, act, olp,
-    # ojac, or0, osrel, mp, beta, min_linear, stream
-    "gbp_relin_cm_tab": [_I, _I, _P, _P, _I, _P] + [_P] * 6 + [_P] * 4 + [_I64, _D, _D, _P],
+    # model, gslot, x_other, mtab, n_g, gidx, z, args, lp, jac, r0, srel, act,
+    # olp, ojac, or0, osrel, mp, beta, min_linear, stream
+    "gbp_relin_cm_tab": [_I, _I, _P, _P, _I, _P] + [_P] * 7 + [_P] * 4 + [_I64, _D, _D, _P],
     # d0, d1, z, gslot, huber_row, btab, n_g, gidx, be_o, bl_o, jac, lp, r0,
     # prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp, eta_damping,
     # lam_damping, num_undamped, floor, jitter, has_huber, huber, stream
@@ -76,6 +77,16 @@ _ARGTYPES = {
     + [_I64, _D, _D, _D, _D, _D, _I, _D, _P],
     # tab, f, deg, mp, out, stream
     "gbp_expand_ell_blk": [_P, _I, _I, _I64, _P, _P],
+    # model, gslot, x_other, mtab, n_g, gidx, starts, win_w, z, args, lp, jac,
+    # r0, srel, act, olp, ojac, or0, osrel, mp, beta, min_linear, stream
+    "gbp_relin_cm_tabblk": [_I, _I, _P, _P, _I, _P, _P, _I] + [_P] * 7 + [_P] * 4
+    + [_I64, _D, _D, _P],
+    # d0, d1, z, gslot, huber_row, btab, n_g, gidx, starts, win_w, be_o, bl_o,
+    # jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp,
+    # eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber,
+    # stream
+    "gbp_messages_cm_tabblk": [_I] * 5 + [_P, _I, _P, _P, _I, _P, _P] + [_P] * 6 + [_P] * 4
+    + [_P] * 4 + [_I64, _D, _D, _D, _D, _D, _I, _D, _P],
     # win_w -> resident blocks per SM (negative: minus the CUDA error)
     "gbp_relin_cm_tabblk_ell_blocks_per_sm": [_I],
     "gbp_messages_cm_tabblk_ell_blocks_per_sm": [_I],

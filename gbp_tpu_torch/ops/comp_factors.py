@@ -5,11 +5,12 @@ state x is a list of component tensors (one per state dof), outputs are
 component lists: (h [z], jac [z][t]).  csrc/comp_factors.cuh holds the same
 models for one factor per CUDA thread, operation for operation.
 
-Registry: COMP_FACTORS[ftype.name] -> (fn(x_comps), n_args[, residual
-fn(z_comps, h_comps)]), as in the reference; the optional third entry
-replaces r = z - h in the relinearization (angle wrap, manifold log).  A
-factor type that is absent has no fused relinearization and the generic
-sweep relinearizes it in plain torch.  The BAL models follow with ROADMAP A7.
+Registry: COMP_FACTORS[ftype.name] -> (fn(x_comps, args_comps), n_args[,
+residual fn(z_comps, h_comps)]), as in the reference: `args_comps` are the
+n_args per-factor argument components (None where n_args is 0); the
+optional third entry replaces r = z - h in the relinearization (angle wrap,
+manifold log).  A factor type that is absent has no fused relinearization
+and the generic sweep relinearizes it in plain torch.
 """
 from __future__ import annotations
 
@@ -67,30 +68,96 @@ def _safe_z(zc):
     return torch.where(zc >= 0, torch.clamp(zc, min=1e-2), torch.clamp(zc, max=-1e-2))
 
 
-def reprojection_normalized_comp(x):
-    """Component form of factors/reprojection.reprojection_normalized:
-    x = [omega (3), t (3), X (3)] -> (h [2], jac [2][9])."""
-    w, t, pt = x[0:3], x[3:6], x[6:9]
+def _cam_point(w, t, pt):
+    """(R, Xc = R X + t) in component form."""
     r = _so3_exp(w)
     rp = cl.cmv(r, pt)
-    xc = [rp[i] + t[i] for i in range(3)]
+    return r, [rp[i] + t[i] for i in range(3)]
+
+
+def _dxc(r, pt, w, like):
+    """d(Xc)/d(omega, t, X) [3][9]: -R [X]x Jr(omega) | I | R."""
+    zero, one = torch.zeros_like(like), torch.ones_like(like)
+    d_omega = cl.cscale(cl.cmm(cl.cmm(r, _hat(pt)), _right_jacobian(w)), -1.0)
+    eye = [[one if i == j else zero for j in range(3)] for i in range(3)]
+    return [d_omega[i] + eye[i] + r[i] for i in range(3)]
+
+
+def reprojection_normalized_comp(x, args=None):
+    """Component form of factors/reprojection.reprojection_normalized:
+    x = [omega (3), t (3), X (3)] -> (h [2], jac [2][9])."""
+    del args
+    w, t, pt = x[0:3], x[3:6], x[6:9]
+    r, xc = _cam_point(w, t, pt)
     inv_z = 1.0 / _safe_z(xc[2])
     h = [xc[0] * inv_z, xc[1] * inv_z]
     zero = torch.zeros_like(inv_z)
-    one = torch.ones_like(inv_z)
     dpi = [
         [inv_z, zero, -xc[0] * inv_z * inv_z],
         [zero, inv_z, -xc[1] * inv_z * inv_z],
     ]
-    d_omega = cl.cscale(cl.cmm(cl.cmm(r, _hat(pt)), _right_jacobian(w)), -1.0)
-    eye = [[one if i == j else zero for j in range(3)] for i in range(3)]
-    dxc = [d_omega[i] + eye[i] + r[i] for i in range(3)]  # [3][9]: omega | t | X
-    return h, cl.cmm(dpi, dxc)
+    return h, cl.cmm(dpi, _dxc(r, pt, w, inv_z))
 
 
-def se2_between_comp(x):
+def _bal_chain(xc, k1, k2, rf=None):
+    """The BAL projection p = -Xc.xy / Xc.z with radial distortion, in
+    component form: (h = [rf *] dist * p, dh/dXc [2][3], p, r2, dist)."""
+    inv_z = 1.0 / _safe_z(xc[2])
+    p = [-xc[0] * inv_z, -xc[1] * inv_z]
+    r2 = p[0] * p[0] + p[1] * p[1]
+    dist = 1.0 + r2 * (k1 + k2 * r2)
+    zero = torch.zeros_like(inv_z)
+    # dp/dXc [2][3].
+    dp = [
+        [-inv_z, zero, xc[0] * inv_z * inv_z],
+        [zero, -inv_z, xc[1] * inv_z * inv_z],
+    ]
+    # dh/dp = dist I + 2 (d dist/d r2) p p^T, d dist/d r2 = k1 + 2 k2 r2.
+    ddist = k1 + 2.0 * k2 * r2
+    dh_dp = [
+        [dist + p[0] * ddist * 2.0 * p[0], p[0] * ddist * 2.0 * p[1]],
+        [p[1] * ddist * 2.0 * p[0], dist + p[1] * ddist * 2.0 * p[1]],
+    ]
+    if rf is None:
+        h = [dist * p[0], dist * p[1]]
+    else:
+        h = [rf * dist * p[0], rf * dist * p[1]]
+        dh_dp = [[rf * v for v in row] for row in dh_dp]
+    return h, cl.cmm(dh_dp, dp), p, r2, dist
+
+
+def bal_reprojection_normalized_comp(x, args):
+    """Component form of factors/reprojection.bal_reprojection_normalized:
+    x = [omega (3), t (3), X (3)], args = [k1, k2] ->
+    h = (1 + k1 r^2 + k2 r^4) * p, p = -Xc.xy / Xc.z, jac [2][9]."""
+    k1, k2 = args[0], args[1]
+    w, t, pt = x[0:3], x[3:6], x[6:9]
+    r, xc = _cam_point(w, t, pt)
+    h, dh_dxc, _, _, _ = _bal_chain(xc, k1, k2)
+    return h, cl.cmm(dh_dxc, _dxc(r, pt, w, xc[2]))
+
+
+def bal_reprojection_intrinsics_comp(x, args=None):
+    """Component form of factors/reprojection.bal_reprojection_intrinsics:
+    x = [omega (3), t (3), rf, k1, k2, X (3)] -> h = rf * (1 + k1 r^2 +
+    k2 r^4) * p, jac [2][12] with the intrinsics columns at 6..8."""
+    del args
+    w, t = x[0:3], x[3:6]
+    rf, k1, k2 = x[6], x[7], x[8]
+    pt = x[9:12]
+    r, xc = _cam_point(w, t, pt)
+    h, dh_dxc, p, r2, dist = _bal_chain(xc, k1, k2, rf)
+    d_pose_pt = cl.cmm(dh_dxc, _dxc(r, pt, w, xc[2]))  # [2][9]: omega | t | X
+    r4 = r2 * r2
+    jac = [d_pose_pt[i][0:6] + [dist * p[i], rf * r2 * p[i], rf * r4 * p[i]]
+           + d_pose_pt[i][6:9] for i in range(2)]
+    return h, jac
+
+
+def se2_between_comp(x, args=None):
     """Component form of factors/odometry.se2_between: x = [xi, yi, ti, xj,
     yj, tj] -> (h [3] = the pose of j in frame i, jac [3][6])."""
+    del args
     c, s = torch.cos(x[2]), torch.sin(x[2])
     dx = x[3] - x[0]
     dy = x[4] - x[1]
@@ -141,7 +208,7 @@ def _right_jacobian_inv(w):
     return j
 
 
-def se3_between_comp(x):
+def se3_between_comp(x, args=None):
     """Component form of factors/se3.se3_between.
 
     x = [t_i (3), w_i (3), t_j (3), w_j (3)]; h = [R_i^T (t_j - t_i),
@@ -153,6 +220,7 @@ def se3_between_comp(x):
         dh_w/dw_i = -(Jr^-1(h_w))^T Jr(w_i)
         dh_w/dw_j =  Jr^-1(h_w) Jr(w_j)
     """
+    del args
     ti, wi = x[0:3], x[3:6]
     tj, wj = x[6:9], x[9:12]
     rit = cl.ct(_so3_exp(wi))
@@ -189,28 +257,27 @@ def se3_between_res(z, h):
     return rt + rw
 
 
+# ftype.name -> (comp fn, n_arg_components[, residual comp fn]).
 COMP_FACTORS = {
     "reprojection_normalized": (reprojection_normalized_comp, 0),
+    "bal_reprojection_normalized": (bal_reprojection_normalized_comp, 2),
+    "bal_reprojection_intrinsics": (bal_reprojection_intrinsics_comp, 0),
     "se2_between": (se2_between_comp, 0, se2_between_res),
     "se3_between": (se3_between_comp, 0, se3_between_res),
-}
-# The reference's other component-form models and the ROADMAP items that
-# port them.
-COMP_FACTORS_QUEUED = {
-    "bal_reprojection_normalized": "A7",
-    "bal_reprojection_intrinsics": "A7",
 }
 
 
 def comp_model(name: str):
-    """The component-form model fn(x_comps) -> (h, jac) of factor type
-    `name`; raises for one that is not ported."""
+    """The component-form model fn(x_comps, args_comps) -> (h, jac) of
+    factor type `name`; raises for a type without one."""
     if name not in COMP_FACTORS:
-        item = COMP_FACTORS_QUEUED.get(name)
-        raise NotImplementedError(
-            f"no component-form model for factor type {name!r}"
-            + (f": not ported yet (ROADMAP {item})" if item else ""))
+        raise NotImplementedError(f"no component-form model for factor type {name!r}")
     return COMP_FACTORS[name][0]
+
+
+def comp_n_args(name: str) -> int:
+    """The per-factor argument components the model of `name` reads."""
+    return COMP_FACTORS[name][1]
 
 
 def comp_residual(name: str):

@@ -1,4 +1,4 @@
-"""The port's fourteen kernels: wrappers, plain versions, launch counts.
+"""The port's sixteen kernels: wrappers, plain versions, launch counts.
 
 Each function dispatches on where its tensors lie: CUDA tensors go to the
 hand-written kernel in csrc/*.cu (built on first use by ops/_build.py), CPU
@@ -15,7 +15,11 @@ gathered (gslot 0), (3, 3, 3) SE(2) and (6, 6, 6) SE(3) poses under
 `se2_between` / `se3_between` (both slots on one variable block) with either
 slot gathered; a wrapper reads the shape off its operands.  The names of
 the arguments keep the bundle-adjustment words (cam = gathered slot, lmk =
-ELL slot).
+ELL slot).  (9, 3, 2) is the 9-dof BAL camera of
+`bal_reprojection_intrinsics`.  Every relinearization entry takes the
+per-row factor arguments `fargs` of models that read them
+(`bal_reprojection_normalized`: [k1, k2]) as an operand [n_args, mp]
+([m, n_args] row-major), None for the others.
 
   relin_cm_tab_ell     replaces gbp_tpu.ops.messages_pallas.fused_relin_cm_tab_ell
   messages_cm_tab_ell  replaces gbp_tpu.ops.messages_pallas.fused_messages_cm_tab_ell
@@ -57,6 +61,15 @@ the ELL slot from expanded operands.
   relin_cm_tab     replaces fused_relin_cm_tab
   messages_cm_tab  replaces fused_messages_cm_tab (no sum folded in: the
                    sweep calls `segsum_by_id`)
+
+The windowed unfused path (csrc/unfused_win.cu; `prepare(ell_fused=False)`
+with engaged camera windows, and by itself at ELL degree 1 where windows
+engage): the gathered slot from the tile's camera window in shared memory,
+the ELL slot from expanded operands.
+
+  relin_cm_tabblk     replaces fused_relin_cm_tabblk
+  messages_cm_tabblk  replaces fused_messages_cm_tabblk (no sum folded in: the
+                      sweep calls `segsum_cm_blk` and `scatter_windows_cm`)
 """
 from __future__ import annotations
 
@@ -67,7 +80,7 @@ import numpy as np
 import torch
 
 from gbp_tpu_torch.ops import comp_linalg as cl
-from gbp_tpu_torch.ops.comp_factors import comp_model, comp_residual
+from gbp_tpu_torch.ops.comp_factors import comp_model, comp_n_args, comp_residual
 
 D0, D1, Z = 6, 3, 2  # bundle adjustment: camera dofs, landmark dofs, measurement dim
 F_CAM = D0 + D0 * D0  # packed camera belief row: eta | lam
@@ -80,16 +93,16 @@ SMEM_TABLE_BYTES = 48 * 1024
 KERNELS = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id",
            "relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
            "scatter_windows_cm", "messages_cm", "relin_cm", "fused_messages",
-           "fused_relin_messages", "messages_cm_tab", "relin_cm_tab", "expand_ell_blk")
-# (d0, d1, z) the expanded-operand messages kernel is instantiated for, and
-# the ROADMAP items that add the others.
-ROW_SHAPES = ((6, 3, 2), (1, 1, 1), (3, 3, 3), (6, 6, 6))
-ROW_SHAPES_QUEUED = {(9, 3, 2): "A7"}
+           "fused_relin_messages", "messages_cm_tab", "relin_cm_tab", "expand_ell_blk",
+           "messages_cm_tabblk", "relin_cm_tabblk")
+# (d0, d1, z) the expanded-operand messages kernel is instantiated for.
+ROW_SHAPES = ((6, 3, 2), (1, 1, 1), (3, 3, 3), (6, 6, 6), (9, 3, 2))
 # (d0, d1, z) of the table kernels, and the measurement models of the
 # relinearization kernels with their ids in the C entries.
-TABLE_SHAPES = ((6, 3, 2), (3, 3, 3), (6, 6, 6))
+TABLE_SHAPES = ((6, 3, 2), (3, 3, 3), (6, 6, 6), (9, 3, 2))
 MODELS = {"reprojection_normalized": (0, (6, 3, 2)), "se2_between": (1, (3, 3, 3)),
-          "se3_between": (2, (6, 6, 6))}
+          "se3_between": (2, (6, 6, 6)), "bal_reprojection_normalized": (3, (6, 3, 2)),
+          "bal_reprojection_intrinsics": (4, (9, 3, 2))}
 BA_MODEL = "reprojection_normalized"
 
 
@@ -125,9 +138,10 @@ def _scalar(v, like):
 # --- plain versions ---------------------------------------------------------
 
 
-def _relin_math(params, x, z, lp_o, jac_o, r0_o, srel, act, comp_name):
+def _relin_math(params, x, z, fargs, lp_o, jac_o, r0_o, srel, act, comp_name):
     """Masked relinearization (the reference's `_relin_math`) on component
-    lists: x the adjacent means, srel and act one tensor each.
+    lists: x the adjacent means, fargs the model's per-row argument
+    components (None when it reads none), srel and act one tensor each.
 
     eligible = ||x - lp||^2 > beta^2 and srel >= min_linear_iters and act.
     Eligible rows take lp = x, the new (J, r0 = z - h, or the factor type's
@@ -140,7 +154,7 @@ def _relin_math(params, x, z, lp_o, jac_o, r0_o, srel, act, comp_name):
     beta = _scalar(params[4], lp_o[0])
     dist2 = sum((x[i] - lp_o[i]) * (x[i] - lp_o[i]) for i in range(t))
     eligible = (dist2 > beta * beta) & (srel >= params[5]) & (act > 0.5)
-    h, j_new = comp_fn(x)
+    h, j_new = comp_fn(x, fargs)
     r_new = res_fn(z, h) if res_fn is not None else [z[i] - h[i] for i in range(zd)]
     jac_new = [j_new[i][j] for i in range(zd) for j in range(t)]
     sel = lambda new, old: [torch.where(eligible, a, b) for a, b in zip(new, old)]
@@ -148,11 +162,29 @@ def _relin_math(params, x, z, lp_o, jac_o, r0_o, srel, act, comp_name):
             torch.where(eligible, torch.zeros_like(srel), srel + 1.0))
 
 
-def _relin_cm(params, x, z, lp, jac, r0, srel, act, comp_name):
+def _n_args(name, fargs, comp_name):
+    """The per-row arguments model `comp_name` reads; raises when the
+    operand `fargs` (None for none) and the model disagree."""
+    n_args = comp_n_args(comp_name)
+    if (fargs is None) != (n_args == 0):
+        raise ValueError(f"{name}: model {comp_name!r} reads {n_args} per-row arguments, got "
+                         f"{'none' if fargs is None else tuple(fargs.shape)}")
+    return n_args
+
+
+def _fargs_comps(name, fargs, comp_name, row_major=False):
+    """The per-row argument components of model `comp_name`, or None when it
+    reads none."""
+    n_args = _n_args(name, fargs, comp_name)
+    return None if fargs is None else _comps(fargs, row_major)[:n_args]
+
+
+def _relin_cm(params, x, z, fargs, lp, jac, r0, srel, act, comp_name):
     """`_relin_math` on component-major state, x the adjacent means as a
-    component list."""
+    component list, fargs [n_args, mp] or None."""
     lp_n, jac_n, r0_n, srel_n = _relin_math(
-        params, x, _rows(z), _rows(lp), _rows(jac), _rows(r0), srel[0], act[0], comp_name)
+        params, x, _rows(z), _fargs_comps("relin", fargs, comp_name), _rows(lp), _rows(jac),
+        _rows(r0), srel[0], act[0], comp_name)
     return torch.stack(lp_n), torch.stack(jac_n), torch.stack(r0_n), srel_n[None]
 
 
@@ -161,33 +193,49 @@ def _by_slot(gat, ell, gslot):
     return (gat, ell) if gslot == 0 else (ell, gat)
 
 
-def _relin_plain(params, cam_rows, lmk_mean, z, lp, jac, r0, srel, act, *, deg, comp_name,
-                 gslot):
+def _relin_plain(params, cam_rows, lmk_mean, z, fargs, lp, jac, r0, srel, act, *, deg,
+                 comp_name, gslot):
     """`_relin_cm` with the gathered slot's means already read per row,
     cam_rows [mp, d_g]: x joins cam_rows[r] and lmk_mean[r // deg] in slot
     order."""
     rows = torch.arange(lp.shape[1], device=lp.device) // deg
     x0, x1 = _by_slot(_rows(cam_rows.T), _rows(lmk_mean[rows].T), gslot)
-    return _relin_cm(params, x0 + x1, z, lp, jac, r0, srel, act, comp_name)
+    return _relin_cm(params, x0 + x1, z, fargs, lp, jac, r0, srel, act, comp_name)
 
 
 def relin_cm_tab_ell_plain(params, cam_mean, lmk_mean, gidx, z, lp, jac, r0,
-                           srel, act, *, deg, comp_name=BA_MODEL, gslot=0):
+                           srel, act, *, deg, comp_name=BA_MODEL, gslot=0, fargs=None):
     """Plain version of `relin_cm_tab_ell`: gathered-slot means read by id
     from the whole table."""
     COUNTS.plain["relin_cm_tab_ell"] += 1
-    return _relin_plain(params, cam_mean[gidx.long()], lmk_mean, z, lp, jac, r0,
+    return _relin_plain(params, cam_mean[gidx.long()], lmk_mean, z, fargs, lp, jac, r0,
                         srel, act, deg=deg, comp_name=comp_name, gslot=gslot)
+
+
+def _relin_other_plain(params, x_other, gat_rows, z, fargs, lp, jac, r0, srel, act, *,
+                       comp_name, gslot):
+    """`_relin_cm` with x joining the gathered slot's rows gat_rows [mp, d_g]
+    and the expanded operand x_other [d_o, mp] in slot order."""
+    x0, x1 = _by_slot(_rows(gat_rows.T), _rows(x_other), gslot)
+    return _relin_cm(params, x0 + x1, z, fargs, lp, jac, r0, srel, act, comp_name)
 
 
 def relin_cm_tab_plain(params, x_other, mtab, gidx, z, fargs, lp, jac, r0, srel, act, *,
                        comp_name, gslot=0):
     """Plain version of `relin_cm_tab`: x joins mtab[gidx[r]] and
     x_other[:, r] in slot order."""
-    _no_fargs("relin_cm_tab", fargs)
     COUNTS.plain["relin_cm_tab"] += 1
-    x0, x1 = _by_slot(_rows(mtab[gidx.long()].T), _rows(x_other), gslot)
-    return _relin_cm(params, x0 + x1, z, lp, jac, r0, srel, act, comp_name)
+    return _relin_other_plain(params, x_other, mtab[gidx.long()], z, fargs, lp, jac, r0, srel,
+                              act, comp_name=comp_name, gslot=gslot)
+
+
+def relin_cm_tabblk_plain(params, x_other, mtab, gidx, win_starts, z, fargs, lp, jac, r0, srel,
+                          act, *, win_w, comp_name, gslot=0):
+    """Plain version of `relin_cm_tabblk`: the gathered slot's means read
+    from each row's tile window, the other slot's from x_other [d_o, mp]."""
+    COUNTS.plain["relin_cm_tabblk"] += 1
+    return _relin_other_plain(params, x_other, _window_rows(mtab, gidx, win_starts, win_w), z,
+                              fargs, lp, jac, r0, srel, act, comp_name=comp_name, gslot=gslot)
 
 
 def _window_rows(tab, gidx, win_starts, win_w):
@@ -202,12 +250,13 @@ def _window_rows(tab, gidx, win_starts, win_w):
 
 def relin_cm_tabblk_ell_plain(params, cam_mean, lmk_mean, gidx, win_starts, z, lp,
                               jac, r0, srel, act, *, deg, win_w, comp_name=BA_MODEL,
-                              gslot=0):
+                              gslot=0, fargs=None):
     """Plain version of `relin_cm_tabblk_ell`: gathered-slot means read from
     each row's tile window."""
     COUNTS.plain["relin_cm_tabblk_ell"] += 1
     return _relin_plain(params, _window_rows(cam_mean, gidx, win_starts, win_w), lmk_mean,
-                        z, lp, jac, r0, srel, act, deg=deg, comp_name=comp_name, gslot=gslot)
+                        z, fargs, lp, jac, r0, srel, act, deg=deg, comp_name=comp_name,
+                        gslot=gslot)
 
 
 def _message_math(params, jac, x0, r0_l, prec, srel, act, be0, bl0, be1, bl1,
@@ -314,16 +363,36 @@ def _messages_plain(params, cam_rows, lmk_tab, jac, lp, r0, prec, srel,
                         me1, ml1, huber)
 
 
+def _messages_other_plain(params, jac, lp, r0, prec, srel, act, be_o, bl_o, gat_rows, me0,
+                          ml0, me1, ml1, *, huber, gslot):
+    """`_messages_cm` with the gathered slot's packed beliefs read per row,
+    gat_rows [mp, d_g + d_g * d_g], and the other slot's from the expanded
+    operands be_o [d_o, mp], bl_o [d_o * d_o, mp]."""
+    d_g = (me0, me1)[gslot].shape[0]
+    gat = _rows(gat_rows.T)
+    (be0, bl0), (be1, bl1) = _by_slot((gat[:d_g], gat[d_g:]), (_rows(be_o), _rows(bl_o)), gslot)
+    return _messages_cm(params, be0, bl0, be1, bl1, jac, lp, r0, prec, srel, act, me0, ml0,
+                        me1, ml1, huber)
+
+
 def messages_cm_tab_plain(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab, gidx,
                           me0, ml0, me1, ml1, *, huber, gslot=0):
     """Plain version of `messages_cm_tab`: the gathered slot's beliefs are
     btab[gidx[r]], the other slot's the expanded operands."""
     COUNTS.plain["messages_cm_tab"] += 1
-    d_g = (me0, me1)[gslot].shape[0]
-    gat = _rows(btab[gidx.long()].T)
-    (be0, bl0), (be1, bl1) = _by_slot((gat[:d_g], gat[d_g:]), (_rows(be_o), _rows(bl_o)), gslot)
-    return _messages_cm(params, be0, bl0, be1, bl1, jac, lp, r0, prec, srel, act, me0, ml0,
-                        me1, ml1, huber)
+    return _messages_other_plain(params, jac, lp, r0, prec, srel, act, be_o, bl_o,
+                                 btab[gidx.long()], me0, ml0, me1, ml1, huber=huber, gslot=gslot)
+
+
+def messages_cm_tabblk_plain(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab, gidx,
+                             win_starts, me0, ml0, me1, ml1, *, huber, win_w, gslot=0):
+    """Plain version of `messages_cm_tabblk`: the gathered slot's beliefs
+    read from each row's tile window of btab, the other slot's from the
+    expanded operands."""
+    COUNTS.plain["messages_cm_tabblk"] += 1
+    return _messages_other_plain(params, jac, lp, r0, prec, srel, act, be_o, bl_o,
+                                 _window_rows(btab, gidx, win_starts, win_w), me0, ml0, me1, ml1,
+                                 huber=huber, gslot=gslot)
 
 
 def expand_ell_blk_plain(tab, *, deg):
@@ -538,10 +607,25 @@ def _message_outputs(me0, me1):
             for f in (d0, d0 * d0, d1, d1 * d1)]
 
 
-def _relin_state_args(z, lp, jac, r0, srel, act, d0, d1, zd):
-    """The relinearization kernels' six state operands, checked."""
+def _fargs_arg(name, fargs, comp_name, rows, dt, row_major=False):
+    """(pointer, leading stride) of the per-row factor arguments of model
+    `comp_name` ([n_args, rows], or [rows, n_args] row-major), (NULL, 0)
+    for a model that reads none."""
+    n_args = _n_args(name, fargs, comp_name)
+    if fargs is None:
+        return ctypes.c_void_p(None), 0
+    return _check_op(f"{name}: fargs", fargs, rows, n_args, dt, row_major)
+
+
+def _relin_state_args(name, z, fargs, lp, jac, r0, srel, act, d0, d1, zd, comp_name):
+    """The table relinearization kernels' state operands, checked: z, the
+    factor arguments [n_args, mp] (NULL for a model that reads none), lp,
+    jac, r0, srel, act."""
     dt, mp, t = lp.dtype, lp.shape[1], d0 + d1
-    return [_check("z", z, (zd, mp), dt), _check("lp", lp, (t, mp), dt),
+    n_args = _n_args(name, fargs, comp_name)
+    args_p = ctypes.c_void_p(None) if fargs is None else _check("fargs", fargs, (n_args, mp), dt)
+    return [_check("z", z, (zd, mp), dt), args_p,
+            _check("lp", lp, (t, mp), dt),
             _check("jac", jac, (zd * t, mp), dt), _check("r0", r0, (zd, mp), dt),
             _check("srel", srel, (1, mp), dt), _check("act", act, (1, mp), dt)]
 
@@ -568,14 +652,16 @@ def _message_scalars(params, huber):
 
 
 def relin_cm_tab_ell(params, cam_mean, lmk_mean, gidx, z, lp, jac, r0, srel,
-                     act, *, deg, comp_name=BA_MODEL, gslot=0):
+                     act, *, deg, comp_name=BA_MODEL, gslot=0, fargs=None):
     """Masked relinearization; returns new (lp [t, mp], jac [z * t, mp],
     r0 [z, mp], srel [1, mp]).  cam_mean [n, d_g] the gathered slot's means
     (slot `gslot`), lmk_mean [nv, d_e] the ELL slot's with nv = mp // deg,
-    gidx [mp] int32 ids into cam_mean; comp_name the measurement model."""
+    gidx [mp] int32 ids into cam_mean; comp_name the measurement model and
+    fargs its per-row arguments [n_args, mp] (None when it reads none)."""
     if not _on_card(lp):
         return relin_cm_tab_ell_plain(params, cam_mean, lmk_mean, gidx, z, lp, jac, r0, srel,
-                                      act, deg=deg, comp_name=comp_name, gslot=gslot)
+                                      act, deg=deg, comp_name=comp_name, gslot=gslot,
+                                      fargs=fargs)
     from gbp_tpu_torch.ops._build import library
 
     dt = lp.dtype
@@ -591,7 +677,8 @@ def relin_cm_tab_ell(params, cam_mean, lmk_mean, gidx, z, lp, jac, r0, srel,
         _check("cam_mean", cam_mean, (n_cam, d_g), dt), ctypes.c_int(n_cam),
         _check("lmk_mean", lmk_mean, (nv, d_e), dt), ctypes.c_int(nv),
         _check("gidx", gidx, (mp,), torch.int32),
-        *_relin_state_args(z, lp, jac, r0, srel, act, d0, d1, zd),
+        *_relin_state_args("relin_cm_tab_ell", z, fargs, lp, jac, r0, srel, act, d0, d1, zd,
+                           comp_name),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
         ctypes.c_int64(mp), ctypes.c_int(deg),
         ctypes.c_double(params[4]), ctypes.c_double(params[5]), _stream(),
@@ -685,7 +772,6 @@ def relin_cm_tab(params, x_other, mtab, gidx, z, fargs, lp, jac, r0, srel, act, 
                                   act, comp_name=comp_name, gslot=gslot)
     from gbp_tpu_torch.ops._build import library
 
-    _no_fargs("relin_cm_tab", fargs)
     dt = lp.dtype
     mp = lp.shape[1]
     (n_g, d_g), d_o, zd = mtab.shape, x_other.shape[0], z.shape[0]
@@ -697,7 +783,8 @@ def relin_cm_tab(params, x_other, mtab, gidx, z, fargs, lp, jac, r0, srel, act, 
         ctypes.c_int(model), ctypes.c_int(gslot), _check("x_other", x_other, (d_o, mp), dt),
         _check("mtab", mtab, (n_g, d_g), dt), ctypes.c_int(n_g),
         _check("gidx", gidx, (mp,), torch.int32),
-        *_relin_state_args(z, lp, jac, r0, srel, act, d0, d1, zd),
+        *_relin_state_args("relin_cm_tab", z, fargs, lp, jac, r0, srel, act, d0, d1, zd,
+                           comp_name),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
         ctypes.c_int64(mp), ctypes.c_double(params[4]), ctypes.c_double(params[5]), _stream(),
     ]
@@ -740,6 +827,82 @@ def messages_cm_tab(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab, gidx
     fn = getattr(library(), f"gbp_messages_cm_tab_{_suffix(dt)}")
     _raise_on(fn(*args), "messages_cm_tab")
     COUNTS.kernel["messages_cm_tab"] += 1
+    return tuple(out)
+
+
+def relin_cm_tabblk(params, x_other, mtab, gidx, win_starts, z, fargs, lp, jac, r0, srel, act,
+                    *, win_w, comp_name, gslot=0):
+    """`relin_cm_tab` for large scenes: the block of tile i stages rows
+    [win_starts[i], win_starts[i] + win_w) of the gathered slot's mean table
+    mtab [n, d_g] and a row reads its mean at gidx[r] - win_starts[i]; the
+    other slot's means come from x_other [d_o, mp].  An id outside its
+    tile's window stops the kernel (a fault of `prepare`)."""
+    if not _on_card(lp):
+        return relin_cm_tabblk_plain(params, x_other, mtab, gidx, win_starts, z, fargs, lp, jac,
+                                     r0, srel, act, win_w=win_w, comp_name=comp_name,
+                                     gslot=gslot)
+    from gbp_tpu_torch.ops._build import library
+
+    dt = lp.dtype
+    mp = lp.shape[1]
+    (n_g, d_g), d_o, zd = mtab.shape, x_other.shape[0], z.shape[0]
+    d0, d1 = _by_slot(d_g, d_o, gslot)
+    model = _model("relin_cm_tabblk", comp_name, d0, d1, zd, gslot)
+    n_tiles = _tiles("relin_cm_tabblk", mp)
+    _window_smem("relin_cm_tabblk", win_w, d_g, dt)
+    out = _relin_outputs(lp, z)
+    args = [
+        ctypes.c_int(model), ctypes.c_int(gslot), _check("x_other", x_other, (d_o, mp), dt),
+        _check("mtab", mtab, (n_g, d_g), dt), ctypes.c_int(n_g),
+        _check("gidx", gidx, (mp,), torch.int32),
+        _check("win_starts", win_starts, (n_tiles,), torch.int32), ctypes.c_int(win_w),
+        *_relin_state_args("relin_cm_tabblk", z, fargs, lp, jac, r0, srel, act, d0, d1, zd,
+                           comp_name),
+        *[ctypes.c_void_p(o.data_ptr()) for o in out],
+        ctypes.c_int64(mp), ctypes.c_double(params[4]), ctypes.c_double(params[5]), _stream(),
+    ]
+    fn = getattr(library(), f"gbp_relin_cm_tabblk_{_suffix(dt)}")
+    _raise_on(fn(*args), "relin_cm_tabblk")
+    COUNTS.kernel["relin_cm_tabblk"] += 1
+    return tuple(out)
+
+
+def messages_cm_tabblk(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab, gidx, win_starts,
+                       me0, ml0, me1, ml1, *, huber, win_w, gslot=0):
+    """`messages_cm_tab` for large scenes: the block of tile i stages rows
+    [win_starts[i], win_starts[i] + win_w) of the gathered slot's packed
+    table btab [n, d_g + d_g * d_g], the other slot's beliefs come from the
+    expanded operands be_o [d_o, mp], bl_o [d_o * d_o, mp]; returns (eta0,
+    lam0, eta1, lam1).  No sum is folded in."""
+    if not _on_card(jac):
+        return messages_cm_tabblk_plain(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab,
+                                        gidx, win_starts, me0, ml0, me1, ml1, huber=huber,
+                                        win_w=win_w, gslot=gslot)
+    from gbp_tpu_torch.ops._build import library
+
+    dt = jac.dtype
+    mp = jac.shape[1]
+    d0, d1, zd = me0.shape[0], me1.shape[0], r0.shape[0]
+    _table_shape("messages_cm_tabblk", d0, d1, zd, gslot)
+    d_g, d_o = _by_slot(d0, d1, gslot)
+    n_g = btab.shape[0]
+    n_tiles = _tiles("messages_cm_tabblk", mp)
+    _window_smem("messages_cm_tabblk", win_w, d_g + d_g * d_g, dt)
+    out = _message_outputs(me0, me1)
+    args = [
+        *_shape_args(d0, d1, zd, gslot, huber),
+        _check("btab", btab, (n_g, d_g + d_g * d_g), dt), ctypes.c_int(n_g),
+        _check("gidx", gidx, (mp,), torch.int32),
+        _check("win_starts", win_starts, (n_tiles,), torch.int32), ctypes.c_int(win_w),
+        _check("be_o", be_o, (d_o, mp), dt), _check("bl_o", bl_o, (d_o * d_o, mp), dt),
+        *_message_state_args(jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, d0, d1, zd,
+                             huber),
+        *[ctypes.c_void_p(o.data_ptr()) for o in out],
+        ctypes.c_int64(mp), *_message_scalars(params, huber),
+    ]
+    fn = getattr(library(), f"gbp_messages_cm_tabblk_{_suffix(dt)}")
+    _raise_on(fn(*args), "messages_cm_tabblk")
+    COUNTS.kernel["messages_cm_tabblk"] += 1
     return tuple(out)
 
 
@@ -820,7 +983,7 @@ def _tiles(name, mp):
 
 
 def relin_cm_tabblk_ell(params, cam_mean, lmk_mean, gidx, win_starts, z, lp, jac, r0,
-                        srel, act, *, deg, win_w, comp_name=BA_MODEL, gslot=0):
+                        srel, act, *, deg, win_w, comp_name=BA_MODEL, gslot=0, fargs=None):
     """`relin_cm_tab_ell` for large scenes: the block of tile i stages rows
     [win_starts[i], win_starts[i] + win_w) of cam_mean and a row reads its
     gathered variable at gidx[r] - win_starts[i].  win_starts [mp / TILE]
@@ -829,7 +992,7 @@ def relin_cm_tabblk_ell(params, cam_mean, lmk_mean, gidx, win_starts, z, lp, jac
     if not _on_card(lp):
         return relin_cm_tabblk_ell_plain(params, cam_mean, lmk_mean, gidx, win_starts, z,
                                          lp, jac, r0, srel, act, deg=deg, win_w=win_w,
-                                         comp_name=comp_name, gslot=gslot)
+                                         comp_name=comp_name, gslot=gslot, fargs=fargs)
     from gbp_tpu_torch.ops._build import library
 
     dt = lp.dtype
@@ -848,7 +1011,8 @@ def relin_cm_tabblk_ell(params, cam_mean, lmk_mean, gidx, win_starts, z, lp, jac
         _check("lmk_mean", lmk_mean, (nv, d_e), dt),
         _check("gidx", gidx, (mp,), torch.int32),
         _check("win_starts", win_starts, (n_tiles,), torch.int32), ctypes.c_int(win_w),
-        *_relin_state_args(z, lp, jac, r0, srel, act, d0, d1, zd),
+        *_relin_state_args("relin_cm_tabblk_ell", z, fargs, lp, jac, r0, srel, act, d0, d1, zd,
+                           comp_name),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
         ctypes.c_int64(mp), ctypes.c_int(deg),
         ctypes.c_double(params[4]), ctypes.c_double(params[5]), _stream(),
@@ -965,10 +1129,9 @@ def scatter_windows_cm(part, win_starts, cov_tiles, cov_offsets, *, n_seg):
 
 def _row_shape(name, d0, d1, z):
     if (d0, d1, z) not in ROW_SHAPES:
-        item = ROW_SHAPES_QUEUED.get((d0, d1, z))
         raise NotImplementedError(
-            f"{name}: the kernel is not instantiated for (d0, d1, z) = ({d0}, {d1}, {z})"
-            + (f" (ROADMAP {item})" if item else ""))
+            f"{name}: the kernel is not instantiated for (d0, d1, z) = ({d0}, {d1}, {z}); "
+            f"it has {ROW_SHAPES}")
 
 
 def _huber_mode(huber, prec_full):
@@ -1054,20 +1217,22 @@ def _messages_any(name, params, ops, *, row_major, d0, d1, z, prec_full, huber):
     return tuple(out)
 
 
-def _relin_any_plain(params, ops, *, row_major, comp_name):
+def _relin_any_plain(params, ops, fargs, *, row_major, comp_name):
     x, z_meas, lp, jac, r0, srel, act = ops
     dt = x.dtype
     c = lambda a: _comps(a, row_major)
     lp_n, jac_n, r0_n, srel_n = _relin_math(
-        params, c(x), c(z_meas), c(lp), c(jac), c(r0), c(_as_col(srel, dt, row_major))[0],
-        c(_as_col(act, dt, row_major))[0], comp_name)
+        params, c(x), c(z_meas), _fargs_comps("relin", fargs, comp_name, row_major), c(lp),
+        c(jac), c(r0), c(_as_col(srel, dt, row_major))[0], c(_as_col(act, dt, row_major))[0],
+        comp_name)
     return (_stack(lp_n, row_major), _stack(jac_n, row_major), _stack(r0_n, row_major),
             _stack([srel_n], row_major))
 
 
-def _relin_any(name, params, ops, *, row_major, d0, d1, z, comp_name):
+def _relin_any(name, params, ops, fargs, *, row_major, d0, d1, z, comp_name):
     """Launch the expanded-operand relinearization kernel in one layout;
-    `ops` are (x, z_meas, lp, jac, r0, srel, act)."""
+    `ops` are (x, z_meas, lp, jac, r0, srel, act), fargs the model's
+    per-row arguments or None."""
     from gbp_tpu_torch.ops._build import library
 
     model = _model(name, comp_name, d0, d1, z)
@@ -1080,24 +1245,19 @@ def _relin_any(name, params, ops, *, row_major, d0, d1, z, comp_name):
     names = ("x", "z", "lp", "jac", "r0", "srel", "act")
     checked = [_check_op(f"{name}: {n}", a, m, w, dt, row_major)
                for n, a, w in zip(names, ops, (t, z, t, z * t, z, 1, 1))]
+    checked.append(_fargs_arg(name, fargs, comp_name, m, dt, row_major))
     out = [torch.empty((m, w) if row_major else (w, m), dtype=dt, device=x.device)
            for w in (t, z * t, z, 1)]
     fn = getattr(library(), f"gbp_relin_rows_{_suffix(dt)}")
     rc = fn(model, int(row_major),
-            (ctypes.c_void_p * 7)(*[p for p, _ in checked]),
-            (ctypes.c_int64 * 7)(*[ld for _, ld in checked]),
+            (ctypes.c_void_p * 8)(*[p for p, _ in checked]),
+            (ctypes.c_int64 * 8)(*[ld for _, ld in checked]),
             (ctypes.c_void_p * 4)(*[o.data_ptr() for o in out]),
             (ctypes.c_int64 * 4)(*[o.shape[1] for o in out]), m, params[4], params[5],
             _stream())
     _raise_on(rc, name)
     COUNTS.kernel[name] += 1
     return tuple(out)
-
-
-def _no_fargs(name, fargs):
-    if fargs is not None:
-        raise NotImplementedError(
-            f"{name}: per-factor model arguments are not ported yet (ROADMAP A7)")
 
 
 def messages_cm_plain(params, jac, x0, r0, prec, srel, act, be0, bl0, be1, bl1,
@@ -1127,21 +1287,20 @@ def relin_cm_plain(params, x, z_meas, fargs, linpoint, jac, r0, srel, act, *,
                    d0, d1, z, comp_name):
     """Plain version of `relin_cm`."""
     del d0, d1, z
-    _no_fargs("relin_cm", fargs)
     COUNTS.plain["relin_cm"] += 1
-    return _relin_any_plain(params, (x, z_meas, linpoint, jac, r0, srel, act),
+    return _relin_any_plain(params, (x, z_meas, linpoint, jac, r0, srel, act), fargs,
                             row_major=False, comp_name=comp_name)
 
 
 def relin_cm(params, x, z_meas, fargs, linpoint, jac, r0, srel, act, *,
              d0, d1, z, comp_name):
     """Masked relinearization on component-major operands [F, mp], the
-    adjacent means x [t, mp] expanded per row; returns (lp, jac, r0, srel)."""
+    adjacent means x [t, mp] expanded per row, fargs [n_args, mp] or None;
+    returns (lp, jac, r0, srel)."""
     if not _on_card(x):
         return relin_cm_plain(params, x, z_meas, fargs, linpoint, jac, r0, srel, act,
                               d0=d0, d1=d1, z=z, comp_name=comp_name)
-    _no_fargs("relin_cm", fargs)
-    return _relin_any("relin_cm", params, (x, z_meas, linpoint, jac, r0, srel, act),
+    return _relin_any("relin_cm", params, (x, z_meas, linpoint, jac, r0, srel, act), fargs,
                       row_major=False, d0=d0, d1=d1, z=z, comp_name=comp_name)
 
 
@@ -1172,10 +1331,9 @@ def fused_relin_messages_plain(params, x, z_meas, fargs, linpoint, jac, r0, prec
                                since_relin, active, be0, bl0, be1, bl1, me0, ml0, me1, ml1,
                                *, d0, d1, z, prec_full, huber, comp_name):
     """Plain version of `fused_relin_messages`."""
-    _no_fargs("fused_relin_messages", fargs)
     COUNTS.plain["fused_relin_messages"] += 1
     lp, jc, r0n, srel = _relin_any_plain(
-        params, (x, z_meas, linpoint, jac, r0, since_relin, active), row_major=True,
+        params, (x, z_meas, linpoint, jac, r0, since_relin, active), fargs, row_major=True,
         comp_name=comp_name)
     out = fused_messages_plain(params, jc, lp, r0n, prec, srel, active, be0, bl0, be1, bl1,
                                me0, ml0, me1, ml1, d0=d0, d1=d1, z=z, prec_full=prec_full,
@@ -1186,19 +1344,18 @@ def fused_relin_messages_plain(params, x, z_meas, fargs, linpoint, jac, r0, prec
 def fused_relin_messages(params, x, z_meas, fargs, linpoint, jac, r0, prec, since_relin,
                          active, be0, bl0, be1, bl1, me0, ml0, me1, ml1, *, d0, d1, z,
                          prec_full, huber, comp_name):
-    """Masked relinearization at the adjacent means x [m, t], then the
-    message update on the new linearization (`fused_messages`), row-major.
-    Returns (eta0, lam0, eta1, lam1, linpoint, jac [m, z*t], r0, since_relin
-    [m, 1] as float)."""
+    """Masked relinearization at the adjacent means x [m, t] (factor
+    arguments fargs [m, n_args] or None), then the message update on the new
+    linearization (`fused_messages`), row-major.  Returns (eta0, lam0, eta1,
+    lam1, linpoint, jac [m, z*t], r0, since_relin [m, 1] as float)."""
     if not _on_card(x):
         return fused_relin_messages_plain(
             params, x, z_meas, fargs, linpoint, jac, r0, prec, since_relin, active, be0, bl0,
             be1, bl1, me0, ml0, me1, ml1, d0=d0, d1=d1, z=z, prec_full=prec_full,
             huber=huber, comp_name=comp_name)
-    _no_fargs("fused_relin_messages", fargs)
     lp, jc, r0n, srel = _relin_any(
         "fused_relin_messages", params, (x, z_meas, linpoint, jac, r0, since_relin, active),
-        row_major=True, d0=d0, d1=d1, z=z, comp_name=comp_name)
+        fargs, row_major=True, d0=d0, d1=d1, z=z, comp_name=comp_name)
     out = fused_messages(params, jc, lp, r0n, prec, srel, active, be0, bl0, be1, bl1,
                          me0, ml0, me1, ml1, d0=d0, d1=d1, z=z, prec_full=prec_full,
                          huber=huber)

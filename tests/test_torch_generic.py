@@ -134,12 +134,14 @@ def test_row_kernels_refuse_what_is_not_instantiated():
     # On the CPU the plain version takes any shape; the shape gate is the
     # kernel's, so it is checked directly.
     M.fused_messages(PARAMS, *ops, d0=3, d1=3, z=3, prec_full=False, huber=None)
-    for shape in ((3, 3, 3), (6, 6, 6), (6, 3, 2), (1, 1, 1)):
+    for shape in ((3, 3, 3), (6, 6, 6), (6, 3, 2), (1, 1, 1), (9, 3, 2)):
         M._row_shape("fused_messages", *shape)  # instantiated: passes
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        M._row_shape("fused_messages", 9, 3, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        M._relin_math(PARAMS, [], [], [], [], [], None, None, "bal_reprojection_normalized")
+    with pytest.raises(NotImplementedError, match="not instantiated"):
+        M._row_shape("fused_messages", 9, 3, 3)
+    # The pixel-space BAL model has no component form (the reference's has
+    # none either): the generic engine relinearizes it in plain torch.
+    with pytest.raises(NotImplementedError, match="no component-form model"):
+        M._relin_math(PARAMS, [], [], None, [], [], [], None, None, "bal_reprojection")
     with pytest.raises(ValueError, match="CUDA tensor"):
         M._check_op("jac", ops[0], 8, 18, torch.float64, True)
     with pytest.raises(ValueError, match="diagonal"):

@@ -75,8 +75,12 @@ def test_relin_cm_matches_reference():
     assert 0 < int((got[3] == 0).sum()) < MP
     for a, b in zip(got, ref):
         assert rel(a, b) <= 1e-12
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    # Factor arguments go to the models that read them, and only to those.
+    with pytest.raises(ValueError, match="reads 0 per-row arguments"):
         M.relin_cm(PARAMS, tx, tz, tz, *[t for t, _ in rest], **kw)
+    with pytest.raises(ValueError, match="reads 2 per-row arguments"):
+        M.relin_cm(PARAMS, tx, tz, None, *[t for t, _ in rest],
+                   **{**kw, "comp_name": "bal_reprojection_normalized"})
 
 
 # --- prepare(gather_mode=...) ---------------------------------------------------------

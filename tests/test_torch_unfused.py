@@ -296,14 +296,24 @@ def test_unfused_with_engaged_windows_raises(kind):
     if kind == "ba_blocks":
         sim = pba.simulate_blocks(n_blocks=7, n_cams=40, lmks_per_cam=20, window=3, seed=0,
                                   shuffle=True)
-        pg, _ = pba.build(sim, dtype=torch.float64, device="cpu", layout="ell",
-                          cam_prior_prec=1000.0, lmk_prior_prec=1000.0)
+        pg, pm = pba.build(sim, dtype=torch.float64, device="cpu", layout="ell",
+                           cam_prior_prec=1000.0, lmk_prior_prec=1000.0)
     else:
         sim = ppg.simulate_manhattan(n_poses=1500, seed=4, loop_prob=0.5, loop_radius=3.0)
-        pg, _ = ppg.build(sim, dtype=torch.float64, layout="ell", device="cpu")
-    assert P.prepare(pg).win_w > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-        P.prepare(pg, ell_fused=False)
+        pg, pm = ppg.build(sim, dtype=torch.float64, layout="ell", device="cpu")
+    fused = P.prepare(pg)
+    assert fused.win_w > 0
+    # The windowed unfused kernels (`relin_cm_tabblk`, `messages_cm_tabblk`)
+    # take the same windows; one sweep runs them (their plain versions here).
+    pc = P.prepare(pg, ell_fused=False)
+    assert not pc.ell_fused and pc.gather_mode == "table"
+    assert pc.win_w == fused.win_w and torch.equal(pc.win_starts, fused.win_starts)
+    cfg = GBPConfig(**BA_CFG) if kind == "ba_blocks" else ppg.default_config()
+    M.COUNTS.reset()
+    P.sweep(pc, P.init_state(pc, pm), cfg)
+    assert {k: v for k, v in M.COUNTS.plain.items() if v} == dict.fromkeys(
+        ("relin_cm_tabblk", "messages_cm_tabblk", "expand_ell_blk", "segsum_cm_blk",
+         "scatter_windows_cm"), 1)
     # Without windows the table is beyond shared memory in float64: the
     # expanded operands, where `ell_fused` has no meaning.
     pc = P.prepare(pg, ell_fused=False, window=False)
@@ -316,7 +326,10 @@ def test_wrappers_refuse_what_is_not_instantiated():
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         M._table_shape("messages_cm_tab", 6, 3, 2, gslot=1)
     with pytest.raises(NotImplementedError, match="not instantiated"):
-        M._table_shape("messages_cm_tab", 9, 3, 2)
+        M._table_shape("messages_cm_tab", 9, 3, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        M._table_shape("messages_cm_tab", 9, 3, 2, gslot=1)
+    M._table_shape("messages_cm_tab", 9, 3, 2)
     M._table_shape("messages_cm_tab", 3, 3, 3, gslot=1)
     M._table_shape("messages_cm_tab", 6, 6, 6, gslot=1)
     with pytest.raises(ValueError, match="has .d0, d1, z. = .3, 3, 3."):
@@ -326,7 +339,7 @@ def test_wrappers_refuse_what_is_not_instantiated():
     M._table_smem("messages_cm_tab", 1024, 12, torch.float32)
     pc = P.prepare(pg, ell_fused=False)
     st = P.init_state(pc, pm)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(ValueError, match="reads 0 per-row arguments"):
         M.relin_cm_tab(None, st.f.lp[6:], st.v[0].mean, pc.gidx, pc.z, pc.z, st.f.lp, st.f.jac,
                        st.f.r0, st.f.srel, pc.act, comp_name="reprojection_normalized")
 
