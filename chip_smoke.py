@@ -118,9 +118,11 @@ non-zero; no phase is caught):
      the city scene.
  18. kernel vs plain, BAL models: on data/ladybug49_sim.txt.gz after 8 plain
      sweeps, float64 and float32, every relinearization and messages entry
-     the graph reaches (full-table, unfused, expanded operands in both
-     layouts) with `bal_reprojection_normalized` and its per-row arguments
-     at (6, 3, 2), and with `bal_reprojection_intrinsics` at (9, 3, 2).
+     (full-table, unfused, expanded operands in both layouts, and the
+     windowed fused and unfused entries with every tile's window holding
+     all 49 cameras) with `bal_reprojection_normalized` and its per-row
+     arguments at (6, 3, 2), and with `bal_reprojection_intrinsics` at
+     (9, 3, 2).
  19. windowed unfused path: city and venice with `prepare(window=True,
      ell_fused=False)`, 50 sweeps through `relin_cm_tabblk`,
      `messages_cm_tabblk`, `expand_ell_blk`, `segsum_cm_blk` and
@@ -906,7 +908,8 @@ def check_bal_kernels(tag, intrinsics, dtype, dev):
     layouts) against its plain version on identical CUDA inputs, with the
     BAL model's per-row arguments [k1, k2] (6-dof cameras) or at (9, 3, 2)
     (9-dof cameras); relinearization in both regimes, Huber none and
-    scalar."""
+    scalar; the windowed entries with one window of all cameras per
+    tile."""
     tol = TOL[dtype]
     sim = bal.to_sim(bal.prune(bal.read_bal(LADYBUG)))
     build = lambda device: ba.build_bal(sim, dtype=dtype, device=device,
@@ -989,6 +992,33 @@ def check_bal_kernels(tag, intrinsics, dtype, dev):
                    *(rm(a) for a in cm_args[7:]))
         hold("fused_messages", sync(M.fused_messages(*rm_args, **kw)),
              M.fused_messages_plain(*rm_args, **kw))
+    # The windowed entries on the same operands, every tile's window holding
+    # all cameras (the BAL files have too few for windows of their own).
+    n_tiles = cmg.mp // M.TILE
+    w = -(-cam_mean.shape[0] // sweep_cm.SUB) * sweep_cm.SUB
+    starts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    win_rows, win_offsets = (torch.tensor(a, device=dev) for a in M.window_rows_csr(
+        cmg.gidx.cpu().numpy(), np.zeros(n_tiles, dtype=np.int64), w))
+    w_kw = dict(win_w=w)
+    for beta in (beta_mid, CFG.beta):
+        r_args = (params_at(beta), cam_mean, lmk_mean, cmg.gidx, starts, *state_ops)
+        r_kw = dict(deg=deg, comp_name=model, fargs=cmg.args, **w_kw)
+        hold("relin_cm_tabblk_ell", sync(M.relin_cm_tabblk_ell(*r_args, **r_kw)),
+             M.relin_cm_tabblk_ell_plain(*r_args, **r_kw))
+        u_args = (params_at(beta), mean1, mtab, cmg.gidx, starts, cmg.z, cmg.args,
+                  *state_ops[1:])
+        hold("relin_cm_tabblk", sync(M.relin_cm_tabblk(*u_args, comp_name=model, **w_kw)),
+             M.relin_cm_tabblk_plain(*u_args, comp_name=model, **w_kw))
+    for h in (None, 1.0):
+        m_args = (params, cam_tab, lmk_tab, cmg.gidx, starts, jac, lp, r0, cmg.prec, srel,
+                  cmg.act, *msgs, win_rows, win_offsets)
+        hold("messages_cm_tabblk_ell",
+             sync(M.messages_cm_tabblk_ell(*m_args, deg=deg, huber=h, **w_kw)),
+             M.messages_cm_tabblk_ell_plain(*m_args, deg=deg, huber=h, **w_kw))
+        u_args = (params, jac, lp, r0, cmg.prec, srel, cmg.act, be1, bl1, btab, cmg.gidx, starts,
+                  *msgs)
+        hold("messages_cm_tabblk", sync(M.messages_cm_tabblk(*u_args, huber=h, **w_kw)),
+             M.messages_cm_tabblk_plain(*u_args, huber=h, **w_kw))
     print(f"[kernels] {tag}: worst rel err per kernel "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (tolerance {tol:g})")
 

@@ -42,7 +42,7 @@ def _leaves(state):
 
 
 def test_run_annealed_matches_host_loop_exactly():
-    """damp_window=0 reproduces the reference's driver loop (sweep
+    """damp_window=0 reproduces the reference's host loop (sweep
     `every`, weaken by `factor`, repeat) bit for bit."""
     sim = ba.simulate(n_cams=6, n_lmks=60, seed=0)
     graph, means = ba.build(sim, dtype=torch.float64, device="cpu")
