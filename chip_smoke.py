@@ -138,6 +138,28 @@ non-zero; no phase is caught):
      schedule in float32: ARE finite and falling.
  21. `run_annealed_cm` on the city scene, 50 sweeps through the windowed
      kernels: launch counts, ARE finite and below the initial one.
+ 22. kernel vs plain, the halo paths' windowed kernels (csrc/halo.cuh,
+     kernels 12, 13, 17, 18): the merged-blocks scene of 1,280 cameras with
+     8 landmarks each (float64, 1e-11) and the city scene (float32, 1e-4),
+     both cut into 2 owner-sharded partitions (`halo_cm.distribute`, plain
+     layout) after 8 plain sweeps on the CPU; per partition, on the
+     operands its sweep hands them: `relin_cm_tabblkg_ell` and
+     `relin_cm_tabblkg` in both relinearization regimes,
+     `messages_cm_tabblkg_ell` and `messages_cm_tabblkg` with and without
+     Huber; city again with every window widened to 384 cameras (64,512
+     bytes, dynamic shared memory); timed at city, partition 0.
+ 23. halo paths, the P partitions in one process on the card through the
+     single-process exchange: city at P = 2 through kernels 17, 18 and,
+     unfused, 12, 13 (50 sweeps: launch counts P per sweep, plain calls 0,
+     ARE finite, below the initial one and within 5e-3 px of the
+     one-device run of phase 7, bitwise rerun, sweeps/s, collective bytes);
+     city at P = 4 and venice at P = 4 (the mode `prepare` picks, 50 sweeps,
+     ARE finite and falling, sweeps/s, peak memory);
+     `python -m gbp_tpu_torch.slam --n_poses 4000 --n_iters 100 --n_chips 2`
+     (launch counts, ATE finite and at or below the initial one, sweeps/s);
+     `python -m gbp_tpu_torch.ba --bal_file data/ladybug49_sim.txt.gz
+     --n_iters 100 --n_chips 2 --oracle`, final ARE within 1e-3 px of the
+     same command on one device.
 """
 import contextlib
 import dataclasses
@@ -153,6 +175,7 @@ import torch
 
 import gbp_tpu_torch
 from gbp_tpu_torch import ba as ba_cli
+from gbp_tpu_torch import slam as slam_cli
 from gbp_tpu_torch.bench import BIG_BUILD as BIG
 from gbp_tpu_torch.bench import CFG, CITY, VENICE, card_line
 from gbp_tpu_torch.core import anneal, oracle, sweep, sweep_cm
@@ -161,7 +184,7 @@ from gbp_tpu_torch.io import bal, g2o
 from gbp_tpu_torch.models import ba, pose_graph, toy
 from gbp_tpu_torch.ops import _build
 from gbp_tpu_torch.ops import messages as M
-from gbp_tpu_torch.parallel import schur
+from gbp_tpu_torch.parallel import halo, halo_cm, schur
 
 SWEEPS = 200
 QUALITY_SWEEPS = 50  # corridor scenes: the plain schedule is taken at 50 sweeps
@@ -178,6 +201,16 @@ UNFUSED_WIN = ("relin_cm_tabblk", "messages_cm_tabblk")
 # One sweep of the windowed unfused path.
 UNFUSED_WIN_PATH = (*UNFUSED_WIN, "expand_ell_blk", "segsum_cm_blk", "scatter_windows_cm")
 ROWS_MODE = ("relin_cm", "messages_cm", "segsum_by_id", "expand_ell_blk")
+HALO_KERNELS = ("relin_cm_tabblkg_ell", "messages_cm_tabblkg_ell", "relin_cm_tabblkg",
+                "messages_cm_tabblkg")
+# One partition's sweep of the windowed halo path, fused and unfused.
+HALO_FUSED_PATH = ("relin_cm_tabblkg_ell", "messages_cm_tabblkg_ell", "segsum_cm_blk",
+                   "scatter_windows_cm", "segsum_by_id")
+HALO_UNFUSED_PATH = ("relin_cm_tabblkg", "messages_cm_tabblkg", "expand_ell_blk",
+                     "segsum_cm_blk", "scatter_windows_cm", "segsum_by_id")
+# The halo paths partition the plain layout (the command lines' choice).
+HALO_BUILD = dict(layout="none", cam_prior_prec=1000.0, lmk_prior_prec=1000.0)
+HALO_BLOCKS = dict(n_blocks=32, n_cams=40, lmks_per_cam=8, window=3, seed=0, shuffle=True)
 NONLOCAL = dict(n_cams=512, n_lmks=2000, pix_sigma=1.0, seed=0)
 # Manhattan pose graphs: the kernel checks' (500 poses fill the 48 KB table
 # in float64, 1,000 in float32), the windowed one, the pose path's.
@@ -206,7 +239,8 @@ SOURCE = {**dict.fromkeys(FULL, "gbp_tpu_torch/csrc/messages.cu"),
           **dict.fromkeys(WINDOWED, "gbp_tpu_torch/csrc/windows.cu"),
           **dict.fromkeys(ROWS, "gbp_tpu_torch/csrc/rows.cu"),
           **dict.fromkeys(UNFUSED, "gbp_tpu_torch/csrc/unfused.cu"),
-          **dict.fromkeys(UNFUSED_WIN, "gbp_tpu_torch/csrc/unfused_win.cu")}
+          **dict.fromkeys(UNFUSED_WIN, "gbp_tpu_torch/csrc/unfused_win.cu"),
+          **dict.fromkeys(HALO_KERNELS, "gbp_tpu_torch/csrc/halo.cuh")}
 REPLACES = {
     "relin_cm_tab_ell": "gbp_tpu/ops/messages_pallas.py:1118",
     "messages_cm_tab_ell": "gbp_tpu/ops/messages_pallas.py:1054",
@@ -224,6 +258,10 @@ REPLACES = {
     "expand_ell_blk": "gbp_tpu/ops/messages_pallas.py:1469",
     "messages_cm_tabblk": "gbp_tpu/ops/messages_pallas.py:734",
     "relin_cm_tabblk": "gbp_tpu/ops/messages_pallas.py:787",
+    "messages_cm_tabblkg": "gbp_tpu/ops/messages_pallas.py:1348",
+    "relin_cm_tabblkg": "gbp_tpu/ops/messages_pallas.py:1396",
+    "messages_cm_tabblkg_ell": "gbp_tpu/ops/messages_pallas.py:1700",
+    "relin_cm_tabblkg_ell": "gbp_tpu/ops/messages_pallas.py:1748",
 }
 # The card's published peaks (H100 SXM data sheet): device memory rate and
 # float32 rate outside the tensor cores.
@@ -1598,6 +1636,235 @@ def linear_path():
         raise AssertionError(f"linear path: {err:.3e} from the oracle")
 
 
+# --- the halo paths (phases 22 and 23) ------------------------------------------------
+
+
+def halo_mode_kernels(hcm):
+    """The kernels one partition's sweep launches, once each."""
+    if hcm.gather_mode != "table":
+        return ROWS_MODE
+    if hcm.win_w:
+        return HALO_FUSED_PATH if hcm.ell_fused else HALO_UNFUSED_PATH
+    return FULL if hcm.ell_fused else (*UNFUSED, "segsum_by_id")
+
+
+def halo_widened(hcm, w):
+    """`hcm` with every partition's owned-camera windows widened to `w`
+    (starts moved down where the wider window would pass the padded owned
+    count): still a valid windowing, at the shared-memory sizes of wider
+    scenes."""
+    dev = hcm.gidx.device
+    no = hcm.comm[hcm.vb_g].n_own_max
+    nopad = -(-no // sweep_cm.SUB) * sweep_cm.SUB
+    starts = np.minimum(hcm.win_starts.cpu().numpy(), nopad - w) // sweep_cm.SUB * sweep_cm.SUB
+    if w > nopad or (starts < 0).any():
+        raise ValueError(f"a window of {w} does not fit {nopad} owned cameras")
+    gidx = hcm.gidx.cpu().numpy()
+    csr = [M.window_rows_csr(gidx[c], starts[c], w, n_own=no) for c in range(len(starts))]
+    cov = [M.window_cover_csr(starts[c], w, no) for c in range(len(starts))]
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
+    n_cov = max(len(a) for a, _ in cov)
+    pad = lambda a: np.pad(a, (0, n_cov - len(a)))
+    return hcm._replace(win_w=w, win_starts=i32(starts),
+                        win_rows=i32(np.stack([a for a, _ in csr])),
+                        win_offsets=i32(np.stack([b for _, b in csr])),
+                        cov_tiles=i32(np.stack([pad(a) for a, _ in cov])),
+                        cov_offsets=i32(np.stack([b for _, b in cov])))
+
+
+def halo_state(sim, dtype, n_parts, sweeps):
+    """The halo_cm partition of `sim` (plain layout) and its state after
+    `sweeps` plain sweeps on the CPU, both moved to the card."""
+    g, m = ba.build(sim, dtype=dtype, device="cpu", **HALO_BUILD)
+    hp, hcm, st, run = halo_cm.distribute(g, m, n_parts, device="cpu")
+    st = run(hcm, st, CFG, sweeps)
+    return halo.to_device(hcm, "cuda"), halo.to_device(st, "cuda")
+
+
+def check_halo_kernels(tag, hcm, st, dtype, errs, timings=None):
+    """Phase 22 for one partitioned scene and dtype: per partition, kernels
+    12, 13, 17 and 18 against their plain versions on the operands the halo
+    sweep hands them (relinearization at the median distance and at the
+    config's beta, messages with and without Huber); timed on partition 0
+    when `timings` is given."""
+    tol = TOL[dtype]
+    tag = f"{tag} {str(dtype)[6:]}"
+    d_e = hcm.dofs[hcm.e]
+    f_e = d_e + d_e * d_e
+    gslot = 1 - hcm.e
+    no = hcm.comm[hcm.vb_g].n_own_max
+    tab_e, mean_e, tab_g, mean_g, gtab_g, gmean_g = halo_cm.belief_tables(hcm, st)
+    wkw = dict(win_w=hcm.win_w, n_own=no, gslot=gslot)
+    print(f"[halo kernels] {tag}: {hcm.z.shape[0]} partitions, {hcm.mp // M.TILE} tiles each, "
+          f"win_w {hcm.win_w} ({hcm.win_w * M.F_CAM * tab_g.element_size()} bytes of packed "
+          f"beliefs per block), ghost table {gtab_g.shape[1]} rows, cut cameras {hcm.n_cut}")
+
+    def compare(name, got, ref):
+        worst_rel, worst_abs = 0.0, 0.0
+        for i, (a, b) in enumerate(zip(got, ref)):
+            rel, err = rel_err(a, b)
+            if not rel <= tol:
+                raise AssertionError(f"{name} {tag} out{i}: rel err {rel:.3e} > {tol:g}")
+            worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+        print(f"[halo kernels] {tag} {name}: {len(got)} outputs, max abs {worst_abs:.3e} rel "
+              f"{worst_rel:.3e}")
+        errs[name] = max(errs.get(name, 0.0), worst_abs)
+
+    for p in range(hcm.z.shape[0]):
+        fs = sweep_cm.CMFactorState(*(halo._at(x, p) for x in st.f))
+        cm_e = sync(M.expand_ell_blk(torch.cat([tab_e[p], mean_e[p]], 1), deg=hcm.deg))
+        be_e, bl_e, x_e = cm_e[:d_e], cm_e[d_e:f_e], cm_e[f_e:]
+        state_r = (fs.lp, fs.jac, fs.r0, fs.srel, hcm.act[p])
+        msgs = (fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])
+        x = halo_cm.expand_means(hcm, st)[p]
+        on = hcm.act[p, 0] > 0.5
+        beta_mid = float(((x - fs.lp) ** 2).sum(0).sqrt()[on].double().median())
+        calls = {}
+        for beta in (beta_mid, CFG.beta):  # the config's beta last: its outputs feed on
+            params = _kernel_params(dataclasses.replace(CFG, beta=beta), dtype)
+            calls["relin_cm_tabblkg_ell"] = (
+                (params, mean_g[p, :no], gmean_g[p], mean_e[p], hcm.gidx[p], hcm.win_starts[p],
+                 hcm.z[p], *state_r),
+                dict(deg=hcm.deg, comp_name=hcm.comp_name, fargs=None, **wkw))
+            calls["relin_cm_tabblkg"] = (
+                (params, x_e, mean_g[p, :no], gmean_g[p], hcm.gidx[p], hcm.win_starts[p],
+                 hcm.z[p], None, *state_r), dict(comp_name=hcm.comp_name, **wkw))
+            for name in ("relin_cm_tabblkg_ell", "relin_cm_tabblkg"):
+                args, kw = calls[name]
+                ref_r = sync(getattr(M, name + "_plain")(*args, **kw))
+                n_relin, n_on = int((ref_r[3] == 0).sum()), int(on.sum())
+                if n_relin == 0 or (beta == beta_mid and n_relin == n_on):
+                    raise AssertionError(f"{tag}: the relinearization check needs both kinds "
+                                         f"of rows")
+                compare(name, sync(getattr(M, name)(*args, **kw)), ref_r)
+        lp, jac, r0, srel = ref_r
+        head = (jac, lp, r0, hcm.prec[p], srel, hcm.act[p])
+        for huber in (None, 1.0):
+            params = _kernel_params(CFG, dtype)
+            calls["messages_cm_tabblkg_ell"] = (
+                (params, tab_g[p, :no], gtab_g[p], tab_e[p], hcm.gidx[p], hcm.win_starts[p],
+                 *head, *msgs), dict(deg=hcm.deg, huber=huber, **wkw))
+            calls["messages_cm_tabblkg"] = (
+                (params, *head, be_e, bl_e, tab_g[p, :no], gtab_g[p], hcm.gidx[p],
+                 hcm.win_starts[p], *msgs), dict(huber=huber, **wkw))
+            for name in ("messages_cm_tabblkg_ell", "messages_cm_tabblkg"):
+                args, kw = calls[name]
+                compare(name, sync(getattr(M, name)(*args, **kw)),
+                        sync(getattr(M, name + "_plain")(*args, **kw)))
+        if timings is None or p:
+            continue
+        n_relin_cfg = int((ref_r[3] == 0).sum())
+        for name in HALO_KERNELS:
+            args, kw = calls[name]
+            kern, plain = getattr(M, name), getattr(M, name + "_plain")
+            outs = sync(kern(*args, **kw))
+            flops = (RELIN_TEST_FLOPS * hcm.mp + RELIN_ROW_FLOPS * n_relin_cfg
+                     if name.startswith("relin") else MESSAGES_ROW_FLOPS * hcm.mp)
+            ms = time_ms(lambda: kern(*args, **kw), 20)
+            plain_ms = time_ms(lambda: plain(*args, **kw), 3)
+            b_ms, b_by = bound_ms(args, outs, flops)
+            timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=None)
+            print(f"[halo kernels] {tag} {name} (partition 0, huber 1.0): kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), no single library "
+                  f"call")
+
+
+def halo_run(tag, graph, means, k, n_parts, card, are_single=None, ell_fused=None, timed=True):
+    """Phase 23 for one BA scene: `halo_cm.distribute` on the card, 50 sweeps
+    through the partition's kernels (launch counts P per sweep, plain calls
+    0), ARE finite and below the initial one (and within 5e-3 px of the
+    one-device run when given), a bitwise rerun, sweeps/s, peak memory and
+    the collective volume.  Returns the launch counts."""
+    t0 = time.perf_counter()
+    hp, hcm, init, run = halo_cm.distribute(graph, means, n_parts, ell_fused=ell_fused)
+    tmpl = sweep.init_state(graph, means)
+    are_of = lambda st: float(ba.avg_reprojection_error(
+        graph, ba.with_means(tmpl, halo.collect_means(hp, st)), k=k))
+    are0 = are_of(init)
+    torch.cuda.synchronize()
+    print(f"[halo] {tag}: {n_parts} partitions of {hcm.mp} rows (deg {hcm.deg}), gather mode "
+          f"{hcm.gather_mode}, win_w {hcm.win_w}, ell_fused {hcm.ell_fused}, owned cameras "
+          f"{hcm.comm[hcm.vb_g].n_own_max} and ghost cameras {hcm.comm[hcm.vb_g].n_ghost_max} "
+          f"per partition, cut cameras {hcm.n_cut or 'none'}; distributed in "
+          f"{time.perf_counter() - t0:.1f} s; initial ARE {are0:.6f} px; collective bytes "
+          f"{halo.collective_bytes(hp)}")
+    M.COUNTS.reset()
+    state = sync(run(hcm, init, CFG, QUALITY_SWEEPS))
+    launches = check_counts(f"the {tag} halo path",
+                            dict.fromkeys(halo_mode_kernels(hcm), n_parts), QUALITY_SWEEPS)
+    are = are_of(state)
+    print(f"[halo] {tag}: {QUALITY_SWEEPS} sweeps, launches "
+          f"{ {k: v for k, v in launches.items() if v} }; plain calls 0; ARE {are:.6f} px"
+          + ("" if are_single is None else f" (one device {are_single:.6f} px, difference "
+             f"{abs(are - are_single):.3e})"))
+    if not (math.isfinite(are) and are < are0):
+        raise AssertionError(f"{tag}: ARE {are} is not finite and below the initial {are0}")
+    if are_single is not None and not abs(are - are_single) <= 5e-3:
+        raise AssertionError(f"{tag}: ARE {are} vs one device's {are_single}")
+    same_means(f"halo {tag}", state, sync(run(hcm, init, CFG, QUALITY_SWEEPS)))
+    if timed:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sync(run(hcm, init, CFG, QUALITY_SWEEPS))
+        dt = time.perf_counter() - t0
+        print(f"[halo] {tag}: timed {QUALITY_SWEEPS} sweeps {dt:.4f} s -> "
+              f"{QUALITY_SWEEPS / dt:.2f} sweeps/s ({card}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return launches
+
+
+def halo_path(card, are_city):
+    """Phase 23: the owner-sharded halo paths through the entry points a
+    user calls, the P partitions in one process on the card."""
+    out = {}
+    sim = ba.simulate_blocks(**CITY)
+    graph, means = ba.build(sim, dtype=torch.float32, **HALO_BUILD)
+    out["fused"] = halo_run("city1280 P=2", graph, means, sim["k"], 2, card, are_city)
+    out["unfused"] = halo_run("city1280 P=2 unfused", graph, means, sim["k"], 2, card,
+                              are_city, ell_fused=False)
+    halo_run("city1280 P=4", graph, means, sim["k"], 4, card, timed=False)
+    del graph, means
+    torch.cuda.empty_cache()
+    sim = ba.simulate_blocks(**VENICE)
+    graph, means = ba.build(sim, dtype=torch.float32, **HALO_BUILD)
+    halo_run("venice10240 P=4", graph, means, sim["k"], 4, card)
+    del graph, means
+    torch.cuda.empty_cache()
+
+    # python -m gbp_tpu_torch.slam --n_poses 4000 --n_iters 100 --n_chips 2
+    M.COUNTS.reset()
+    res = slam_cli.main(["--n_poses", "4000", "--n_iters", "100", "--n_chips", "2"])
+    hcm = res["hcm"]
+    launches = check_counts("slam --n_chips 2", dict.fromkeys(halo_mode_kernels(hcm), 2), 100)
+    ate0, ate = res["ate0"], res["ate"][-1][1]
+    print(f"[halo] slam manhattan4000 --n_chips 2: gather mode {hcm.gather_mode} (slot "
+          f"{1 - hcm.e} gathered), launches { {k: v for k, v in launches.items() if v} }, "
+          f"plain calls 0; ATE {ate0:.6f} -> {ate:.6f}; {res['sweeps_per_s']:.2f} sweeps/s "
+          f"({card})")
+    if not (math.isfinite(ate) and ate <= ate0):
+        raise AssertionError(f"slam --n_chips 2: ATE {ate} not finite and at or below {ate0}")
+
+    # python -m gbp_tpu_torch.ba --bal_file data/ladybug49_sim.txt.gz --n_iters 100
+    #   --n_chips 2 --oracle, against the same command on one device.
+    argv = ["--bal_file", str(LADYBUG), "--n_iters", "100", "--oracle"]
+    one = ba_cli.main(argv)
+    M.COUNTS.reset()
+    two = ba_cli.main([*argv, "--n_chips", "2"])
+    hcm = two["hcm"]
+    launches = check_counts("ba --n_chips 2", dict.fromkeys(halo_mode_kernels(hcm), 2), 100)
+    a1, a2 = one["are"][-1][1], two["are"][-1][1]
+    print(f"[halo] ladybug49 --n_chips 2: path {two['path']} ({hcm.gather_mode}, ell_fused "
+          f"{hcm.ell_fused}), launches { {k: v for k, v in launches.items() if v} }; ARE per 10 "
+          f"sweeps " + ", ".join(f"{i}: {a:.4f}" for i, a in two["are"])
+          + f"; final {a2:.6f} px against {a1:.6f} on one device (difference "
+          f"{abs(a2 - a1):.3e}); dense MAP {two['are_map']:.6f} / {one['are_map']:.6f} px; "
+          f"{two['sweeps_per_s']:.2f} sweeps/s ({card})")
+    if not abs(a2 - a1) <= 1e-3:
+        raise AssertionError(f"ladybug49 --n_chips 2: ARE {a2} vs one device's {a1}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1690,6 +1957,22 @@ def main():
     torch.cuda.empty_cache()
     annealed_city(card)
     bal_path(card)
+
+    # The halo paths' kernels against their plain versions, then the paths.
+    other = {}
+    for dtype in (f64, f32):
+        hcm, st = halo_state(ba.simulate_blocks(**HALO_BLOCKS), dtype, 2, 8)
+        check_halo_kernels("blocks1280 P=2", hcm, st, dtype, other)
+    hcm, st = halo_state(ba.simulate_blocks(**CITY), f32, 2, 8)
+    check_halo_kernels("city P=2", hcm, st, f32, errs, timings)
+    check_halo_kernels("city P=2 wide", halo_widened(hcm, 384), st, f32, other)
+    del hcm, st
+    torch.cuda.empty_cache()
+    print(f"[halo kernels] done at {time.perf_counter() - T_START:.1f} s")
+    halo_launches = halo_path(card, city_fused[0])
+    launches.update({k: halo_launches["fused"][k] for k in HALO_KERNELS[:2]},
+                    **{k: halo_launches["unfused"][k] for k in HALO_KERNELS[2:]})
+    print(f"[halo] done at {time.perf_counter() - T_START:.1f} s")
     generic = generic_path(card)
     rows = rows_path(card)
     linear_path()

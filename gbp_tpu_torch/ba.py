@@ -6,6 +6,7 @@ flags and the same lines of output:
     python -m gbp_tpu_torch.ba --bal_file data/ladybug49_sim.txt.gz --n_iters 100 --oracle
     python -m gbp_tpu_torch.ba --bal_file data/toy_ba.txt --device cpu
     python -m gbp_tpu_torch.ba --n_cams 16 --n_lmks 400           # synthetic scene
+    python -m gbp_tpu_torch.ba --bal_file data/ladybug49_sim.txt.gz --n_chips 2 --oracle
 
 Loads a BAL file (read_bal -> prune -> to_sim -> build_bal) or simulates a
 scene, takes the component-major fast path where `sweep_cm.prepare` accepts
@@ -15,6 +16,13 @@ prior-annealing schedule (core/anneal.py) and prints the average
 reprojection error every `--weaken_every` sweeps, the sweep rate and, with
 `--oracle`, the dense-MAP error under the final weakened priors.  Runs on
 the card unless `--device cpu` is given.
+
+`--n_chips P` > 1 cuts the graph into P owner-sharded partitions
+(parallel/halo.py) and runs them through the halo exchange: the per-partition
+fast path (parallel/halo_cm.py) where it takes the graph, the generic halo
+sweep otherwise, annealed by `anneal.make_run_annealed_halo`.  The P
+partitions run in one process on `--device`, exchanging through the
+single-process communicator (`halo.LocalComm`).
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import gbp_tpu_torch
 from gbp_tpu_torch.core import anneal, oracle, sweep, sweep_cm
 from gbp_tpu_torch.core.sweep import GBPConfig
 from gbp_tpu_torch.models import ba
+from gbp_tpu_torch.parallel import halo, halo_cm
 
 
 def parse_args(argv=None):
@@ -66,7 +75,8 @@ def parse_args(argv=None):
                    help="9-dof BAL cameras [omega, t, rf, k1, k2] in the state; needs "
                         "--bal_file")
     p.add_argument("--n_chips", type=int, default=1,
-                   help="more than one device is not ported yet (ROADMAP A12)")
+                   help="owner-sharded partitions of the graph (halo exchange), run in one "
+                        "process on --device")
     p.add_argument("--dtype", default="f32", choices=("f32", "f64"),
                    help="f64 for parity runs; forced by --message_form schur")
     p.add_argument("--device", default=None, help="default: the CUDA card")
@@ -76,12 +86,8 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Run the CLI; returns what it printed as numbers: {"are": [(sweep,
     ARE px), ...], "sweeps_per_s", "are_map" (None without --oracle),
-    "path", "cmg", "state", "graph"}."""
+    "path", "cmg", "state", "graph", and with --n_chips > 1 "hp", "hcm"}."""
     args = parse_args(argv)
-    if args.n_chips != 1:
-        raise NotImplementedError(
-            f"--n_chips {args.n_chips}: partitioning the graph over several devices is not "
-            f"ported yet (ROADMAP A12)")
     device = gbp_tpu_torch.resolve_device(args.device)
     gbp_tpu_torch.set_exact_f32()
     cfg = GBPConfig(eta_damping=args.eta_damping, lam_damping=args.lam_damping, beta=args.beta,
@@ -94,12 +100,13 @@ def main(argv=None) -> dict:
               "info-form marginalization)")
 
     px_scale = k = None
+    layout = "none" if args.n_chips > 1 else "ell"  # halo partitions the plain layout
     if args.bal_file:
         from gbp_tpu_torch.io import bal as balio
 
         sim = balio.to_sim(balio.prune(balio.read_bal(args.bal_file)), pix_sigma=args.pix_sigma)
         graph, means, px_scale = ba.build_bal(
-            sim, huber=args.huber, layout="ell", dtype=dtype, device=device,
+            sim, huber=args.huber, layout=layout, dtype=dtype, device=device,
             cam_prior_prec=args.prior_prec, lmk_prior_prec=args.prior_prec,
             optimize_intrinsics=args.optimize_intrinsics)
         print(f"loaded {args.bal_file}: {sim['cam_init'].shape[0]} cams, "
@@ -110,23 +117,41 @@ def main(argv=None) -> dict:
             raise SystemExit("--optimize_intrinsics requires --bal_file")
         sim = ba.simulate(n_cams=args.n_cams, n_lmks=args.n_lmks, pix_sigma=args.pix_sigma,
                           seed=args.seed)
-        graph, means = ba.build(sim, huber=args.huber, layout="ell", dtype=dtype, device=device,
+        graph, means = ba.build(sim, huber=args.huber, layout=layout, dtype=dtype, device=device,
                                 cam_prior_prec=args.prior_prec, lmk_prior_prec=args.prior_prec)
         k = sim["k"]
         print(f"simulated scene: {args.n_cams} cams, {sim['lmk_init'].shape[0]} landmarks, "
               f"{sim['obs'].shape[0]} observations")
 
-    cmg = sweep_cm.prepare(graph) if args.message_form == "pallas" else None
-    if cmg is not None:
-        state = sweep_cm.init_state(cmg, means)
-        win = f", camera-window w={cmg.win_w}" if cmg.win_w else ""
-        path = f"persistent component-major sweep (gather_mode={cmg.gather_mode}{win})"
+    cmg = hp = hcm = None
+    if args.n_chips > 1:
+        out = (halo_cm.distribute(graph, means, args.n_chips, device=device)
+               if args.message_form == "pallas" else None)
+        if out is not None:
+            hp, hcm, state, _ = out
+            path = "halo_cm (owner-sharded, per-chip CM fast path)"
+        else:
+            hp, state, _ = halo.distribute(graph, means, args.n_chips, device=device)
+            path = "halo (owner-sharded)"
+        where = f"{device.type}:{torch.cuda.current_device()}" if (
+            device.type == "cuda" and device.index is None) else str(device)
+        print(f"path: {path} on {args.n_chips} partitions of {where}")
+        # Means-only template for the metrics (built once).
+        metric_state = sweep.init_state(graph, means)
     else:
-        state = sweep.init_state(graph, means)
-        path = f"generic sweep ({args.message_form})"
-    print(f"path: {path} on {device}")
+        cmg = sweep_cm.prepare(graph) if args.message_form == "pallas" else None
+        if cmg is not None:
+            state = sweep_cm.init_state(cmg, means)
+            win = f", camera-window w={cmg.win_w}" if cmg.win_w else ""
+            path = f"persistent component-major sweep (gather_mode={cmg.gather_mode}{win})"
+        else:
+            state = sweep.init_state(graph, means)
+            path = f"generic sweep ({args.message_form})"
+        print(f"path: {path} on {device}")
 
     def gbp_state(st):
+        if hp is not None:
+            return ba.with_means(metric_state, halo.collect_means(hp, st))
         return sweep_cm.to_gbp_state(cmg, st) if cmg is not None else st
 
     def current_are(st):
@@ -136,8 +161,12 @@ def main(argv=None) -> dict:
                    else args.anneal_damp_window)
     sched = dict(every=args.weaken_every, factor=args.weaken_factor, times=args.weaken_times,
                  damp_window=damp_window, damp_lam=args.anneal_damp_lam)
-    run, operand = (anneal.run_annealed_cm, cmg) if cmg is not None else \
-        (anneal.run_annealed, graph)
+    if hp is not None:
+        run = anneal.make_run_annealed_halo(hp, state)
+        operand = hcm if hcm is not None else hp.hgraph
+    else:
+        run, operand = (anneal.run_annealed_cm, cmg) if cmg is not None else \
+            (anneal.run_annealed, graph)
 
     def sync():
         if device.type == "cuda":
@@ -164,12 +193,13 @@ def main(argv=None) -> dict:
 
     are_map = None
     if args.oracle:
-        gstate = gbp_state(state)
+        gstate = (sweep.init_state(graph, halo.collect_means(hp, state)) if hp is not None
+                  else gbp_state(state))
         ref = ba.with_means(gstate, oracle.map_solution(graph, gstate))
         are_map = float(ba.avg_reprojection_error(graph, ref, k=k, px_scale=px_scale))
         print(f"dense-MAP avg reprojection error {are_map:9.4f} px")
     return dict(are=are, sweeps_per_s=rate, are_map=are_map, path=path, cmg=cmg, state=state,
-                graph=graph)
+                graph=graph, hp=hp, hcm=hcm)
 
 
 if __name__ == "__main__":

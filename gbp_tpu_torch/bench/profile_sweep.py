@@ -3,7 +3,8 @@ steady sweeps of one scene.
 
     python -m gbp_tpu_torch.bench.profile_sweep
         [--scene bench64|bench64_unfused|bench64_generic|nonlocal512|city|city1280_unfused|
-                 venice|venice10240_unfused|manhattan4000|ladybug49]
+                 city1280_halo2|city1280_halo2_unfused|venice|venice10240_unfused|
+                 manhattan4000|ladybug49]
         [--sweeps 20] [--warm 10] [--out trace.json]
 
 bench64, city and venice run the component-major fast path as `prepare`
@@ -16,7 +17,13 @@ core/anneal.py, as `python -m gbp_tpu_torch.ba` runs it;
 nonlocal512 (512 cameras that all see every landmark) lands on its expanded
 operands (gather_mode "rows"); bench64_generic runs the bench scene through
 the generic row-major sweep under message_form="pallas"; manhattan4000 a
-4,000-pose Manhattan pose graph under `pose_graph.default_config()`.
+4,000-pose Manhattan pose graph under `pose_graph.default_config()`;
+city1280_halo2 the city scene cut into two owner-sharded partitions
+(`parallel/halo_cm.distribute(graph, means, 2)`, plain layout) run in one
+process through the halo exchange: per partition the windowed kernels with
+the ghost table, then the exchange batched over the partitions;
+city1280_halo2_unfused the same with `ell_fused=False` (the ELL slot
+expanded per partition, kernels 14, 13, 12).
 
 Prints the unprofiled time per sweep (CUDA events), the device time per
 sweep summed over all kernels, the device's busy share (device time over
@@ -39,6 +46,7 @@ from gbp_tpu_torch.bench import BIG_BUILD, CFG, CITY, VENICE, card_line
 from gbp_tpu_torch.core import anneal, sweep, sweep_cm
 from gbp_tpu_torch.io import bal
 from gbp_tpu_torch.models import ba, pose_graph
+from gbp_tpu_torch.parallel import halo_cm
 
 BENCH64 = dict(n_cams=64, n_lmks=8000, pix_sigma=1.0, seed=0)
 SCENES = {
@@ -50,6 +58,9 @@ SCENES = {
     "nonlocal512": (lambda: ba.simulate(n_cams=512, n_lmks=2000, pix_sigma=1.0, seed=0), {}),
     "city": (lambda: ba.simulate_blocks(**CITY), BIG_BUILD),
     "city1280_unfused": (lambda: ba.simulate_blocks(**CITY), BIG_BUILD),
+    "city1280_halo2": (lambda: ba.simulate_blocks(**CITY), {**BIG_BUILD, "layout": "none"}),
+    "city1280_halo2_unfused": (lambda: ba.simulate_blocks(**CITY),
+                               {**BIG_BUILD, "layout": "none"}),
     "venice": (lambda: ba.simulate_blocks(**VENICE), BIG_BUILD),
     "venice10240_unfused": (lambda: ba.simulate_blocks(**VENICE), BIG_BUILD),
     "ladybug49": (lambda: bal.to_sim(bal.prune(bal.read_bal(LADYBUG))), {"layout": "ell"}),
@@ -73,7 +84,15 @@ def main(argv=None):
              "ladybug49": lambda *a, **k: ba.build_bal(*a, **k)[:2]}.get(args.scene, ba.build)
     sweep_cfg = pose_graph.default_config() if args.scene == "manhattan4000" else CFG
     graph, means = build(make(), dtype=torch.float32, device=device, **build_kw)
-    if args.scene == "bench64_generic":
+    if args.scene.startswith("city1280_halo2"):
+        hp, hcm, state, run_halo = halo_cm.distribute(
+            graph, means, 2, device=device,
+            ell_fused=False if args.scene.endswith("_unfused") else None)
+        run = lambda st, n: run_halo(hcm, st, sweep_cfg, n)
+        state = run(state, args.warm)
+        rows, win_w = 2 * hcm.mp, hcm.win_w
+        mode = f"halo_cm on 2 partitions, {hcm.gather_mode}, ell_fused {hcm.ell_fused}"
+    elif args.scene == "bench64_generic":
         cfg = dataclasses.replace(CFG, message_form="pallas")
         run = lambda st, n: sweep.run(graph, st, cfg, n)
         state = run(sweep.init_state(graph, means), args.warm)

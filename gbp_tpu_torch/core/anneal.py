@@ -7,8 +7,8 @@ and after every weakening raises lambda damping to `damp_lam` for
 `damp_window` sweeps (the float32 stabilization of chain-structured
 scenes; damp_window=0 reproduces the host loop of `models.ba.weaken_priors`
 between sweep batches).  One annealed sweep is `sweep_cm.sweep` (or
-`sweep.sweep`) on the prepared graph with its priors scaled and that
-sweep's lam_damping.
+`sweep.sweep`, or a halo sweep of a partitioned graph) on the prepared
+graph with its priors scaled and that sweep's lam_damping.
 
 The schedule is a function of the Python loop index alone: nothing is read
 back from the device between sweeps, so the run queues its kernels without
@@ -121,13 +121,55 @@ def run_annealed_cm(cmg, state, cfg: GBPConfig, n_iters: int, every: int = 10,
     return state
 
 
-def halo_anchor_masks(hp, keep=DEFAULT_KEEP):
-    """Anchor masks in the halo layout of a partitioned graph."""
-    raise NotImplementedError("halo_anchor_masks: the halo partition over several devices is "
-                              "not ported yet (ROADMAP A12)")
+def halo_anchor_masks(hp, keep=DEFAULT_KEEP) -> tuple:
+    """Anchor masks in the halo layout of a partitioned graph: per variable
+    block a bool [P, n_own_max, d] tensor over each partition's OWNED
+    variables (ghosts take their owners' beliefs, not priors)."""
+    km = _keep_map(keep)
+    masks = []
+    for vi, ids in enumerate(hp.owned_ids):
+        vb = hp.hgraph.vblocks[vi]
+        dof = vb.prior_eta.shape[-1]
+        m = np.zeros(ids.shape + (dof,), bool)
+        if vi in km:
+            gids, comps = km[vi]
+            lo, hi = (0, dof) if comps is None else comps
+            m[np.isin(ids, gids), lo:min(hi, dof)] = True
+        masks.append(torch.as_tensor(m, device=vb.prior_eta.device))
+    return tuple(masks)
 
 
-def make_run_annealed_halo(mesh, hp, state, axis: str = "graph", keep=DEFAULT_KEEP):
-    """The annealed run of a graph partitioned over several devices."""
-    raise NotImplementedError("make_run_annealed_halo: the halo partition over several devices "
-                              "is not ported yet (ROADMAP A12)")
+def make_run_annealed_halo(hp, state, keep=DEFAULT_KEEP, skip_exchange: bool = False,
+                           comm=None):
+    """The annealed run of a partitioned graph: run_fn(hg, state, cfg,
+    n_iters, every, factor, times, damp_window, damp_lam, i0), hg the
+    generic HaloGraph (hp.hgraph) or the HaloCMGraph, whose priors live in
+    `.vblocks` of either.  Each sweep is the halo sweep with that sweep's
+    scaled owned priors and lam_damping; the schedule comes from the loop
+    index, nothing is read back between sweeps.  comm: the communicator
+    (default: the single-process halo.LocalComm)."""
+    from gbp_tpu_torch.parallel import halo, halo_cm
+
+    if isinstance(state, halo.HaloState):
+        sweep_fn = halo._sweep_halo
+    elif isinstance(state, halo_cm.HaloCMState):
+        sweep_fn = halo_cm._sweep_cm_halo
+    else:
+        raise TypeError(f"make_run_annealed_halo: expected a HaloState or a HaloCMState, got "
+                        f"{type(state).__name__}")
+    masks = halo_anchor_masks(hp, keep)
+    comm = halo.LocalComm(hp.n_chips) if comm is None else comm
+
+    def run_fn(hg, state, cfg, n_iters, every=10, factor=0.1, times=3, damp_window=10,
+               damp_lam=0.4, i0=0):
+        levels = {}
+        for i in range(int(i0), int(i0) + n_iters):
+            k, s, lam_d = schedule_scalars(i, cfg, every, factor, times, damp_window, damp_lam,
+                                           state.v[0].mean.dtype)
+            if k not in levels:
+                levels[k] = hg._replace(vblocks=_scale_vblocks(hg.vblocks, masks, s))
+            state = sweep_fn(levels[k], state, dataclasses.replace(cfg, lam_damping=lam_d),
+                             comm, skip_exchange=skip_exchange)
+        return state
+
+    return run_fn

@@ -8,6 +8,8 @@ otherwise.  Dense O(D^2) memory: a test path, not a fast one;
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from gbp_tpu_torch.core.graph import Graph
@@ -23,9 +25,13 @@ def _voffsets(graph: Graph):
 
 
 def dense_joint(graph: Graph, state: GBPState):
-    """Assemble (eta [D], lam [D, D]) of the full joint at current linpoints."""
+    """Assemble (eta [D], lam [D, D]) of the full joint at current linpoints,
+    in float64 whatever the graph's dtype: the priors and the factor
+    potentials are computed and summed in float64, since the joint of a BA
+    graph (cond(lam) ~ 1e8 at ladybug49) is noise at the pixel's thousandth
+    in float32 and its sum changes with the order of the additions."""
     offs, dim = _voffsets(graph)
-    dt, dev = state.v[0].mean.dtype, state.v[0].mean.device
+    dt, dev = torch.float64, state.v[0].mean.device
     eta = torch.zeros(dim, dtype=dt, device=dev)
     lam = torch.zeros((dim, dim), dtype=dt, device=dev)
 
@@ -40,8 +46,11 @@ def dense_joint(graph: Graph, state: GBPState):
             vb.prior_lam)
 
     # Factor potentials (with the same Huber scaling the messages see).
+    cast = lambda t: None if t is None else t.to(dt)
     for fi, fb in enumerate(graph.fblocks):
+        fb = dataclasses.replace(fb, prec=cast(fb.prec), huber_arr=cast(fb.huber_arr))
         fs = state.f[fi]
+        fs = fs._replace(jac=cast(fs.jac), linpoint=cast(fs.linpoint), r0=cast(fs.r0))
         w = huber_weight(fb, fs.r0)
         pot_eta, pot_lam = factor_potential(fb, fs)
         f_eta = pot_eta * w[:, None]
@@ -64,16 +73,20 @@ def _per_block(graph: Graph, fn):
 
 
 def map_solution(graph: Graph, state: GBPState):
-    """Dense MAP means, returned per variable block: tuple of [n, d]."""
+    """Dense MAP means, returned per variable block: tuple of [n, d].
+
+    The joint is assembled and solved in float64 (`dense_joint`), and the
+    result cast back to the graph's dtype."""
     eta, lam = dense_joint(graph, state)
-    mu = torch.linalg.solve(lam, eta)
+    mu = torch.linalg.solve(lam, eta).to(state.v[0].mean.dtype)
     return _per_block(graph, lambda o, n, d: mu[o:o + n * d].reshape(n, d))
 
 
 def marginal_covariances(graph: Graph, state: GBPState):
-    """Exact per-variable marginal covariances (dense inverse), per block."""
+    """Exact per-variable marginal covariances (the joint assembled and
+    inverted in float64, cast back to the graph's dtype), per block."""
     _, lam = dense_joint(graph, state)
-    cov = torch.linalg.inv(lam)
+    cov = torch.linalg.inv(lam).to(state.v[0].mean.dtype)
 
     def block(o, n, d):
         idx = (o + torch.arange(n * d, device=cov.device)).reshape(n, d)

@@ -1,0 +1,5 @@
+// The halo paths' windowed kernels (halo.cuh) in float: a source of its own
+// per float type, so that the two compilers run side by side.
+#include "halo.cuh"
+
+GBP_HALO_ENTRIES(f32, float)

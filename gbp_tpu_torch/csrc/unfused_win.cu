@@ -47,34 +47,6 @@
 
 namespace gbp {
 
-template <typename S, class M>
-__global__ void __launch_bounds__(BLOCK)
-relin_tabblk_kernel(const S* __restrict__ x_other, const S* __restrict__ mtab, int n_g,
-                    const int* __restrict__ gidx, const int* __restrict__ starts, int win_w,
-                    const S* __restrict__ z, const S* __restrict__ args,
-                    const S* __restrict__ lp, const S* __restrict__ jac,
-                    const S* __restrict__ r0, const S* __restrict__ srel,
-                    const S* __restrict__ act, S* __restrict__ olp, S* __restrict__ ojac,
-                    S* __restrict__ or0, S* __restrict__ osrel, int64_t mp, int gslot, S beta,
-                    S min_linear) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* tab = reinterpret_cast<S*>(smem_raw);
-  const int start = starts[blockIdx.x];
-  const int n_in = min(win_w, n_g - start);
-  const int dg = gathered_dofs<M>(gslot);
-  stage_window(mtab, dg, start, n_in, tab);
-#pragma unroll 1
-  for (int s = 0; s < TILE / BLOCK; ++s) {
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * TILE + s * BLOCK + threadIdx.x;
-    const int off = gidx[r] - start;
-    if (off < 0 || off >= n_in) __trap();
-    S x[M::DA + M::DB];
-    slot_means<S, M>(tab + off * dg, x_other + r, mp, gslot, x);
-    relin_core<S, M, ColMajor>(x, z, args, lp, jac, r0, srel, act, olp, ojac, or0, osrel,
-                               UniformLd{mp}, r, beta, min_linear);
-  }
-}
-
 template <typename S>
 int relin_tabblk(int model, int gslot, const S* x_other, const S* mtab, int n_g,
                  const int* gidx, const int* starts, int win_w, const S* z, const S* args,
@@ -82,17 +54,10 @@ int relin_tabblk(int model, int gslot, const S* x_other, const S* mtab, int n_g,
                  S* ojac, S* or0, S* osrel, int64_t mp, double beta, double min_linear,
                  void* stream) {
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
-  int rc = 0;
-  const bool known = with_model(model, [&](auto m) {
-    using M = decltype(m);
-    const size_t smem = static_cast<size_t>(win_w) * gathered_dofs<M>(gslot) * sizeof(S);
-    if ((rc = allow_smem(relin_tabblk_kernel<S, M>, smem))) return;
-    relin_tabblk_kernel<S, M><<<static_cast<unsigned int>(mp / TILE), BLOCK, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-        x_other, mtab, n_g, gidx, starts, win_w, z, args, lp, jac, r0, srel, act, olp, ojac, or0,
-        osrel, mp, gslot, static_cast<S>(beta), static_cast<S>(min_linear));
-  });
-  if (!known) return -2;
+  const int rc = launch_relin_tabblk<S, false>(
+      model, gslot, x_other, mtab, n_g, gidx, starts, win_w, z, args, lp, jac, r0, srel, act,
+      olp, ojac, or0, osrel, mp, beta, min_linear, static_cast<cudaStream_t>(stream),
+      GhostTable<S>{});
   return rc ? rc : static_cast<int>(cudaGetLastError());
 }
 

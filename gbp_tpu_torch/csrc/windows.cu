@@ -63,35 +63,6 @@ namespace gbp {
 
 constexpr int RED_BLOCK = 128;
 
-template <typename S, class M>
-__global__ void __launch_bounds__(BLOCK)
-relin_win_kernel(const S* __restrict__ cam_mean, int n_cam,
-                 const S* __restrict__ lmk_mean, const int* __restrict__ gidx,
-                 const int* __restrict__ starts, int win_w,
-                 const S* __restrict__ z, const S* __restrict__ args, const S* __restrict__ lp,
-                 const S* __restrict__ jac, const S* __restrict__ r0,
-                 const S* __restrict__ srel, const S* __restrict__ act,
-                 S* __restrict__ olp, S* __restrict__ ojac, S* __restrict__ or0,
-                 S* __restrict__ osrel, int64_t mp, int deg, int gslot, S beta,
-                 S min_linear) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* tab = reinterpret_cast<S*>(smem_raw);
-  const int start = starts[blockIdx.x];
-  // The window may reach past the last camera (starts are cut against the
-  // table padded to a multiple of 8); only rows that exist are staged.
-  const int n_in = min(win_w, n_cam - start);
-  const int dg = gathered_dofs<M>(gslot);
-  stage_window(cam_mean, dg, start, n_in, tab);
-#pragma unroll 1
-  for (int s = 0; s < TILE / BLOCK; ++s) {
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * TILE + s * BLOCK + threadIdx.x;
-    const int off = gidx[r] - start;
-    if (off < 0 || off >= n_in) __trap();
-    relin_row<S, M>(tab + off * dg, lmk_mean, z, args, lp, jac, r0, srel, act, olp, ojac, or0,
-                    osrel, mp, deg, gslot, r, beta, min_linear);
-  }
-}
-
 // grid.x = n_tiles * ceil(w / RED_BLOCK), grid.y = f components.
 template <typename S>
 __global__ void __launch_bounds__(RED_BLOCK)
@@ -150,17 +121,10 @@ int relin_win(int model, int gslot, const S* cam_mean, int n_cam, const S* lmk_m
               S* ojac, S* or0, S* osrel, int64_t mp, int deg, double beta, double min_linear,
               void* stream) {
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
-  int rc = 0;
-  const bool known = with_model(model, [&](auto m) {
-    using M = decltype(m);
-    const size_t smem = static_cast<size_t>(win_w) * gathered_dofs<M>(gslot) * sizeof(S);
-    if ((rc = allow_smem(relin_win_kernel<S, M>, smem))) return;
-    relin_win_kernel<S, M><<<static_cast<unsigned int>(mp / TILE), BLOCK, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-        cam_mean, n_cam, lmk_mean, gidx, starts, win_w, z, args, lp, jac, r0, srel, act, olp,
-        ojac, or0, osrel, mp, deg, gslot, static_cast<S>(beta), static_cast<S>(min_linear));
-  });
-  if (!known) return -2;
+  const int rc = launch_relin_win<S, false>(
+      model, gslot, cam_mean, n_cam, lmk_mean, gidx, starts, win_w, z, args, lp, jac, r0, srel,
+      act, olp, ojac, or0, osrel, mp, deg, beta, min_linear, static_cast<cudaStream_t>(stream),
+      GhostTable<S>{});
   return rc ? rc : static_cast<int>(cudaGetLastError());
 }
 

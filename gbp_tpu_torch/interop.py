@@ -194,3 +194,60 @@ def cm_state_to_numpy(state: CMState) -> dict:
             "msg_lam": tuple(_cm_out(a) for a in f.msg_lam),
         },
     }
+
+
+def _vs_from(vs, device):
+    return VariableState(eta=_t(vs.eta, device), lam=_t(vs.lam, device), mean=_t(vs.mean, device))
+
+
+def _vs_to(vs) -> dict:
+    return {k: getattr(vs, k).detach().cpu().numpy() for k in ("eta", "lam", "mean")}
+
+
+def halo_state_from_numpy(st, device=None):
+    """The port's HaloState (parallel/halo.py) from the reference's HaloState
+    with numpy leaves: owned and ghost beliefs [P, n, ...] per variable
+    block, factor state [P, m_loc, ...] per factor block, leaf for leaf, on
+    `device` (None: the card)."""
+    from gbp_tpu_torch.parallel.halo import HaloState
+
+    device = resolve_device(device)
+    f = gbp_state_from_numpy(types.SimpleNamespace(v=(), f=st.f), device).f
+    return HaloState(v=tuple(_vs_from(vs, device) for vs in st.v),
+                     ghost=tuple(_vs_from(vs, device) for vs in st.ghost), f=f)
+
+
+def halo_state_to_numpy(state) -> dict:
+    """{"v": [...], "ghost": [...], "f": [...]} with the reference's field
+    names (as `gbp_state_to_numpy`), every array stacked [P, ...]."""
+    d = gbp_state_to_numpy(GBPState(v=state.v, f=state.f))
+    return {"v": d["v"], "ghost": [_vs_to(vs) for vs in state.ghost], "f": d["f"]}
+
+
+def halo_cm_state_from_numpy(st, device=None):
+    """The port's HaloCMState (parallel/halo_cm.py) from the reference's
+    with numpy leaves: beliefs as in `halo_state_from_numpy`, factor state
+    [P, F, T, 128] -> [P, F, mp]."""
+    from gbp_tpu_torch.parallel.halo_cm import HaloCMState
+
+    device = resolve_device(device)
+    cm = lambda a: torch.tensor(np.asarray(a).reshape(np.shape(a)[0], np.shape(a)[1], -1),
+                                device=device)
+    f = st.f
+    return HaloCMState(
+        v=tuple(_vs_from(vs, device) for vs in st.v),
+        ghost=tuple(_vs_from(vs, device) for vs in st.ghost),
+        f=CMFactorState(lp=cm(f.lp), jac=cm(f.jac), r0=cm(f.r0), srel=cm(f.srel),
+                        msg_eta=tuple(cm(a) for a in f.msg_eta),
+                        msg_lam=tuple(cm(a) for a in f.msg_lam)))
+
+
+def halo_cm_state_to_numpy(state) -> dict:
+    """{"v", "ghost", "f": {"lp", "jac", "r0", "srel", "msg_eta", "msg_lam"}}
+    in the reference's layout, factor arrays [P, F, T, 128]."""
+    cm = lambda t: t.detach().cpu().numpy().reshape(t.shape[0], t.shape[1], -1, LANE)
+    f = state.f
+    return {"v": [_vs_to(vs) for vs in state.v], "ghost": [_vs_to(vs) for vs in state.ghost],
+            "f": {"lp": cm(f.lp), "jac": cm(f.jac), "r0": cm(f.r0), "srel": cm(f.srel),
+                  "msg_eta": tuple(cm(a) for a in f.msg_eta),
+                  "msg_lam": tuple(cm(a) for a in f.msg_lam)}}

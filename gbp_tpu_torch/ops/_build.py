@@ -87,6 +87,28 @@ _ARGTYPES = {
     # stream
     "gbp_messages_cm_tabblk": [_I] * 5 + [_P, _I, _P, _P, _I, _P, _P] + [_P] * 6 + [_P] * 4
     + [_P] * 4 + [_I64, _D, _D, _D, _D, _D, _I, _D, _P],
+    # model, gslot, cam_mean, n_cam, gtab, n_gt, lmk_mean, gidx, starts, win_w,
+    # n_own, z, args, lp, jac, r0, srel, act, olp, ojac, or0, osrel, mp, deg,
+    # beta, min_linear, stream
+    "gbp_relin_cm_tabblkg_ell": [_I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I] + [_P] * 7
+    + [_P] * 4 + [_I64, _I, _D, _D, _P],
+    # d0, d1, z, gslot, huber_row, cam_tab, n_cam, gtab, n_gt, lmk_tab, gidx,
+    # starts, win_w, n_own, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1,
+    # oe0, ol0, oe1, ol1, mp, deg, eta_damping, lam_damping, num_undamped,
+    # floor, jitter, has_huber, huber, stream
+    "gbp_messages_cm_tabblkg_ell": [_I] * 5 + [_P, _I, _P, _I, _P, _P, _P, _I, _I] + [_P] * 6
+    + [_P] * 4 + [_P] * 4 + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P],
+    # model, gslot, x_other, mtab, n_g, gtab, n_gt, gidx, starts, win_w, n_own,
+    # z, args, lp, jac, r0, srel, act, olp, ojac, or0, osrel, mp, beta,
+    # min_linear, stream
+    "gbp_relin_cm_tabblkg": [_I, _I, _P, _P, _I, _P, _I, _P, _P, _I, _I] + [_P] * 7 + [_P] * 4
+    + [_I64, _D, _D, _P],
+    # d0, d1, z, gslot, huber_row, btab, n_g, gtab, n_gt, gidx, starts, win_w,
+    # n_own, be_o, bl_o, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0,
+    # ol0, oe1, ol1, mp, eta_damping, lam_damping, num_undamped, floor, jitter,
+    # has_huber, huber, stream
+    "gbp_messages_cm_tabblkg": [_I] * 5 + [_P, _I, _P, _I, _P, _P, _I, _I, _P, _P] + [_P] * 6
+    + [_P] * 4 + [_P] * 4 + [_I64, _D, _D, _D, _D, _D, _I, _D, _P],
     # win_w -> resident blocks per SM (negative: minus the CUDA error)
     "gbp_relin_cm_tabblk_ell_blocks_per_sm": [_I],
     "gbp_messages_cm_tabblk_ell_blocks_per_sm": [_I],

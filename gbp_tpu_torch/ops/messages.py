@@ -1,4 +1,4 @@
-"""The port's sixteen kernels: wrappers, plain versions, launch counts.
+"""The port's twenty kernels: wrappers, plain versions, launch counts.
 
 Each function dispatches on where its tensors lie: CUDA tensors go to the
 hand-written kernel in csrc/*.cu (built on first use by ops/_build.py), CPU
@@ -70,6 +70,18 @@ the ELL slot from expanded operands.
   relin_cm_tabblk     replaces fused_relin_cm_tabblk
   messages_cm_tabblk  replaces fused_messages_cm_tabblk (no sum folded in: the
                       sweep calls `segsum_cm_blk` and `scatter_windows_cm`)
+
+The halo paths' windowed kernels (csrc/halo.cuh; parallel/halo_cm.py when a
+partition's camera windows engage): the gathered slot of a partition's
+factor rows from two sources, ids below n_own from the tile's window of the
+owned table, ids from n_own on from row id - n_own of the partition's ghost
+table gtab (its ghost beliefs, then duplicated cut-camera rows), read from
+device memory.  No sum is folded in.
+
+  relin_cm_tabblkg_ell     replaces fused_relin_cm_tabblkg_ell
+  messages_cm_tabblkg_ell  replaces fused_messages_cm_tabblkg_ell
+  relin_cm_tabblkg         replaces fused_relin_cm_tabblkg (ELL slot expanded)
+  messages_cm_tabblkg      replaces fused_messages_cm_tabblkg (ELL slot expanded)
 """
 from __future__ import annotations
 
@@ -94,7 +106,8 @@ KERNELS = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id",
            "relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
            "scatter_windows_cm", "messages_cm", "relin_cm", "fused_messages",
            "fused_relin_messages", "messages_cm_tab", "relin_cm_tab", "expand_ell_blk",
-           "messages_cm_tabblk", "relin_cm_tabblk")
+           "messages_cm_tabblk", "relin_cm_tabblk", "messages_cm_tabblkg", "relin_cm_tabblkg",
+           "messages_cm_tabblkg_ell", "relin_cm_tabblkg_ell")
 # (d0, d1, z) the expanded-operand messages kernel is instantiated for.
 ROW_SHAPES = ((6, 3, 2), (1, 1, 1), (3, 3, 3), (6, 6, 6), (9, 3, 2))
 # (d0, d1, z) of the table kernels, and the measurement models of the
@@ -259,6 +272,47 @@ def relin_cm_tabblk_ell_plain(params, cam_mean, lmk_mean, gidx, win_starts, z, l
                         gslot=gslot)
 
 
+def _halo_rows(tab, gtab, gidx, win_starts, win_w, n_own):
+    """Per row its gathered variable's table row on the halo paths: ids
+    below n_own from the row's tile window of `tab`, the others row id -
+    n_own of the ghost table `gtab`; the reads the kernels make, with their
+    checks."""
+    ids = gidx.long()
+    own = ids < n_own
+    start = win_starts.long().repeat_interleave(TILE)
+    off = ids - start
+    n_in = torch.clamp(tab.shape[0] - start, max=win_w)
+    if bool((own & ((off < 0) | (off >= n_in))).any()):
+        raise ValueError("an owned camera id lies outside its tile's window")
+    if bool((~own & (ids - n_own >= gtab.shape[0])).any()):
+        raise ValueError("a ghost camera id lies beyond the ghost table")
+    zero = torch.zeros_like(ids)
+    return torch.where(own[:, None], tab[torch.where(own, ids, zero)],
+                       gtab[torch.where(own, zero, ids - n_own)])
+
+
+def relin_cm_tabblkg_ell_plain(params, cam_mean, gtab, lmk_mean, gidx, win_starts, z, lp, jac,
+                               r0, srel, act, *, deg, win_w, n_own, comp_name=BA_MODEL, gslot=0,
+                               fargs=None):
+    """Plain version of `relin_cm_tabblkg_ell`: gathered-slot means from
+    each row's tile window of the owned means or from the ghost mean table,
+    ELL-slot means at r // deg."""
+    COUNTS.plain["relin_cm_tabblkg_ell"] += 1
+    return _relin_plain(params, _halo_rows(cam_mean, gtab, gidx, win_starts, win_w, n_own),
+                        lmk_mean, z, fargs, lp, jac, r0, srel, act, deg=deg,
+                        comp_name=comp_name, gslot=gslot)
+
+
+def relin_cm_tabblkg_plain(params, x_other, mtab, gtab, gidx, win_starts, z, fargs, lp, jac, r0,
+                           srel, act, *, win_w, n_own, comp_name, gslot=0):
+    """Plain version of `relin_cm_tabblkg`: gathered-slot means as in
+    `relin_cm_tabblkg_ell_plain`, the other slot's from x_other [d_o, mp]."""
+    COUNTS.plain["relin_cm_tabblkg"] += 1
+    return _relin_other_plain(params, x_other,
+                              _halo_rows(mtab, gtab, gidx, win_starts, win_w, n_own), z, fargs,
+                              lp, jac, r0, srel, act, comp_name=comp_name, gslot=gslot)
+
+
 def _message_math(params, jac, x0, r0_l, prec, srel, act, be0, bl0, be1, bl1,
                   me0, ml0, me1, ml1, *, d0, d1, z, prec_full, huber):
     """Covariance-form factor -> variable messages (the reference's
@@ -395,6 +449,29 @@ def messages_cm_tabblk_plain(params, jac, lp, r0, prec, srel, act, be_o, bl_o, b
                                  huber=huber, gslot=gslot)
 
 
+def messages_cm_tabblkg_ell_plain(params, cam_tab, gtab, lmk_tab, gidx, win_starts, jac, lp, r0,
+                                  prec, srel, act, me0, ml0, me1, ml1, *, deg, huber, win_w,
+                                  n_own, gslot=0):
+    """Plain version of `messages_cm_tabblkg_ell`: the gathered slot's
+    packed beliefs from each row's tile window of the owned table or from
+    the ghost table, the ELL slot's at r // deg; the four new messages."""
+    COUNTS.plain["messages_cm_tabblkg_ell"] += 1
+    return _messages_plain(
+        params, _halo_rows(cam_tab, gtab, gidx, win_starts, win_w, n_own), lmk_tab, jac, lp, r0,
+        prec, srel, act, me0, ml0, me1, ml1, deg=deg, huber=huber, gslot=gslot)
+
+
+def messages_cm_tabblkg_plain(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab, gtab, gidx,
+                              win_starts, me0, ml0, me1, ml1, *, huber, win_w, n_own, gslot=0):
+    """Plain version of `messages_cm_tabblkg`: the gathered slot's beliefs
+    as in `messages_cm_tabblkg_ell_plain`, the other slot's from the
+    expanded operands."""
+    COUNTS.plain["messages_cm_tabblkg"] += 1
+    return _messages_other_plain(params, jac, lp, r0, prec, srel, act, be_o, bl_o,
+                                 _halo_rows(btab, gtab, gidx, win_starts, win_w, n_own), me0, ml0,
+                                 me1, ml1, huber=huber, gslot=gslot)
+
+
 def expand_ell_blk_plain(tab, *, deg):
     """Plain version of `expand_ell_blk`: the transposed table broadcast over
     the degree axis, out[k, r] = tab[r // deg, k] (the reference's
@@ -438,6 +515,7 @@ def _csr_sum(me, ml, rows, offsets, row_major=False):
     n_seg = offsets.shape[0] - 1
     ids = torch.repeat_interleave(
         torch.arange(n_seg, device=me.device), (offsets[1:] - offsets[:-1]).long())
+    rows = rows[:ids.shape[0]]  # entries past the last segment are padding
     if row_major:
         vals = torch.cat([me, ml], dim=1)[rows.long()]
         out = torch.zeros((n_seg, vals.shape[1]), dtype=me.dtype, device=me.device)
@@ -488,23 +566,29 @@ def scatter_windows_cm_plain(part, win_starts, cov_tiles, cov_offsets, *, n_seg)
 # --- window index structures (numpy, built once per graph) --------------------
 
 
-def window_rows_csr(gidx, win_starts, w):
+def window_rows_csr(gidx, win_starts, w, n_own=None):
     """CSR of each tile's rows by window column, for `segsum_cm_blk`:
     (rows [mp] int32, offsets [n_tiles * w + 1] int32); segment i * w + j
     lists, in row order, the rows of tile i whose camera id is
-    win_starts[i] + j.  Raises if an id lies outside its tile's window."""
+    win_starts[i] + j.  Raises if an id lies outside its tile's window.
+    With n_own (the halo paths) only the rows with ids below n_own are
+    listed, and `rows` is padded with zeros to mp entries that no segment
+    reaches."""
     gidx = np.asarray(gidx, dtype=np.int64)
     win_starts = np.asarray(win_starts, dtype=np.int64)
     if gidx.size != win_starts.size * TILE:
         raise ValueError(f"{gidx.size} rows are not {win_starts.size} tiles of {TILE}")
     tile = np.arange(gidx.size) // TILE
     off = gidx - win_starts[tile]
-    if ((off < 0) | (off >= w)).any():
+    keep = np.ones(gidx.size, dtype=bool) if n_own is None else gidx < n_own
+    if (keep & ((off < 0) | (off >= w))).any():
         raise ValueError("a camera id lies outside its tile's window")
-    key = tile * w + off
+    # Left-out rows sort past every segment.
+    key = np.where(keep, tile * w + off, win_starts.size * w)
     rows = np.argsort(key, kind="stable").astype(np.int32)
+    rows[int(keep.sum()):] = 0
     offsets = np.concatenate(
-        [[0], np.cumsum(np.bincount(key, minlength=win_starts.size * w))]).astype(np.int32)
+        [[0], np.cumsum(np.bincount(key[keep], minlength=win_starts.size * w))]).astype(np.int32)
     return rows, offsets
 
 
@@ -903,6 +987,180 @@ def messages_cm_tabblk(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab, g
     fn = getattr(library(), f"gbp_messages_cm_tabblk_{_suffix(dt)}")
     _raise_on(fn(*args), "messages_cm_tabblk")
     COUNTS.kernel["messages_cm_tabblk"] += 1
+    return tuple(out)
+
+
+def _ghost_args(name, gtab, width, dt, n_own):
+    """The ghost table's pointer and row count, checked: [n_gt, width] of
+    dtype dt, n_gt >= 1, n_own >= 0."""
+    if n_own < 0 or gtab.shape[0] < 1:
+        raise ValueError(f"{name}: n_own={n_own}, ghost table of {gtab.shape[0]} rows")
+    return [_check("gtab", gtab, (gtab.shape[0], width), dt), ctypes.c_int(gtab.shape[0])]
+
+
+def relin_cm_tabblkg_ell(params, cam_mean, gtab, lmk_mean, gidx, win_starts, z, lp, jac, r0, srel,
+                         act, *, deg, win_w, n_own, comp_name=BA_MODEL, gslot=0, fargs=None):
+    """`relin_cm_tabblk_ell` on a halo partition: a row with gidx < n_own
+    reads its gathered variable's mean from its tile's window of the owned
+    means cam_mean [n_cam, d_g], any other row reads row gidx - n_own of the
+    ghost mean table gtab [n_gt, d_g]; the ELL slot's means at r // deg of
+    lmk_mean [nv, d_e].  An id outside its window or beyond the ghost table
+    stops the kernel (a fault of `prepare`)."""
+    if not _on_card(lp):
+        return relin_cm_tabblkg_ell_plain(params, cam_mean, gtab, lmk_mean, gidx, win_starts, z,
+                                          lp, jac, r0, srel, act, deg=deg, win_w=win_w,
+                                          n_own=n_own, comp_name=comp_name, gslot=gslot,
+                                          fargs=fargs)
+    from gbp_tpu_torch.ops._build import library
+
+    dt = lp.dtype
+    mp = lp.shape[1]
+    (n_cam, d_g), (nv, d_e), zd = cam_mean.shape, lmk_mean.shape, z.shape[0]
+    d0, d1 = _by_slot(d_g, d_e, gslot)
+    model = _model("relin_cm_tabblkg_ell", comp_name, d0, d1, zd, gslot)
+    n_tiles = _tiles("relin_cm_tabblkg_ell", mp)
+    if mp != nv * deg:
+        raise ValueError(f"relin_cm_tabblkg_ell: mp={mp} != nv*deg={nv}*{deg}")
+    _window_smem("relin_cm_tabblkg_ell", win_w, d_g, dt)
+    out = _relin_outputs(lp, z)
+    args = [
+        ctypes.c_int(model), ctypes.c_int(gslot),
+        _check("cam_mean", cam_mean, (n_cam, d_g), dt), ctypes.c_int(n_cam),
+        *_ghost_args("relin_cm_tabblkg_ell", gtab, d_g, dt, n_own),
+        _check("lmk_mean", lmk_mean, (nv, d_e), dt),
+        _check("gidx", gidx, (mp,), torch.int32),
+        _check("win_starts", win_starts, (n_tiles,), torch.int32), ctypes.c_int(win_w),
+        ctypes.c_int(n_own),
+        *_relin_state_args("relin_cm_tabblkg_ell", z, fargs, lp, jac, r0, srel, act, d0, d1, zd,
+                           comp_name),
+        *[ctypes.c_void_p(o.data_ptr()) for o in out],
+        ctypes.c_int64(mp), ctypes.c_int(deg),
+        ctypes.c_double(params[4]), ctypes.c_double(params[5]), _stream(),
+    ]
+    fn = getattr(library(), f"gbp_relin_cm_tabblkg_ell_{_suffix(dt)}")
+    _raise_on(fn(*args), "relin_cm_tabblkg_ell")
+    COUNTS.kernel["relin_cm_tabblkg_ell"] += 1
+    return tuple(out)
+
+
+def messages_cm_tabblkg_ell(params, cam_tab, gtab, lmk_tab, gidx, win_starts, jac, lp, r0, prec,
+                            srel, act, me0, ml0, me1, ml1, *, deg, huber, win_w, n_own, gslot=0):
+    """`messages_cm_tabblk_ell` on a halo partition: the gathered slot's
+    packed (eta | lam) beliefs from the tile's window of the owned table
+    cam_tab [n_cam, d_g + d_g * d_g] for ids below n_own, from row gidx -
+    n_own of the ghost table gtab [n_gt, d_g + d_g * d_g] otherwise; the ELL
+    slot's at r // deg of lmk_tab.  Returns (eta0, lam0, eta1, lam1); no sum
+    is folded in."""
+    if not _on_card(jac):
+        return messages_cm_tabblkg_ell_plain(
+            params, cam_tab, gtab, lmk_tab, gidx, win_starts, jac, lp, r0, prec, srel, act, me0,
+            ml0, me1, ml1, deg=deg, huber=huber, win_w=win_w, n_own=n_own, gslot=gslot)
+    from gbp_tpu_torch.ops._build import library
+
+    dt = jac.dtype
+    mp = jac.shape[1]
+    d0, d1, zd = me0.shape[0], me1.shape[0], r0.shape[0]
+    _table_shape("messages_cm_tabblkg_ell", d0, d1, zd, gslot)
+    d_g, d_e = _by_slot(d0, d1, gslot)
+    n_cam, nv = cam_tab.shape[0], lmk_tab.shape[0]
+    n_tiles = _tiles("messages_cm_tabblkg_ell", mp)
+    if mp != nv * deg:
+        raise ValueError(f"messages_cm_tabblkg_ell: mp={mp} != nv*deg={nv}*{deg}")
+    _window_smem("messages_cm_tabblkg_ell", win_w, d_g + d_g * d_g, dt)
+    out = _message_outputs(me0, me1)
+    args = [
+        *_shape_args(d0, d1, zd, gslot, huber),
+        _check("cam_tab", cam_tab, (n_cam, d_g + d_g * d_g), dt), ctypes.c_int(n_cam),
+        *_ghost_args("messages_cm_tabblkg_ell", gtab, d_g + d_g * d_g, dt, n_own),
+        _check("lmk_tab", lmk_tab, (nv, d_e + d_e * d_e), dt),
+        _check("gidx", gidx, (mp,), torch.int32),
+        _check("win_starts", win_starts, (n_tiles,), torch.int32), ctypes.c_int(win_w),
+        ctypes.c_int(n_own),
+        *_message_state_args(jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, d0, d1, zd,
+                             huber),
+        *[ctypes.c_void_p(o.data_ptr()) for o in out],
+        ctypes.c_int64(mp), ctypes.c_int(deg), *_message_scalars(params, huber),
+    ]
+    fn = getattr(library(), f"gbp_messages_cm_tabblkg_ell_{_suffix(dt)}")
+    _raise_on(fn(*args), "messages_cm_tabblkg_ell")
+    COUNTS.kernel["messages_cm_tabblkg_ell"] += 1
+    return tuple(out)
+
+
+def relin_cm_tabblkg(params, x_other, mtab, gtab, gidx, win_starts, z, fargs, lp, jac, r0, srel,
+                     act, *, win_w, n_own, comp_name, gslot=0):
+    """`relin_cm_tabblk` on a halo partition: the gathered slot's means as
+    in `relin_cm_tabblkg_ell` (owned window of mtab [n_g, d_g] or ghost
+    table gtab [n_gt, d_g]), the other slot's from x_other [d_o, mp]."""
+    if not _on_card(lp):
+        return relin_cm_tabblkg_plain(params, x_other, mtab, gtab, gidx, win_starts, z, fargs,
+                                      lp, jac, r0, srel, act, win_w=win_w, n_own=n_own,
+                                      comp_name=comp_name, gslot=gslot)
+    from gbp_tpu_torch.ops._build import library
+
+    dt = lp.dtype
+    mp = lp.shape[1]
+    (n_g, d_g), d_o, zd = mtab.shape, x_other.shape[0], z.shape[0]
+    d0, d1 = _by_slot(d_g, d_o, gslot)
+    model = _model("relin_cm_tabblkg", comp_name, d0, d1, zd, gslot)
+    n_tiles = _tiles("relin_cm_tabblkg", mp)
+    _window_smem("relin_cm_tabblkg", win_w, d_g, dt)
+    out = _relin_outputs(lp, z)
+    args = [
+        ctypes.c_int(model), ctypes.c_int(gslot), _check("x_other", x_other, (d_o, mp), dt),
+        _check("mtab", mtab, (n_g, d_g), dt), ctypes.c_int(n_g),
+        *_ghost_args("relin_cm_tabblkg", gtab, d_g, dt, n_own),
+        _check("gidx", gidx, (mp,), torch.int32),
+        _check("win_starts", win_starts, (n_tiles,), torch.int32), ctypes.c_int(win_w),
+        ctypes.c_int(n_own),
+        *_relin_state_args("relin_cm_tabblkg", z, fargs, lp, jac, r0, srel, act, d0, d1, zd,
+                           comp_name),
+        *[ctypes.c_void_p(o.data_ptr()) for o in out],
+        ctypes.c_int64(mp), ctypes.c_double(params[4]), ctypes.c_double(params[5]), _stream(),
+    ]
+    fn = getattr(library(), f"gbp_relin_cm_tabblkg_{_suffix(dt)}")
+    _raise_on(fn(*args), "relin_cm_tabblkg")
+    COUNTS.kernel["relin_cm_tabblkg"] += 1
+    return tuple(out)
+
+
+def messages_cm_tabblkg(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab, gtab, gidx,
+                        win_starts, me0, ml0, me1, ml1, *, huber, win_w, n_own, gslot=0):
+    """`messages_cm_tabblk` on a halo partition: the gathered slot's packed
+    beliefs from the tile's window of the owned table btab or from the ghost
+    table gtab, the other slot's from the expanded operands be_o [d_o, mp],
+    bl_o [d_o * d_o, mp]; returns (eta0, lam0, eta1, lam1)."""
+    if not _on_card(jac):
+        return messages_cm_tabblkg_plain(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab,
+                                         gtab, gidx, win_starts, me0, ml0, me1, ml1, huber=huber,
+                                         win_w=win_w, n_own=n_own, gslot=gslot)
+    from gbp_tpu_torch.ops._build import library
+
+    dt = jac.dtype
+    mp = jac.shape[1]
+    d0, d1, zd = me0.shape[0], me1.shape[0], r0.shape[0]
+    _table_shape("messages_cm_tabblkg", d0, d1, zd, gslot)
+    d_g, d_o = _by_slot(d0, d1, gslot)
+    n_g = btab.shape[0]
+    n_tiles = _tiles("messages_cm_tabblkg", mp)
+    _window_smem("messages_cm_tabblkg", win_w, d_g + d_g * d_g, dt)
+    out = _message_outputs(me0, me1)
+    args = [
+        *_shape_args(d0, d1, zd, gslot, huber),
+        _check("btab", btab, (n_g, d_g + d_g * d_g), dt), ctypes.c_int(n_g),
+        *_ghost_args("messages_cm_tabblkg", gtab, d_g + d_g * d_g, dt, n_own),
+        _check("gidx", gidx, (mp,), torch.int32),
+        _check("win_starts", win_starts, (n_tiles,), torch.int32), ctypes.c_int(win_w),
+        ctypes.c_int(n_own),
+        _check("be_o", be_o, (d_o, mp), dt), _check("bl_o", bl_o, (d_o * d_o, mp), dt),
+        *_message_state_args(jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, d0, d1, zd,
+                             huber),
+        *[ctypes.c_void_p(o.data_ptr()) for o in out],
+        ctypes.c_int64(mp), *_message_scalars(params, huber),
+    ]
+    fn = getattr(library(), f"gbp_messages_cm_tabblkg_{_suffix(dt)}")
+    _raise_on(fn(*args), "messages_cm_tabblkg")
+    COUNTS.kernel["messages_cm_tabblkg"] += 1
     return tuple(out)
 
 

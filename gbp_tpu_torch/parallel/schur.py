@@ -26,18 +26,17 @@ def _segment_sum(a, ids, n):
                        device=a.device).index_add_(0, ids, a)
 
 
-def gauss_newton_step(graph: Graph, means: tuple, cg_iters: int = 50):
+def gauss_newton_step(graph: Graph, means: tuple, fi: int = 0, cam_vi: int = 0,
+                      lmk_vi: int = 1, cg_iters: int = 50, lm_damping: float = 0.0):
     """One Schur/CG Gauss-Newton step on a BA graph; returns new means tuple.
 
-    graph: models/ba.build's output, one 2-slot reprojection block
-    connecting cameras (variable block 0) and landmarks (block 1), with
-    variable priors supplying the gauge."""
-    cam_vi, lmk_vi = 0, 1
-    fb = graph.fblocks[0]
-    if fb.prec.ndim != 2:
-        raise NotImplementedError("gauss_newton_step: full measurement precision (ROADMAP A8)")
+    graph: 2-slot reprojection block `fi` connecting (cam_vi, lmk_vi), with
+    variable priors supplying the gauge (models/ba.build's output); diagonal
+    or full measurement precision.  lm_damping: optional
+    Levenberg-Marquardt diagonal damping on Hcc / Hll."""
+    fb = graph.fblocks[fi]
     vb_c, vb_l = graph.vblocks[cam_vi], graph.vblocks[lmk_vi]
-    d_c = vb_c.dof
+    d_c, d_l = vb_c.dof, vb_l.dof
     cam_ids, lmk_ids = fb.adj[0].long(), fb.adj[1].long()
     seg_c = lambda a: _segment_sum(a, cam_ids, vb_c.count)
     seg_l = lambda a: _segment_sum(a, lmk_ids, vb_l.count)
@@ -49,7 +48,10 @@ def gauss_newton_step(graph: Graph, means: tuple, cg_iters: int = 50):
         jac = torch.where(fb.valid[:, None, None], jac, torch.zeros_like(jac))
         r0 = torch.where(fb.valid[:, None], r0, torch.zeros_like(r0))
     w = huber_weight(fb, r0)
-    jw = jac * (fb.prec * w[:, None])[:, :, None]  # Lam_meas J (weighted)
+    if fb.prec.ndim == 2:
+        jw = jac * (fb.prec * w[:, None])[:, :, None]  # Lam_meas J (weighted)
+    else:
+        jw = bmm(fb.prec, jac) * w[:, None, None]
     jc, jl = jac[:, :, :d_c], jac[:, :, d_c:]
     jwc, jwl = jw[:, :, :d_c], jw[:, :, d_c:]
 
@@ -58,11 +60,14 @@ def gauss_newton_step(graph: Graph, means: tuple, cg_iters: int = 50):
     d_f = bmm(bT(jwl), jl)  # [m, dl, dl]
     hcc = seg_c(a_f) + vb_c.prior_lam
     hll = seg_l(d_f) + vb_l.prior_lam
+    if lm_damping:
+        hcc = hcc + lm_damping * torch.eye(d_c, dtype=hcc.dtype, device=hcc.device)
+        hll = hll + lm_damping * torch.eye(d_l, dtype=hll.dtype, device=hll.device)
     # Priors in Delta coordinates around the current means.
     bc = seg_c(bmv(bT(jwc), r0)) + (vb_c.prior_eta - bmv(vb_c.prior_lam, means[cam_vi]))
     bl = seg_l(bmv(bT(jwl), r0)) + (vb_l.prior_eta - bmv(vb_l.prior_lam, means[lmk_vi]))
 
-    hll_inv = scaled_sym_inv(hll, vb_l.dof)
+    hll_inv = scaled_sym_inv(hll, d_l)
     hcc_inv = scaled_sym_inv(hcc, d_c)  # block-Jacobi preconditioner
 
     def s_matvec(v):
@@ -95,21 +100,24 @@ def gauss_newton_step(graph: Graph, means: tuple, cg_iters: int = 50):
     return tuple(new_means)
 
 
-def solve(graph: Graph, means: tuple, n_steps: int = 5, cg_iters: int = 50):
+def solve(graph: Graph, means: tuple, n_steps: int = 5, fi: int = 0, cam_vi: int = 0,
+          lmk_vi: int = 1, cg_iters: int = 50, lm_damping: float = 0.0):
     """n_steps Schur/CG Gauss-Newton iterations (relinearizing each step)."""
     for _ in range(n_steps):
-        means = gauss_newton_step(graph, means, cg_iters=cg_iters)
+        means = gauss_newton_step(graph, means, fi=fi, cam_vi=cam_vi, lmk_vi=lmk_vi,
+                                  cg_iters=cg_iters, lm_damping=lm_damping)
     return means
 
 
-def gauss_newton_step_pcg(graph: Graph, means: tuple, fi: int = 0, cg_iters: int = 100):
+def gauss_newton_step_pcg(graph: Graph, means: tuple, fi: int = 0, cg_iters: int = 100,
+                          lm_damping: float = 0.0):
     """One Gauss-Newton step by block-Jacobi PCG on the FULL normal
     equations; returns the new means tuple.
 
     Works for any 2-slot factor block, in particular same-variable-block
     pose graphs, where the camera/landmark elimination above does not apply:
     the MAP target of the pose-graph runs.  Diagonal or full measurement
-    precision."""
+    precision; lm_damping adds Levenberg-Marquardt diagonal damping to H."""
     fb = graph.fblocks[fi]
     ids = [a.long() for a in fb.adj]
     x = torch.cat([means[vb][ids[k]] for k, vb in enumerate(fb.vblocks)], dim=-1)
@@ -132,7 +140,8 @@ def gauss_newton_step_pcg(graph: Graph, means: tuple, fi: int = 0, cg_iters: int
     def h_matvec(v):
         u = sum(bmv(js[k], v[vb][ids[k]]) for k, vb in enumerate(fb.vblocks))
         wu = wmul(u)
-        out = [bmv(vb.prior_lam, vk) for vb, vk in zip(graph.vblocks, v)]
+        out = [bmv(vb.prior_lam, vk) + (lm_damping * vk if lm_damping else 0.0)
+               for vb, vk in zip(graph.vblocks, v)]
         for k, vb in enumerate(fb.vblocks):
             out[vb] = out[vb] + segs[k](bmv(bT(js[k]), wu))
         return tuple(out)
@@ -141,6 +150,8 @@ def gauss_newton_step_pcg(graph: Graph, means: tuple, fi: int = 0, cg_iters: int
     pinv = []
     for vi, vb in enumerate(graph.vblocks):
         blk = vb.prior_lam
+        if lm_damping:
+            blk = blk + lm_damping * torch.eye(vb.dof, dtype=blk.dtype, device=blk.device)
         for k, tvb in enumerate(fb.vblocks):
             if tvb == vi:
                 wjk = _apply_prec(fb.prec, js[k]) * w[:, None, None]
@@ -170,8 +181,10 @@ def gauss_newton_step_pcg(graph: Graph, means: tuple, fi: int = 0, cg_iters: int
     return tuple(mu + d for mu, d in zip(means, xk))
 
 
-def solve_pcg(graph: Graph, means: tuple, n_steps: int = 5, fi: int = 0, cg_iters: int = 100):
+def solve_pcg(graph: Graph, means: tuple, n_steps: int = 5, fi: int = 0, cg_iters: int = 100,
+              lm_damping: float = 0.0):
     """n_steps full-system PCG Gauss-Newton iterations (relinearizing)."""
     for _ in range(n_steps):
-        means = gauss_newton_step_pcg(graph, means, fi=fi, cg_iters=cg_iters)
+        means = gauss_newton_step_pcg(graph, means, fi=fi, cg_iters=cg_iters,
+                                      lm_damping=lm_damping)
     return means

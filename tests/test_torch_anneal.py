@@ -128,10 +128,18 @@ def test_schedule_and_anchors_match_reference():
 
 
 def test_halo_annealing_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        anneal.halo_anchor_masks(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        anneal.make_run_annealed_halo(None, None, None)
+    """The halo annealing is ported (tests/test_torch_halo.py holds it
+    against the reference); what it still refuses is a state that is not a
+    partition's."""
+    from gbp_tpu_torch.parallel import halo
+
+    sim = ba.simulate(n_cams=8, n_lmks=60, seed=0)
+    g, m = ba.build(sim, dtype=torch.float64, device="cpu")
+    hp = halo.partition(g, 2)
+    assert [tuple(a.shape) for a in anneal.halo_anchor_masks(hp)] == [
+        (2, hp.hgraph.comm[0].n_own_max, 6), (2, hp.hgraph.comm[1].n_own_max, 3)]
+    with pytest.raises(TypeError, match="a HaloState or a HaloCMState"):
+        anneal.make_run_annealed_halo(hp, None)
 
 
 # --- the command line -------------------------------------------------------------------
@@ -181,5 +189,9 @@ def test_cli_generic_engine_and_oracle(capsys, monkeypatch):
 
 
 def test_cli_refuses_several_devices():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        cli.main(["--bal_file", "data/toy_ba.txt", "--n_chips", "2", "--device", "cpu"])
+    """Several partitions run (tests/test_torch_halo_cm.py); what is refused
+    is a scene with at least as many cameras as landmarks, whose halo
+    layout would gather the landmarks (cameras in the ELL slot, ROADMAP A7),
+    as on one device."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        cli.main(["--n_cams", "16", "--n_lmks", "12", "--n_chips", "2", "--device", "cpu"])

@@ -502,6 +502,11 @@ def test_cli_g2o_file_takes_the_generic_engine(capsys):
     assert len(e) == 2 and e[1] < e[0]
 
 
-def test_cli_refuses_several_chips():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        slam.main(["--n_chips", "4", "--device", "cpu"])
+def test_cli_refuses_several_chips(capsys):
+    """Several partitions no longer raise: they run the owner-sharded halo
+    path on the one device (tests/test_torch_halo_cm.py holds its numbers)."""
+    out = slam.main(["--n_chips", "4", "--n_poses", "200", "--n_iters", "20", "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "path: halo_cm (owner-sharded, per-chip CM fast path, gather mode 'table') on 4 " \
+           "partitions" in text
+    assert out["hp"].n_chips == 4 and np.isfinite(out["ate"][-1][1])
