@@ -31,12 +31,17 @@ non-zero; no phase is caught):
      and 384 (city, float32), where a block stages more than 48 KB and the
      launch asks for dynamic shared memory; `segsum_cm_blk` and `scatter_windows_cm` must repeat bit for
      bit, their combination is held against the whole-table camera sum, and
-     `scatter_windows_cm` against a dense accumulation with overlapping and
-     repeated window starts.
+     `scatter_windows_cm` must equal its plain version bit for bit (max abs
+     err 0.0), here, at the pose shapes and per halo partition, and a dense
+     accumulation in tile order with overlapping and repeated window starts,
+     float64 and float32.
      At the bench scene (full-table kernels) and the city scene (windowed
      kernels), float32, each kernel is timed against its plain version, its
      bound (bytes moved once over the card's memory rate, or operations over
-     its float32 rate) and, for the sums, one `index_add_` call.
+     its float32 rate) and, for the sums, one `index_add_` call; the
+     camera-side sums (`segsum_by_id`, `scatter_windows_cm`) and that call
+     also by the profiler (device time; the events time of a short kernel
+     is its wrapper's host time).
   5. windowed path vs full-table path: the 280-camera scene in float32 fits
      both; 15 sweeps each way, ARE equal to 5e-3 px (mid-convergence float32
      roundoff: the two summation orders take different paths to the same
@@ -67,12 +72,17 @@ non-zero; no phase is caught):
      sweep): 200 sweeps, launch counts 200, plain calls 0, ARE <= 1.05x the
      MAP ARE, bitwise rerun, sweeps/s; then 50 sweeps with layout="none"
      (both belief updates by the deterministic segment sum), ARE within
-     1e-3 px of the ELL run at 50 sweeps.
+     1e-3 px of the ELL run at 50 sweeps; its two segment sums (row-major:
+     the short form) against their plain versions (1e-4), the 64 cameras'
+     and the 8,000 landmarks', each repeating bit for bit.  Every path
+     prints the form of its `segsum_by_id` launches.
  10. rows path: 512 cameras that all see every landmark (no window engages,
      the packed table is beyond shared memory): `prepare` must choose
      gather_mode "rows"; 50 sweeps (counts, ARE finite and below the initial
      one), 200 sweeps against the MAP ARE (printed, which of the two it
-     meets), bitwise rerun, sweeps/s, peak memory; then the bench scene
+     meets), bitwise rerun, sweeps/s, peak memory; `segsum_by_id` at this
+     shape against its plain version, timed beside its bound and one
+     `index_add_`; then the bench scene
      forced to "rows" and "take1", 50 sweeps, within 1e-3 px of "table".
  11. linear path: the 1-D toy chain in float64 under message_form="pallas"
      on the card (kernel `fused_messages` at (1, 1, 1)), means against
@@ -146,7 +156,9 @@ non-zero; no phase is caught):
      operands its sweep hands them: `relin_cm_tabblkg_ell` and
      `relin_cm_tabblkg` in both relinearization regimes,
      `messages_cm_tabblkg_ell` and `messages_cm_tabblkg` with and without
-     Huber; city again with every window widened to 384 cameras (64,512
+     Huber; then the partition's two gathered-slot sums of those messages,
+     `scatter_windows_cm` (held to equality) and `segsum_by_id` on the ghost
+     rows; city again with every window widened to 384 cameras (64,512
      bytes, dynamic shared memory); timed at city, partition 0.
  23. halo paths, the P partitions in one process on the card through the
      single-process exchange: city at P = 2 through kernels 17, 18 and,
@@ -172,6 +184,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import gbp_tpu_torch
 from gbp_tpu_torch import ba as ba_cli
@@ -236,6 +249,7 @@ LADYBUG_REFERENCE_CPU = {"": {0: 21.3756, 10: 1.2461, 20: 1.2331, 50: 1.2325, 10
                                                    50: 1.2338, 60: 1.2337}}
 PCFG = pose_graph.default_config()
 SOURCE = {**dict.fromkeys(FULL, "gbp_tpu_torch/csrc/messages.cu"),
+          "segsum_by_id": "gbp_tpu_torch/csrc/segsum.cu",
           **dict.fromkeys(WINDOWED, "gbp_tpu_torch/csrc/windows.cu"),
           **dict.fromkeys(ROWS, "gbp_tpu_torch/csrc/rows.cu"),
           **dict.fromkeys(UNFUSED, "gbp_tpu_torch/csrc/unfused.cu"),
@@ -293,6 +307,14 @@ def rel_err(got, ref):
     return err / max(float(ref.abs().max()), 1e-300), err
 
 
+def exact(name, got, ref, tag):
+    """Hold a kernel to equality bit for bit (max abs err 0.0)."""
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    print(f"[kernels] {tag} {name}: max abs {err:.3e} (held to equality)")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{name} {tag}: not equal bit for bit (max abs {err:.3e})")
+
+
 def sync(x):
     torch.cuda.synchronize()
     return x
@@ -311,14 +333,41 @@ def time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def bound_ms(inputs, outputs, flops):
+def device_ms(fn, n=20):
+    """Mean device ms per call of every kernel `fn` launches, over n calls,
+    by the profiler (an events time of a short kernel is the wrapper's host
+    time), after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+
+
+def bound_ms(inputs, outputs, flops, nbytes=None):
     """(ms, "bytes" | "operations"): the least time the card could take, the
     larger of every input read once and every output written once over the
-    memory rate, and `flops` over the float32 rate."""
-    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs)
-                 if isinstance(t, torch.Tensor))
+    memory rate (or `nbytes`, where the function reads only part of its
+    inputs), and `flops` over the float32 rate."""
+    if nbytes is None:
+        nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs)
+                     if isinstance(t, torch.Tensor))
     by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def segsum_bound_ms(seg_args, out):
+    """`bound_ms` of `segsum_by_id` (component-major): the rows its CSR
+    lists, each of the f components read once, the CSR read once and the
+    output written once; one addition per listed row and component."""
+    me, ml, seg_rows, seg_offsets = seg_args
+    n, f = int(seg_offsets[-1]), out.shape[0]
+    nbytes = (n * f * me.element_size() + (n + seg_offsets.numel()) * 4
+              + out.numel() * out.element_size())
+    return bound_ms(seg_args, (out,), f * n, nbytes)
 
 
 def are_px(graph, cmg, state, k):
@@ -335,6 +384,8 @@ def check_counts(what, names, sweeps):
     if launches != want or any(plain.values()):
         raise AssertionError(f"{what} did not run through its kernels: launches {launches} "
                              f"(expected {want}), plain calls {plain}")
+    if launches["segsum_by_id"]:
+        print(f"[forms] {what}: segsum_by_id {dict(M.COUNTS.segsum_forms)}")
     return launches
 
 
@@ -346,11 +397,19 @@ def plain_versions():
     saved = {name: getattr(sweep_cm, name) for name in WINDOWED if name != "segsum_cm_blk"}
     try:
         for name in saved:
-            setattr(sweep_cm, name, getattr(M, name + "_plain"))
+            setattr(sweep_cm, name, scatter_plain if name == "scatter_windows_cm"
+                    else getattr(M, name + "_plain"))
         yield
     finally:
         for name, fn in saved.items():
             setattr(sweep_cm, name, fn)
+
+
+def scatter_plain(part, win_starts, blk_tiles, blk_offsets, *, n_seg):
+    """`scatter_windows_cm`'s plain version on the kernel's arguments: it
+    walks the cover lists, built from the starts, not the block lists."""
+    return M.scatter_windows_cm_plain(
+        part, win_starts, *M.cover_lists(win_starts, part.shape[2], n_seg), n_seg=n_seg)
 
 
 def cpu_state(sim, dtype, build_kw, prep_kw):
@@ -370,11 +429,11 @@ def widened(cmg, w):
     if w > cmg.win_ncpad or (starts < 0).any():
         raise ValueError(f"a window of {w} does not fit {cmg.win_ncpad} cameras")
     rows, offsets = M.window_rows_csr(cmg.gidx.cpu().numpy(), starts, w)
-    cov_tiles, cov_offsets = M.window_cover_csr(starts, w, cmg.base.vblocks[0].count)
+    blk_tiles, blk_offsets = M.window_block_csr(starts, w, cmg.base.vblocks[0].count)
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
     return cmg._replace(win_w=w, win_starts=i32(starts), win_rows=i32(rows),
-                        win_offsets=i32(offsets), cov_tiles=i32(cov_tiles),
-                        cov_offsets=i32(cov_offsets))
+                        win_offsets=i32(offsets), blk_tiles=i32(blk_tiles),
+                        blk_offsets=i32(blk_offsets))
 
 
 def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_kw=None):
@@ -473,16 +532,18 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
         part = sync(M.segsum_cm_blk(*blk_args, **blk_kw))
         compare("segsum_cm_blk", (part,), (sync(M.segsum_cm_blk_plain(*blk_args, **blk_kw)),))
         repeats("segsum_cm_blk", M.segsum_cm_blk, blk_args, blk_kw, part)
-        sc_args = (part, cmg.win_starts, cmg.cov_tiles, cmg.cov_offsets)
+        sc_args = (part, cmg.win_starts, cmg.blk_tiles, cmg.blk_offsets)
         sc_kw = dict(n_seg=n_cam)
         got_s = sync(M.scatter_windows_cm(*sc_args, **sc_kw))
-        compare("scatter_windows_cm", (got_s,),
-                (sync(M.scatter_windows_cm_plain(*sc_args, **sc_kw)),))
+        exact("scatter_windows_cm", got_s, sync(scatter_plain(*sc_args, **sc_kw)), tag)
+        errs["scatter_windows_cm"] = 0.0
         compare("scatter_windows_cm vs the whole-table sum", (got_s,), (whole,), record=False)
         repeats("scatter_windows_cm", M.scatter_windows_cm, sc_args, sc_kw, got_s)
     else:
         seg_args = (me, ml, *sum_index)
         got_s = sync(M.segsum_by_id(*seg_args))
+        print(f"[kernels] {tag} segsum_by_id form (chunk, group) "
+              f"{M.segsum_form(cmg.mp, n_cam, cmg.seg_rows.shape[0])}")
         compare("segsum_by_id", (got_s,), (whole,))
         repeats("segsum_by_id", M.segsum_by_id, seg_args, {}, got_s)
 
@@ -513,24 +574,29 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
              M.F_CAM * cmg.mp,
              lambda: zeros(part_cm.shape[1]).index_add_(1, tile_key, vals)),
             # One addition per covering tile, camera and component.
-            ("scatter_windows_cm", M.scatter_windows_cm, M.scatter_windows_cm_plain, sc_args,
-             sc_kw, (got_s,), M.F_CAM * cmg.cov_tiles.shape[0],
+            ("scatter_windows_cm", M.scatter_windows_cm, scatter_plain, sc_args, sc_kw,
+             (got_s,), M.F_CAM * int(M.cover_lists(cmg.win_starts, cmg.win_w, n_cam)[1][-1]),
              lambda: zeros(cmg.win_ncpad).index_add_(1, win_ids, part_cm)),
         ]
     else:
         timed.append(("segsum_by_id", M.segsum_by_id, M.segsum_by_id_plain, seg_args, {},
-                      (got_s,), M.F_CAM * cmg.mp,
+                      (got_s,), None,
                       lambda: zeros(n_cam).index_add_(1, gl, vals)))
     for name, kern, plain, args, kw, outs, flops, library in timed:
         ms = time_ms(lambda: kern(*args, **kw), 20)
         plain_ms = time_ms(lambda: plain(*args, **kw), 3)
-        b_ms, b_by = bound_ms(args, outs, flops)
+        b_ms, b_by = (segsum_bound_ms(args, outs[0]) if name == "segsum_by_id"
+                      else bound_ms(args, outs, flops))
         lib_ms = None if library is None else time_ms(library, 20)
         timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=lib_ms)
         print(f"[kernels] {tag} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}), index_add_ "
               + ("none" if lib_ms is None else f"{lib_ms:.4f} ms"))
+        if name in ("segsum_by_id", "scatter_windows_cm"):
+            print(f"[kernels] {tag} {name} on the device (profiler): kernel "
+                  f"{device_ms(lambda: kern(*args, **kw)):.4f} ms, index_add_ "
+                  f"{device_ms(library):.4f} ms ({card_line()})")
     return errs
 
 
@@ -827,10 +893,11 @@ def check_pose_kernels(tag, build, dtype, dev, ptimes):
             got_m = sync(M.messages_cm_tabblk_ell(*m_args, huber=h, **w_kw))
             hold("messages_cm_tabblk_ell", got_m[:4], ref_m[:4])
             hold("segsum_cm_blk", got_m[4:], ref_m[4:])
-        sc_args = (got_m[4], cmg.win_starts, cmg.cov_tiles, cmg.cov_offsets)
+        sc_args = (got_m[4], cmg.win_starts, cmg.blk_tiles, cmg.blk_offsets)
         n_g = cam_mean.shape[0]
         got_s = sync(M.scatter_windows_cm(*sc_args, n_seg=n_g))
-        hold("scatter_windows_cm", (got_s,), (M.scatter_windows_cm_plain(*sc_args, n_seg=n_g),))
+        exact("scatter_windows_cm", got_s, scatter_plain(*sc_args, n_seg=n_g), tag)
+        worst["scatter_windows_cm"] = 0.0
         hold("scatter_windows_cm", (got_s,), (M.segsum_by_id_plain(
             ref_m[2 * g], ref_m[2 * g + 1], cmg.seg_rows, cmg.seg_offsets),))
         timed("messages_cm_tabblk_ell", lambda: M.messages_cm_tabblk_ell(*m_args, huber=h, **w_kw))
@@ -1070,21 +1137,18 @@ def check_scatter_dense(dev):
     starts = np.sort(rng.integers(0, (ncpad - w) // 8 + 1, size=n_tiles)) * 8
     starts[1] = starts[0]
     starts[-1] = ncpad - w
-    cov_tiles, cov_offsets = M.window_cover_csr(starts, w, n_seg)
-    for dtype, atol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+    on_dev = lambda a: torch.tensor(a, device=dev)
+    blk = tuple(map(on_dev, M.window_block_csr(starts, w, n_seg)))
+    for dtype in (torch.float64, torch.float32):
         part = torch.tensor(rng.normal(size=(n_tiles, f, w)), dtype=dtype, device=dev)
         want = torch.zeros((f, ncpad), dtype=dtype, device=dev)
         for i, s in enumerate(starts):
             want[:, s:s + w] += part[i]
         got = sync(M.scatter_windows_cm(
-            part, torch.tensor(starts, dtype=torch.int32, device=dev),
-            torch.tensor(cov_tiles, device=dev), torch.tensor(cov_offsets, device=dev),
-            n_seg=n_seg))
-        err = float((got - want[:, :n_seg]).abs().max())
+            part, torch.tensor(starts, dtype=torch.int32, device=dev), *blk, n_seg=n_seg))
         print(f"[kernels] scatter_windows_cm vs dense accumulation {str(dtype)[6:]}: starts "
-              f"{starts.tolist()}, max abs {err:.3e}")
-        if not err <= atol:
-            raise AssertionError(f"scatter_windows_cm vs dense: {err:.3e} > {atol:g}")
+              f"{starts.tolist()}")
+        exact("scatter_windows_cm vs dense accumulation", got, want[:, :n_seg], str(dtype)[6:])
 
 
 def window_vs_full():
@@ -1178,7 +1242,7 @@ def big_path(tag, scene, card, against_plain):
     print(f"[{tag}] scene on {means[0].device}: {sim['cam_init'].shape[0]} cams, "
           f"{sim['lmk_init'].shape[0]} lmks, {n_valid} factors in {cmg.mp} rows (deg "
           f"{cmg.fb.ell_deg}); {cmg.mp // M.TILE} tiles, win_w {cmg.win_w}, "
-          f"{cmg.cov_tiles.shape[0]} window covers; built and prepared in "
+          f"{int(cmg.blk_offsets[-1])} tiles in the scatter's block lists; built and prepared in "
           f"{time.perf_counter() - t0:.1f} s; initial ARE {are0:.6f} px")
 
     M.COUNTS.reset()
@@ -1277,6 +1341,22 @@ def generic_path(card):
     dt = time.perf_counter() - t0
     check_counts("the generic path, layout none", {**per_sweep, "segsum_by_id": 2},
                  QUALITY_SWEEPS)
+    fb_n = flat.fblocks[0]
+    for k in (0, 1):
+        ml = st_n.f[0].msg_lam[k]
+        seg_args = (st_n.f[0].msg_eta[k], ml.reshape(ml.shape[0], -1), *fb_n.csr[k])
+        M.COUNTS.reset()
+        got = sync(M.segsum_by_id(*seg_args, row_major=True))
+        rel, err = rel_err(got, M.segsum_by_id_plain(*seg_args, row_major=True))
+        n_seg = fb_n.csr[k][1].shape[0] - 1
+        print(f"[generic] layout none, slot {k} ({n_seg} segments): segsum_by_id "
+              f"{dict(M.COUNTS.segsum_forms)} against its plain version: max abs {err:.3e} rel "
+              f"{rel:.3e}")
+        if M.COUNTS.segsum_forms["short"] != 1 or not rel <= TOL[torch.float32]:
+            raise AssertionError(f"generic layout none slot {k}: form {M.COUNTS.segsum_forms}, "
+                                 f"rel err {rel:.3e}")
+        if not torch.equal(got, sync(M.segsum_by_id(*seg_args, row_major=True))):
+            raise AssertionError(f"generic layout none slot {k}: two runs differ")
     a_n = are(flat, st_n)
     print(f"[generic] layout none, {QUALITY_SWEEPS} sweeps in {dt:.3f} s "
           f"({QUALITY_SWEEPS / dt:.2f} sweeps/s, first call): ARE {a_n:.6f} px vs ELL "
@@ -1312,6 +1392,21 @@ def rows_path(card):
     if not (math.isfinite(a50) and a50 < are0):
         raise AssertionError(f"rows path: ARE {a50} is not finite and below the initial {are0}")
     same_means("rows", st50, sync(sweep_cm.run(cmg, init, CFG, QUALITY_SWEEPS)))
+    # segsum_by_id at this scene's shape, on the camera messages of sweep 50.
+    seg_args = (st50.f.msg_eta[0], st50.f.msg_lam[0], cmg.seg_rows, cmg.seg_offsets)
+    got = sync(M.segsum_by_id(*seg_args))
+    rel, err = rel_err(got, M.segsum_by_id_plain(*seg_args))
+    if not rel <= TOL[torch.float32]:
+        raise AssertionError(f"segsum_by_id at nonlocal512: rel err {rel:.3e}")
+    vals, gl = torch.cat(seg_args[:2]), cmg.gidx.long()
+    ms = time_ms(lambda: M.segsum_by_id(*seg_args), 20)
+    b_ms, b_by = segsum_bound_ms(seg_args, got)
+    lib = lambda: torch.zeros((M.F_CAM, n_cam), device=got.device).index_add_(1, gl, vals)
+    print(f"[rows] nonlocal512 segsum_by_id form (chunk, group) "
+          f"{M.segsum_form(cmg.mp, n_cam, cmg.seg_rows.shape[0])}: kernel {ms:.4f} ms (device "
+          f"{device_ms(lambda: M.segsum_by_id(*seg_args)):.4f}), bound {b_ms:.4f} ms ({b_by}), "
+          f"index_add_ {time_ms(lib, 20):.4f} ms (device {device_ms(lib):.4f}); max abs "
+          f"{err:.3e} rel {rel:.3e} ({card})")
     st = sync(sweep_cm.run(cmg, st50, CFG, SWEEPS - QUALITY_SWEEPS))
     a = are_px(graph, cmg, st, sim["k"])
     a_map = map_are(graph, sweep_cm.to_gbp_state(cmg, st), means, sim["k"])
@@ -1661,15 +1756,14 @@ def halo_widened(hcm, w):
         raise ValueError(f"a window of {w} does not fit {nopad} owned cameras")
     gidx = hcm.gidx.cpu().numpy()
     csr = [M.window_rows_csr(gidx[c], starts[c], w, n_own=no) for c in range(len(starts))]
-    cov = [M.window_cover_csr(starts[c], w, no) for c in range(len(starts))]
+    blk = [M.window_block_csr(starts[c], w, no) for c in range(len(starts))]
     i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
-    n_cov = max(len(a) for a, _ in cov)
-    pad = lambda a: np.pad(a, (0, n_cov - len(a)))
+    padded = lambda lists: np.stack([np.pad(a, (0, max(len(b) for b, _ in lists) - len(a)))
+                                     for a, _ in lists])
     return hcm._replace(win_w=w, win_starts=i32(starts),
                         win_rows=i32(np.stack([a for a, _ in csr])),
                         win_offsets=i32(np.stack([b for _, b in csr])),
-                        cov_tiles=i32(np.stack([pad(a) for a, _ in cov])),
-                        cov_offsets=i32(np.stack([b for _, b in cov])))
+                        blk_tiles=i32(padded(blk)), blk_offsets=i32(np.stack([b for _, b in blk])))
 
 
 def halo_state(sim, dtype, n_parts, sweeps):
@@ -1751,6 +1845,21 @@ def check_halo_kernels(tag, hcm, st, dtype, errs, timings=None):
                 args, kw = calls[name]
                 compare(name, sync(getattr(M, name)(*args, **kw)),
                         sync(getattr(M, name + "_plain")(*args, **kw)))
+        # The partition's two gathered-slot sums on these messages: the
+        # windows combined by kernel 15, the ghost rows by segsum_by_id.
+        args, kw = calls["messages_cm_tabblkg_ell"]
+        o = sync(M.messages_cm_tabblkg_ell_plain(*args, **kw))
+        me_g, ml_g = o[2 * gslot], o[2 * gslot + 1]
+        part = M.segsum_cm_blk_plain(me_g, ml_g, hcm.win_rows[p], hcm.win_offsets[p],
+                                     n_tiles=hcm.mp // M.TILE, w=hcm.win_w)
+        sc_args = (part, hcm.win_starts[p], hcm.blk_tiles[p], hcm.blk_offsets[p])
+        exact("scatter_windows_cm", sync(M.scatter_windows_cm(*sc_args, n_seg=no)),
+              scatter_plain(*sc_args, n_seg=no), f"{tag} partition {p}")
+        ext = (me_g, ml_g, hcm.ext_rows[p], hcm.ext_offsets[p])
+        print(f"[halo kernels] {tag} segsum_by_id on the ghost rows: form (chunk, group) "
+              f"{M.segsum_form(hcm.mp, hcm.ext_offsets.shape[1] - 1, hcm.ext_rows.shape[1])}")
+        compare("segsum_by_id (ghost rows)", (sync(M.segsum_by_id(*ext)),),
+                (M.segsum_by_id_plain(*ext),))
         if timings is None or p:
             continue
         n_relin_cfg = int((ref_r[3] == 0).sum())

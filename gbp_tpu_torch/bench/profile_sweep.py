@@ -29,7 +29,10 @@ Prints the unprofiled time per sweep (CUDA events), the device time per
 sweep summed over all kernels, the device's busy share (device time over
 unprofiled sweep time), the kernel launches per sweep, and the device time
 per sweep of each kernel name (the port's own kernels are `gbp::*`; the rest
-is PyTorch glue).  `--out` also writes the chrome trace.  Needs a card.
+is PyTorch glue), and `segsum_by_id`'s device time summed over its kernels
+(the chunked form launches two, `segsum_chunk_kernel` then
+`segsum_combine_kernel`; the short form one, `segsum_kernel`).  `--out` also
+writes the chrome trace.  Needs a card.
 """
 from __future__ import annotations
 
@@ -132,10 +135,14 @@ def main(argv=None):
                                                        "cudaLaunchKernelExC"))
     device_ms = sum(ms for ms, _ in kernels.values()) / args.sweeps
     own_ms = sum(ms for name, (ms, _) in kernels.items() if "gbp::" in name) / args.sweeps
+    segsum = {stage: sum(ms for name, (ms, _) in kernels.items() if f"gbp::{stage}<" in name)
+              / args.sweeps
+              for stage in ("segsum_chunk_kernel", "segsum_combine_kernel", "segsum_kernel")}
     out = {
         "scene": args.scene, "card": card, "sweeps": args.sweeps, "mp_rows": rows,
         "win_w": win_w, "mode": mode, "sweep_ms_unprofiled": sweep_ms, "device_ms_per_sweep": device_ms,
         "own_kernels_ms_per_sweep": own_ms, "glue_ms_per_sweep": device_ms - own_ms,
+        "segsum_by_id_ms_per_sweep": sum(segsum.values()), "segsum_by_id_stages": segsum,
         "device_busy_share": device_ms / sweep_ms,
         "kernel_launches_per_sweep": launches / args.sweeps,
         "device_kernels_per_sweep": sum(n for _, n in kernels.values()) / args.sweeps,

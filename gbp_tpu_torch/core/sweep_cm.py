@@ -110,7 +110,7 @@ from gbp_tpu_torch.ops.messages import (
     scatter_windows_cm,
     segsum_by_id,
     segsum_cm_blk,
-    window_cover_csr,
+    window_block_csr,
     window_rows_csr,
 )
 from gbp_tpu_torch.utils.smalllinalg import scaled_sym_solve
@@ -173,8 +173,10 @@ class CMGraph(NamedTuple):
     win_starts: torch.Tensor | None = None  # [n_tiles] int32, multiples of SUB
     win_rows: torch.Tensor | None = None  # [mp] int32: each tile's rows by window column
     win_offsets: torch.Tensor | None = None  # [n_tiles * win_w + 1] int32
-    cov_tiles: torch.Tensor | None = None  # tiles covering each camera, ascending
-    cov_offsets: torch.Tensor | None = None  # [n_cam + 1] int32
+    # The tiles meeting each block of SCATTER_CAMS cameras, ascending (the
+    # kernel's walk of `scatter_windows_cm`).
+    blk_tiles: torch.Tensor | None = None
+    blk_offsets: torch.Tensor | None = None  # [ceil(n_cam / SCATTER_CAMS) + 1] int32
     # Locality sort (None when the natural order is local enough): the
     # landmark block of `base` carries its priors in sorted order and the
     # resident landmark beliefs live in sorted order.  vperm: sorted id ->
@@ -339,17 +341,21 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     if win is not None:
         starts, w, ncpad = win
         win_rows, win_offsets = window_rows_csr(gidx, starts, w)
-        cov_tiles, cov_offsets = window_cover_csr(starts, w, n_cam)
+        blk_tiles, blk_offsets = window_block_csr(starts, w, n_cam)
         extra.update(win_w=int(w), win_ncpad=int(ncpad), win_starts=as_i32(starts),
                      win_rows=as_i32(win_rows), win_offsets=as_i32(win_offsets),
-                     cov_tiles=as_i32(cov_tiles), cov_offsets=as_i32(cov_offsets))
+                     blk_tiles=as_i32(blk_tiles), blk_offsets=as_i32(blk_offsets))
 
-    # CSR of all rows by camera id, in row order: the fixed summation order
-    # that makes the camera-side sum deterministic.  Padded rows carry zero
-    # messages, so including them changes no value.
-    seg_rows = np.argsort(gidx, kind="stable").astype(np.int32)
+    # CSR of the valid rows by camera id, in row order (ascending within a
+    # camera): the fixed summation order that makes the camera-side sum
+    # deterministic.  Padded rows and the ELL layout's clones carry zero
+    # messages, so leaving them out changes no value; kept, they would all
+    # name the camera of their landmark's first row.
+    valid = np.ones(m, dtype=bool) if fb.valid is None else fb.valid.cpu().numpy()
+    listed = np.flatnonzero(valid if rowperm is None else valid[rowperm])
+    seg_rows = listed[np.argsort(gidx[listed], kind="stable")].astype(np.int32)
     seg_offsets = np.concatenate(
-        [[0], np.cumsum(np.bincount(gidx, minlength=n_cam))]).astype(np.int32)
+        [[0], np.cumsum(np.bincount(gidx[listed], minlength=n_cam))]).astype(np.int32)
     act = torch.ones(m, dtype=dt, device=dev) if fb.valid is None else fb.valid.to(dt)
     rp = extra.get("rowperm")
     perm = lambda a: a if rp is None else a[rp]
@@ -557,7 +563,7 @@ def sweep(cmg: CMGraph, state: CMState, cfg: GBPConfig,
             cmg.gidx, cmg.win_starts, *msgs, huber=huber, win_w=cmg.win_w, gslot=g)
         part = segsum_cm_blk(out[2 * g], out[2 * g + 1], cmg.win_rows, cmg.win_offsets,
                              n_tiles=cmg.mp // TILE, w=cmg.win_w)
-        sum_c = scatter_windows_cm(part, cmg.win_starts, cmg.cov_tiles, cmg.cov_offsets,
+        sum_c = scatter_windows_cm(part, cmg.win_starts, cmg.blk_tiles, cmg.blk_offsets,
                                    n_seg=n_cam)
     elif not cmg.ell_fused:
         be_l, bl_l, mean_l = _expand_ell(cmg, vs_l)
@@ -578,7 +584,7 @@ def sweep(cmg: CMGraph, state: CMState, cfg: GBPConfig,
             params, cam_tab, lmk_tab, cmg.gidx, cmg.win_starts, jac, lp, r0, cmg.prec,
             srel, act, *msgs, cmg.win_rows, cmg.win_offsets, deg=deg, huber=huber,
             win_w=cmg.win_w, gslot=g)
-        sum_c = scatter_windows_cm(part, cmg.win_starts, cmg.cov_tiles, cmg.cov_offsets,
+        sum_c = scatter_windows_cm(part, cmg.win_starts, cmg.blk_tiles, cmg.blk_offsets,
                                    n_seg=n_cam)
     else:
         cam_mean, lmk_mean, cam_tab, lmk_tab = belief_tables(cmg, state)

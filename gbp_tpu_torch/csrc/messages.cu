@@ -40,17 +40,9 @@
 //   computation stays in one thread with fully unrolled fixed-size arrays;
 //   masked rows keep their old message through a select.
 //
-// segsum_by_id
-//   Replaces `segsum_cm` and the 5th output of `fused_messages_cm_tab_ell`
-//   (`_kernel_segsum`, `_segsum_partial_full`).
-//   Bound: device-memory reads of the 42 camera-message components (plus
-//   the row index), scattered by the landmark grouping.
-//   Design: deterministic by construction, no atomics.  One warp per
-//   (segment, component); its lanes stride over that segment's rows in the
-//   fixed CSR order built with the graph, and a fixed __shfl_down_sync
-//   tree combines them, so two runs give the same bits.  Any slot width d
-//   and either layout (component-major in and out for the fast path,
-//   row-major in and out for the generic sweep's scatter lowering).
+// The camera-side sum of the new messages (the 5th output of
+// `fused_messages_cm_tab_ell`) is `segsum_by_id` in segsum.cu, launched by
+// the wrapper after the messages kernel.
 #include "table_kernels.cuh"
 
 namespace gbp {
@@ -74,30 +66,6 @@ relin_kernel(const S* __restrict__ cam_mean, int n_cam,
   if (r >= mp) return;
   relin_row<S, M>(tab + gidx[r] * dg, lmk_mean, z, args, lp, jac, r0, srel, act, olp, ojac,
                   or0, osrel, mp, deg, gslot, r, beta, min_linear);
-}
-
-template <typename S, class L>
-__global__ void __launch_bounds__(BLOCK)
-segsum_kernel(const S* __restrict__ me, int64_t me_ld, const S* __restrict__ ml, int64_t ml_ld,
-              int d, const int* __restrict__ rows, const int* __restrict__ offsets, int n_seg,
-              S* __restrict__ out, int64_t out_ld) {
-  // Warp w sums component k = w % f of segment w / f, f = d + d * d.
-  // blockDim is a multiple of 32, so a warp either exits whole or runs whole.
-  const int f = d + d * d;
-  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x & 31;
-  if (warp >= static_cast<int64_t>(n_seg) * f) return;
-  const int seg = static_cast<int>(warp / f);
-  const int k = static_cast<int>(warp % f);
-  const S* __restrict__ src = k < d ? me : ml;
-  const int64_t src_ld = k < d ? me_ld : ml_ld;
-  const int ks = k < d ? k : k - d;
-  const int end = offsets[seg + 1];
-  S acc = S(0.0);
-  for (int i = offsets[seg] + lane; i < end; i += 32) acc += src[L::at(ks, rows[i], src_ld)];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) out[L::at(k, seg, out_ld)] = acc;
 }
 
 template <typename S>
@@ -137,23 +105,6 @@ int messages(int da, int db, int zd, int gslot, int huber_row, const S* cam_tab,
   return known ? static_cast<int>(cudaGetLastError()) : -2;
 }
 
-template <typename S>
-int segsum(const S* me, int64_t me_ld, const S* ml, int64_t ml_ld, int d, int rm,
-           const int* rows, const int* offsets, int n_seg, S* out, void* stream) {
-  const int f = d + d * d;
-  const int64_t threads = static_cast<int64_t>(n_seg) * f * 32;
-  if (threads <= 0) return static_cast<int>(cudaGetLastError());
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (rm) {
-    segsum_kernel<S, RowMajor><<<n_blocks(threads), BLOCK, 0, st>>>(
-        me, me_ld, ml, ml_ld, d, rows, offsets, n_seg, out, f);
-  } else {
-    segsum_kernel<S, ColMajor><<<n_blocks(threads), BLOCK, 0, st>>>(
-        me, me_ld, ml, ml_ld, d, rows, offsets, n_seg, out, n_seg);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace gbp
 
 #define GBP_ENTRIES(SFX, S)                                                          \
@@ -178,12 +129,6 @@ int segsum(const S* me, int64_t me_ld, const S* ml, int64_t ml_ld, int d, int rm
                             nv, gidx, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, \
                             oe0, ol0, oe1, ol1, mp, deg, eta_damping, lam_damping,   \
                             num_undamped, floor, jitter, has_huber, huber, stream);  \
-  }                                                                                  \
-  extern "C" int gbp_segsum_by_id_##SFX(                                             \
-      const S* me, int64_t me_ld, const S* ml, int64_t ml_ld, int d, int rm,         \
-      const int* rows, const int* offsets, int n_seg, S* out, void* stream) {        \
-    return gbp::segsum<S>(me, me_ld, ml, ml_ld, d, rm, rows, offsets, n_seg, out,    \
-                          stream);                                                   \
   }
 
 GBP_ENTRIES(f32, float)

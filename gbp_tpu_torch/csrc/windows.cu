@@ -51,12 +51,29 @@
 //   Replaces `scatter_windows_cm` (`_kernel_scatter_win`): out[k, c] = sum
 //   over the tiles i whose window holds c of part[i, k, c - starts[i]], in
 //   ascending i, the order of the reference's sequential grid.
-//   Bound: device-memory bytes: the partials read once.
+//   Bound: device-memory bytes, the partials read once (9.5 MB at city in
+//   float32, mostly still in L2 from segsum_cm_blk); short of that, the
+//   latency of the reads, since each camera is covered by tens of tiles.
 //   Design: the TPU kernel walks the tiles in order and adds each window
-//   into a resident accumulator; blocks here run in no order, so the sum is
-//   turned around: one thread per output (k, c) walks the list of tiles that
-//   cover camera c (built at prepare time, ascending).  Starts travel as
-//   int32, not through a float row.
+//   into one resident accumulator; here the same walk runs per block of
+//   SC_CAMS = 128 consecutive cameras (one thread each) and per group of
+//   components.  The block's tiles (those whose window meets it, ascending)
+//   come from a list built at prepare time (`window_block_csr`), loaded
+//   into shared memory once with their starts, in passes of SC_LIST
+//   entries.  Each tile's slice part[t, k, max(c0 - s_t, 0) : ...] is
+//   contiguous and 32-byte aligned (starts and block offsets are multiples
+//   of 8), so the slices stream into a ring of three shared-memory stages
+//   by 16-byte cp.async, each stage holding TP tiles: one barrier per stage,
+//   not per tile, and the next two stages' loads in flight while a stage
+//   is added (a barrier per tile cost more than the loads at city).  Each
+//   thread adds its camera's value from every tile in list order starting
+//   from zero, and skips the tiles whose window misses its camera: the same
+//   additions in the same order as the plain version and a dense
+//   accumulation in tile order, so the results are equal bit for bit.  A
+//   listed tile whose window misses the block, or a start that is not a
+//   multiple of 8, is a fault of the prepared graph: the kernel traps, it
+//   never clamps.  Starts travel as int32, not through a float row.
+#include "async_copy.cuh"
 #include "table_kernels.cuh"
 
 namespace gbp {
@@ -83,25 +100,87 @@ segsum_blk_kernel(const S* __restrict__ me, const S* __restrict__ ml, int d,
   out[(static_cast<int64_t>(tile) * f + k) * w + j] = acc;
 }
 
-// grid.x = ceil(n_seg / RED_BLOCK), grid.y = f components.
-template <typename S>
-__global__ void __launch_bounds__(RED_BLOCK)
+constexpr int SC_CAMS = 128;  // cameras per block, one thread each
+constexpr int SC_STAGES = 3;  // ring stages, each of TP tiles
+constexpr int SC_LIST = 256;  // list entries staged per pass
+
+// grid.x = ceil(n_seg / SC_CAMS) camera blocks, grid.y = ceil(f / KG)
+// component groups.  Shared memory: the ring [SC_STAGES][TP][KG][SC_CAMS],
+// then the pass's tiles and their starts [SC_LIST] each.
+template <typename S, int TP, int KG>
+__global__ void __launch_bounds__(SC_CAMS)
 scatter_win_kernel(const S* __restrict__ part, const int* __restrict__ starts,
-                   const int* __restrict__ cov_tiles, const int* __restrict__ cov_offsets,
-                   int w, int n_seg, S* __restrict__ out) {
-  const int c = blockIdx.x * RED_BLOCK + threadIdx.x;
-  if (c >= n_seg) return;
-  const int k = blockIdx.y;
-  const int f = gridDim.y;
-  const int end = cov_offsets[c + 1];
-  S acc = S(0.0);
-  for (int i = cov_offsets[c]; i < end; ++i) {
-    const int t = cov_tiles[i];
-    const int j = c - starts[t];
-    if (j < 0 || j >= w) __trap();
-    acc += part[(static_cast<int64_t>(t) * f + k) * w + j];
+                   const int* __restrict__ blk_tiles, const int* __restrict__ blk_offsets,
+                   int f, int w, int n_seg, S* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* ring = reinterpret_cast<S*>(smem_raw);
+  int* lt = reinterpret_cast<int*>(ring + SC_STAGES * TP * KG * SC_CAMS);
+  int* ls = lt + SC_LIST;
+  constexpr int V = 16 / sizeof(S);       // values per 16-byte copy
+  constexpr int PER = SC_CAMS / V;        // copies per component slice
+  constexpr int PIECES = KG * PER;        // copies per tile
+  constexpr int STAGE = TP * KG * SC_CAMS;
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * SC_CAMS;
+  const int c1 = c0 + SC_CAMS < n_seg ? c0 + SC_CAMS : n_seg;
+  const int k0 = blockIdx.y * KG;
+  const int nk = f - k0 < KG ? f - k0 : KG;
+  const int c = c0 + tid;
+  S acc[KG];
+#pragma unroll
+  for (int kk = 0; kk < KG; ++kk) acc[kk] = S(0.0);
+  const int beg = blk_offsets[blockIdx.x], end = blk_offsets[blockIdx.x + 1];
+  for (int p0 = beg; p0 < end; p0 += SC_LIST) {
+    const int n = end - p0 < SC_LIST ? end - p0 : SC_LIST;
+    __syncthreads();  // the previous pass is done with the list and the ring
+    for (int i = tid; i < n; i += SC_CAMS) {
+      const int t = blk_tiles[p0 + i];
+      const int s = starts[t];
+      if (s >= c1 || s + w <= c0 || (s & 7)) __trap();
+      lt[i] = t;
+      ls[i] = s;
+    }
+    __syncthreads();
+    const int n_st = (n + TP - 1) / TP;
+    // Stage b: the slices of tiles [b * TP, min((b + 1) * TP, n)) into ring
+    // slot b % SC_STAGES, closed as one group (empty past the last stage).
+    auto issue = [&](int b) {
+      if (b < n_st) {
+        S* dst = ring + (b % SC_STAGES) * STAGE;
+        const int q0 = b * TP, nq = n - q0 < TP ? n - q0 : TP;
+        for (int e = tid; e < nq * PIECES; e += SC_CAMS) {
+          const int qq = e / PIECES, kk = e % PIECES / PER, x = e % PER * V;
+          const int s = ls[q0 + qq];
+          if (kk < nk && x >= s - c0 && x < s + w - c0)
+            cp_async16(dst + (qq * KG + kk) * SC_CAMS + x,
+                       part + (static_cast<int64_t>(lt[q0 + qq]) * f + k0 + kk) * w + (c0 + x - s));
+        }
+      }
+      cp_async_commit();
+    };
+    for (int b = 0; b < SC_STAGES - 1; ++b) issue(b);
+    for (int b = 0; b < n_st; ++b) {
+      cp_async_wait<SC_STAGES - 2>();
+      __syncthreads();
+      issue(b + SC_STAGES - 1);  // into the slot that stage b - 1 used
+      const S* v = ring + (b % SC_STAGES) * STAGE + tid;
+      const int q0 = b * TP, nq = n - q0 < TP ? n - q0 : TP;
+      for (int qq = 0; qq < nq; ++qq) {
+        const int j = c - ls[q0 + qq];
+        if (c < c1 && j >= 0 && j < w) {
+#pragma unroll
+          for (int kk = 0; kk < KG; ++kk)
+            if (kk < nk) acc[kk] += v[(qq * KG + kk) * SC_CAMS];
+        }
+      }
+    }
+    cp_async_wait<0>();
   }
-  out[static_cast<int64_t>(k) * n_seg + c] = acc;
+  if (c < c1) {
+#pragma unroll
+    for (int kk = 0; kk < KG; ++kk)
+      if (kk < nk) out[static_cast<int64_t>(k0 + kk) * n_seg + c] = acc[kk];
+  }
 }
 
 // Blocks of `kernel` that one SM holds at once with `smem` bytes of window,
@@ -161,15 +240,34 @@ int segsum_blk(const S* me, const S* ml, int d, const int* rows, const int* offs
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename S>
-int scatter_win(const S* part, const int* starts, const int* cov_tiles,
-                const int* cov_offsets, int f, int w, int n_seg, S* out, void* stream) {
-  if (n_seg <= 0 || f <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid(static_cast<unsigned int>((n_seg + RED_BLOCK - 1) / RED_BLOCK),
-                  static_cast<unsigned int>(f));
-  scatter_win_kernel<S><<<grid, RED_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      part, starts, cov_tiles, cov_offsets, w, n_seg, out);
+template <typename S, int TP, int KG>
+int launch_scatter(const S* part, const int* starts, const int* blk_tiles, const int* blk_offsets,
+                   int f, int w, int n_seg, S* out, cudaStream_t st) {
+  const size_t smem = static_cast<size_t>(SC_STAGES) * TP * KG * SC_CAMS * sizeof(S) +
+                      2 * static_cast<size_t>(SC_LIST) * sizeof(int);
+  const auto kernel = scatter_win_kernel<S, TP, KG>;
+  if (int rc = allow_smem(kernel, smem)) return rc;
+  const dim3 grid(static_cast<unsigned int>((n_seg + SC_CAMS - 1) / SC_CAMS),
+                  static_cast<unsigned int>((f + KG - 1) / KG));
+  kernel<<<grid, SC_CAMS, smem, st>>>(part, starts, blk_tiles, blk_offsets, f, w, n_seg, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of one component and stages of 32 tiles while that makes fewer
+// than eight blocks per SM (132 SMs), as at city; on wider scenes (venice)
+// blocks of four components and stages of 4 tiles: fewer, longer blocks
+// (the best of both shapes among the ones timed on the H100).  -2: w not a
+// positive multiple of 8.
+template <typename S>
+int scatter_win(const S* part, const int* starts, const int* blk_tiles, const int* blk_offsets,
+                int f, int w, int n_seg, S* out, void* stream) {
+  if (n_seg <= 0 || f <= 0) return static_cast<int>(cudaGetLastError());
+  if (w <= 0 || w % 8) return -2;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int64_t n_blk = (n_seg + SC_CAMS - 1) / SC_CAMS;
+  return f * n_blk < 8 * 132
+             ? launch_scatter<S, 32, 1>(part, starts, blk_tiles, blk_offsets, f, w, n_seg, out, st)
+             : launch_scatter<S, 4, 4>(part, starts, blk_tiles, blk_offsets, f, w, n_seg, out, st);
 }
 
 }  // namespace gbp
@@ -206,9 +304,9 @@ int scatter_win(const S* part, const int* starts, const int* cov_tiles,
     return gbp::segsum_blk<S>(me, ml, d, rows, offsets, n_tiles, w, mp, out, stream);  \
   }                                                                                    \
   extern "C" int gbp_scatter_windows_cm_##SFX(                                         \
-      const S* part, const int* starts, const int* cov_tiles, const int* cov_offsets,  \
+      const S* part, const int* starts, const int* blk_tiles, const int* blk_offsets,  \
       int f, int w, int n_seg, S* out, void* stream) {                                 \
-    return gbp::scatter_win<S>(part, starts, cov_tiles, cov_offsets, f, w, n_seg, out, \
+    return gbp::scatter_win<S>(part, starts, blk_tiles, blk_offsets, f, w, n_seg, out, \
                                stream);                                                \
   }                                                                                    \
   extern "C" int gbp_relin_cm_tabblk_ell_blocks_per_sm_##SFX(int win_w) {              \

@@ -43,8 +43,9 @@ _ARGTYPES = {
     # stream
     "gbp_messages_cm_tab_ell": [_I] * 5 + [_P, _I, _P, _I] + [_P] * 7 + [_P] * 4 + [_P] * 4
     + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P],
-    # me, me_ld, ml, ml_ld, d, row_major, rows, offsets, n_seg, out, stream
-    "gbp_segsum_by_id": [_P, _I64, _P, _I64, _I, _I, _P, _P, _I, _P, _P],
+    # me, me_ld, ml, ml_ld, d, row_major, rows, offsets, n_seg, m, chunk, group,
+    # part, out, stream
+    "gbp_segsum_by_id": [_P, _I64, _P, _I64, _I, _I, _P, _P, _I, _I64, _I, _I, _P, _P, _P],
     # model, gslot, cam_mean, n_cam, lmk_mean, gidx, starts, win_w, z, args,
     # lp, jac, r0, srel, act, olp, ojac, or0, osrel, mp, deg, beta, min_linear,
     # stream
@@ -58,7 +59,7 @@ _ARGTYPES = {
     + [_P] * 4 + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P],
     # me, ml, d, rows, offsets, n_tiles, w, mp, out, stream
     "gbp_segsum_cm_blk": [_P, _P, _I, _P, _P, _I, _I, _I64, _P, _P],
-    # part, starts, cov_tiles, cov_offsets, f, w, n_seg, out, stream
+    # part, starts, blk_tiles, blk_offsets, f, w, n_seg, out, stream
     "gbp_scatter_windows_cm": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     # d0, d1, z, row_major, prec_full, huber_row, in[14], in_ld[14], out[4],
     # out_ld[4], m, eta_damping, lam_damping, num_undamped, floor, jitter,

@@ -24,7 +24,8 @@ per-row factor arguments `fargs` of models that read them
   relin_cm_tab_ell     replaces gbp_tpu.ops.messages_pallas.fused_relin_cm_tab_ell
   messages_cm_tab_ell  replaces gbp_tpu.ops.messages_pallas.fused_messages_cm_tab_ell
   segsum_by_id         replaces gbp_tpu.ops.messages_pallas.segsum_cm and the
-                       5th output of fused_messages_cm_tab_ell
+                       5th output of fused_messages_cm_tab_ell (csrc/segsum.cu;
+                       the chunked or the short form by `segsum_form`)
 
 Large scenes (csrc/windows.cu): rows are cut into tiles of TILE rows and
 every camera id of tile i lies in the window [win_starts[i], win_starts[i] +
@@ -36,7 +37,11 @@ win_w), so a block stages only its tile's window of the camera table.
                           5th output of fused_messages_cm_tabblk_ell: per-tile
                           window partials [n_tiles, F, w]
   scatter_windows_cm      replaces scatter_windows_cm: the partials combined
-                          over the overlapping windows, tiles in ascending order
+                          over the overlapping windows, tiles in ascending order;
+                          the kernel walks per block of SCATTER_CAMS cameras the
+                          tiles of `window_block_csr` (its index operand; the
+                          plain version walks per camera the cover lists of
+                          `window_cover_csr`, built from the starts)
 
 Expanded operands (csrc/rows.cu): both slots' beliefs arrive per factor row
 instead of from a table, for any instantiated (d0, d1, z), diagonal or full
@@ -102,6 +107,10 @@ TILE = 1024  # rows per window tile, the reference's grid tile (8 x 128)
 # their table in.
 SMEM_WINDOW_BYTES = 232448
 SMEM_TABLE_BYTES = 48 * 1024
+N_SM = 132  # streaming multiprocessors of the H100 SXM
+# segsum_by_id's chunked form: rows per chunk, powers of two between these.
+SEGSUM_CHUNK_MIN, SEGSUM_CHUNK_MAX = 256, 8192
+SCATTER_CAMS = 128  # cameras per block of scatter_windows_cm's kernel
 KERNELS = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id",
            "relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
            "scatter_windows_cm", "messages_cm", "relin_cm", "fused_messages",
@@ -122,13 +131,16 @@ BA_MODEL = "reprojection_normalized"
 @dataclasses.dataclass
 class Counts:
     """Plain-integer counts: `kernel[name]` grows by one where a wrapper
-    launches its kernel, `plain[name]` where the plain version runs."""
+    launches its kernel, `plain[name]` where the plain version runs, and
+    `segsum_forms[form]` by the form of each `segsum_by_id` launch."""
 
     kernel: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(KERNELS, 0))
     plain: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(KERNELS, 0))
+    segsum_forms: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(("chunked", "short"), 0))
 
     def reset(self):
-        for d in (self.kernel, self.plain):
+        for d in (self.kernel, self.plain, self.segsum_forms):
             for k in d:
                 d[k] = 0
 
@@ -592,6 +604,26 @@ def window_rows_csr(gidx, win_starts, w, n_own=None):
     return rows, offsets
 
 
+def window_block_csr(win_starts, w, n_seg):
+    """For `scatter_windows_cm`'s kernel: per block b of SCATTER_CAMS cameras,
+    [b * SCATTER_CAMS, min((b + 1) * SCATTER_CAMS, n_seg)), the tiles whose
+    window [win_starts[i], win_starts[i] + w) meets it, ascending (the union
+    of the block's cover lists of `window_cover_csr`), as (tiles [nnz]
+    int32, offsets [n_blocks + 1] int32)."""
+    s = np.asarray(win_starts, dtype=np.int64)
+    n_blk = -(-n_seg // SCATTER_CAMS)
+    hit = (s < n_seg) & (s + w > 0)
+    first = np.maximum(s, 0) // SCATTER_CAMS
+    count = np.where(hit, (np.minimum(s + w, n_seg) - 1) // SCATTER_CAMS - first + 1, 0)
+    tiles = np.repeat(np.arange(s.size), count)
+    # Block of each (tile, block) pair: the tile's first block plus its rank.
+    blocks = np.repeat(first, count) + np.arange(tiles.size) - np.repeat(
+        np.cumsum(count) - count, count)
+    order = np.argsort(blocks, kind="stable")  # stable: tiles stay ascending
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(blocks, minlength=n_blk))])
+    return tiles[order].astype(np.int32), offsets.astype(np.int32)
+
+
 def window_cover_csr(win_starts, w, n_seg):
     """For `scatter_windows_cm`: per camera c < n_seg the tiles i with
     win_starts[i] <= c < win_starts[i] + w, ascending, as
@@ -605,6 +637,14 @@ def window_cover_csr(win_starts, w, n_seg):
     order = np.argsort(cams, kind="stable")  # stable: tiles stay ascending
     offsets = np.concatenate([[0], np.cumsum(np.bincount(cams, minlength=n_seg))])
     return tiles[order].astype(np.int32), offsets.astype(np.int32)
+
+
+def cover_lists(win_starts, w, n_seg):
+    """`window_cover_csr` of the int32 tensor win_starts, as int32 tensors on
+    its device: the index of `scatter_windows_cm_plain`."""
+    tiles, offsets = window_cover_csr(win_starts.cpu().numpy(), w, n_seg)
+    return (torch.from_numpy(tiles).to(win_starts.device),
+            torch.from_numpy(offsets).to(win_starts.device))
 
 
 # --- kernel wrappers --------------------------------------------------------
@@ -1183,11 +1223,39 @@ def _check_op(name, t, rows, comps, dtype, row_major):
     return ctypes.c_void_p(t.data_ptr()), ld
 
 
+def _pow2_floor(n):
+    return 1 << (max(int(n), 1).bit_length() - 1)
+
+
+def segsum_form(m, n_seg, n_rows, row_major=False):
+    """(chunk, group) of `segsum_by_id`'s chunked form for operands of m
+    rows, n_seg segments and a CSR of n_rows entries, or (0, 0) for the
+    short-segment form.  The one rule: the chunk is the smallest power of
+    two from SEGSUM_CHUNK_MIN that keeps the dense partials [n_chunk, f,
+    n_seg] within 1/8 of the messages (chunk >= 8 * n_seg), raised while at
+    least two chunks per SM remain and capped at SEGSUM_CHUNK_MAX; the
+    chunked form needs component-major operands, such a chunk, at least one
+    chunk per SM and a CSR listing at least half the rows.  `group` lanes
+    sum one run of a chunk, about four entries each (a power of two up to
+    32)."""
+    if row_major or n_seg <= 0 or m <= 0 or 2 * n_rows < m:
+        return 0, 0
+    low = max(SEGSUM_CHUNK_MIN, 1 << (8 * n_seg - 1).bit_length())
+    if low > SEGSUM_CHUNK_MAX:
+        return 0, 0
+    chunk = max(low, min(SEGSUM_CHUNK_MAX, _pow2_floor(m // (2 * N_SM))))
+    if -(-m // chunk) < N_SM:
+        return 0, 0
+    return chunk, min(32, _pow2_floor(chunk // n_seg // 4))
+
+
 def segsum_by_id(me, ml, seg_rows, seg_offsets, *, row_major=False):
-    """Deterministic segment sum of me | ml over the CSR (seg_rows sorted by
-    segment, seg_offsets [n_seg + 1]): component-major me [d, mp], ml
-    [d*d, mp] -> [d + d*d, n_seg], or with row_major me [m, d], ml [m, d*d]
-    -> [n_seg, d + d*d].  Two runs give the same bits: no atomics."""
+    """Deterministic segment sum of me | ml over the CSR (seg_offsets
+    [n_seg + 1]; seg_rows lists each segment's rows ascending, entries past
+    the last segment are padding): component-major me [d, m], ml [d*d, m]
+    -> [d + d*d, n_seg], or with row_major me [m, d], ml [m, d*d] ->
+    [n_seg, d + d*d].  The form (`segsum_form`) sets the summation order;
+    two runs give the same bits: no atomics."""
     if not _on_card(me):
         return segsum_by_id_plain(me, ml, seg_rows, seg_offsets, row_major=row_major)
     from gbp_tpu_torch.ops._build import library
@@ -1197,19 +1265,31 @@ def segsum_by_id(me, ml, seg_rows, seg_offsets, *, row_major=False):
     f = d + d * d
     n_seg = seg_offsets.shape[0] - 1
     n_rows = seg_rows.shape[0]
-    out = torch.empty((n_seg, f) if row_major else (f, n_seg), dtype=dt, device=me.device)
+    chunk, group = segsum_form(m, n_seg, n_rows, row_major)
+    # One allocation: the output, then the chunked form's partials [n_chunk,
+    # f * n_seg].
+    n_part = -(-m // chunk) * f * n_seg if chunk else 0
+    buf = torch.empty(f * n_seg + n_part, dtype=dt, device=me.device)
+    out = buf[:f * n_seg].view((n_seg, f) if row_major else (f, n_seg))
     me_p, me_ld = _check_op("me", me, m, d, dt, row_major)
     ml_p, ml_ld = _check_op("ml", ml, m, d * d, dt, row_major)
+    v = 16 // me.element_size()
+    if chunk and (me.data_ptr() % 16 or ml.data_ptr() % 16 or me_ld % v or ml_ld % v or m % v):
+        raise ValueError("segsum_by_id: the chunked form takes 16-byte aligned operands with m "
+                         "and the leading strides multiples of 16 bytes")
     args = [
         me_p, ctypes.c_int64(me_ld), ml_p, ctypes.c_int64(ml_ld), ctypes.c_int(d),
         ctypes.c_int(row_major),
         _check("seg_rows", seg_rows, (n_rows,), torch.int32),
         _check("seg_offsets", seg_offsets, (n_seg + 1,), torch.int32),
-        ctypes.c_int(n_seg), ctypes.c_void_p(out.data_ptr()), _stream(),
+        ctypes.c_int(n_seg), ctypes.c_int64(m), ctypes.c_int(chunk), ctypes.c_int(group),
+        ctypes.c_void_p(buf[f * n_seg:].data_ptr() if chunk else None),
+        ctypes.c_void_p(out.data_ptr()), _stream(),
     ]
     fn = getattr(library(), f"gbp_segsum_by_id_{_suffix(dt)}")
     _raise_on(fn(*args), "segsum_by_id")
     COUNTS.kernel["segsum_by_id"] += 1
+    COUNTS.segsum_forms["chunked" if chunk else "short"] += 1
     return out
 
 
@@ -1354,25 +1434,31 @@ def segsum_cm_blk(me, ml, win_rows, win_offsets, *, n_tiles, w):
     return out
 
 
-def scatter_windows_cm(part, win_starts, cov_tiles, cov_offsets, *, n_seg):
+def scatter_windows_cm(part, win_starts, blk_tiles, blk_offsets, *, n_seg):
     """Combine per-tile window partials part [n_tiles, f, w] into [f, n_seg]:
     out[k, c] = sum over the tiles i covering c of part[i, k, c -
-    win_starts[i]], in ascending i.  (cov_tiles, cov_offsets) are the cover
-    lists of `window_cover_csr`; starts are int32.  Deterministic."""
+    win_starts[i]], in ascending i.  (blk_tiles, blk_offsets) are the block
+    lists of `window_block_csr`; starts are int32 multiples of 8, w a
+    multiple of 8.  Deterministic, and equal bit for bit to the plain
+    version, which walks the cover lists (`cover_lists`)."""
     if not _on_card(part):
-        return scatter_windows_cm_plain(part, win_starts, cov_tiles, cov_offsets, n_seg=n_seg)
+        return scatter_windows_cm_plain(part, win_starts,
+                                        *cover_lists(win_starts, part.shape[2], n_seg),
+                                        n_seg=n_seg)
     from gbp_tpu_torch.ops._build import library
 
     dt = part.dtype
     n_tiles, f, w = part.shape
-    if not 0 < f <= 65535:
-        raise ValueError(f"scatter_windows_cm: f={f} out of range")
+    if not 0 < f <= 65535 or w % 8:
+        raise ValueError(f"scatter_windows_cm: f={f}, w={w} out of range")
+    if part.data_ptr() % 16:
+        raise ValueError("scatter_windows_cm: part must be 16-byte aligned")
     out = torch.empty((f, n_seg), dtype=dt, device=part.device)
     args = [
         _check("part", part, (n_tiles, f, w), dt),
         _check("win_starts", win_starts, (n_tiles,), torch.int32),
-        _check("cov_tiles", cov_tiles, (cov_tiles.shape[0],), torch.int32),
-        _check("cov_offsets", cov_offsets, (n_seg + 1,), torch.int32),
+        _check("blk_tiles", blk_tiles, (blk_tiles.shape[0],), torch.int32),
+        _check("blk_offsets", blk_offsets, (-(-n_seg // SCATTER_CAMS) + 1,), torch.int32),
         ctypes.c_int(f), ctypes.c_int(w), ctypes.c_int(n_seg),
         ctypes.c_void_p(out.data_ptr()), _stream(),
     ]

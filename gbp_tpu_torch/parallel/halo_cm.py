@@ -46,7 +46,6 @@ import torch
 
 from gbp_tpu_torch import resolve_device
 from gbp_tpu_torch.core import sweep as sweep_mod
-from gbp_tpu_torch.core.graph import adjacency_csr
 from gbp_tpu_torch.core.sweep import GBPConfig, VariableState, _kernel_params
 from gbp_tpu_torch.core.sweep_cm import LANE, SUB, CMFactorState
 from gbp_tpu_torch.gaussians import packed_identity_row
@@ -71,7 +70,7 @@ from gbp_tpu_torch.ops.messages import (
     scatter_windows_cm,
     segsum_by_id,
     segsum_cm_blk,
-    window_cover_csr,
+    window_block_csr,
     window_rows_csr,
 )
 from gbp_tpu_torch.parallel import halo as halo_mod
@@ -105,9 +104,9 @@ class HaloCMGraph(NamedTuple):
     n_loc_g: int = 0
     gather_mode: str = "rows"  # "table" | "rows" (module docstring)
     ell_fused: bool = False
-    # table and rows modes: every row by local gathered id (the
+    # table and rows modes: every valid row by local gathered id (the
     # deterministic sum `segsum_by_id`); rows mode: the expanding gather.
-    seg_rows: torch.Tensor | None = None  # [P, mp] int32
+    seg_rows: torch.Tensor | None = None  # [P, most valid rows of a partition] int32
     seg_offsets: torch.Tensor | None = None  # [P, n_loc_g + 1] int32
     gidx_rm: torch.Tensor | None = None  # [P, mp] int64
     # Windows (win_w == 0: none).  Every owned id (< n_own_max) of tile i
@@ -125,12 +124,12 @@ class HaloCMGraph(NamedTuple):
     n_cut: tuple = ()
     gtab_idx: torch.Tensor | None = None  # [P, win_ngp + win_ncut] int64 rows of [local | 0]
     # The windowed sums' CSRs: owned rows by window column, the tiles that
-    # cover each owned camera, ghost and cut rows by ghost-table id.
+    # meet each block of owned cameras, ghost and cut rows by ghost-table id.
     win_rows: torch.Tensor | None = None  # [P, mp] int32
     win_offsets: torch.Tensor | None = None  # [P, n_tiles * win_w + 1] int32
-    cov_tiles: torch.Tensor | None = None  # [P, max nnz] int32
-    cov_offsets: torch.Tensor | None = None  # [P, n_own_max + 1] int32
-    ext_rows: torch.Tensor | None = None  # [P, mp] int32
+    blk_tiles: torch.Tensor | None = None  # [P, max nnz] int32 (`window_block_csr`)
+    blk_offsets: torch.Tensor | None = None  # [P, ceil(n_own_max / SCATTER_CAMS) + 1] int32
+    ext_rows: torch.Tensor | None = None  # [P, most ghost and cut rows of a partition] int32
     ext_offsets: torch.Tensor | None = None  # [P, win_ngp + win_ncut + 1] int32
 
 
@@ -153,10 +152,11 @@ def _stack_i32(arrays, dev):
     return torch.tensor(out, device=dev)
 
 
-def _by_id_csr(ids: np.ndarray, keep: np.ndarray, n_seg: int):
-    """(rows [mp], offsets [n_seg + 1]) int32: the rows with keep, stably
-    sorted by id, zero-padded to mp entries that no segment reaches."""
-    rows = np.zeros(ids.size, dtype=np.int32)
+def _by_id_csr(ids: np.ndarray, keep: np.ndarray, n_seg: int, length: int):
+    """(rows [length], offsets [n_seg + 1]) int32: the rows with keep,
+    stably sorted by id (so ascending within each id), zero-padded to
+    `length` entries that no segment reaches."""
+    rows = np.zeros(length, dtype=np.int32)
     sel = np.flatnonzero(keep)
     rows[:sel.size] = sel[np.argsort(ids[sel], kind="stable")]
     offsets = np.concatenate([[0], np.cumsum(np.bincount(ids[sel], minlength=n_seg))])
@@ -306,20 +306,26 @@ def prepare(hp: halo_mod.HaloProblem, segsum_exact: bool = True, gather_mode: st
         gt[:, :n_loc_g - no_g] = np.arange(no_g, n_loc_g)
         gt[:, ngp:] = cut_np
         csr = [window_rows_csr(gidx[c], starts[c], w, n_own=no_g) for c in range(n_parts)]
-        cov = [window_cover_csr(starts[c], w, no_g) for c in range(n_parts)]
-        ext = [_by_id_csr(gg[c], gg[c] < n_gt, n_gt) for c in range(n_parts)]
+        blk = [window_block_csr(starts[c], w, no_g) for c in range(n_parts)]
+        # The ghost CSR lists only the ghost and cut rows, so its length tells
+        # `segsum_by_id` that its segments are short.
+        n_ext = max(int((gg < n_gt).sum(axis=1).max()), 1)
+        ext = [_by_id_csr(gg[c], gg[c] < n_gt, n_gt, n_ext) for c in range(n_parts)]
         extra.update(
             win_w=int(w), win_ngp=int(ngp), win_ncut=int(ncut_w), win_starts=as_i32(starts),
             gidx_ghost=as_i32(gg), cut_ids=torch.tensor(cut_np, device=dev),
             n_cut=tuple(len(x) for x in cuts), gtab_idx=torch.tensor(gt, device=dev),
             win_rows=as_i32(np.stack([a for a, _ in csr])),
             win_offsets=as_i32(np.stack([b for _, b in csr])),
-            cov_tiles=_stack_i32([a for a, _ in cov], dev),
-            cov_offsets=as_i32(np.stack([b for _, b in cov])),
+            blk_tiles=_stack_i32([a for a, _ in blk], dev),
+            blk_offsets=as_i32(np.stack([b for _, b in blk])),
             ext_rows=as_i32(np.stack([a for a, _ in ext])),
             ext_offsets=as_i32(np.stack([b for _, b in ext])))
     else:
-        seg = [adjacency_csr(gidx[c], n_loc_g) for c in range(n_parts)]
+        # The valid rows by local gathered id (clones and padding carry zero
+        # messages), zero-padded to the most valid rows of a partition.
+        n_val = max(int((act > 0.5).sum(axis=1).max()), 1)
+        seg = [_by_id_csr(gidx[c], act[c] > 0.5, n_loc_g, n_val) for c in range(n_parts)]
         extra.update(seg_rows=as_i32(np.stack([a for a, _ in seg])),
                      seg_offsets=as_i32(np.stack([b for _, b in seg])))
         if gather_mode == "rows":
@@ -432,9 +438,8 @@ def _partition_sums(hcm: HaloCMGraph, p: int, me_g, ml_g) -> torch.Tensor:
     n_tiles = hcm.mp // TILE
     part = segsum_cm_blk(me_g, ml_g, hcm.win_rows[p], hcm.win_offsets[p], n_tiles=n_tiles,
                          w=hcm.win_w)
-    n_cov = int(hcm.cov_offsets[p, -1])
-    sum_own = scatter_windows_cm(part, hcm.win_starts[p], hcm.cov_tiles[p, :n_cov].contiguous(),
-                                 hcm.cov_offsets[p], n_seg=no)
+    sum_own = scatter_windows_cm(part, hcm.win_starts[p], hcm.blk_tiles[p], hcm.blk_offsets[p],
+                                 n_seg=no)
     sum_ext = segsum_by_id(me_g, ml_g, hcm.ext_rows[p], hcm.ext_offsets[p])
     k = hcm.n_cut[p]
     if k:

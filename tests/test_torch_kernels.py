@@ -278,10 +278,11 @@ def test_window_kernels_match_plain_on_card(dtype, tol):
     part = M.segsum_cm_blk(*b_args, **b_kw)
     assert rel(part, M.segsum_cm_blk_plain(*b_args, **b_kw)) <= tol
     assert torch.equal(part, M.segsum_cm_blk(*b_args, **b_kw))
-    s_args = (part, cmg.win_starts, cmg.cov_tiles, cmg.cov_offsets)
     n_cam = cam_mean.shape[0]
+    s_args = (part, cmg.win_starts, cmg.blk_tiles, cmg.blk_offsets)
     got = M.scatter_windows_cm(*s_args, n_seg=n_cam)
-    assert rel(got, M.scatter_windows_cm_plain(*s_args, n_seg=n_cam)) <= tol
+    cover = M.cover_lists(cmg.win_starts, cmg.win_w, n_cam)
+    assert rel(got, M.scatter_windows_cm_plain(part, cmg.win_starts, *cover, n_seg=n_cam)) <= tol
     assert rel(got, M.segsum_by_id_plain(ref_m[0], ref_m[1], cmg.seg_rows, cmg.seg_offsets)) <= tol
     assert torch.equal(got, M.scatter_windows_cm(*s_args, n_seg=n_cam))
     # A window that cannot fit one block's shared memory raises, with the numbers.

@@ -71,9 +71,10 @@ def test_prepare_matches_reference(f64):
     for name in ("z", "prec", "act"):
         np.testing.assert_array_equal(getattr(pc, name).numpy(), flat(getattr(jc, name)))
     np.testing.assert_array_equal(pc.gidx.numpy(), np.asarray(jc.gidx_cm).reshape(-1))
-    # The CSR lists every row once, grouped by camera id in row order.
+    # The CSR lists every valid row once (padded and clone rows carry zero
+    # messages), grouped by camera id in row order.
     rows, offs = pc.seg_rows.numpy(), pc.seg_offsets.numpy()
-    assert sorted(rows.tolist()) == list(range(pc.mp))
+    assert sorted(rows.tolist()) == np.flatnonzero(pc.act.numpy()[0] > 0.5).tolist()
     gid = pc.gidx.numpy()
     for c in range(len(offs) - 1):
         seg = rows[offs[c]:offs[c + 1]]

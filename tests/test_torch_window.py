@@ -196,8 +196,8 @@ def test_prepare_windows_match_reference(name):
     gidx = pc.gidx.numpy()
     np.testing.assert_array_equal(gidx, np.asarray(jc.gidx_rm))
     # Every camera id lies in its tile's window; the per-tile CSR lists each
-    # row once, under its window column, in row order; the cover lists name
-    # exactly the tiles whose window holds the camera, ascending.
+    # row once, under its window column, in row order; the block lists name
+    # exactly the tiles whose window meets the block of cameras, ascending.
     starts, w = pc.win_starts.numpy(), pc.win_w
     tiles = gidx.reshape(-1, P.ROW_ALIGN)
     assert (tiles.min(1) >= starts).all() and (tiles.max(1) < starts + w).all()
@@ -207,11 +207,13 @@ def test_prepare_windows_match_reference(name):
     np.testing.assert_array_equal(seg_of_row // w, rows // P.ROW_ALIGN)
     np.testing.assert_array_equal(starts[seg_of_row // w] + seg_of_row % w, gidx[rows])
     assert (np.diff(rows)[np.diff(seg_of_row) == 0] > 0).all()
-    cov, coff = pc.cov_tiles.numpy(), pc.cov_offsets.numpy()
-    n_cam = pc.base.vblocks[0].count
-    for c in range(0, n_cam, 7):
-        want = np.flatnonzero((starts <= c) & (c < starts + w))
-        np.testing.assert_array_equal(cov[coff[c]:coff[c + 1]], want)
+    blk, boff = pc.blk_tiles.numpy(), pc.blk_offsets.numpy()
+    n_cam, b = pc.base.vblocks[0].count, M.SCATTER_CAMS
+    assert boff.shape == (-(-n_cam // b) + 1,)
+    for i in range(len(boff) - 1):
+        c0, c1 = i * b, min((i + 1) * b, n_cam)
+        want = np.flatnonzero((starts < c1) & (c0 < starts + w))
+        np.testing.assert_array_equal(blk[boff[i]:boff[i + 1]], want)
 
 
 def test_windows_off_for_64_cams():
@@ -291,8 +293,8 @@ def test_segsum_blk_plain_matches_reference(operands, dtype, tol):
     n_cam = pc.base.vblocks[0].count
     part = M.segsum_cm_blk_plain(me, ml, pc.win_rows, pc.win_offsets,
                                  n_tiles=pc.mp // M.TILE, w=pc.win_w)
-    got = M.scatter_windows_cm_plain(part, pc.win_starts, pc.cov_tiles, pc.cov_offsets,
-                                     n_seg=n_cam)
+    got = M.scatter_windows_cm_plain(part, pc.win_starts,
+                                     *M.cover_lists(pc.win_starts, pc.win_w, n_cam), n_seg=n_cam)
     cm = lambda a: jnp.asarray(a.numpy().reshape(a.shape[0], -1, mp.LANE))
     out = mp.segsum_cm_blk(cm(me), cm(ml), cm(pc.gidx[None]), jnp.asarray(pc.win_starts.numpy()),
                            n_seg=n_cam, w=pc.win_w, exact=True, interpret=True)
