@@ -172,6 +172,27 @@ non-zero; no phase is caught):
      `python -m gbp_tpu_torch.ba --bal_file data/ladybug49_sim.txt.gz
      --n_iters 100 --n_chips 2 --oracle`, final ARE within 1e-3 px of the
      same command on one device.
+ 24. the row-major kernels (staged through shared memory) on the generic
+     engine's own operands: after min_linear_iters sweeps of `core.sweep`
+     under message_form="pallas" on the card, the operands of the next
+     sweep's `fused_relin_messages` (or `fused_messages`) call are recorded
+     (the beliefs as views into packed rows: leading strides 48 and 15,
+     lam 24 bytes into the row at (6, 3, 2) in float32) on the bench scene
+     (float32), the 8-camera scene, ladybug49 with per-row distortion
+     arguments and with 9-dof cameras, a 500-pose Manhattan graph (per-row
+     Huber thresholds), data/manhattan_sim.g2o (full information), a
+     120-pose SE(3) helix and the linear toy chain (float64 and float32):
+     every shape (6, 3, 2), (9, 3, 2), (3, 3, 3), (6, 6, 6), (1, 1, 1).
+     The relinearization at the sweep's beta and at the median distance,
+     then the messages with diagonal, full and per-row-threshold precision,
+     against the plain versions (float64 1e-11, float32 1e-4) and bit for
+     bit against `relin_cm` / `messages_cm` on the transposed operands; the
+     same on a prefix of the rows that fills no tile.  Per instantiation:
+     rows per block, shared bytes, registers, local memory, blocks per SM
+     (ptxas's spills are in the build lines); in
+     float32 the device time, bound and share of kernels 19, 20 (and its
+     relinearization, and the floor of its two kernels), 4 and 5 on those
+     operands.
 """
 import contextlib
 import dataclasses
@@ -1128,6 +1149,225 @@ def check_bal_kernels(tag, intrinsics, dtype, dev):
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (tolerance {tol:g})")
 
 
+# --- the row-major kernels on the generic engine's own operands (phase 24) -----------
+
+
+@contextlib.contextmanager
+def recording(name):
+    """Inside, the generic sweep's calls of the wrapper `name` are recorded,
+    (args, kwargs) into the yielded list, and still run."""
+    calls, real = [], getattr(sweep, name)
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(sweep, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(sweep, name, real)
+
+
+def staged_scenes():
+    """The generic engine's graphs at every shape of the row-major kernels:
+    (tag, build(dtype) -> (graph, means), config, dtypes).  The bench scene
+    (its operands also time kernels 4, 5, 19 and 20), the 8-camera scene,
+    ladybug49 with the per-row distortion arguments and with 9-dof cameras,
+    a Manhattan graph with per-row Huber thresholds, manhattan_sim.g2o (full
+    information), an SE(3) helix and the linear toy chain."""
+    f32, f64 = torch.float32, torch.float64
+    lady = bal.to_sim(bal.prune(bal.read_bal(LADYBUG)))
+    yield "bench64", lambda dt: ba.build(ba.simulate(**BENCH), dtype=dt), CFG, (f32,)
+    yield "8cam", lambda dt: ba.build(ba.simulate(**SMALL), dtype=dt), CFG, (f64, f32)
+    for intr in (False, True):
+        yield (f"ladybug49{' 9-dof' if intr else ''}",
+               lambda dt, intr=intr: ba.build_bal(lady, dtype=dt, optimize_intrinsics=intr)[:2],
+               CFG, (f64, f32))
+    yield ("manhattan500", lambda dt: pose_graph.build(pose_graph.simulate_manhattan(**M500),
+                                                       dtype=dt, layout="ell"), PCFG, (f64, f32))
+    yield ("manhattan_sim.g2o", lambda dt: pose_graph.build_g2o(
+        g2o.read_g2o(G2O_FILE), huber=2.0, dtype=dt, layout="ell"), PCFG, (f64, f32))
+    yield ("helix120", lambda dt: pose_graph.build_g2o(
+        pose_graph.simulate_helix(n_poses=120, seed=0), dtype=dt, layout="ell"), PCFG,
+        (f64, f32))
+    yield "toy chain", lambda dt: toy.build(toy.simulate(n=50), dtype=dt), CFG, (f64, f32)
+
+
+def device_ms_by_kernel(fn, n=20):
+    """{kernel name: device ms per call} of the port's kernels `fn` launches,
+    by the profiler, over n calls after a warm one."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "gbp::" in e.name:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    return out
+
+
+def prec_variants(prec, z, prec_full, dev):
+    """The precision operand of a recorded call in the three forms the
+    messages kernel takes: {(prec_full, huber): prec}: the diagonal (Huber
+    none or scalar), a full SPD matrix with that diagonal, and the diagonal
+    with a per-row threshold column (0 = off for that row)."""
+    m = prec.shape[0]
+    diag = prec.reshape(m, z, z).diagonal(dim1=1, dim2=2) if prec_full else prec[:, :z]
+    root = diag.sqrt()
+    full = 0.3 * root[:, :, None] * root[:, None, :] + torch.diag_embed(0.7 * diag)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    thr = torch.randint(0, 3, (m, 1), generator=gen).to(dev, prec.dtype)
+    diag = diag.contiguous()
+    return {(False, None): diag, (False, 1.0): diag,
+            (False, "row"): torch.cat([diag, thr], 1),
+            (True, None): full.reshape(m, z * z).contiguous(),
+            (True, 1.0): full.reshape(m, z * z).contiguous()}
+
+
+def check_staged_kernels(tag, build, cfg, dtype, staged):
+    """Phase 24 for one graph and dtype: the row-major (staged) kernels on
+    the operands the generic sweep hands them after min_linear_iters sweeps
+    on the card (belief operands as views into packed rows), against their plain
+    versions and bit for bit against the component-major kernels on the
+    transposed operands; again on a prefix of the rows that fills no tile;
+    the messages kernel with every precision and Huber form.  In float32
+    the staged and the component-major kernels are timed on these operands;
+    `staged` collects, per instantiation, the figures and times."""
+    tol = TOL[dtype]
+    graph, means = build(dtype)
+    cfg = dataclasses.replace(cfg, message_form="pallas")
+    # After min_linear_iters sweeps every row is eligible to relinearize in
+    # the next.
+    state = sweep.run(graph, sweep.init_state(graph, means), cfg, cfg.min_linear_iters)
+    with recording("fused_relin_messages") as rel_calls, \
+            recording("fused_messages") as msg_calls:
+        sync(sweep.sweep(graph, state, cfg))
+    relin = bool(rel_calls)
+    args, kw = (rel_calls or msg_calls)[0]
+    shape = dict(d0=kw["d0"], d1=kw["d1"], z=kw["z"])
+    zd = kw["z"]
+    cm = lambda a: a.T.contiguous() if isinstance(a, torch.Tensor) and a.ndim == 2 else a
+    key = f"{tag} {str(dtype)[6:]} {tuple(shape.values())}"
+
+    def hold(name, got, ref):
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(got, ref)):
+            rel, _ = rel_err(a, b)
+            if not rel <= tol:
+                raise AssertionError(f"{name} {key} out{i}: rel err {rel:.3e} > {tol:g}")
+            worst = max(worst, rel)
+        return worst
+
+    def same_bits(name, rm_out, cm_out):
+        for a, b in zip(rm_out, cm_out):
+            if not torch.equal(a, b.T):
+                raise AssertionError(f"{name} {key}: differs from the component-major kernel "
+                                     f"(max abs {float((a - b.T).abs().max()):.3e})")
+
+    m = args[1].shape[0]
+    m_part = m - min(77, m // 3)
+    m_part -= m_part % 32 == 0
+    part = lambda a: a[:m_part] if isinstance(a, torch.Tensor) else a
+    worst = {}
+    if relin:
+        params, x, z, fargs, lp, jac, r0, prec, srel, act, *rest = args
+        on = act > 0.5
+        beta_mid = float((x - lp).norm(dim=1)[on].double().median())
+        n_relin = []
+        for beta in (params[4], beta_mid):
+            p = (*params[:4], beta, *params[5:])
+            b_args = (p, *args[1:])
+            got = sync(M.fused_relin_messages(*b_args, **kw))
+            n_relin.append(int((got[7][on] == 0).sum()))
+            worst["fused_relin_messages"] = max(worst.get("fused_relin_messages", 0.0), hold(
+                "fused_relin_messages", got, M.fused_relin_messages_plain(*b_args, **kw)))
+            rkw = dict(comp_name=kw["comp_name"], **shape)
+            cm_r = sync(M.relin_cm(p, cm(x), cm(z), cm(fargs), cm(lp), cm(jac), cm(r0), srel,
+                                   act, **rkw))
+            same_bits("fused_relin_messages (relinearization)", got[4:], cm_r)
+            mkw = dict(prec_full=kw["prec_full"], huber=kw["huber"], **shape)
+            cm_m = sync(M.messages_cm(p, cm_r[1], cm_r[0], cm_r[2], cm(prec), cm_r[3], act,
+                                      *map(cm, rest), **mkw))
+            same_bits("fused_relin_messages (messages)", got[:4], cm_m)
+            head = sync(M.fused_relin_messages(*map(part, b_args), **kw))
+            for a, b in zip(head, got):
+                if not torch.equal(a, b[:m_part]):
+                    raise AssertionError(f"fused_relin_messages {key}: {m_part} rows differ "
+                                         f"from the first {m_part} of {m}")
+        if not any(0 < n < int(on.sum()) for n in n_relin):
+            raise AssertionError(f"{key}: the relinearization check needs both kinds of rows")
+        msg_state = (params, got[5], got[4], got[6], prec, got[7][:, 0], act, *rest)
+    else:
+        msg_state = args
+        n_relin = None
+    params, jac, x0, r0, prec, srel, act, *rest = msg_state
+    variants = prec_variants(prec, zd, kw["prec_full"], prec.device)
+    for (prec_full, huber), pv in variants.items():
+        v_args = (params, jac, x0, r0, pv, srel, act, *rest)
+        v_kw = dict(prec_full=prec_full, huber=huber, **shape)
+        got = sync(M.fused_messages(*v_args, **v_kw))
+        worst["fused_messages"] = max(worst.get("fused_messages", 0.0), hold(
+            "fused_messages", got, M.fused_messages_plain(*v_args, **v_kw)))
+        same_bits(f"fused_messages[full={prec_full}, huber={huber}]", got,
+                  sync(M.messages_cm(*map(cm, v_args), **v_kw)))
+        head = sync(M.fused_messages(*map(part, v_args), **v_kw))
+        if not all(torch.equal(a, b[:m_part]) for a, b in zip(head, got)):
+            raise AssertionError(f"fused_messages {key}: {m_part} rows differ")
+    print(f"[staged] {key}: {m} rows (and the first {m_part}), views "
+          f"{[tuple(a.stride()) for a in rest[:4]]}, relinearizing rows at the sweep's beta and "
+          f"the median {n_relin}: bit for bit the component-major kernels; worst rel err vs "
+          f"plain " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (tol {tol:g})")
+
+    infos = {"fused_messages": M.staged_info(
+        "fused_messages", dtype, prec_full=kw["prec_full"], huber=kw["huber"], **shape)}
+    if relin:
+        infos["relinearization"] = M.staged_info("fused_relin_messages", dtype,
+                                                 comp_name=kw["comp_name"])
+    for name, info in infos.items():
+        print(f"[staged] {key} {name}: {info['rows']} rows per block, {info['smem_bytes']} "
+              f"bytes of shared memory, {info['registers']} registers, {info['local_bytes']} "
+              f"bytes of local memory per thread, {info['blocks_per_sm']} blocks per SM")
+    if dtype != torch.float32:
+        return
+    # Kernels 19 and 4 on the recorded state, 20 and 5 on the recorded call.
+    mkw = dict(prec_full=kw["prec_full"], huber=kw["huber"], **shape)
+    row_out = M.fused_messages(*msg_state, **mkw)
+    timed = {"fused_messages": (lambda: M.fused_messages(*msg_state, **mkw),
+                                bound_ms(msg_state[1:], row_out, 0)[0]),
+             "messages_cm": (lambda: M.messages_cm(*map(cm, msg_state), **mkw),
+                             bound_ms(msg_state[1:], row_out, 0)[0])}
+    if relin:
+        rkw = dict(comp_name=kw["comp_name"], **shape)
+        cm_relin_args = (args[0], *map(cm, args[1:7]), args[8], args[9])
+        new = M.fused_relin_messages(*args, **kw)
+        relin_io = (*args[1:7], args[8], args[9], *new[4:])
+        timed["fused_relin_messages"] = (lambda: M.fused_relin_messages(*args, **kw),
+                                         bound_ms(args[1:], new, 0)[0])
+        timed["relin_cm"] = (lambda: M.relin_cm(*cm_relin_args, **rkw),
+                             bound_ms(relin_io, (), 0)[0])
+    rec = staged.setdefault(key, {"rows": m, "info": infos})
+    for name, (fn, b_ms) in timed.items():
+        by_kernel = device_ms_by_kernel(fn)
+        dev_ms = sum(by_kernel.values())
+        rec[name] = dict(device_ms=dev_ms, bound_ms=b_ms, share=b_ms / dev_ms)
+        line = (f"[staged] {key} {name}: device {dev_ms:.4f} ms, bound {b_ms:.4f} ms, share "
+                f"{b_ms / dev_ms:.3f}")
+        if name == "fused_relin_messages":
+            r_ms = sum(v for k, v in by_kernel.items() if "gbp::relin" in k)
+            r_b = bound_ms(relin_io, (), 0)[0]
+            floor = b_ms + sum(t.numel() * t.element_size() for t in new[4:]) \
+                / PEAK_BYTES_PER_S * 1e3
+            rec[name].update(relin_ms=r_ms, relin_bound_ms=r_b, two_kernel_floor_ms=floor)
+            line += (f"; its relinearization {r_ms:.4f} ms (bound {r_b:.4f}, share "
+                     f"{r_b / r_ms:.3f}); the two kernels' floor {floor:.4f} ms (share "
+                     f"{floor / dev_ms:.3f})")
+        print(line + f" ({card_line()})")
+
+
 def check_scatter_dense(dev):
     """`scatter_windows_cm` against a dense accumulation in tile order, with
     overlapping windows, a repeated start and a window reaching into the
@@ -2051,6 +2291,15 @@ def main():
         for dtype in (f64, f32):
             check_bal_kernels("ladybug49", intrinsics, dtype, dev)
     print(f"[kernels] BAL models done at {time.perf_counter() - T_START:.1f} s")
+
+    # The row-major kernels on the generic engine's own operands, every shape.
+    staged = {}
+    for tag, build, cfg, dtypes in staged_scenes():
+        for dtype in dtypes:
+            check_staged_kernels(tag, build, cfg, dtype, staged)
+    print(f"[staged] done at {time.perf_counter() - T_START:.1f} s: "
+          + json.dumps({k: {n: v for n, v in r.items() if n != "info"}
+                        for k, r in staged.items()}))
 
     launches = bench_path(card)
     unfused = unfused_path(card)

@@ -1,9 +1,10 @@
 // Asynchronous copies from device memory into shared memory (cp.async,
 // sm_80 and later), for the rings of shared-memory stages of segsum.cu and
-// windows.cu: a thread issues copies, closes them into a group with
-// cp_async_commit(), and cp_async_wait<N>() returns once at most N of its
-// groups are still in flight.  A __syncthreads() after the wait makes the
-// other threads' copies visible.
+// windows.cu and the row tiles of rows_kernels.cuh: a thread issues copies,
+// closes them into a group with cp_async_commit(), and cp_async_wait<N>()
+// returns once at most N of its groups are still in flight.  A
+// __syncthreads() after the wait makes the other threads' copies visible.
+// And the 1-D bulk copies of the row tiles.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -15,6 +16,17 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
+// One element of 4 or 8 bytes, both addresses aligned to its size; through
+// L1 (cp.async takes sizes below 16 bytes with .ca only).
+template <typename S>
+__device__ __forceinline__ void cp_async_elem(S* smem, const S* gmem) {
+  static_assert(sizeof(S) == 4 || sizeof(S) == 8, "cp.async copies 4, 8 or 16 bytes");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
+               "n"(static_cast<int>(sizeof(S)))
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -22,6 +34,65 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 1-D bulk copies (the Tensor Memory Accelerator, sm_90): one thread moves a
+// contiguous span between device and shared memory, both addresses 16-byte
+// aligned and the size a multiple of 16 bytes.  Loads complete on an
+// mbarrier in shared memory (the bytes they carry counted by
+// mbar_arrive_expect_tx); stores are waited for by bulk_wait_read() before
+// their source may change.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned phase) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gmem),
+               "r"(smem_addr(smem)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Orders this thread's writes to shared memory before bulk copies that
+// read them (the copies run in the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 }  // namespace gbp

@@ -1,4 +1,4 @@
-// The expanded-operand messages kernel (rows.cu, rows_kernels.cuh)
+// The expanded-operand messages kernels (rows.cu, rows_kernels.cuh), both layouts,
 // instantiated at (9, 3, 2), the 9-dof BAL camera of
 // `bal_reprojection_intrinsics`, in double: a source of its own, so that its
 // compiler runs beside the others'.
@@ -7,6 +7,6 @@
 namespace gbp {
 
 template int dispatch_messages<double, 9, 3, 2>(bool, bool, bool, const RowArgs<double, N_MSG_IN>&,
-    int64_t, const MsgParams<double>&, cudaStream_t);
+    int64_t, const MsgParams<double>&, cudaStream_t, int*);
 
 }  // namespace gbp

@@ -7,8 +7,8 @@
 // component-major, the ELL slot's belief read at r / deg), unfused.cu reads
 // the ELL slot from expanded operands instead, unfused_win.cu the gathered
 // slot from the tile's window and the ELL slot from expanded operands,
-// rows.cu both slots' beliefs from expanded per-row operands in either
-// layout.  All of them run
+// rows.cu both slots' beliefs from expanded per-row operands
+// (component-major from device memory, row-major from shared-memory tiles).  All of them run
 // `relin_core` and `messages_core`, so the arithmetic (operation order, the
 // separately rounded beta and Huber decisions) is the same code.  The slot
 // dofs, the measurement dim and the measurement model are template
@@ -51,6 +51,12 @@ struct ColMajor {
 };
 struct RowMajor {
   static __device__ __forceinline__ int64_t at(int k, int64_t r, int64_t ld) { return r * ld + k; }
+};
+// ... or at the thread's own row of a shared-memory tile (rows_kernels.cuh):
+// the operand pointer already points at that row, so component k is at k
+// whatever r and ld (pass 0 for both).
+struct SmemRow {
+  static __device__ __forceinline__ int64_t at(int k, int64_t, int64_t) { return k; }
 };
 
 // The per-factor operands travel as raw __restrict__ pointers (the compiler

@@ -68,6 +68,11 @@ _ARGTYPES = {
     # model, row_major, in[8] (x z lp jac r0 srel act args), in_ld[8],
     # out[4], out_ld[4], m, beta, min_linear, stream
     "gbp_relin_rows": [_I, _I] + [_P] * 4 + [_I64, _D, _D, _P],
+    # d0, d1, z, prec_full, huber_row, info[5]; model, info[5]: the row-major
+    # (staged) kernel's rows per block, shared bytes per block, registers and
+    # local-memory bytes per thread, resident blocks per SM
+    "gbp_messages_rows_info": [_I] * 5 + [_P],
+    "gbp_relin_rows_info": [_I, _P],
     # model, gslot, x_other, mtab, n_g, gidx, z, args, lp, jac, r0, srel, act,
     # olp, ojac, or0, osrel, mp, beta, min_linear, stream
     "gbp_relin_cm_tab": [_I, _I, _P, _P, _I, _P] + [_P] * 7 + [_P] * 4 + [_I64, _D, _D, _P],

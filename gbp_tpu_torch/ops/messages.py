@@ -46,9 +46,13 @@ win_w), so a block stages only its tile's window of the camera table.
 Expanded operands (csrc/rows.cu): both slots' beliefs arrive per factor row
 instead of from a table, for any instantiated (d0, d1, z), diagonal or full
 precision, Huber none / scalar / per row ("row": the thresholds ride as the
-component after the precision, 0 = off for that row).  One kernel body per
-function serves both layouts; every operand is passed with its leading
-stride, so slices of wider arrays are taken in place.
+component after the precision, 0 = off for that row).  Every operand is
+passed with its leading stride, so slices of wider arrays are taken in
+place.  Component-major operands are read where they lie; row-major ones
+are staged a tile of rows per block through shared memory (the outputs then
+leave the same way, so they must be fresh contiguous tensors, as the
+wrappers allocate them); the per-row arithmetic is the same in both, and so
+are the bits.
 
   messages_cm           replaces fused_messages_cm      (operands [F, mp])
   relin_cm              replaces fused_relin_cm         (operands [F, mp])
@@ -1559,6 +1563,34 @@ def _messages_any(name, params, ops, *, row_major, d0, d1, z, prec_full, huber):
     _raise_on(rc, name)
     COUNTS.kernel[name] += 1
     return tuple(out)
+
+
+def staged_info(name, dtype, *, d0=D0, d1=D1, z=Z, prec_full=False, huber=None,
+                comp_name=BA_MODEL):
+    """What the card makes of a row-major (staged) kernel: "fused_messages"
+    at (d0, d1, z) with its precision and Huber options, or the
+    relinearization of "fused_relin_messages" under `comp_name` (its shape
+    is the model's).  Returns
+    {rows, smem_bytes, registers, local_bytes, blocks_per_sm}: rows (threads)
+    and shared-memory bytes per block, registers and local-memory bytes
+    (spills, and arrays kept off registers) per thread, resident blocks per
+    SM."""
+    from gbp_tpu_torch.ops._build import library
+
+    info = (ctypes.c_int * 5)()
+    sfx = _suffix(dtype)
+    if name == "fused_messages":
+        _row_shape(name, d0, d1, z)
+        huber_row = _huber_mode(huber, prec_full)[0]
+        rc = getattr(library(), f"gbp_messages_rows_info_{sfx}")(d0, d1, z, int(prec_full),
+                                                                 int(huber_row), info)
+    elif name == "fused_relin_messages":
+        comp_model(comp_name)  # raises for a model that is not ported
+        rc = getattr(library(), f"gbp_relin_rows_info_{sfx}")(MODELS[comp_name][0], info)
+    else:
+        raise ValueError(f"staged_info: no staged kernel for {name!r}")
+    _raise_on(rc, f"{name} info")
+    return dict(zip(("rows", "smem_bytes", "registers", "local_bytes", "blocks_per_sm"), info))
 
 
 def _relin_any_plain(params, ops, fargs, *, row_major, comp_name):

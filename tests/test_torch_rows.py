@@ -10,31 +10,48 @@ Tolerances (float64):
   CM sweep vs the generic sweep with virtual padding landmarks: 1e-9 (the
     reference's bar in tests/test_cm.py);
   one masked sweep vs the reference's: 1e-10 relative.
+
+The row-major kernels, which stage tiles of rows through shared memory, run
+only on a card: `test_staged_messages_on_card` and
+`test_staged_relin_messages_on_card` (marker `cuda`) hold them against
+their plain versions (float64 1e-11, float32 1e-4 relative: the tolerance
+of chip_smoke.py) and bit for bit against the component-major kernels on
+the transposed operands, with the generic sweep's operand layout (the
+beliefs as views into one packed row per factor, lam at an offset that is
+no multiple of 16 bytes) and a row count that is no multiple of any tile.
+The JAX reference is imported only where it is installed, so that on a
+machine with a card and no JAX the card tests run alone:
+    python -m pytest tests/test_torch_rows.py -m cuda --noconftest
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from gbp_tpu.core import sweep as JS
-from gbp_tpu.core import sweep_cm as J
-from gbp_tpu.models import ba as jba
-from gbp_tpu.models import toy as jtoy
-from gbp_tpu.ops import messages_pallas as mp
 from gbp_tpu_torch import interop
 from gbp_tpu_torch.core import sweep as PS
 from gbp_tpu_torch.core import sweep_cm as P
 from gbp_tpu_torch.models import ba as pba
 from gbp_tpu_torch.models import toy as ptoy
 from gbp_tpu_torch.ops import messages as M
-from test_torch_generic import PARAMS, message_operands, rel
-from test_torch_sweep_cm import jax_state
+
+try:  # the reference, for every test but the card tests
+    import jax
+    import jax.numpy as jnp
+
+    from gbp_tpu.core import sweep as JS
+    from gbp_tpu.core import sweep_cm as J
+    from gbp_tpu.models import ba as jba
+    from gbp_tpu.models import toy as jtoy
+    from gbp_tpu.ops import messages_pallas as mp
+    from test_torch_generic import PARAMS, message_operands, rel
+    from test_torch_sweep_cm import jax_state
+except ImportError:
+    jax = None
 
 torch.set_num_threads(1)
 CFG = dict(eta_damping=0.4, num_undamped_iters=6, min_linear_iters=8)
 PCFG = PS.GBPConfig(message_form="pallas", **CFG)
-JCFG = JS.GBPConfig(message_form="pallas", **CFG)
+JCFG = None if jax is None else JS.GBPConfig(message_form="pallas", **CFG)
 MP = 1024  # one grid tile of the reference's kernels
 
 
@@ -245,3 +262,156 @@ def test_segsum_row_major_matches_index_add():
     assert got.shape == (n, 12) and (got - want).abs().max() <= 1e-12
     cm = M.segsum_by_id(me.T.contiguous(), ml.T.contiguous(), rows, offs)
     assert (cm.T - want).abs().max() <= 1e-12
+
+
+# --- the row-major (staged) kernels on the card -------------------------------------
+
+STAGED_M = 300  # rows: the last tile is partial whatever the rows per tile (128, 64, 32)
+STAGED_TOL = {torch.float64: 1e-11, torch.float32: 1e-4}
+KERNEL_PARAMS = (0.4, 0.0, 6.0, 0.0, 0.01, 8.0, 0.0)  # beta 0.01, min_linear_iters 8
+VARIANTS = [(None, False), (1.0, False), ("row", False), (None, True), (1.0, True)]
+
+
+def _spd_rows(rng, m, d):
+    a = rng.normal(size=(m, d, d))
+    return (a @ a.transpose(0, 2, 1) + d * np.eye(d)).reshape(m, -1)
+
+
+def staged_operands(seed, m, shape, prec_full, huber, dtype, dev):
+    """Row-major operands of `fused_messages`, in call order, as the generic
+    sweep hands them in: each slot's belief (eta, lam) as views into one
+    packed (eta | lam | mean) row per factor, so leading strides 2d + d*d and
+    lam d values into the row; srel integer counts, act a float mask."""
+    d0, d1, z = shape
+    t = d0 + d1
+    rng = np.random.default_rng(seed)
+    put = lambda a: torch.tensor(a, dtype=dtype, device=dev)
+
+    def belief(d):
+        packed = put(np.concatenate([rng.normal(size=(m, d)), _spd_rows(rng, m, d),
+                                     rng.normal(size=(m, d))], 1))
+        return packed[:, :d], packed[:, d:d + d * d]
+
+    prec = _spd_rows(rng, m, z) if prec_full else rng.uniform(0.5, 2.0, size=(m, z))
+    if huber == "row":
+        thr = rng.uniform(0.0, 2.0, size=(m, 1))
+        thr[::3] = 0.0  # robustification off for these rows
+        prec = np.concatenate([prec, thr], 1)
+    (be0, bl0), (be1, bl1) = belief(d0), belief(d1)
+    return [put(rng.normal(size=(m, z * t))), put(rng.normal(size=(m, t))),
+            put(rng.normal(size=(m, z))), put(prec),
+            torch.tensor(rng.integers(0, 12, size=m), dtype=torch.int32, device=dev),
+            put((rng.uniform(size=m) > 0.2).astype(np.float64)), be0, bl0, be1, bl1,
+            0.1 * be0, 0.3 * bl0, 0.1 * be1, 0.3 * bl1]
+
+
+def staged_relin_operands(seed, m, comp_name, dtype, dev):
+    """(x, z, fargs) of `fused_relin_messages` for model `comp_name`: x a view
+    at an odd offset into a wider array, cameras in front of their points,
+    fargs [m, n_args] or None."""
+    d0, d1, zd = M.MODELS[comp_name][1]
+    t = d0 + d1
+    rng = np.random.default_rng(seed)
+    wide = 0.3 * rng.normal(size=(m, t + 3))
+    if comp_name.startswith("bal") or comp_name == "reprojection_normalized":
+        wide[:, 1 + 5] += 4.0  # the camera's translation along its axis
+    if comp_name == "bal_reprojection_intrinsics":
+        wide[:, 1 + 6] += 1.0  # the focal ratio
+    put = lambda a: torch.tensor(a, dtype=dtype, device=dev)
+    n_args = M.comp_n_args(comp_name)
+    fargs = put(0.01 * rng.normal(size=(m, n_args))) if n_args else None
+    return put(wide)[:, 1:1 + t], put(rng.normal(size=(m, zd))), fargs
+
+
+def linearization(rng, x):
+    """A linearization point a hair or a stride from x: rows on both sides
+    of beta."""
+    m, t = x.shape
+    step = torch.tensor(rng.choice([1e-4, 0.05], size=(m, 1)) * rng.normal(size=(m, t)),
+                        dtype=x.dtype, device=x.device)
+    return x + step
+
+
+def cm(a):
+    """A row-major operand as the component-major one, [F, m] (or [m])."""
+    return a.T.contiguous() if a.ndim == 2 else a
+
+
+def equal_bits(rm_out, cm_out):
+    for a, b in zip(rm_out, cm_out):
+        assert a.shape == b.T.shape
+        assert torch.equal(torch.nan_to_num(a, 7.0), torch.nan_to_num(b.T, 7.0))
+
+
+def close(got, ref, tol):
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= tol * max(float(b.abs().max()), 1e-300)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", M.ROW_SHAPES)
+def test_staged_messages_on_card(shape, dtype):
+    """The staged `fused_messages` at every instantiated shape: every Huber
+    and precision option against the plain version, and bit for bit the
+    component-major `messages_cm` on the transposed operands; a prefix of
+    the rows alike; outputs the kernel cannot stage raise."""
+    dev = _card()
+    d0, d1, z = shape
+    for i, (huber, prec_full) in enumerate(VARIANTS):
+        ops = staged_operands(i, STAGED_M, shape, prec_full, huber, dtype, dev)
+        assert ops[7].stride(0) == d0 + d0 * d0 + d0  # lam: a view into the packed rows
+        kw = dict(d0=d0, d1=d1, z=z, prec_full=prec_full, huber=huber)
+        M.COUNTS.reset()
+        got = M.fused_messages(KERNEL_PARAMS, *ops, **kw)
+        assert M.COUNTS.kernel["fused_messages"] == 1 and not any(M.COUNTS.plain.values())
+        close(got, M.fused_messages_plain(KERNEL_PARAMS, *ops, **kw), STAGED_TOL[dtype])
+        equal_bits(got, M.messages_cm(KERNEL_PARAMS, *[cm(a) for a in ops], **kw))
+        head = [a[:STAGED_M - 77] for a in ops]
+        for a, b in zip(M.fused_messages(KERNEL_PARAMS, *head, **kw), got):
+            assert torch.equal(a, b[:STAGED_M - 77])
+    info = M.staged_info("fused_messages", dtype, d0=d0, d1=d1, z=z)
+    assert info["rows"] in (32, 64, 128) and info["blocks_per_sm"] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("comp_name", sorted(M.MODELS))
+def test_staged_relin_messages_on_card(comp_name, dtype):
+    """The staged relinearization, then the staged messages
+    (`fused_relin_messages`), for every measurement model: against the plain
+    version, and bit for bit `relin_cm` then `messages_cm` on the transposed
+    operands."""
+    dev = _card()
+    d0, d1, z = M.MODELS[comp_name][1]
+    rng = np.random.default_rng(5)
+    x, z_meas, fargs = staged_relin_operands(1, STAGED_M, comp_name, dtype, dev)
+    jac, _, r0, prec, srel, act, *rest = staged_operands(
+        2, STAGED_M, (d0, d1, z), False, "row", dtype, dev)
+    lp = linearization(rng, x)
+    args = (KERNEL_PARAMS, x, z_meas, fargs, lp, jac, r0, prec, srel, act, *rest)
+    kw = dict(d0=d0, d1=d1, z=z, prec_full=False, huber="row", comp_name=comp_name)
+    M.COUNTS.reset()
+    got = M.fused_relin_messages(*args, **kw)
+    assert M.COUNTS.kernel["fused_relin_messages"] == 1 and not any(M.COUNTS.plain.values())
+    n_relin = int((got[7] == 0).sum())
+    assert 0 < n_relin < STAGED_M  # both sides of the beta decision
+    close(got, M.fused_relin_messages_plain(*args, **kw), STAGED_TOL[dtype])
+    cm_relin = M.relin_cm(KERNEL_PARAMS, cm(x), cm(z_meas), None if fargs is None else cm(fargs),
+                          cm(lp), cm(jac), cm(r0), srel, act, d0=d0, d1=d1, z=z,
+                          comp_name=comp_name)
+    equal_bits(got[4:], cm_relin)
+    lp_n, jac_n, r0_n, srel_n = cm_relin
+    cm_msgs = M.messages_cm(KERNEL_PARAMS, jac_n, lp_n, r0_n, cm(prec), srel_n, act,
+                            *[cm(a) for a in rest], d0=d0, d1=d1, z=z, prec_full=False,
+                            huber="row")
+    equal_bits(got[:4], cm_msgs)
+    info = M.staged_info("fused_relin_messages", dtype, comp_name=comp_name)
+    assert info["rows"] in (64, 128) and info["blocks_per_sm"] >= 2
