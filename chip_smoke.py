@@ -35,6 +35,10 @@ non-zero; no phase is caught):
      err 0.0), here, at the pose shapes and per halo partition, and a dense
      accumulation in tile order with overlapping and repeated window starts,
      float64 and float32.
+     Each windowed check prints the launch plan of `messages_cm_tabblk_ell`
+     (`ops.messages.window_plan`: units of rows, persistent blocks,
+     shared bytes, registers, local bytes, blocks per SM); at city, and at venice in phase 7, its device time by
+     the profiler, bound and share (`bench/compare_windows.kernel_report`).
      At the bench scene (full-table kernels) and the city scene (windowed
      kernels), float32, each kernel is timed against its plain version, its
      bound (bytes moved once over the card's memory rate, or operations over
@@ -125,7 +129,8 @@ non-zero; no phase is caught):
      in float32) and inside phase 13 on the 1,500-pose graph at (3, 3, 3)
      with per-row thresholds: `relin_cm_tabblk` in both regimes,
      `messages_cm_tabblk` with and without Huber; timed with their bounds at
-     the city scene.
+     the city scene; the launch plan of `messages_cm_tabblk` and, at city
+     (and at venice in phase 19), its device time, bound and share.
  18. kernel vs plain, BAL models: on data/ladybug49_sim.txt.gz after 8 plain
      sweeps, float64 and float32, every relinearization and messages entry
      (full-table, unfused, expanded operands in both layouts, and the
@@ -159,7 +164,9 @@ non-zero; no phase is caught):
      Huber; then the partition's two gathered-slot sums of those messages,
      `scatter_windows_cm` (held to equality) and `segsum_by_id` on the ghost
      rows; city again with every window widened to 384 cameras (64,512
-     bytes, dynamic shared memory); timed at city, partition 0.
+     bytes, dynamic shared memory); timed at city, partition 0; the launch
+     plans of kernels 17 and 12 and, at
+     city, partition 0, their device time, bound and share.
  23. halo paths, the P partitions in one process on the card through the
      single-process exchange: city at P = 2 through kernels 17, 18 and,
      unfused, 12, 13 (50 sweeps: launch counts P per sweep, plain calls 0,
@@ -212,6 +219,7 @@ from gbp_tpu_torch import ba as ba_cli
 from gbp_tpu_torch import slam as slam_cli
 from gbp_tpu_torch.bench import BIG_BUILD as BIG
 from gbp_tpu_torch.bench import CFG, CITY, VENICE, card_line
+from gbp_tpu_torch.bench import compare_windows as CW
 from gbp_tpu_torch.core import anneal, oracle, sweep, sweep_cm
 from gbp_tpu_torch.core.sweep import _kernel_params
 from gbp_tpu_torch.io import bal, g2o
@@ -410,6 +418,22 @@ def check_counts(what, names, sweeps):
     return launches
 
 
+def print_plan(tag, name, dtype, **kw):
+    """Phases 4, 17, 22: how a windowed messages kernel launches here
+    (`M.window_plan`): its persistent grid, shared memory, registers."""
+    p = M.window_plan(name, dtype, **kw)
+    print(f"[kernels] {tag} {name} plan: {p['units']} units of {p['unit_rows']} rows on "
+          f"{p['blocks']} blocks, {p['smem_bytes']} shared bytes, {p['registers']} registers, "
+          f"{p['local_bytes']} local bytes, {p['blocks_per_sm']} blocks per SM")
+
+
+def report_window_kernel(tag, name, args, kw):
+    """The device time, bound and share of a windowed messages kernel on
+    these operands (`compare_windows.kernel_report`)."""
+    print(f"[kernels] {tag} on the device (profiler): "
+          f"{CW.report_line(name, CW.kernel_report(name, args, kw))} ({card_line()})")
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Inside, `sweep_cm.sweep` calls the windowed kernels' plain versions
@@ -542,9 +566,10 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
         compare(n_msg_name, got_m, ref_m)
 
     if win:
-        for name in WINDOWED[:2]:
-            print(f"[kernels] {tag} {name}: {M.window_blocks_per_sm(name, cmg.win_w, dtype)} "
-                  f"blocks of 256 threads per SM at win_w {cmg.win_w}")
+        print(f"[kernels] {tag} relin_cm_tabblk_ell: "
+              f"{M.window_blocks_per_sm('relin_cm_tabblk_ell', cmg.win_w, dtype)} blocks of 256 "
+              f"threads per SM at win_w {cmg.win_w}")
+        print_plan(tag, "messages_cm_tabblk_ell", dtype, win_w=cmg.win_w, mp=cmg.mp)
 
     me, ml = ref_m[0], ref_m[1]
     whole = sync(M.segsum_by_id_plain(me, ml, cmg.seg_rows, cmg.seg_offsets))
@@ -618,6 +643,8 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
             print(f"[kernels] {tag} {name} on the device (profiler): kernel "
                   f"{device_ms(lambda: kern(*args, **kw)):.4f} ms, index_add_ "
                   f"{device_ms(library):.4f} ms ({card_line()})")
+        if name == "messages_cm_tabblk_ell":
+            report_window_kernel(tag, name, args, kw)
     return errs
 
 
@@ -808,6 +835,7 @@ def check_unfused_win_kernels(tag, cmg, st, dtype, compare, timings):
     msg_args = (_kernel_params(CFG, dtype), jac, lp, r0, cmg.prec, srel, cmg.act, be1, bl1, btab,
                 cmg.gidx, cmg.win_starts, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1],
                 fs.msg_lam[1])
+    print_plan(tag, "messages_cm_tabblk", dtype, win_w=cmg.win_w, mp=cmg.mp)
     for huber in (1.0, None):
         got_m = sync(M.messages_cm_tabblk(*msg_args, huber=huber, **w_kw))
         compare(f"messages_cm_tabblk[huber={huber}]", got_m,
@@ -830,6 +858,7 @@ def check_unfused_win_kernels(tag, cmg, st, dtype, compare, timings):
                              library_ms=None)
         print(f"[kernels] {tag} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}), no single library call")
+    report_window_kernel(tag, "messages_cm_tabblk", msg_args, dict(huber=None, **w_kw))
 
 
 def check_pose_kernels(tag, build, dtype, dev, ptimes):
@@ -1517,6 +1546,11 @@ def big_path(tag, scene, card, against_plain):
         print(f"[{tag}] ARE of 6 Gauss-Newton steps on the card {are_gn:.6f} px "
               f"(informational)")
 
+    if tag == "venice":  # kernel 10 on the venice sweep's own operands
+        args, kw = CW.recorded_calls(sweep_cm, ("messages_cm_tabblk_ell",),
+                                     lambda: sweep_cm.sweep(cmg, state, CFG))[
+            "messages_cm_tabblk_ell"]
+        report_window_kernel(tag, "messages_cm_tabblk_ell", args, kw)
     late = time.perf_counter() - T_START > VENICE_TIMING_DEADLINE_S
     n = QUALITY_SWEEPS if late else SWEEPS
     if late:
@@ -1747,6 +1781,10 @@ def unfused_big_path(tag, scene, card, fused):
         if not abs(are - fused[0]) <= 1e-3:
             raise AssertionError(f"city unfused: ARE {are} vs the fused path's {fused[0]}")
         same_means("city_unfused", state, sync(sweep_cm.run(cmg, init, CFG, QUALITY_SWEEPS)))
+    else:  # kernel 8 on the venice sweep's own operands
+        args, kw = CW.recorded_calls(sweep_cm, ("messages_cm_tabblk",),
+                                     lambda: sweep_cm.sweep(cmg, state, CFG))["messages_cm_tabblk"]
+        report_window_kernel(f"{tag}_unfused", "messages_cm_tabblk", args, kw)
     return launches
 
 
@@ -2044,6 +2082,8 @@ def check_halo_kernels(tag, hcm, st, dtype, errs, timings=None):
               f"{worst_rel:.3e}")
         errs[name] = max(errs.get(name, 0.0), worst_abs)
 
+    for name in HALO_KERNELS[1::2]:
+        print_plan(tag, name, dtype, win_w=hcm.win_w, mp=hcm.mp, gslot=gslot)
     for p in range(hcm.z.shape[0]):
         fs = sweep_cm.CMFactorState(*(halo._at(x, p) for x in st.f))
         cm_e = sync(M.expand_ell_blk(torch.cat([tab_e[p], mean_e[p]], 1), deg=hcm.deg))
@@ -2117,6 +2157,8 @@ def check_halo_kernels(tag, hcm, st, dtype, errs, timings=None):
             print(f"[halo kernels] {tag} {name} (partition 0, huber 1.0): kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), no single library "
                   f"call")
+            if name.startswith("messages"):
+                report_window_kernel(f"{tag} partition 0, huber 1.0", name, args, kw)
 
 
 def halo_run(tag, graph, means, k, n_parts, card, are_single=None, ell_fused=None, timed=True):

@@ -34,13 +34,12 @@
 //   (`_kernel_tab_blkg_ell`), the halo windowed path's default.
 //   Bound: device-memory bytes and registers, as messages_cm_tabblk_ell
 //   (about 100 values per row at (6, 3, 2)).
-//   Design: one block per tile stages its window of the owned packed
-//   (eta | lam) table (21.5 KB at w = 128 in float32; above 48 KB dynamic
-//   shared memory) and walks the tile's rows in four passes of 256
-//   threads; the ELL slot is read at r / deg from the partition's packed
-//   ELL table (the reference's per-tile ELL group windows are a VMEM
-//   device); the ghost table (136 rows x 42 values, 22.8 KB, at city cut
-//   in two) is read from device memory and stays in L2.  No sum is folded
+//   Design: as messages_cm_tabblk_ell (window_messages in
+//   table_kernels.cuh) over the owned packed (eta | lam) table's windows;
+//   the ELL slot is read at r / deg from the partition's packed ELL table
+//   (the reference's per-tile ELL group windows are a VMEM device); the
+//   ghost table (136 rows x 42 values, 22.8 KB, at city cut in two) is read
+//   from device memory and stays in L2.  No sum is folded
 //   in: the sweep calls `segsum_cm_blk` + `scatter_windows_cm` on the owned
 //   ids and `segsum_by_id` on the ghost ids.
 //
@@ -85,7 +84,7 @@ int messages_win_g(int da, int db, int zd, int gslot, int huber_row, const S* ca
                    const S* ml0, const S* me1, const S* ml1, S* oe0, S* ol0, S* oe1, S* ol1,
                    int64_t mp, int deg, double eta_damping, double lam_damping,
                    double num_undamped, double floor, double jitter, int has_huber,
-                   double huber, void* stream) {
+                   double huber, void* stream, int* info) {
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
   const auto p =
       msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber);
@@ -94,7 +93,7 @@ int messages_win_g(int da, int db, int zd, int gslot, int huber_row, const S* ca
   const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
     rc = launch_messages_win<S, decltype(sh), true>(
         huber_row != 0, cam_tab, n_cam, lmk_tab, gidx, starts, win_w, o, mp, deg, p,
-        static_cast<cudaStream_t>(stream), GhostTable<S>{gtab, n_gt, n_own});
+        static_cast<cudaStream_t>(stream), GhostTable<S>{gtab, n_gt, n_own}, info);
   });
   if (!known) return -2;
   return rc ? rc : static_cast<int>(cudaGetLastError());
@@ -122,7 +121,7 @@ int messages_tabblk_g(int da, int db, int zd, int gslot, int huber_row, const S*
                       const S* ml0, const S* me1, const S* ml1, S* oe0, S* ol0, S* oe1,
                       S* ol1, int64_t mp, double eta_damping, double lam_damping,
                       double num_undamped, double floor, double jitter, int has_huber,
-                      double huber, void* stream) {
+                      double huber, void* stream, int* info) {
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
   const auto p =
       msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber);
@@ -131,7 +130,7 @@ int messages_tabblk_g(int da, int db, int zd, int gslot, int huber_row, const S*
   const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
     rc = launch_messages_tabblk<S, decltype(sh), true>(
         huber_row != 0, btab, n_g, gidx, starts, win_w, be_o, bl_o, o, mp, p,
-        static_cast<cudaStream_t>(stream), GhostTable<S>{gtab, n_gt, n_own});
+        static_cast<cudaStream_t>(stream), GhostTable<S>{gtab, n_gt, n_own}, info);
   });
   if (!known) return -2;
   return rc ? rc : static_cast<int>(cudaGetLastError());
@@ -157,12 +156,12 @@ int messages_tabblk_g(int da, int db, int zd, int gslot, int huber_row, const S*
       const S* srel, const S* act, const S* me0, const S* ml0, const S* me1, const S* ml1,     \
       S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp, int deg, double eta_damping,                 \
       double lam_damping, double num_undamped, double floor, double jitter, int has_huber,     \
-      double huber, void* stream) {                                                            \
+      double huber, void* stream, int* info) {                                                 \
     return gbp::messages_win_g<S>(da, db, zd, gslot, huber_row, cam_tab, n_cam, gtab, n_gt,    \
                                   lmk_tab, gidx, starts, win_w, n_own, jac, lp, r0, prec,      \
                                   srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp, deg,  \
                                   eta_damping, lam_damping, num_undamped, floor, jitter,       \
-                                  has_huber, huber, stream);                                   \
+                                  has_huber, huber, stream, info);                             \
   }                                                                                            \
   extern "C" int gbp_relin_cm_tabblkg_##SFX(                                                   \
       int model, int gslot, const S* x_other, const S* mtab, int n_g, const S* gtab,           \
@@ -181,10 +180,10 @@ int messages_tabblk_g(int da, int db, int zd, int gslot, int huber_row, const S*
       const S* srel, const S* act, const S* me0, const S* ml0, const S* me1, const S* ml1,     \
       S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp, double eta_damping, double lam_damping,      \
       double num_undamped, double floor, double jitter, int has_huber, double huber,           \
-      void* stream) {                                                                          \
+      void* stream, int* info) {                                                               \
     return gbp::messages_tabblk_g<S>(da, db, zd, gslot, huber_row, btab, n_g, gtab, n_gt,      \
                                      gidx, starts, win_w, n_own, be_o, bl_o, jac, lp, r0,      \
                                      prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1,  \
                                      mp, eta_damping, lam_damping, num_undamped, floor,        \
-                                     jitter, has_huber, huber, stream);                        \
+                                     jitter, has_huber, huber, stream, info);                  \
   }

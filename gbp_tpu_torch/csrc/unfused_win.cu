@@ -25,14 +25,12 @@
 //   old messages and its id, and writes 54 (about 150 values per row, 0.28
 //   GB at city's 451,584 rows in float32); the register load is that of
 //   messages_cm_tab.
-//   Design: one block per tile stages the tile's window of the packed
-//   (eta | lam) table, w x (d + d^2) values (21.5 KB at w = 128 in float32;
-//   above 48 KB the launch opts into dynamic shared memory), and walks the
-//   tile's 1024 rows in four passes of 256 threads; a row reads its
-//   gathered belief at gidx[r] - start and the other slot's from be_o / bl_o
-//   at column r, which neighbouring threads read side by side.  The TPU's
-//   per-tile window stacks and one-hot dots become that index read; an id
-//   outside its tile's window is a fault of the prepared graph and traps.
+//   Design: as messages_cm_tabblk_ell (windows.cu; window_messages in
+//   table_kernels.cuh), the other slot's expanded belief be_o / bl_o
+//   staged with the unit's other operands; a row reads its gathered belief
+//   at gidx[r] - start in its tile's window.  The TPU's per-tile window
+//   stacks and one-hot dots become that index read; an id outside its
+//   tile's window is a fault of the prepared graph and traps.
 //   No camera sum is folded in: the sweep calls `segsum_cm_blk` and
 //   `scatter_windows_cm` on the outputs.
 //
@@ -68,7 +66,7 @@ int messages_tabblk(int da, int db, int zd, int gslot, int huber_row, const S* b
                     const S* srel, const S* act, const S* me0, const S* ml0, const S* me1,
                     const S* ml1, S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp,
                     double eta_damping, double lam_damping, double num_undamped, double floor,
-                    double jitter, int has_huber, double huber, void* stream) {
+                    double jitter, int has_huber, double huber, void* stream, int* info) {
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
   const auto p =
       msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber);
@@ -77,7 +75,8 @@ int messages_tabblk(int da, int db, int zd, int gslot, int huber_row, const S* b
   const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
     rc = launch_messages_tabblk<S, decltype(sh)>(huber_row != 0, btab, n_g, gidx, starts, win_w,
                                                  be_o, bl_o, o, mp, p,
-                                                 static_cast<cudaStream_t>(stream));
+                                                 static_cast<cudaStream_t>(stream),
+                                                 GhostTable<S>{}, info);
   });
   if (!known) return -2;
   return rc ? rc : static_cast<int>(cudaGetLastError());
@@ -101,12 +100,12 @@ int messages_tabblk(int da, int db, int zd, int gslot, int huber_row, const S* b
       const S* jac, const S* lp, const S* r0, const S* prec, const S* srel, const S* act,   \
       const S* me0, const S* ml0, const S* me1, const S* ml1, S* oe0, S* ol0, S* oe1,       \
       S* ol1, int64_t mp, double eta_damping, double lam_damping, double num_undamped,      \
-      double floor, double jitter, int has_huber, double huber, void* stream) {             \
+      double floor, double jitter, int has_huber, double huber, void* stream, int* info) {  \
     return gbp::messages_tabblk<S>(da, db, zd, gslot, huber_row, btab, n_g, gidx, starts,   \
                                    win_w, be_o, bl_o, jac, lp, r0, prec, srel, act, me0,    \
                                    ml0, me1, ml1, oe0, ol0, oe1, ol1, mp, eta_damping,      \
                                    lam_damping, num_undamped, floor, jitter, has_huber,     \
-                                   huber, stream);                                          \
+                                   huber, stream, info);                                    \
   }
 
 GBP_UNFUSED_WIN_ENTRIES(f32, float)

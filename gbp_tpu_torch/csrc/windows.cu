@@ -25,13 +25,20 @@
 // messages_cm_tabblk_ell
 //   Replaces the first four outputs of `fused_messages_cm_tabblk_ell`
 //   (`_kernel_tab_blk_ell`).
-//   Bound: registers (see messages.cu) and, for wide windows, shared memory:
-//   the window of packed beliefs is w x 42 values (21.5 KB at w = 128 in
-//   float32, 64.5 KB at w = 384, twice that in float64), so above 48 KB the
-//   launch opts into dynamic shared memory and fewer blocks share an SM.
-//   Design: as above with the packed (eta | lam) rows.  An id outside its
-//   tile's window is a fault of the prepared graph: the kernel traps, it
-//   never clamps.
+//   Bound: device-memory bytes (about 570 bytes per row at (6, 3, 2) in
+//   float32), and short of them the latency of the per-row loads at the few
+//   warps the registers leave an SM (one row per thread, 150-170 registers
+//   at (6, 3, 2) float32); the window of packed beliefs is w x 42 values
+//   (21.5 KB at w = 128 in float32, 64.5 KB at w = 384, twice that in
+//   float64).
+//   Design (window_messages, table_kernels.cuh): persistent blocks over
+//   units of rows, balanced to one unit; each tile's window arrives by a
+//   bulk copy into one of two buffers while the tile before it computes,
+//   each unit's operands by bulk copies into a ring of shared-memory
+//   stages; the launch plan keeps the most threads resident per SM
+//   (`ops.messages.window_plan`).  The per-row arithmetic is the full-table
+//   kernel's, so the outputs are its bits.  An id outside its tile's window
+//   is a fault of the prepared graph: the kernel traps, it never clamps.
 //
 // segsum_cm_blk
 //   Replaces `segsum_cm_blk`'s kernel stage (`_kernel_segsum_blk`) and the
@@ -214,7 +221,8 @@ int messages_win(int da, int db, int zd, int gslot, int huber_row, const S* cam_
                  const S* prec, const S* srel, const S* act, const S* me0, const S* ml0,
                  const S* me1, const S* ml1, S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp,
                  int deg, double eta_damping, double lam_damping, double num_undamped,
-                 double floor, double jitter, int has_huber, double huber, void* stream) {
+                 double floor, double jitter, int has_huber, double huber, void* stream,
+                 int* info) {
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
   const auto p =
       msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber);
@@ -223,7 +231,8 @@ int messages_win(int da, int db, int zd, int gslot, int huber_row, const S* cam_
   const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
     rc = launch_messages_win<S, decltype(sh)>(huber_row != 0, cam_tab, n_cam, lmk_tab, gidx,
                                               starts, win_w, o, mp, deg, p,
-                                              static_cast<cudaStream_t>(stream));
+                                              static_cast<cudaStream_t>(stream), GhostTable<S>{},
+                                              info);
   });
   if (!known) return -2;
   return rc ? rc : static_cast<int>(cudaGetLastError());
@@ -290,12 +299,12 @@ int scatter_win(const S* part, const int* starts, const int* blk_tiles, const in
       const S* prec, const S* srel, const S* act, const S* me0, const S* ml0,          \
       const S* me1, const S* ml1, S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp, int deg, \
       double eta_damping, double lam_damping, double num_undamped, double floor,       \
-      double jitter, int has_huber, double huber, void* stream) {                      \
+      double jitter, int has_huber, double huber, void* stream, int* info) {           \
     return gbp::messages_win<S>(da, db, zd, gslot, huber_row, cam_tab, n_cam, lmk_tab, \
                                 gidx, starts, win_w, jac, lp, r0, prec, srel, act, me0, ml0, \
                                 me1, ml1, oe0, ol0, oe1, ol1, mp, deg, eta_damping,    \
                                 lam_damping, num_undamped, floor, jitter, has_huber,   \
-                                huber, stream);                                        \
+                                huber, stream, info);                                  \
   }                                                                                    \
   extern "C" int gbp_segsum_cm_blk_##SFX(const S* me, const S* ml, int d,              \
                                          const int* rows, const int* offsets,          \
@@ -313,11 +322,6 @@ int scatter_win(const S* part, const int* starts, const int* blk_tiles, const in
     using M = gbp::ReprojectionNormalized;                                             \
     return gbp::blocks_per_sm(gbp::relin_win_kernel<S, M>,                             \
                               static_cast<size_t>(win_w) * M::DA * sizeof(S));         \
-  }                                                                                    \
-  extern "C" int gbp_messages_cm_tabblk_ell_blocks_per_sm_##SFX(int win_w) {           \
-    using Sh = gbp::Shape<6, 3, 2, 0>;                                                 \
-    return gbp::blocks_per_sm(gbp::messages_win_kernel<S, Sh, false>,                  \
-                              static_cast<size_t>(win_w) * Sh::F_G * sizeof(S));       \
   }
 
 GBP_WINDOW_ENTRIES(f32, float)

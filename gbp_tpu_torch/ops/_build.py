@@ -54,9 +54,10 @@ _ARGTYPES = {
     # d0, d1, z, gslot, huber_row, cam_tab, n_cam, lmk_tab, gidx, starts, win_w,
     # jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp,
     # deg, eta_damping, lam_damping, num_undamped, floor, jitter, has_huber,
-    # huber, stream
+    # huber, stream, info (NULL: launch; else int[7], the launch plan and no
+    # launch, as for every windowed messages entry)
     "gbp_messages_cm_tabblk_ell": [_I] * 5 + [_P, _I, _P, _P, _P, _I] + [_P] * 6 + [_P] * 4
-    + [_P] * 4 + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P],
+    + [_P] * 4 + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P, _P],
     # me, ml, d, rows, offsets, n_tiles, w, mp, out, stream
     "gbp_segsum_cm_blk": [_P, _P, _I, _P, _P, _I, _I, _I64, _P, _P],
     # part, starts, blk_tiles, blk_offsets, f, w, n_seg, out, stream
@@ -90,9 +91,9 @@ _ARGTYPES = {
     # d0, d1, z, gslot, huber_row, btab, n_g, gidx, starts, win_w, be_o, bl_o,
     # jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp,
     # eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber,
-    # stream
+    # stream, info
     "gbp_messages_cm_tabblk": [_I] * 5 + [_P, _I, _P, _P, _I, _P, _P] + [_P] * 6 + [_P] * 4
-    + [_P] * 4 + [_I64, _D, _D, _D, _D, _D, _I, _D, _P],
+    + [_P] * 4 + [_I64, _D, _D, _D, _D, _D, _I, _D, _P, _P],
     # model, gslot, cam_mean, n_cam, gtab, n_gt, lmk_mean, gidx, starts, win_w,
     # n_own, z, args, lp, jac, r0, srel, act, olp, ojac, or0, osrel, mp, deg,
     # beta, min_linear, stream
@@ -101,9 +102,9 @@ _ARGTYPES = {
     # d0, d1, z, gslot, huber_row, cam_tab, n_cam, gtab, n_gt, lmk_tab, gidx,
     # starts, win_w, n_own, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1,
     # oe0, ol0, oe1, ol1, mp, deg, eta_damping, lam_damping, num_undamped,
-    # floor, jitter, has_huber, huber, stream
+    # floor, jitter, has_huber, huber, stream, info
     "gbp_messages_cm_tabblkg_ell": [_I] * 5 + [_P, _I, _P, _I, _P, _P, _P, _I, _I] + [_P] * 6
-    + [_P] * 4 + [_P] * 4 + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P],
+    + [_P] * 4 + [_P] * 4 + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P, _P],
     # model, gslot, x_other, mtab, n_g, gtab, n_gt, gidx, starts, win_w, n_own,
     # z, args, lp, jac, r0, srel, act, olp, ojac, or0, osrel, mp, beta,
     # min_linear, stream
@@ -112,12 +113,11 @@ _ARGTYPES = {
     # d0, d1, z, gslot, huber_row, btab, n_g, gtab, n_gt, gidx, starts, win_w,
     # n_own, be_o, bl_o, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0,
     # ol0, oe1, ol1, mp, eta_damping, lam_damping, num_undamped, floor, jitter,
-    # has_huber, huber, stream
+    # has_huber, huber, stream, info
     "gbp_messages_cm_tabblkg": [_I] * 5 + [_P, _I, _P, _I, _P, _P, _I, _I, _P, _P] + [_P] * 6
-    + [_P] * 4 + [_P] * 4 + [_I64, _D, _D, _D, _D, _D, _I, _D, _P],
+    + [_P] * 4 + [_P] * 4 + [_I64, _D, _D, _D, _D, _D, _I, _D, _P, _P],
     # win_w -> resident blocks per SM (negative: minus the CUDA error)
     "gbp_relin_cm_tabblk_ell_blocks_per_sm": [_I],
-    "gbp_messages_cm_tabblk_ell_blocks_per_sm": [_I],
 }
 
 

@@ -29,7 +29,9 @@ per-row factor arguments `fargs` of models that read them
 
 Large scenes (csrc/windows.cu): rows are cut into tiles of TILE rows and
 every camera id of tile i lies in the window [win_starts[i], win_starts[i] +
-win_w), so a block stages only its tile's window of the camera table.
+win_w), so a block stages only its tile's window of the camera table (the
+messages kernels: persistent blocks over units of rows, each bringing in the
+window of every tile its units enter; `window_plan`).
 
   relin_cm_tabblk_ell     replaces fused_relin_cm_tabblk_ell
   messages_cm_tabblk_ell  replaces fused_messages_cm_tabblk_ell
@@ -997,9 +999,10 @@ def relin_cm_tabblk(params, x_other, mtab, gidx, win_starts, z, fargs, lp, jac, 
 
 def messages_cm_tabblk(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab, gidx, win_starts,
                        me0, ml0, me1, ml1, *, huber, win_w, gslot=0):
-    """`messages_cm_tab` for large scenes: the block of tile i stages rows
-    [win_starts[i], win_starts[i] + win_w) of the gathered slot's packed
-    table btab [n, d_g + d_g * d_g], the other slot's beliefs come from the
+    """`messages_cm_tab` for large scenes: the rows of tile i read their
+    gathered slot's packed belief from rows [win_starts[i], win_starts[i] +
+    win_w) of btab [n, d_g + d_g * d_g], staged in shared memory by the block
+    that computes them; the other slot's beliefs come from the
     expanded operands be_o [d_o, mp], bl_o [d_o * d_o, mp]; returns (eta0,
     lam0, eta1, lam1).  No sum is folded in."""
     if not _on_card(jac):
@@ -1026,7 +1029,7 @@ def messages_cm_tabblk(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab, g
         *_message_state_args(jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, d0, d1, zd,
                              huber),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
-        ctypes.c_int64(mp), *_message_scalars(params, huber),
+        ctypes.c_int64(mp), *_message_scalars(params, huber), ctypes.c_void_p(None),
     ]
     fn = getattr(library(), f"gbp_messages_cm_tabblk_{_suffix(dt)}")
     _raise_on(fn(*args), "messages_cm_tabblk")
@@ -1124,6 +1127,7 @@ def messages_cm_tabblkg_ell(params, cam_tab, gtab, lmk_tab, gidx, win_starts, ja
                              huber),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
         ctypes.c_int64(mp), ctypes.c_int(deg), *_message_scalars(params, huber),
+        ctypes.c_void_p(None),
     ]
     fn = getattr(library(), f"gbp_messages_cm_tabblkg_ell_{_suffix(dt)}")
     _raise_on(fn(*args), "messages_cm_tabblkg_ell")
@@ -1200,7 +1204,7 @@ def messages_cm_tabblkg(params, jac, lp, r0, prec, srel, act, be_o, bl_o, btab, 
         *_message_state_args(jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, d0, d1, zd,
                              huber),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
-        ctypes.c_int64(mp), *_message_scalars(params, huber),
+        ctypes.c_int64(mp), *_message_scalars(params, huber), ctypes.c_void_p(None),
     ]
     fn = getattr(library(), f"gbp_messages_cm_tabblkg_{_suffix(dt)}")
     _raise_on(fn(*args), "messages_cm_tabblkg")
@@ -1308,14 +1312,48 @@ def _window_smem(name, win_w, width, dt):
 
 
 def window_blocks_per_sm(name, win_w, dtype):
-    """Blocks of the windowed kernel `name` ("relin_cm_tabblk_ell" or
-    "messages_cm_tabblk_ell") that one SM holds at once when each stages a
-    window of `win_w` cameras, as the CUDA occupancy calculator reports it."""
+    """Blocks of the windowed relinearization kernel `name`
+    ("relin_cm_tabblk_ell") that one SM holds at once when each stages a
+    window of `win_w` cameras, as the CUDA occupancy calculator reports it
+    (the messages kernels' launch: `window_plan`)."""
     from gbp_tpu_torch.ops._build import library
 
     n = getattr(library(), f"gbp_{name}_blocks_per_sm_{_suffix(dtype)}")(ctypes.c_int(win_w))
     _raise_on(max(-n, 0), f"{name} occupancy")
     return n
+
+
+WINDOW_PLAN_KEYS = ("units", "unit_rows", "blocks", "smem_bytes", "registers", "local_bytes",
+                    "blocks_per_sm")
+
+
+def window_plan(name, dtype, *, win_w, mp, d0=D0, d1=D1, z=Z, gslot=0, huber=None):
+    """How the windowed messages kernel `name` ("messages_cm_tabblk_ell",
+    "messages_cm_tabblk", "messages_cm_tabblkg_ell" or
+    "messages_cm_tabblkg") launches on this card for mp rows and windows of
+    `win_w` rows of the gathered slot's table.  Returns {units, unit_rows,
+    blocks, smem_bytes, registers, local_bytes, blocks_per_sm}: the grid
+    (units of unit_rows rows over `blocks` persistent blocks; in float64 and
+    at 12 dofs one block per tile of 1024 rows), the shared bytes per block,
+    registers and local-memory bytes per thread, resident blocks per SM."""
+    from gbp_tpu_torch.ops._build import library
+
+    kinds = ("messages_cm_tabblk_ell", "messages_cm_tabblk", "messages_cm_tabblkg_ell",
+             "messages_cm_tabblkg")
+    if name not in kinds:
+        raise ValueError(f"window_plan: {name!r} is not one of {kinds}")
+    _table_shape(name, d0, d1, z, gslot)
+    _tiles(name, mp)
+    null, i = ctypes.c_void_p(None), ctypes.c_int
+    ell, ghost = name.endswith("_ell"), "tabblkg" in name
+    mid = ([null, i(0)] + ([null, i(1)] if ghost else []) + ([null] if ell else [])
+           + [null, null, i(win_w)] + ([i(0)] if ghost else []) + ([] if ell else [null, null]))
+    info = (ctypes.c_int * len(WINDOW_PLAN_KEYS))()
+    args = [*_shape_args(d0, d1, z, gslot, huber), *mid, *[null] * 14, ctypes.c_int64(mp),
+            *([i(1)] if ell else []), *[ctypes.c_double(0.0)] * 5, i(0), ctypes.c_double(0.0),
+            null, info]
+    _raise_on(getattr(library(), f"gbp_{name}_{_suffix(dtype)}")(*args), f"{name} plan")
+    return dict(zip(WINDOW_PLAN_KEYS, info))
 
 
 def _tiles(name, mp):
@@ -1401,6 +1439,7 @@ def messages_cm_tabblk_ell(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, 
                              huber),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
         ctypes.c_int64(mp), ctypes.c_int(deg), *_message_scalars(params, huber),
+        ctypes.c_void_p(None),
     ]
     fn = getattr(library(), f"gbp_messages_cm_tabblk_ell_{_suffix(dt)}")
     _raise_on(fn(*args), "messages_cm_tabblk_ell")

@@ -297,12 +297,44 @@ def test_cpu_tensors_take_the_plain_versions(setup):
 # --- on the card ------------------------------------------------------------------------
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11), (torch.float32, 1e-4)])
-def test_halo_kernels_match_plain_on_card(dtype, tol):
+def halo_widened(hcm, w):
+    """`hcm` with every partition's owned-camera windows widened to `w`
+    (starts moved down where the wider window would pass the padded owned
+    count): a valid windowing at the shared-memory sizes of wider scenes."""
+    dev = hcm.gidx.device
+    no = hcm.comm[hcm.vb_g].n_own_max
+    nopad = -(-no // SUB) * SUB
+    starts = np.minimum(hcm.win_starts.cpu().numpy(), nopad - w) // SUB * SUB
+    assert w <= nopad and (starts >= 0).all()
+    gidx = hcm.gidx.cpu().numpy()
+    csr = [M.window_rows_csr(gidx[c], starts[c], w, n_own=no) for c in range(len(starts))]
+    blk = [M.window_block_csr(starts[c], w, no) for c in range(len(starts))]
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
+    padded = lambda lists: np.stack([np.pad(a, (0, max(len(b) for b, _ in lists) - len(a)))
+                                     for a, _ in lists])
+    return hcm._replace(win_w=w, win_starts=i32(starts),
+                        win_rows=i32(np.stack([a for a, _ in csr])),
+                        win_offsets=i32(np.stack([b for _, b in csr])),
+                        blk_tiles=i32(padded(blk)), blk_offsets=i32(np.stack([b for _, b in blk])))
+
+
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    dev = torch.device("cuda")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,wide", [(torch.float64, 1e-11, None),
+                                            (torch.float32, 1e-4, None),
+                                            (torch.float32, 1e-4, 384)])
+def test_halo_kernels_match_plain_on_card(dtype, tol, wide):
+    """One halo sweep (city-like blocks cut in two) through kernels 17, 18,
+    12, 13 against the same sweep through their plain versions; also with
+    every window widened to 384 cameras (64.5 KB in float32: kernels 17 and
+    12 take one operand stage), and with the ghost table the launch plan
+    keeps in device memory or stages."""
+    dev = _card()
     sim = pba.simulate_blocks(n_blocks=32, n_cams=40, lmks_per_cam=8, window=3, seed=0,
                               shuffle=True)
     g, m = pba.build(sim, dtype=dtype, device="cpu", cam_prior_prec=1000.0,
@@ -312,7 +344,7 @@ def test_halo_kernels_match_plain_on_card(dtype, tol):
         hp, hcm, st, run = halo_cm.distribute(g, m, 2, device="cpu", ell_fused=fused)
         assert hcm.win_w
         st = halo.to_device(run(hcm, st, cfg, 8), dev)
-        hcm = halo.to_device(hcm, dev)
+        hcm = halo.to_device(hcm if wide is None else halo_widened(hcm, wide), dev)
         names = ("relin_cm_tabblkg_ell", "messages_cm_tabblkg_ell", "relin_cm_tabblkg",
                  "messages_cm_tabblkg")
         M.COUNTS.reset()

@@ -26,31 +26,36 @@ Tolerances, relative to each output's magnitude unless said otherwise:
 """
 import types
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from gbp_tpu.core import sweep_cm as J
-from gbp_tpu.core.sweep import GBPConfig as JConfig
-from gbp_tpu.core.sweep import VariableState as JVar
-from gbp_tpu.core.sweep import _kernel_params as j_kernel_params
-from gbp_tpu.models import ba as jba
-from gbp_tpu.ops import messages_pallas as mp
 from gbp_tpu_torch import interop
 from gbp_tpu_torch.core import sweep_cm as P
 from gbp_tpu_torch.core.sweep import GBPConfig, _kernel_params
 from gbp_tpu_torch.models import ba as pba
 from gbp_tpu_torch.ops import messages as M
 
+try:  # the card's machine has no JAX: only the cuda-marked cases run there
+    import jax
+    import jax.numpy as jnp
+
+    from gbp_tpu.core import sweep_cm as J
+    from gbp_tpu.core.sweep import GBPConfig as JConfig
+    from gbp_tpu.core.sweep import VariableState as JVar
+    from gbp_tpu.core.sweep import _kernel_params as j_kernel_params
+    from gbp_tpu.models import ba as jba
+    from gbp_tpu.ops import messages_pallas as mp
+except ImportError:
+    jax = None
+
 torch.set_num_threads(1)
 CFG = dict(eta_damping=0.4, num_undamped_iters=6, min_linear_iters=8)
-JCFG = JConfig(message_form="pallas", **CFG)
+JCFG = None if jax is None else JConfig(message_form="pallas", **CFG)
 PCFG = GBPConfig(**CFG)
 BETA = GBPConfig().beta
 PRIORS = dict(cam_prior_prec=1000.0, lmk_prior_prec=1000.0)
-JDT = {torch.float64: jnp.float64, torch.float32: jnp.float32}
+JDT = {} if jax is None else {torch.float64: jnp.float64, torch.float32: jnp.float32}
 SCENES = {
     "corridor280": lambda m: m.simulate_corridor(n_cams=280, lmks_per_cam=12, window=3, seed=1),
     "corridor320": lambda m: m.simulate_corridor(n_cams=320, lmks_per_cam=20, window=3, seed=1),
@@ -466,3 +471,127 @@ def test_window_shared_memory_gate():
     wide = np.repeat(np.arange(0, 40000, 500, dtype=np.int32), 256)  # tile span 1500 -> 1536
     assert 2 * 1536 <= 40000 and 1536 * M.F_CAM * 4 > M.SMEM_WINDOW_BYTES
     assert P._windows(wide, 40000, 4) is None
+
+
+# --- on the card ------------------------------------------------------------------------
+# Kernel 10 (`messages_cm_tabblk_ell`: persistent blocks over units of
+# rows, windows by bulk copy, operands through a ring of stages) against its
+# plain version (float64 1e-11, float32 1e-4 relative), and bit for bit
+# against the full-table kernel 2 on the same operands.  The scenes cover
+# windows widened past the 48 KB of static shared memory (256 cameras in
+# float64, 86 KB; 384 in float32, 64.5 KB); the last window of an odd
+# camera count (273 cameras: bytes not a multiple of 16, copied by elements
+# at its end); a table whose rows start 4 or 8 bytes past a 16-byte
+# boundary (elements at both ends); more units than blocks, not a multiple.
+CARD_SCENES = {
+    "blocks7": SCENES["blocks7"],
+    "blocks7_odd": lambda m: m.simulate_blocks(n_blocks=7, n_cams=39, lmks_per_cam=20,
+                                               window=3, seed=0, shuffle=True),
+    "blocks10": lambda m: m.simulate_blocks(n_blocks=10, n_cams=40, lmks_per_cam=20, window=3,
+                                            seed=0, shuffle=True),
+    "blocks24": lambda m: m.simulate_blocks(n_blocks=24, n_cams=40, lmks_per_cam=20, window=3,
+                                            seed=0, shuffle=True),
+}
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def card_state(sim, dtype, dev, **prepare_kw):
+    """The port's prepared graph and its state after 8 plain sweeps on the
+    CPU, moved to `dev`."""
+    pg, pm = pba.build(sim, dtype=dtype, device="cpu", layout="ell", **PRIORS)
+    pc = P.prepare(pg, **prepare_kw)
+    st = P.run(pc, P.init_state(pc, pm), PCFG, 8)
+    mv = lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t
+    pc = pc._replace(**{k: mv(v) for k, v in pc._asdict().items() if isinstance(v, torch.Tensor)})
+    st = P.CMState(v=tuple(type(v)(*(mv(t) for t in v)) for v in st.v),
+                   f=P.CMFactorState(*(tuple(mv(t) for t in x) if isinstance(x, tuple) else mv(x)
+                                       for x in st.f)))
+    return pc, st
+
+
+def widened(pc, w):
+    """`pc` with every window widened to `w` cameras (starts moved down where
+    the wider window would pass the padded camera count)."""
+    starts = np.minimum(pc.win_starts.cpu().numpy(), pc.win_ncpad - w) // 8 * 8
+    assert w <= pc.win_ncpad and (starts >= 0).all()
+    rows, offsets = M.window_rows_csr(pc.gidx.cpu().numpy(), starts, w)
+    dev = pc.gidx.device
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    return pc._replace(win_w=w, win_starts=i32(starts), win_rows=i32(rows),
+                       win_offsets=i32(offsets))
+
+
+def off16(tab):
+    """A copy of `tab` whose data starts one element past a 16-byte boundary."""
+    buf = torch.empty(tab.numel() + 16 // tab.element_size() + 1, dtype=tab.dtype,
+                      device=tab.device)
+    at = (16 - buf.data_ptr() % 16) % 16 // tab.element_size() + 1
+    out = buf[at:at + tab.numel()].view(tab.shape)
+    out.copy_(tab)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,dtype,tol,wide", [
+    ("blocks7", torch.float64, 1e-11, None), ("blocks7", torch.float32, 1e-4, None),
+    ("blocks7", torch.float64, 1e-11, 256), ("blocks10", torch.float32, 1e-4, 384),
+    ("blocks7_odd", torch.float32, 1e-4, None), ("blocks24", torch.float32, 1e-4, None)])
+def test_window_messages_kernel_matches_plain_on_card(scene, dtype, tol, wide):
+    dev = _card()
+    pc, st = card_state(CARD_SCENES[scene](pba), dtype, dev)
+    assert pc.win_w and pc.ell_fused
+    if wide:
+        pc = widened(pc, wide)
+    plan = M.window_plan("messages_cm_tabblk_ell", dtype, win_w=pc.win_w, mp=pc.mp)
+    n_cam = st.v[pc.fb.vblocks[0]].mean.shape[0]
+    n_in = np.minimum(pc.win_w, n_cam - pc.win_starts.cpu().numpy())
+    if scene == "blocks7_odd":
+        assert (n_in * M.F_CAM * 4 % 16 != 0).any()
+    if scene == "blocks24":
+        assert plan["units"] > plan["blocks"] and plan["units"] % plan["blocks"]
+    if wide:
+        assert plan["smem_bytes"] > 48 * 1024
+    fs = st.f
+    params = _kernel_params(PCFG, dtype)
+    _, _, cam_tab, lmk_tab = P.belief_tables(pc, st)
+    for tab in (cam_tab, off16(cam_tab)):
+        for huber in (None, 1.0):
+            args = (params, tab, lmk_tab, pc.gidx, pc.win_starts, fs.jac, fs.lp, fs.r0, pc.prec,
+                    fs.srel, pc.act, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1],
+                    fs.msg_lam[1], pc.win_rows, pc.win_offsets)
+            kw = dict(deg=pc.fb.ell_deg, huber=huber, win_w=pc.win_w)
+            got = M.messages_cm_tabblk_ell(*args, **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(got, M.messages_cm_tabblk_ell_plain(*args, **kw)):
+                assert rel(a.cpu(), b.cpu()) <= tol
+
+
+@pytest.mark.cuda
+def test_window_messages_equal_full_table_on_card():
+    """On the 280-camera float32 scene (47,040 bytes of table, inside the
+    full-table kernels' 48 KB), the windowed graph's own operands through
+    kernel 10 and through the full-table kernel 2: equal bit for bit."""
+    dev = _card()
+    pc, st = card_state(SCENES["blocks7"](pba), torch.float32, dev)
+    fs = st.f
+    params = _kernel_params(PCFG, torch.float32)
+    _, _, cam_tab, lmk_tab = P.belief_tables(pc, st)
+    assert pc.win_w and cam_tab.numel() * 4 <= M.SMEM_TABLE_BYTES
+    head = (params, cam_tab, lmk_tab, pc.gidx)
+    state = (fs.jac, fs.lp, fs.r0, pc.prec, fs.srel, pc.act, fs.msg_eta[0], fs.msg_lam[0],
+             fs.msg_eta[1], fs.msg_lam[1])
+    for huber in (None, 1.0):
+        win = M.messages_cm_tabblk_ell(*head, pc.win_starts, *state, pc.win_rows, pc.win_offsets,
+                                       deg=pc.fb.ell_deg, huber=huber, win_w=pc.win_w)
+        full = M.messages_cm_tab_ell(*head, *state, pc.seg_rows, pc.seg_offsets,
+                                     deg=pc.fb.ell_deg, huber=huber)
+        torch.cuda.synchronize()
+        for a, b in zip(win[:4], full[:4]):
+            assert torch.equal(a, b)
+

@@ -35,6 +35,7 @@ from gbp_tpu_torch.core.sweep import GBPConfig, _kernel_params
 from gbp_tpu_torch.models import ba as pba
 from gbp_tpu_torch.models import pose_graph as ppg
 from gbp_tpu_torch.ops import messages as M
+from test_torch_window import CARD_SCENES, _card, card_state, off16, widened
 
 torch.set_num_threads(1)
 BA_CFG = dict(eta_damping=0.4, num_undamped_iters=6, min_linear_iters=8)
@@ -316,20 +317,24 @@ def test_degree_one_prepare_matches_reference():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11), (torch.float32, 1e-4)])
-def test_unfused_window_kernels_match_plain_on_card(dtype, tol):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    dev = torch.device("cuda")
-    sim = blocks7()
-    pg, pm = pba.build(sim, dtype=dtype, device="cpu", layout="ell", **PRIORS)
-    pc = P.prepare(pg, ell_fused=False)
-    st = P.run(pc, P.init_state(pc, pm), PCFG, 8)
-    mv = lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t
-    pc = pc._replace(**{k: mv(v) for k, v in pc._asdict().items() if isinstance(v, torch.Tensor)})
-    st = P.CMState(v=tuple(type(v)(*(mv(t) for t in v)) for v in st.v),
-                   f=P.CMFactorState(*(tuple(mv(t) for t in x) if isinstance(x, tuple) else mv(x)
-                                       for x in st.f)))
+@pytest.mark.parametrize("scene,dtype,tol,wide", [
+    ("blocks7", torch.float64, 1e-11, None), ("blocks7", torch.float32, 1e-4, None),
+    ("blocks7", torch.float64, 1e-11, 256), ("blocks10", torch.float32, 1e-4, 384),
+    ("blocks7_odd", torch.float32, 1e-4, None), ("blocks24", torch.float32, 1e-4, None)])
+def test_unfused_window_kernels_match_plain_on_card(scene, dtype, tol, wide):
+    """Kernels 9 and 8 against their plain versions on the scenes and
+    launch plans of test_torch_window.py's card cases (kernel 8: two stages
+    and one window buffer in float32, none in float64, one stage at 384
+    cameras; a table off a 16-byte boundary; odd last windows; more units
+    than blocks)."""
+    dev = _card()
+    pc, st = card_state(CARD_SCENES[scene](pba), dtype, dev, ell_fused=False)
+    assert pc.win_w and not pc.ell_fused
+    if wide:
+        pc = widened(pc, wide)
+    plan = M.window_plan("messages_cm_tabblk", dtype, win_w=pc.win_w, mp=pc.mp)
+    if scene == "blocks24":
+        assert plan["units"] > plan["blocks"] and plan["units"] % plan["blocks"]
     s = types.SimpleNamespace(pc=pc, st=st)
     be_l, bl_l, mean_l, mtab, btab = port_operands(s)
     fs = st.f
@@ -341,10 +346,33 @@ def test_unfused_window_kernels_match_plain_on_card(dtype, tol):
     for a, b in zip(M.relin_cm_tabblk(*r_args, **r_kw), ref_r):
         assert rel(a.cpu(), b.cpu()) <= tol
     lp, jac, r0, srel = ref_r
+    for tab in (btab, off16(btab)):
+        for huber in (None, 1.0):
+            m_args = (params, jac, lp, r0, pc.prec, srel, pc.act, be_l, bl_l, tab, pc.gidx,
+                      pc.win_starts, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])
+            got = M.messages_cm_tabblk(*m_args, huber=huber, win_w=pc.win_w)
+            torch.cuda.synchronize()
+            for a, b in zip(got, M.messages_cm_tabblk_plain(*m_args, huber=huber,
+                                                            win_w=pc.win_w)):
+                assert rel(a.cpu(), b.cpu()) <= tol
+
+
+@pytest.mark.cuda
+def test_unfused_window_messages_equal_full_table_on_card():
+    """On the 280-camera float32 scene, the windowed unfused graph's own
+    operands through kernel 8 and through the full-table kernel 6
+    (`messages_cm_tab`): equal bit for bit."""
+    dev = _card()
+    pc, st = card_state(blocks7(), torch.float32, dev, ell_fused=False)
+    be_l, bl_l, _, _, btab = port_operands(types.SimpleNamespace(pc=pc, st=st))
+    assert pc.win_w and btab.numel() * 4 <= M.SMEM_TABLE_BYTES
+    fs = st.f
+    params = _kernel_params(PCFG, torch.float32)
+    head = (params, fs.jac, fs.lp, fs.r0, pc.prec, fs.srel, pc.act, be_l, bl_l, btab, pc.gidx)
+    msgs = (fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])
     for huber in (None, 1.0):
-        m_args = (params, jac, lp, r0, pc.prec, srel, pc.act, be_l, bl_l, btab, pc.gidx,
-                  pc.win_starts, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])
-        got = M.messages_cm_tabblk(*m_args, huber=huber, win_w=pc.win_w)
+        win = M.messages_cm_tabblk(*head, pc.win_starts, *msgs, huber=huber, win_w=pc.win_w)
+        full = M.messages_cm_tab(*head, *msgs, huber=huber)
         torch.cuda.synchronize()
-        for a, b in zip(got, M.messages_cm_tabblk_plain(*m_args, huber=huber, win_w=pc.win_w)):
-            assert rel(a.cpu(), b.cpu()) <= tol
+        for a, b in zip(win, full):
+            assert torch.equal(a, b)
