@@ -34,7 +34,16 @@ non-zero; no phase is caught):
      `scatter_windows_cm` must equal its plain version bit for bit (max abs
      err 0.0), here, at the pose shapes and per halo partition, and a dense
      accumulation in tile order with overlapping and repeated window starts,
-     float64 and float32.
+     float64 and float32.  `segsum_cm_blk` must equal its plain version
+     computed on CPU copies of its operands bit for bit (max abs err 0.0:
+     both add each segment in CSR order), here, at the pose shapes, in
+     phase 18's windowed entries and per halo partition on its owned-rows
+     CSR (phase 22); at city, at venice (phase 7) and on city cut in two
+     (partition 0, phase 22) it prints its launch plan
+     (`ops.messages.segsum_blk_plan`: components per item, items, blocks,
+     threads, shared bytes, registers, local bytes, blocks per SM) and its
+     device time by the profiler, bound and share
+     (`bench/compare_sums.segsum_blk_report`).
      Each windowed check prints the launch plan of `messages_cm_tabblk_ell`
      (`ops.messages.window_plan`: units of rows, persistent blocks,
      shared bytes, registers, local bytes, blocks per SM); at city, and at venice in phase 7, its device time by
@@ -161,10 +170,11 @@ non-zero; no phase is caught):
      operands its sweep hands them: `relin_cm_tabblkg_ell` and
      `relin_cm_tabblkg` in both relinearization regimes,
      `messages_cm_tabblkg_ell` and `messages_cm_tabblkg` with and without
-     Huber; then the partition's two gathered-slot sums of those messages,
-     `scatter_windows_cm` (held to equality) and `segsum_by_id` on the ghost
-     rows; city again with every window widened to 384 cameras (64,512
-     bytes, dynamic shared memory); timed at city, partition 0; the launch
+     Huber; then the partition's gathered-slot sums of those messages,
+     `segsum_cm_blk` on the owned-rows CSR and `scatter_windows_cm` (both
+     held to equality) and `segsum_by_id` on the ghost rows; city again
+     with every window widened to 384 cameras (64,512 bytes, dynamic
+     shared memory); timed at city, partition 0; the launch
      plans of kernels 17 and 12 and, at
      city, partition 0, their device time, bound and share.
  23. halo paths, the P partitions in one process on the card through the
@@ -219,6 +229,7 @@ from gbp_tpu_torch import ba as ba_cli
 from gbp_tpu_torch import slam as slam_cli
 from gbp_tpu_torch.bench import BIG_BUILD as BIG
 from gbp_tpu_torch.bench import CFG, CITY, VENICE, card_line
+from gbp_tpu_torch.bench import compare_sums as CS
 from gbp_tpu_torch.bench import compare_windows as CW
 from gbp_tpu_torch.core import anneal, oracle, sweep, sweep_cm
 from gbp_tpu_torch.core.sweep import _kernel_params
@@ -434,6 +445,34 @@ def report_window_kernel(tag, name, args, kw):
           f"{CW.report_line(name, CW.kernel_report(name, args, kw))} ({card_line()})")
 
 
+def hold_segsum_blk(tag, part, me, ml, win_rows, win_offsets):
+    """Kernel 16's partials `part` of me | ml against the plain version on
+    CPU copies of the operands: equal bit for bit (the kernel adds each
+    segment in CSR order, as the plain version does on the CPU)."""
+    n_tiles, _, w = part.shape
+    ref = M.segsum_cm_blk_plain(me.cpu(), ml.cpu(), win_rows.cpu(), win_offsets.cpu(),
+                                n_tiles=n_tiles, w=w)
+    exact("segsum_cm_blk", sync(part), ref.to(part.device), f"{tag} (plain on the CPU)")
+
+
+def report_segsum_blk(tag, me, ml, win_rows, win_offsets, n_tiles, w):
+    """Kernel 16's launch plan (`M.segsum_blk_plan`), device time by the
+    profiler, bound and share on these operands
+    (`compare_sums.segsum_blk_report`)."""
+    r = CS.segsum_blk_report(me, ml, win_rows, win_offsets, n_tiles=n_tiles, w=w)
+    p = r["plan"]
+    print(f"[kernels] {tag} segsum_cm_blk plan: {p['comps_per_block']} components per item, "
+          f"{p['groups']} items per tile, {p['items']} items on {p['blocks']} blocks of "
+          f"{p['threads']} threads, {p['smem_bytes']} shared bytes, {p['registers']} registers, "
+          f"{p['local_bytes']} local bytes, {p['blocks_per_sm']} blocks per SM")
+    print(f"[kernels] {tag} segsum_cm_blk on the device (profiler): {r['device_ms']:.4f} ms "
+          f"({r['launches']} launches profiled), bound {r['bound_ms']:.4f} ms, share "
+          f"{r['share']:.3f}, equal to the plain version on the CPU: {r['equals_plain']}, "
+          f"output {r['digest']} ({card_line()})")
+    if not r["equals_plain"]:
+        raise AssertionError(f"segsum_cm_blk {tag}: not equal to the plain version")
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Inside, `sweep_cm.sweep` calls the windowed kernels' plain versions
@@ -576,7 +615,8 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
     if win:
         blk_args, blk_kw = (me, ml, *sum_index), dict(n_tiles=cmg.mp // M.TILE, w=cmg.win_w)
         part = sync(M.segsum_cm_blk(*blk_args, **blk_kw))
-        compare("segsum_cm_blk", (part,), (sync(M.segsum_cm_blk_plain(*blk_args, **blk_kw)),))
+        hold_segsum_blk(tag, part, *blk_args)
+        errs["segsum_cm_blk"] = 0.0
         repeats("segsum_cm_blk", M.segsum_cm_blk, blk_args, blk_kw, part)
         sc_args = (part, cmg.win_starts, cmg.blk_tiles, cmg.blk_offsets)
         sc_kw = dict(n_seg=n_cam)
@@ -645,6 +685,8 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
                   f"{device_ms(library):.4f} ms ({card_line()})")
         if name == "messages_cm_tabblk_ell":
             report_window_kernel(tag, name, args, kw)
+        if name == "segsum_cm_blk":
+            report_segsum_blk(tag, *args, **kw)
     return errs
 
 
@@ -943,6 +985,8 @@ def check_pose_kernels(tag, build, dtype, dev, ptimes):
             got_m = sync(M.messages_cm_tabblk_ell(*m_args, huber=h, **w_kw))
             hold("messages_cm_tabblk_ell", got_m[:4], ref_m[:4])
             hold("segsum_cm_blk", got_m[4:], ref_m[4:])
+            hold_segsum_blk(tag, got_m[4], got_m[2 * g], got_m[2 * g + 1], cmg.win_rows,
+                            cmg.win_offsets)
         sc_args = (got_m[4], cmg.win_starts, cmg.blk_tiles, cmg.blk_offsets)
         n_g = cam_mean.shape[0]
         got_s = sync(M.scatter_windows_cm(*sc_args, n_seg=n_g))
@@ -1167,9 +1211,10 @@ def check_bal_kernels(tag, intrinsics, dtype, dev):
     for h in (None, 1.0):
         m_args = (params, cam_tab, lmk_tab, cmg.gidx, starts, jac, lp, r0, cmg.prec, srel,
                   cmg.act, *msgs, win_rows, win_offsets)
-        hold("messages_cm_tabblk_ell",
-             sync(M.messages_cm_tabblk_ell(*m_args, deg=deg, huber=h, **w_kw)),
+        got_w = sync(M.messages_cm_tabblk_ell(*m_args, deg=deg, huber=h, **w_kw))
+        hold("messages_cm_tabblk_ell", got_w,
              M.messages_cm_tabblk_ell_plain(*m_args, deg=deg, huber=h, **w_kw))
+        hold_segsum_blk(tag, got_w[4], got_w[0], got_w[1], win_rows, win_offsets)
         u_args = (params, jac, lp, r0, cmg.prec, srel, cmg.act, be1, bl1, btab, cmg.gidx, starts,
                   *msgs)
         hold("messages_cm_tabblk", sync(M.messages_cm_tabblk(*u_args, huber=h, **w_kw)),
@@ -1551,6 +1596,10 @@ def big_path(tag, scene, card, against_plain):
                                      lambda: sweep_cm.sweep(cmg, state, CFG))[
             "messages_cm_tabblk_ell"]
         report_window_kernel(tag, "messages_cm_tabblk_ell", args, kw)
+        # Kernel 16 on that call's new camera messages.
+        out = sync(M.messages_cm_tabblk_ell(*args, **kw))
+        report_segsum_blk(tag, out[0], out[1], args[-2], args[-1], cmg.mp // M.TILE, cmg.win_w)
+        del out
     late = time.perf_counter() - T_START > VENICE_TIMING_DEADLINE_S
     n = QUALITY_SWEEPS if late else SWEEPS
     if late:
@@ -2130,8 +2179,11 @@ def check_halo_kernels(tag, hcm, st, dtype, errs, timings=None):
         args, kw = calls["messages_cm_tabblkg_ell"]
         o = sync(M.messages_cm_tabblkg_ell_plain(*args, **kw))
         me_g, ml_g = o[2 * gslot], o[2 * gslot + 1]
-        part = M.segsum_cm_blk_plain(me_g, ml_g, hcm.win_rows[p], hcm.win_offsets[p],
-                                     n_tiles=hcm.mp // M.TILE, w=hcm.win_w)
+        blk = (me_g, ml_g, hcm.win_rows[p], hcm.win_offsets[p])
+        part = sync(M.segsum_cm_blk(*blk, n_tiles=hcm.mp // M.TILE, w=hcm.win_w))
+        hold_segsum_blk(f"{tag} partition {p} (owned rows)", part, *blk)
+        if timings is not None and p == 0:
+            report_segsum_blk(f"{tag} partition 0", *blk, hcm.mp // M.TILE, hcm.win_w)
         sc_args = (part, hcm.win_starts[p], hcm.blk_tiles[p], hcm.blk_offsets[p])
         exact("scatter_windows_cm", sync(M.scatter_windows_cm(*sc_args, n_seg=no)),
               scatter_plain(*sc_args, n_seg=no), f"{tag} partition {p}")

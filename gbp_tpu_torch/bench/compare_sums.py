@@ -1,6 +1,6 @@
-"""The two camera-side sums, `segsum_by_id` and `scatter_windows_cm`, timed
-on the same inputs by two checkouts of the port, for a comparison on one
-card in one call.
+"""The camera-side sums, `segsum_by_id`, `scatter_windows_cm` and the window
+partials `segsum_cm_blk`, timed on the same inputs by two checkouts of the
+port, for a comparison on one card in one call.
 
     python -m gbp_tpu_torch.bench.compare_sums --save DIR
         builds the scenes with this checkout, writes their index structures
@@ -13,7 +13,10 @@ Scenes: bench64, ladybug49 and nonlocal512 for `segsum_by_id`, each on two
 CSRs of its camera ids: the valid rows only (what `prepare` lists) and every
 row (padded rows and the ELL clones included: a landmark's clone rows all
 name the camera of its first row, so they make long runs); city and venice
-for `scatter_windows_cm` on their windows.  Messages and partials are
+for `scatter_windows_cm` on their windows; city, venice and city cut in two
+owner-sharded partitions (`halo_cm.distribute`, plain layout; partition 0,
+whose CSR lists its owned rows only) for `segsum_cm_blk` on their CSRs
+(`win_rows`, `win_offsets`).  Messages and partials are
 normal values from a seeded generator on the card, the same bits in every
 process.  A checkout whose `scatter_windows_cm` takes the cover lists
 (`window_cover_csr`) gets them, and the block lists too where it names them
@@ -21,8 +24,13 @@ as keyword arguments.
 
 Prints, per scene, CSR and sum, the device time per call (the profiler's
 kernel time, every kernel of the call summed, over 20 calls), the events
-time per call, and the max abs difference from the plain version; then one
-JSON line with all of them.  Needs a card.
+time per call, and the max abs difference from the plain version; for
+`segsum_cm_blk` the mean device time of the kernel's recorded launches, its
+bound (operands read once, partials written once, at 3.35 TB/s), the
+share, the launch plan where the checkout reports one, whether it equals
+the plain version on CPU copies of its operands bit for bit, and a digest
+of its output (equal digests: equal bits); then one JSON line with all of
+them.  Needs a card.
 """
 from __future__ import annotations
 
@@ -36,10 +44,12 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from gbp_tpu_torch.bench import compare_windows as CW
 from gbp_tpu_torch.ops import messages as M
 
 SEG_SCENES = ("bench64", "ladybug49", "nonlocal512")
 SCATTER_SCENES = ("city", "venice")
+BLK_SCENES = ("city", "venice", "city_halo2")
 CALLS = 20
 
 
@@ -57,6 +67,7 @@ def save(out_dir):
     from gbp_tpu_torch.core import sweep_cm
     from gbp_tpu_torch.io import bal
     from gbp_tpu_torch.models import ba
+    from gbp_tpu_torch.parallel import halo_cm
 
     os.makedirs(out_dir, exist_ok=True)
     made = {
@@ -82,10 +93,19 @@ def save(out_dir):
             starts = cmg.win_starts.cpu().numpy()
             rec.update(w=cmg.win_w, starts=starts,
                        cover=M.window_cover_csr(starts, cmg.win_w, n_cam),
-                       blocks=M.window_block_csr(starts, cmg.win_w, n_cam))
+                       blocks=M.window_block_csr(starts, cmg.win_w, n_cam),
+                       win=(cmg.win_rows.cpu().numpy(), cmg.win_offsets.cpu().numpy()))
         np.save(os.path.join(out_dir, f"{scene}.npy"), rec, allow_pickle=True)
         print(f"[compare] {scene}: {cmg.mp} rows, {n_cam} cameras, mode {cmg.gather_mode}, "
               f"win_w {cmg.win_w}")
+    graph, means = ba.build(ba.simulate_blocks(**CITY), dtype=torch.float32,
+                            **{**BIG_BUILD, "layout": "none"})
+    _, hcm, _, _ = halo_cm.distribute(graph, means, 2)
+    rec = {"mp": hcm.mp, "w": hcm.win_w,
+           "win": (hcm.win_rows[0].cpu().numpy(), hcm.win_offsets[0].cpu().numpy())}
+    np.save(os.path.join(out_dir, "city_halo2.npy"), rec, allow_pickle=True)
+    print(f"[compare] city_halo2 partition 0: {hcm.mp} rows, win_w {hcm.win_w}, "
+          f"{int(rec['win'][1][-1])} owned rows listed")
 
 
 def device_ms(fn):
@@ -109,6 +129,34 @@ def events_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / CALLS
+
+
+def segsum_blk_report(me, ml, win_rows, win_offsets, *, n_tiles, w):
+    """Kernel 16 (`segsum_cm_blk`) on these operands: {device_ms (the mean of
+    its recorded launches), launches, events_ms (per wrapper call),
+    bound_ms, share, plan (None where the checkout reports none),
+    equals_plain (bit for bit, the plain version on CPU copies), digest}."""
+    fn = lambda: M.segsum_cm_blk(me, ml, win_rows, win_offsets, n_tiles=n_tiles, w=w)
+    out = fn()
+    plain = M.segsum_cm_blk_plain(me.cpu(), ml.cpu(), win_rows.cpu(), win_offsets.cpu(),
+                                  n_tiles=n_tiles, w=w)
+    b_ms = sum(t.numel() * t.element_size() for t in (me, ml, win_rows, win_offsets, out)
+               ) / CW.PEAK_BYTES_PER_S * 1e3
+    # The mean over the launches the profiler recorded, in a new window while
+    # it recorded none (it may drop a window's records).
+    for _ in range(5):
+        times = [t for k, ts in CW.device_ms(fn).items() if "segsum_blk_kernel" in k
+                 for t in ts]
+        if times:
+            break
+    else:
+        raise RuntimeError("the profiler recorded no launch of segsum_blk_kernel")
+    ms = sum(times) / len(times)
+    plan = (M.segsum_blk_plan(me.dtype, me.shape[0], n_tiles)
+            if hasattr(M, "segsum_blk_plan") else None)
+    return dict(device_ms=ms, launches=len(times), events_ms=events_ms(fn), bound_ms=b_ms,
+                share=b_ms / ms, plan=plan, equals_plain=torch.equal(out.cpu(), plain),
+                digest=CW.digest([out]))
 
 
 def normal(shape, seed, dev):
@@ -154,6 +202,15 @@ def load(in_dir, label, dev="cuda"):
             out[key] = dict(device_ms=device_ms(fn), events_ms=events_ms(fn),
                             equals_plain=exact, tiles=int(mp // M.TILE))
             print(f"[compare] {label} {key}: {out[key]}")
+    for scene in BLK_SCENES:
+        rec = np.load(os.path.join(in_dir, f"{scene}.npy"), allow_pickle=True).item()
+        mp, w = rec["mp"], rec["w"]
+        me, ml = normal((M.D0, mp), 4, dev), normal((M.D0 * M.D0, mp), 5, dev)
+        key = f"segsum_cm_blk {scene}"
+        out[key] = segsum_blk_report(me, ml, *map(on_dev, rec["win"]), n_tiles=mp // M.TILE, w=w)
+        print(f"[compare] {label} {key}: {out[key]}")
+        del me, ml
+        torch.cuda.empty_cache()
     print(json.dumps(out))
 
 

@@ -41,18 +41,34 @@
 //   is a fault of the prepared graph: the kernel traps, it never clamps.
 //
 // segsum_cm_blk
-//   Replaces `segsum_cm_blk`'s kernel stage (`_kernel_segsum_blk`) and the
-//   5th output of `fused_messages_cm_tabblk_ell` (`_segsum_partial_blk`):
-//   part[i, k, j] = sum of component k over the rows of tile i whose camera
-//   id is starts[i] + j.
-//   Bound: device-memory bytes: the 42 message components read once, the
-//   [n_tiles, 42, w] partials written once (mostly zeros: a tile touches
-//   few of its window's cameras).
-//   Design: deterministic, no atomics.  A CSR of each tile's rows by window
-//   column is built once at prepare time; one thread per output (tile, k, j)
-//   adds its rows in CSR order, so neighbouring threads write neighbouring
-//   addresses and two runs give the same bits.  A tile's rows span 4 KB per
-//   component, so the scattered reads stay in cache.
+//   Replaces `segsum_cm_blk`'s kernel stage (`_kernel_segsum_blk`,
+//   gbp_tpu/ops/messages_pallas.py) and the 5th output of
+//   `fused_messages_cm_tabblk_ell` (`_segsum_partial_blk`): part[i, k, j] =
+//   sum of component k over the rows of tile i whose camera id is
+//   starts[i] + j, added in the order of the CSR of `window_rows_csr`
+//   (segment i * w + j) starting from zero.
+//   Bound: device-memory bytes: the f message components read once, the
+//   CSR read once, the [n_tiles, f, w] partials written once (mostly zeros:
+//   a locality-sorted tile touches 3-11 of its 128 window columns).  At
+//   venice in float32: 808 MB of components, 22 MB of CSR, 101 MB of
+//   partials, 0.278 ms at 3.35 TB/s.
+//   Design: deterministic, no atomics.  Persistent blocks of 128 threads,
+//   three to an SM, walk items of one tile and one group of components (7
+//   in float32, 3 in float64).  An item's slices of the tile (1,024
+//   contiguous values each) arrive by bulk copies on an mbarrier, its rows
+//   and offsets by cp.async, all into second buffers while the item before
+//   it sums.  Each pass of 128 window columns compacts the non-empty ones
+//   (a ballot and the warps' counts) and deals the (column, component)
+//   pairs to the threads; each adds its segment from shared memory in CSR
+//   order, the additions and order of the plain version, so the outputs
+//   are its bits.  A tile's segments are long (hundreds of rows in a few
+//   columns), so the sums are serial chains of shared-memory loads: with
+//   one block per item the whole card loaded, then summed, in lockstep
+//   waves (PERF.md); prefetching the next item keeps the loads
+//   going under the chains.  The pass's output slab, zeroed in shared
+//   memory, leaves as contiguous spans of the columns.  A row outside its
+//   tile, or offsets that fall, are a fault of the prepared graph: the
+//   kernel traps, it never clamps.
 //
 // scatter_windows_cm
 //   Replaces `scatter_windows_cm` (`_kernel_scatter_win`): out[k, c] = sum
@@ -85,26 +101,186 @@
 
 namespace gbp {
 
-constexpr int RED_BLOCK = 128;
-
-// grid.x = n_tiles * ceil(w / RED_BLOCK), grid.y = f components.
+// segsum_cm_blk: persistent blocks of SB_THREADS threads over items, an item
+// being one tile and one group of at most KG components (KG by dtype: 7
+// float32 or 3 float64 slices of 4 or 8 KB, double-buffered, three blocks
+// to an SM).  Block b takes items b, b + grid, ...  While an item sums, the
+// next item's slices arrive by bulk copies into the other buffer (an
+// mbarrier each), its rows and pass-0 offsets by cp.async into the other
+// buffers, and the item after it's head (first offset, row count) into
+// registers.  Shared memory: the mbarriers, the slices [2][KG][TILE + pad]
+// (pad: 16 bytes, so that the lanes of a warp reading one row of several
+// components hit different banks), the output slab of one pass of columns
+// [KG][SB_THREADS], the rows [2][TILE] (turned into indices within the tile
+// in place), pass 0's offsets [2][SB_THREADS + 2] (the columns' offsets, then
+// the tile's end), the pass's non-empty columns (column, first entry, end)
+// [3][SB_THREADS] and the warps' counts.
+constexpr int SB_THREADS = 128;
 template <typename S>
-__global__ void __launch_bounds__(RED_BLOCK)
+constexpr int sb_comps() {
+  return sizeof(S) == 4 ? 7 : 3;
+}
+template <typename S, int KG>
+struct SbSmem {
+  static constexpr int SLICE = TILE + 16 / static_cast<int>(sizeof(S));
+  static constexpr int OFFS = SB_THREADS + 2;
+  static constexpr size_t COMP = 16;
+  static constexpr size_t SLAB = COMP + 2 * sizeof(S) * KG * SLICE;
+  static constexpr size_t ROWS = SLAB + sizeof(S) * KG * SB_THREADS;
+  static constexpr size_t OFF = ROWS + 2 * sizeof(int) * TILE;
+  static constexpr size_t CSEG = OFF + 2 * sizeof(int) * OFFS;
+  static constexpr size_t WCNT = CSEG + 3 * sizeof(int) * SB_THREADS;
+  static constexpr size_t BYTES = WCNT + sizeof(int) * (SB_THREADS / 32);
+};
+
+// Item it is group it % groups of tile it / groups; n_items = n_tiles * groups.
+template <typename S, int KG>
+__global__ void __launch_bounds__(SB_THREADS)
 segsum_blk_kernel(const S* __restrict__ me, const S* __restrict__ ml, int d,
-                  const int* __restrict__ rows, const int* __restrict__ offsets,
-                  int w, int64_t mp, S* __restrict__ out) {
-  const int jb = (w + RED_BLOCK - 1) / RED_BLOCK;
-  const int tile = blockIdx.x / jb;
-  const int j = (blockIdx.x % jb) * RED_BLOCK + threadIdx.x;
-  if (j >= w) return;
-  const int k = blockIdx.y;
-  const int f = gridDim.y;
-  const S* src = k < d ? me + static_cast<int64_t>(k) * mp : ml + static_cast<int64_t>(k - d) * mp;
-  const int64_t seg = static_cast<int64_t>(tile) * w + j;
-  const int end = offsets[seg + 1];
-  S acc = S(0.0);
-  for (int i = offsets[seg]; i < end; ++i) acc += src[rows[i]];
-  out[(static_cast<int64_t>(tile) * f + k) * w + j] = acc;
+                  const int* __restrict__ rows, const int* __restrict__ offsets, int w,
+                  int64_t mp, int groups, int n_items, S* __restrict__ out) {
+  using L = SbSmem<S, KG>;
+  constexpr int NT = SB_THREADS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem_raw);
+  S* comp0 = reinterpret_cast<S*>(smem_raw + L::COMP);
+  S* slab = reinterpret_cast<S*>(smem_raw + L::SLAB);
+  int* rows0 = reinterpret_cast<int*>(smem_raw + L::ROWS);
+  int* offs0 = reinterpret_cast<int*>(smem_raw + L::OFF);
+  int* ccol = reinterpret_cast<int*>(smem_raw + L::CSEG);
+  int* cbeg = ccol + NT;
+  int* cend = cbeg + NT;
+  int* wcnt = reinterpret_cast<int*>(smem_raw + L::WCNT);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int f = d + d * d;
+  // The f components dealt evenly over the groups: [k0, k0 + nk) of group g.
+  const int q = f / groups, rem = f % groups;
+  const int stride = gridDim.x;
+  const int n0 = min(w, NT);
+  // Item it's slices into buffer b (thread 0: contiguous 16-byte-aligned
+  // spans of TILE values, mp being whole tiles), its pass-0 offsets and its
+  // n rows from `base` by cp.async from every thread; one commit, made also
+  // past the last item, so that every thread's groups stay in step.
+  auto fetch = [&](int it, int b, int base, int n) {
+    if (it < n_items) {
+      const int tile = it / groups, g = it % groups;
+      const int64_t row0 = static_cast<int64_t>(tile) * TILE;
+      if (tid == 0) {
+        const int k0 = g * q + min(g, rem), nk = q + (g < rem ? 1 : 0);
+        S* comp = comp0 + b * KG * L::SLICE;
+        mbar_arrive_expect_tx(bar + b, static_cast<unsigned>(nk * TILE * sizeof(S)));
+        for (int kk = 0; kk < nk; ++kk) {
+          const int k = k0 + kk;
+          const S* src = (k < d ? me + k * mp : ml + (k - d) * mp) + row0;
+          bulk_load(comp + kk * L::SLICE, src, static_cast<unsigned>(TILE * sizeof(S)), bar + b);
+        }
+      }
+      const int* off = offsets + static_cast<int64_t>(tile) * w;
+      int* so = offs0 + b * L::OFFS;
+      for (int i = tid; i <= n0; i += NT) cp_async_elem(so + i, off + i);
+      if (tid == 0) cp_async_elem(so + NT + 1, off + w);
+      int* sr = rows0 + b * TILE;
+      for (int i = tid; i < n; i += NT) cp_async_elem(sr + i, rows + base + i);
+    }
+    cp_async_commit();
+  };
+  auto head = [&](int it, int& base, int& n) {
+    if (it < n_items) {
+      const int* off = offsets + static_cast<int64_t>(it / groups) * w;
+      base = off[0];
+      n = off[w] - base;
+    }
+  };
+  int it = blockIdx.x;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+  }
+  __syncthreads();
+  int b_cur = 0, n_cur = 0, b_nxt = 0, n_nxt = 0;
+  head(it, b_cur, n_cur);
+  if (n_cur < 0 || n_cur > TILE) __trap();
+  fetch(it, 0, b_cur, n_cur);
+  head(it + stride, b_nxt, n_nxt);
+  unsigned phase = 0;  // bit b: the parity of buffer b's next completion
+  int buf = 0;
+  for (; it < n_items; it += stride, buf ^= 1) {
+    // Buffer buf ^ 1 was freed by the last item's closing barrier.
+    if (n_nxt < 0 || n_nxt > TILE) __trap();
+    fetch(it + stride, buf ^ 1, b_nxt, n_nxt);
+    const int base = b_cur, n_rows = n_cur;
+    b_cur = b_nxt;
+    n_cur = n_nxt;
+    head(it + 2 * stride, b_nxt, n_nxt);
+    const int tile = it / groups, g = it % groups;
+    const int k0 = g * q + min(g, rem), nk = q + (g < rem ? 1 : 0);
+    const int64_t row0 = static_cast<int64_t>(tile) * TILE;
+    const S* comp = comp0 + buf * KG * L::SLICE;
+    int* lrow = rows0 + buf * TILE;
+    const int* so = offs0 + buf * L::OFFS;
+    const int* off = offsets + static_cast<int64_t>(tile) * w;
+    cp_async_wait<1>();  // this item's copies (each thread its own: the rows it turns)
+    // (In 64 bits: with int arithmetic here ptxas gave the kernel 48
+    // registers, not 56, and it ran slower; PERF.md.)
+    for (int i = tid; i < n_rows; i += NT) {
+      const int64_t r = lrow[i] - row0;
+      if (r < 0 || r >= TILE) __trap();
+      lrow[i] = static_cast<int>(r);
+    }
+    __syncthreads();
+    if (so[NT + 1] - so[0] != n_rows || so[0] != base) __trap();
+    // Passes of NT window columns, one thread each.
+    for (int j0 = 0; j0 < w; j0 += NT) {
+      const int nc = min(NT, w - j0);
+      for (int e = tid; e < nk * NT; e += NT) slab[e] = S(0.0);
+      int o0 = 0, o1 = 0;
+      if (tid < nc) {
+        o0 = j0 ? off[j0 + tid] : so[tid];
+        o1 = j0 ? off[j0 + tid + 1] : so[tid + 1];
+      }
+      if (o1 < o0) __trap();
+      const bool filled = o1 > o0;
+      const unsigned m = __ballot_sync(0xffffffffu, filled);
+      if (lane == 0) wcnt[warp] = __popc(m);
+      __syncthreads();
+      int pos = __popc(m & ((1u << lane) - 1u)), n_ne = 0;
+#pragma unroll
+      for (int i = 0; i < NT / 32; ++i) {
+        pos += i < warp ? wcnt[i] : 0;
+        n_ne += wcnt[i];
+      }
+      if (filled) {
+        ccol[pos] = tid;
+        cbeg[pos] = o0 - base;
+        cend[pos] = o1 - base;
+      }
+      if (j0 == 0) {
+        mbar_wait(bar + buf, (phase >> buf) & 1u);
+        phase ^= 1u << buf;
+      }
+      __syncthreads();
+      // (column, component) pairs, components fastest: a warp's lanes walk
+      // few columns' rows, each in its own component's slice.  Each adds
+      // its segment in CSR order starting from zero.
+      for (int p = tid; p < nk * n_ne; p += NT) {
+        const int c = p / nk, kk = p - c * nk;
+        const S* v = comp + kk * L::SLICE;
+        const int end = cend[c];
+        S acc = S(0.0);
+#pragma unroll 16
+        for (int i = cbeg[c]; i < end; ++i) acc += v[lrow[i]];
+        slab[kk * NT + ccol[c]] = acc;
+      }
+      __syncthreads();
+      S* o = out + (static_cast<int64_t>(tile) * f + k0) * w + j0;
+      for (int e = tid; e < nk * nc; e += NT) {
+        const int kk = e / nc, j = e - kk * nc;
+        o[static_cast<int64_t>(kk) * w + j] = slab[kk * NT + j];
+      }
+      __syncthreads();  // the slab, the column lists and the buffers are free
+    }
+  }
+  cp_async_wait<0>();
 }
 
 constexpr int SC_CAMS = 128;  // cameras per block, one thread each
@@ -238,14 +414,37 @@ int messages_win(int da, int db, int zd, int gslot, int huber_row, const S* cam_
   return rc ? rc : static_cast<int>(cudaGetLastError());
 }
 
+// segsum_cm_blk's launch for n_tiles tiles of d-dof messages.  With `info`,
+// no launch: {components per item (at most), items per tile, items, blocks,
+// threads, shared bytes, registers and local bytes per thread, resident
+// blocks per SM}.
 template <typename S>
 int segsum_blk(const S* me, const S* ml, int d, const int* rows, const int* offsets,
-               int n_tiles, int w, int64_t mp, S* out, void* stream) {
-  if (n_tiles <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
-  const int jb = (w + RED_BLOCK - 1) / RED_BLOCK;
-  const dim3 grid(static_cast<unsigned int>(n_tiles) * jb, static_cast<unsigned int>(d + d * d));
-  segsum_blk_kernel<S><<<grid, RED_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      me, ml, d, rows, offsets, w, mp, out);
+               int n_tiles, int w, int64_t mp, S* out, void* stream, int* info) {
+  if (!info && (n_tiles <= 0 || w <= 0)) return static_cast<int>(cudaGetLastError());
+  constexpr int KG = sb_comps<S>();
+  const auto kernel = segsum_blk_kernel<S, KG>;
+  constexpr size_t smem = SbSmem<S, KG>::BYTES;
+  if (int rc = allow_smem(kernel, smem)) return rc;
+  const int groups = (d + d * d + KG - 1) / KG;
+  if (static_cast<int64_t>(n_tiles) * groups > 0x7fffffff) return -2;
+  const int n_items = n_tiles * groups;
+  int bps = 0;
+  if (cudaError_t rc =
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, kernel, SB_THREADS, smem))
+    return static_cast<int>(rc);
+  if (bps < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int blocks = min(n_items, bps * n_sms());
+  if (info) {
+    cudaFuncAttributes fa{};
+    if (cudaError_t rc = cudaFuncGetAttributes(&fa, kernel)) return static_cast<int>(rc);
+    const int v[9] = {KG, groups, n_items, blocks, SB_THREADS, static_cast<int>(smem),
+                      fa.numRegs, static_cast<int>(fa.localSizeBytes), bps};
+    for (int i = 0; i < 9; ++i) info[i] = v[i];
+    return 0;
+  }
+  kernel<<<blocks, SB_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      me, ml, d, rows, offsets, w, mp, groups, n_items, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -310,7 +509,12 @@ int scatter_win(const S* part, const int* starts, const int* blk_tiles, const in
                                          const int* rows, const int* offsets,          \
                                          int n_tiles, int w, int64_t mp, S* out,       \
                                          void* stream) {                               \
-    return gbp::segsum_blk<S>(me, ml, d, rows, offsets, n_tiles, w, mp, out, stream);  \
+    return gbp::segsum_blk<S>(me, ml, d, rows, offsets, n_tiles, w, mp, out, stream,   \
+                              nullptr);                                                \
+  }                                                                                    \
+  extern "C" int gbp_segsum_cm_blk_plan_##SFX(int d, int n_tiles, int* info) {         \
+    return gbp::segsum_blk<S>(nullptr, nullptr, d, nullptr, nullptr, n_tiles, 1, 0,    \
+                              nullptr, nullptr, info);                                 \
   }                                                                                    \
   extern "C" int gbp_scatter_windows_cm_##SFX(                                         \
       const S* part, const int* starts, const int* blk_tiles, const int* blk_offsets,  \

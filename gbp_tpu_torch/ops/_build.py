@@ -60,6 +60,8 @@ _ARGTYPES = {
     + [_P] * 4 + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P, _P],
     # me, ml, d, rows, offsets, n_tiles, w, mp, out, stream
     "gbp_segsum_cm_blk": [_P, _P, _I, _P, _P, _I, _I, _I64, _P, _P],
+    # d, n_tiles, info[9]: segsum_cm_blk's launch (ops.messages.segsum_blk_plan)
+    "gbp_segsum_cm_blk_plan": [_I, _I, _P],
     # part, starts, blk_tiles, blk_offsets, f, w, n_seg, out, stream
     "gbp_scatter_windows_cm": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     # d0, d1, z, row_major, prec_full, huber_row, in[14], in_ld[14], out[4],

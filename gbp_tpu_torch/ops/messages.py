@@ -1450,8 +1450,12 @@ def messages_cm_tabblk_ell(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, 
 
 def segsum_cm_blk(me, ml, win_rows, win_offsets, *, n_tiles, w):
     """Deterministic per-tile window partials [n_tiles, d + d*d, w] of
-    me [d, mp] | ml [d*d, mp] over the CSR of `window_rows_csr`: one thread
-    per output adds its rows in CSR order.  Two runs give the same bits."""
+    me [d, mp] | ml [d*d, mp] over the CSR of `window_rows_csr`: persistent
+    blocks over (tile, group of components) items stage each item's slices
+    of the tile in shared memory, the next item's arriving meanwhile, and
+    add each non-empty segment in CSR order (`segsum_blk_plan`).  Equal bit
+    for bit to the plain version; a row outside its tile stops the kernel
+    (a fault of `prepare`)."""
     if not _on_card(me):
         return segsum_cm_blk_plain(me, ml, win_rows, win_offsets, n_tiles=n_tiles, w=w)
     from gbp_tpu_torch.ops._build import library
@@ -1463,6 +1467,8 @@ def segsum_cm_blk(me, ml, win_rows, win_offsets, *, n_tiles, w):
     f = d + d * d
     if not 0 < f <= 65535 or w <= 0:
         raise ValueError(f"segsum_cm_blk: d={d}, w={w} out of range")
+    if me.data_ptr() % 16 or ml.data_ptr() % 16:
+        raise ValueError("segsum_cm_blk: me and ml must be 16-byte aligned (bulk copies)")
     out = torch.empty((n_tiles, f, w), dtype=dt, device=me.device)
     args = [
         _check("me", me, (d, mp), dt), _check("ml", ml, (d * d, mp), dt), ctypes.c_int(d),
@@ -1475,6 +1481,25 @@ def segsum_cm_blk(me, ml, win_rows, win_offsets, *, n_tiles, w):
     _raise_on(fn(*args), "segsum_cm_blk")
     COUNTS.kernel["segsum_cm_blk"] += 1
     return out
+
+
+SEGSUM_BLK_PLAN_KEYS = ("comps_per_block", "groups", "items", "blocks", "threads", "smem_bytes",
+                        "registers", "local_bytes", "blocks_per_sm")
+
+
+def segsum_blk_plan(dtype, d, n_tiles):
+    """How `segsum_cm_blk` launches on this card for n_tiles tiles of d-dof
+    messages ([d, mp] | [d*d, mp]): {comps_per_block (at most; the d + d*d
+    components are dealt evenly over `groups` items per tile), groups,
+    items, blocks (persistent, each taking every blocks-th item), threads,
+    smem_bytes (per block, whatever the window width), registers,
+    local_bytes (per thread), blocks_per_sm (resident)}."""
+    from gbp_tpu_torch.ops._build import library
+
+    info = (ctypes.c_int * len(SEGSUM_BLK_PLAN_KEYS))()
+    fn = getattr(library(), f"gbp_segsum_cm_blk_plan_{_suffix(dtype)}")
+    _raise_on(fn(ctypes.c_int(d), ctypes.c_int(n_tiles), info), "segsum_cm_blk plan")
+    return dict(zip(SEGSUM_BLK_PLAN_KEYS, info))
 
 
 def scatter_windows_cm(part, win_starts, blk_tiles, blk_offsets, *, n_seg):
