@@ -210,6 +210,36 @@ non-zero; no phase is caught):
      float32 the device time, bound and share of kernels 19, 20 (and its
      relinearization, and the floor of its two kernels), 4 and 5 on those
      operands.
+ 25. schedules (core/schedules.py, parallel/schedules.py).  (a) Inside
+     phases 3, 4, 8, 12, 17 (8-camera, bench, 280-camera and city scenes),
+     22 (city cut in two, per partition) and 24 (bench and 8-camera
+     scenes): every kernel that takes the act operand (1, 2, 4-13, 17-20)
+     again with act = the validity mask x a priority mask (frac 0.25, from
+     the operands' own means against a perturbed last_x) and x a
+     Bernoulli(0.5) mask from a seeded generator: against its plain version
+     (float64 1e-11, float32 1e-4), every inactive row returning its
+     inputs (linearization point, Jacobian, residual, both messages) bit for
+     bit and since_relin + 1; the camera-side sums of those messages
+     (`segsum_by_id` against its plain version and repeated bit for bit,
+     `segsum_cm_blk` and `scatter_windows_cm` equal to theirs).  (b) The
+     runners at full width in float32: bench64 `run_wildfire_cm` with
+     tau < 0 equal to `sweep_cm.run` bit for bit after 200 sweeps, then
+     wildfire (tau 1e-4), priority (frac 0.5) and random (keep 0.7), 200
+     sweeps each; city wildfire and priority, 50 sweeps; bench64 on the
+     generic engine (message_form "pallas"), wildfire and priority, 50
+     sweeps.  Each: the ARE (finite, below the initial one) and the first
+     5-sweep chunk at or below 1.05x the Gauss-Newton MAP ARE, the mean
+     active share, the runner equal bit for bit to the same sweeps stepped
+     one by one, launch counts, kernel launches and device ms per sweep (the
+     profiler) and sweeps/s beside the synchronous run's; a rerun of the
+     random schedule from the same seed bit for bit.  City cut in two
+     (`halo_cm.distribute`): `make_run_wildfire_cm` (ARE within 5e-3 px of
+     the one-device wildfire run), `make_run_priority_cm(0.5)` and
+     `make_run_chip_dropout_cm` (partition 1 dead for 15 sweeps: its factor
+     state after sweep 15 equals its initial one but since_relin, which
+     counts 15), 50 sweeps each.  Two sweeps of every runner under
+     `torch.cuda.set_sync_debug_mode("warn")`: no more host
+     synchronizations than two synchronous sweeps of the same scene.
 """
 import contextlib
 import dataclasses
@@ -218,6 +248,7 @@ import math
 import re
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -231,13 +262,14 @@ from gbp_tpu_torch.bench import BIG_BUILD as BIG
 from gbp_tpu_torch.bench import CFG, CITY, VENICE, card_line
 from gbp_tpu_torch.bench import compare_sums as CS
 from gbp_tpu_torch.bench import compare_windows as CW
-from gbp_tpu_torch.core import anneal, oracle, sweep, sweep_cm
+from gbp_tpu_torch.core import anneal, oracle, schedules, sweep, sweep_cm
 from gbp_tpu_torch.core.sweep import _kernel_params
 from gbp_tpu_torch.io import bal, g2o
 from gbp_tpu_torch.models import ba, pose_graph, toy
 from gbp_tpu_torch.ops import _build
 from gbp_tpu_torch.ops import messages as M
 from gbp_tpu_torch.parallel import halo, halo_cm, schur
+from gbp_tpu_torch.parallel import schedules as halo_schedules
 
 SWEEPS = 200
 QUALITY_SWEEPS = 50  # corridor scenes: the plain schedule is taken at 50 sweeps
@@ -245,6 +277,11 @@ BENCH = dict(n_cams=64, n_lmks=8000, pix_sigma=1.0, seed=0)
 SMALL = dict(n_cams=8, n_lmks=120, seed=0)
 BLOCKS7 = dict(n_blocks=7, n_cams=40, lmks_per_cam=20, window=3, seed=0, shuffle=True)
 TOL = {torch.float64: 1e-11, torch.float32: 1e-4}
+# Phase 25 (a): the scenes whose act-taking kernels are held against their
+# plain versions under partial schedule masks (check_kernels' tags, then the
+# generic engine's, phase 24).
+SCHEDULE_SCENES = ("8cam", "64cam", "280cam", "city")
+SCHEDULE_STAGED = ("bench64", "8cam")
 FULL = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id")
 WINDOWED = ("relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
             "scatter_windows_cm")
@@ -526,6 +563,7 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
     the windows widened to `wide` cameras, if given).
     Returns {kernel: max abs err}."""
     tol = TOL[dtype]
+    masked = tag in SCHEDULE_SCENES
     prep_kw = prep_kw or {}
     st = to_device(cpu_state(sim, dtype, build_kw, prep_kw), dev)
     cmg = sweep_cm.prepare(ba.build(sim, dtype=dtype, **build_kw)[0], **prep_kw)
@@ -633,11 +671,30 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
         compare("segsum_by_id", (got_s,), (whole,))
         repeats("segsum_by_id", M.segsum_by_id, seg_args, {}, got_s)
 
+    acts = schedule_acts(x, cmg.act) if masked else None
+    if acts:
+        hold_masked(tag, n_relin_name, relin, relin_plain, relin_args, r_kw, cmg.act, acts,
+                    relin_kept(fs), keyed(compare))
+        outs = hold_masked(tag, n_msg_name, msgs, msgs_plain, msg_args, dict(huber=1.0, **r_kw),
+                           cmg.act, acts, messages_kept(fs), keyed(compare))
+        for label, o in outs.items():
+            # The camera-side sums of messages that kept their old values.
+            if win:
+                hold_segsum_blk(f"{tag} {label} mask", o[-1], o[0], o[1], *sum_index)
+                sc_args = (o[-1], cmg.win_starts, cmg.blk_tiles, cmg.blk_offsets)
+                exact("scatter_windows_cm", sync(M.scatter_windows_cm(*sc_args, n_seg=n_cam)),
+                      sync(scatter_plain(*sc_args, n_seg=n_cam)), f"{tag} {label} mask")
+            else:
+                seg_args = (o[0], o[1], *sum_index)
+                compare(f"segsum_by_id[{label} mask]", (o[-1],),
+                        (M.segsum_by_id_plain(*seg_args),), record=False)
+                if not torch.equal(o[-1], sync(M.segsum_by_id(*seg_args))):
+                    raise AssertionError(f"segsum_by_id {tag} {label} mask: two runs differ")
     if not win:
-        check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings)
-        check_unfused_kernels(tag, cmg, st, dtype, compare, timings)
+        check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings, acts)
+        check_unfused_kernels(tag, cmg, st, dtype, compare, timings, acts)
     else:
-        check_unfused_win_kernels(tag, cmg, st, dtype, compare, timings)
+        check_unfused_win_kernels(tag, cmg, st, dtype, compare, timings, acts)
     if timings is None:
         return errs
     vals = torch.cat([me, ml])
@@ -690,10 +747,11 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
     return errs
 
 
-def check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings):
+def check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings, acts=None):
     """Phase 8 for one scene and dtype, from the state `st` of the full-table
     checks: the four expanded-operand entries against their plain versions.
-    `ref_r` is the relinearized state at the config's beta."""
+    `ref_r` is the relinearized state at the config's beta.  With `acts`
+    (phase 25 (a)) `relin_cm` and `messages_cm` again under those masks."""
     fs = st.f
     fb = cmg.fb
     dev = fs.lp.device
@@ -756,6 +814,14 @@ def check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings):
                 sync(M.fused_relin_messages_plain(*frm_args, **frm_kw)),
                 key="fused_relin_messages")
 
+    if acts:
+        hold_masked(tag, "relin_cm", M.relin_cm, M.relin_cm_plain, relin_args, r_kw, cmg.act,
+                    acts, relin_kept(fs), keyed(compare))
+        cm_args = (_kernel_params(CFG, dtype), jac, lp, r0, cmg.prec, srel, cmg.act, be0, bl0,
+                   be1, bl1, *msgs)
+        hold_masked(tag, "messages_cm", M.messages_cm, M.messages_cm_plain, cm_args,
+                    dict(prec_full=False, huber=1.0, **shape), cmg.act, acts,
+                    messages_kept(fs), keyed(compare))
     if timings is None:
         return
     n_relin_cfg = int((ref_r[3] == 0).sum())
@@ -783,10 +849,11 @@ def check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings):
               f"{b_ms:.4f} ms ({b_by}), no single library call")
 
 
-def check_unfused_kernels(tag, cmg, st, dtype, compare, timings):
+def check_unfused_kernels(tag, cmg, st, dtype, compare, timings, acts=None):
     """Phase 12 for one scene and dtype, from the state `st` of the full-table
     checks: `expand_ell_blk`, `relin_cm_tab` and `messages_cm_tab` against
-    their plain versions."""
+    their plain versions; with `acts` (phase 25 (a)) the last two again under
+    those masks."""
     fs, fb = st.f, cmg.fb
     deg = fb.ell_deg
     dev = fs.lp.device
@@ -820,6 +887,11 @@ def check_unfused_kernels(tag, cmg, st, dtype, compare, timings):
         got_m = sync(M.messages_cm_tab(*msg_args, huber=huber))
         compare(f"messages_cm_tab[huber={huber}]", got_m,
                 sync(M.messages_cm_tab_plain(*msg_args, huber=huber)), key="messages_cm_tab")
+    if acts:
+        hold_masked(tag, "relin_cm_tab", M.relin_cm_tab, M.relin_cm_tab_plain, relin_args, r_kw,
+                    cmg.act, acts, relin_kept(fs), keyed(compare))
+        hold_masked(tag, "messages_cm_tab", M.messages_cm_tab, M.messages_cm_tab_plain, msg_args,
+                    dict(huber=1.0), cmg.act, acts, messages_kept(fs), keyed(compare))
     if timings is None:
         return
     rows = torch.arange(cmg.mp, device=dev) // deg
@@ -845,12 +917,13 @@ def check_unfused_kernels(tag, cmg, st, dtype, compare, timings):
               + ("none" if lib_ms is None else f"{lib_ms:.4f} ms"))
 
 
-def check_unfused_win_kernels(tag, cmg, st, dtype, compare, timings):
+def check_unfused_win_kernels(tag, cmg, st, dtype, compare, timings, acts=None):
     """Phase 17 for one windowed scene and dtype, from the state `st` of the
     windowed checks: `relin_cm_tabblk` (both regimes) and
     `messages_cm_tabblk` (Huber none and scalar) against their plain
     versions, the ELL slot expanded by `expand_ell_blk`; timed with their
-    bounds when `timings` is given."""
+    bounds when `timings` is given; with `acts` (phase 25 (a)) both again
+    under those masks."""
     fs, fb = st.f, cmg.fb
     deg = fb.ell_deg
     vs_c, vs_l = st.v[fb.vblocks[0]], st.v[fb.vblocks[1]]
@@ -883,6 +956,12 @@ def check_unfused_win_kernels(tag, cmg, st, dtype, compare, timings):
         compare(f"messages_cm_tabblk[huber={huber}]", got_m,
                 sync(M.messages_cm_tabblk_plain(*msg_args, huber=huber, **w_kw)),
                 key="messages_cm_tabblk")
+    if acts:
+        hold_masked(tag, "relin_cm_tabblk", M.relin_cm_tabblk, M.relin_cm_tabblk_plain,
+                    relin_args, r_kw, cmg.act, acts, relin_kept(fs), keyed(compare))
+        hold_masked(tag, "messages_cm_tabblk", M.messages_cm_tabblk, M.messages_cm_tabblk_plain,
+                    msg_args, dict(huber=1.0, **w_kw), cmg.act, acts, messages_kept(fs),
+                    keyed(compare))
     if timings is None:
         return
     n_relin_cfg = int((ref_r[3] == 0).sum())
@@ -1391,6 +1470,19 @@ def check_staged_kernels(tag, build, cfg, dtype, staged):
         head = sync(M.fused_messages(*map(part, v_args), **v_kw))
         if not all(torch.equal(a, b[:m_part]) for a, b in zip(head, got)):
             raise AssertionError(f"fused_messages {key}: {m_part} rows differ")
+    if tag in SCHEDULE_STAGED:  # phase 25 (a)
+        # args: (params, x, z, fargs, lp, jac, r0, prec, srel, act, 4 beliefs,
+        # 4 messages); msg_state: (params, jac, lp, r0, prec, srel, act, ...).
+        masked = lambda label, got, ref: hold(label, got, ref)
+        acts = schedule_acts((args[1] if relin else msg_state[2]).T, msg_state[6])
+        if relin:
+            hold_masked(key, "fused_relin_messages", M.fused_relin_messages,
+                        M.fused_relin_messages_plain, args, kw, args[9], acts,
+                        [(a, 0) for a in (*args[14:18], *args[4:7])] + [(args[8], 1)], masked,
+                        rows=True)
+        hold_masked(key, "fused_messages", M.fused_messages, M.fused_messages_plain, msg_state,
+                    dict(prec_full=kw["prec_full"], huber=kw["huber"], **shape), msg_state[6],
+                    acts, [(a, 0) for a in msg_state[11:15]], masked, rows=True)
     print(f"[staged] {key}: {m} rows (and the first {m_part}), views "
           f"{[tuple(a.stride()) for a in rest[:4]]}, relinearizing rows at the sweep's beta and "
           f"the median {n_relin}: bit for bit the component-major kernels; worst rel err vs "
@@ -2102,12 +2194,14 @@ def halo_state(sim, dtype, n_parts, sweeps):
     return halo.to_device(hcm, "cuda"), halo.to_device(st, "cuda")
 
 
-def check_halo_kernels(tag, hcm, st, dtype, errs, timings=None):
+def check_halo_kernels(tag, hcm, st, dtype, errs, timings=None, masked=False):
     """Phase 22 for one partitioned scene and dtype: per partition, kernels
     12, 13, 17 and 18 against their plain versions on the operands the halo
     sweep hands them (relinearization at the median distance and at the
     config's beta, messages with and without Huber); timed on partition 0
-    when `timings` is given."""
+    when `timings` is given.  `masked` (phase 25 (a)): per partition the four
+    again under partial schedule masks, and the partition's gathered-slot
+    sums of those messages."""
     tol = TOL[dtype]
     tag = f"{tag} {str(dtype)[6:]}"
     d_e = hcm.dofs[hcm.e]
@@ -2192,6 +2286,27 @@ def check_halo_kernels(tag, hcm, st, dtype, errs, timings=None):
               f"{M.segsum_form(hcm.mp, hcm.ext_offsets.shape[1] - 1, hcm.ext_rows.shape[1])}")
         compare("segsum_by_id (ghost rows)", (sync(M.segsum_by_id(*ext)),),
                 (M.segsum_by_id_plain(*ext),))
+        if masked:
+            acts, held = schedule_acts(x, hcm.act[p]), {}
+            for name in HALO_KERNELS:
+                args, kw = calls[name]
+                relin = name.startswith("relin")
+                held[name] = hold_masked(f"{tag} partition {p}", name, getattr(M, name),
+                                         getattr(M, name + "_plain"), args, kw,
+                                         (state_r if relin else head)[-1], acts,
+                                         relin_kept(fs) if relin else messages_kept(fs),
+                                         lambda label, got, ref: compare(label, got, ref))
+            for label, o in held["messages_cm_tabblkg_ell"].items():
+                me_g, ml_g = o[2 * gslot], o[2 * gslot + 1]
+                blk = (me_g, ml_g, hcm.win_rows[p], hcm.win_offsets[p])
+                part = sync(M.segsum_cm_blk(*blk, n_tiles=hcm.mp // M.TILE, w=hcm.win_w))
+                hold_segsum_blk(f"{tag} partition {p} {label} mask", part, *blk)
+                sc_args = (part, hcm.win_starts[p], hcm.blk_tiles[p], hcm.blk_offsets[p])
+                exact("scatter_windows_cm", sync(M.scatter_windows_cm(*sc_args, n_seg=no)),
+                      scatter_plain(*sc_args, n_seg=no), f"{tag} partition {p} {label} mask")
+                ext = (me_g, ml_g, hcm.ext_rows[p], hcm.ext_offsets[p])
+                compare(f"segsum_by_id (ghost rows)[{label} mask]",
+                        (sync(M.segsum_by_id(*ext)),), (M.segsum_by_id_plain(*ext),))
         if timings is None or p:
             continue
         n_relin_cfg = int((ref_r[3] == 0).sum())
@@ -2308,6 +2423,430 @@ def halo_path(card, are_city):
     return out
 
 
+# --- the schedules (phase 25) ---------------------------------------------------------
+
+
+def keyed(compare):
+    """`check_kernels`' compare, filing a masked check's error under its
+    kernel's name."""
+    return lambda label, got, ref: compare(label, got, ref, key=label.split("[")[0])
+
+
+def relin_kept(fs):
+    """What a relinearization's outputs (lp, jac, r0, srel) are at a row it
+    leaves inactive: its inputs, since_relin counted up by one."""
+    return [(fs.lp, 0), (fs.jac, 0), (fs.r0, 0), (fs.srel, 1)]
+
+
+def messages_kept(fs):
+    """What the four new messages are at an inactive row: the old ones."""
+    return [(a, 0) for a in (fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])]
+
+
+def schedule_acts(x, act, seed=0):
+    """Phase 25 (a): two partial act operands from the operands' own
+    adjacent means x [tdof, rows] and the validity mask `act` (rows
+    elements, any shape): act x the priority mask of frac 0.25 (the top
+    quarter of the valid rows by ||x - last_x||, last_x = x perturbed,
+    `parallel.schedules._priority_mask`) and act x a Bernoulli(0.5) draw,
+    both from a seeded generator on the card."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    last = x + 1e-3 * (1 + x.abs()) * torch.randn(x.shape, generator=gen, device=x.device,
+                                                  dtype=x.dtype)
+    valid = act.reshape(-1) > 0.5
+    score = halo_schedules._scores_cm(x[None], last[None])[0]
+    prio = halo_schedules._priority_mask(score, valid, max(1, int(0.25 * int(valid.sum()))))
+    bern = torch.rand(valid.shape, generator=gen, device=x.device) < 0.5
+    return {label: act * m.reshape(act.shape).to(act.dtype)
+            for label, m in (("priority", prio), ("Bernoulli", bern))}
+
+
+def hold_masked(tag, name, kern, plain, args, kw, act, acts, kept, compare, rows=False):
+    """Phase 25 (a): kernel `name` against its plain version with its act
+    operand (the tensor `act` in `args`) replaced by each mask of `acts`.
+    `compare(label, got, ref)` holds the outputs to the tolerance; at every
+    row a mask turns off, output i must equal its input kept[i] = (input,
+    step) bit for bit, plus `step` (1: since_relin).  Component-major
+    operands hold rows along the last axis, row-major ones (`rows`) along
+    the first.  Returns {mask label: the kernel's outputs}."""
+    at = next(i for i, a in enumerate(args) if a is act)
+    valid = act.reshape(-1) > 0.5
+    n_valid = int(valid.sum())
+    outs = {}
+    for label, mask in acts.items():
+        m_args = (*args[:at], mask, *args[at + 1:])
+        got = sync(kern(*m_args, **kw))
+        compare(f"{name}[{label} mask]", got, sync(plain(*m_args, **kw)))
+        off = mask.reshape(-1) <= 0.5
+        n_on = n_valid - int((off & valid).sum())
+        if not 0 < n_on < n_valid:
+            raise AssertionError(f"{name} {tag}: the {label} mask is not partial ({n_on} of "
+                                 f"{n_valid} valid rows on)")
+        sel = (lambda t: t.reshape(t.shape[0], -1)[off]) if rows else (lambda t: t[..., off])
+        for i, (inp, step) in enumerate(kept):
+            want = sel(inp).to(got[i].dtype)
+            if not torch.equal(sel(got[i]), want + step if step else want):
+                raise AssertionError(f"{name} {tag}, {label} mask: output {i} of an inactive "
+                                     f"row is not its input" + (" + 1" if step else ""))
+        print(f"[masked] {tag} {name}, {label} mask: {n_on} of {n_valid} valid rows active, "
+              f"every inactive row returned its {len(kept)} inputs bit for bit"
+              + (" (since_relin + 1)" if any(step for _, step in kept) else ""))
+        outs[label] = got
+    return outs
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+def launches_and_device_ms(run, n1=3, n2=8):
+    """(kernel launches per sweep, device ms per sweep) of `run(n)` (n
+    sweeps), by the profiler: runs of n2 and n1 sweeps differenced, so a
+    run's one-time set-up cancels."""
+    run(n1)
+    torch.cuda.synchronize()
+    got = []
+    for n in (n1, n2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(n)
+            torch.cuda.synchronize()
+        events = prof.events()
+        got.append((sum(1 for e in events if e.name in LAUNCH_CALLS),
+                    sum(e.time_range.elapsed_us() for e in events
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3))
+    return tuple((b - a) / (n2 - n1) for a, b in zip(*got))
+
+
+def sync_warnings(fn):
+    """How many synchronizing CUDA calls `fn` makes, as
+    `torch.cuda.set_sync_debug_mode("warn")` reports them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def timed(fn):
+    """(fn()'s result, wall seconds), the card synchronized on both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sync(fn())
+    return out, time.perf_counter() - t0
+
+
+def bits(t):
+    """A tensor's bits as integers (NaN equals the same NaN)."""
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def same_state(what, a, b):
+    """Every tensor of two states equal bit for bit."""
+    la, lb = leaves(a), leaves(b)
+    if len(la) != len(lb) or not all(torch.equal(bits(x), bits(y)) for x, y in zip(la, lb)):
+        raise AssertionError(f"{what}: the two states differ")
+
+
+def leaves(obj):
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    return [t for o in obj for t in leaves(o)] if isinstance(obj, tuple) else []
+
+
+def stepper(kind, arg, masks, sweep_fn, valid, gen=None):
+    """One schedule sweep at a time, for the 5-sweep ARE chunks: returns
+    one(state) -> (state, active valid rows on the card).  `masks` is the
+    engine's (init, wildfire mask, priority mask, random mask) and
+    `sweep_fn(state, active)` its masked sweep; the fire points are recorded
+    as the runners record them."""
+    init, wildfire, priority, random = masks
+    box = {}
+
+    def one(st):
+        if kind == "random":
+            active = random(gen, arg)
+        else:
+            if "sched" not in box:
+                box["sched"] = init(st)
+            active, xs = (wildfire if kind == "wildfire" else priority)(st, box["sched"], arg)
+            box["sched"] = box["sched"]._replace(last_x=record(active, xs, box["sched"].last_x))
+        per_block = active if isinstance(active, tuple) else (active,)
+        n_on = sum((a.reshape(-1) & v).sum() for a, v in zip(per_block, valid))
+        return sweep_fn(st, active), n_on
+
+    return one
+
+
+def record(active, xs, last):
+    """last_x <- the current means where a row fired (both engines)."""
+    if isinstance(last, tuple):
+        return schedules._record(active, xs, last)
+    return torch.where(active, xs, last)
+
+
+def chunked(tag, one, state, n, are_of, are0, are_map, n_valid, gate_sweeps=None):
+    """n sweeps of `one` in 5-sweep chunks, the ARE after each, which must
+    be finite and below the initial ARE after the last chunk (after the
+    first `gate_sweeps` sweeps when given: a schedule that diverges on the
+    scene in the reference too).  Returns (state, the final ARE, the first
+    sweep at or below 1.05x the MAP ARE or None, the mean active share of
+    the valid rows, the ARE per chunk)."""
+    first, n_on, ares = None, 0, []
+    for i in range(0, n, 5):
+        for _ in range(5):
+            state, on = one(state)
+            n_on = n_on + on
+        ares.append(are_of(state))
+        if first is None and ares[-1] <= 1.05 * are_map:
+            first = i + 5
+    gated = ares[-1] if gate_sweeps is None else ares[gate_sweeps // 5 - 1]
+    if not (math.isfinite(gated) and gated < are0):
+        raise AssertionError(f"{tag}: ARE {gated} is not finite and below the initial {are0}")
+    return state, ares[-1], first, float(n_on) / n / n_valid, ares
+
+
+def against_sync(run, sync_run, n, reps=3):
+    """`run(k)` (k sweeps of a schedule) beside `sync_run(k)` (the
+    synchronous sweeps of the same scene): kernel launches and device ms per
+    sweep (`launches_and_device_ms`) and the median sweeps/s of n-sweep runs
+    timed alternately, `reps` times each (the host's load drifts)."""
+    out = dict(zip(("launches_per_sweep", "device_ms"), launches_and_device_ms(run)))
+    out.update(zip(("sync_launches_per_sweep", "sync_device_ms"),
+                   launches_and_device_ms(sync_run)))
+    sps, sync_sps = [], []
+    for _ in range(reps):
+        sync_sps.append(n / timed(lambda: sync_run(n))[1])
+        sps.append(n / timed(lambda: run(n))[1])
+    out.update(sweeps_per_s=sorted(sps)[reps // 2], sync_sweeps_per_s=sorted(sync_sps)[reps // 2])
+    return out
+
+
+def schedule_line(tag, r, card):
+    """One run's line: ARE and its chunks, the 1.05x MAP sweep, active
+    share, then `against_sync`'s figures."""
+    if "first_reach" in r:
+        reach = ("not reached" if r["first_reach"] is None
+                 else f"reached at sweep {r['first_reach']}")
+        print(f"[schedules] {tag}: ARE {r['are']:.6f} px, 1.05x MAP {reach}; active share "
+              f"{r['active_share']:.4f}; ARE per 5 sweeps "
+              + ", ".join(f"{a:.4f}" for a in r["are_per_5"]))
+    print(f"[schedules] {tag}: {r['launches_per_sweep']:.1f} launches per sweep (synchronous "
+          f"{r['sync_launches_per_sweep']:.1f}); device {r['device_ms']:.4f} ms per sweep "
+          f"(synchronous {r['sync_device_ms']:.4f}); {r['sweeps_per_s']:.2f} sweeps/s "
+          f"(synchronous {r['sync_sweeps_per_s']:.2f}; medians of 3 alternate timed runs of "
+          f"{QUALITY_SWEEPS} sweeps) ({card})")
+
+
+def hold_sync_warnings(tag, run, sync_warn):
+    """Two sweeps of `run` make no more host synchronizations than two
+    synchronous sweeps (`sync_warn`)."""
+    warn = sync_warnings(lambda: run(2))
+    print(f"[schedules] {tag}: host synchronizations in 2 sweeps {warn}, synchronous sweeps "
+          f"{sync_warn}")
+    if warn > sync_warn:
+        raise AssertionError(f"{tag}: the schedule adds host synchronizations")
+
+
+def sync_chunks(tag, sweep_fn, init, n, are_of, are0, are_map, report):
+    """The synchronous sweeps' ARE per 5 sweeps, the schedules' yardstick."""
+    n_on = torch.zeros((), device=init.v[0].mean.device)
+    _, are, first, _, ares = chunked(f"{tag} synchronous", lambda st: (sweep_fn(st), n_on),
+                                     init, n, are_of, are0, are_map, 1)
+    reach = "not reached" if first is None else f"reached at sweep {first}"
+    print(f"[schedules] {tag} synchronous, {n} sweeps: ARE {are:.6f} px, 1.05x MAP {reach}; "
+          f"ARE per 5 sweeps " + ", ".join(f"{a:.4f}" for a in ares))
+    report[f"{tag} synchronous"] = dict(are=are, are_per_5=ares, first_reach=first)
+
+
+def cm_masks(cmg):
+    return (lambda st: schedules.init_schedule_cm(cmg, st),
+            lambda st, sc, tau: schedules.wildfire_mask_cm(cmg, st, sc, tau),
+            lambda st, sc, frac: schedules.priority_mask_cm(cmg, st, sc, frac),
+            lambda gen, keep: schedules.random_mask_cm(cmg, gen, keep))
+
+
+def cm_schedules(tag, sim, graph, means, cmg, kinds, n, card, are_map, report):
+    """Phase 25 (b) on one CM scene: each (kind, arg, gate_sweeps) of
+    `kinds` stepped in 5-sweep chunks and through its runner (equal bit for
+    bit, launch counts), beside the synchronous sweeps (`against_sync`),
+    and its host synchronizations beside theirs.  Returns {kind: final
+    state}."""
+    init = sweep_cm.init_state(cmg, means)
+    are_of = lambda st: are_px(graph, cmg, st, sim["k"])
+    are0 = are_of(init)
+    names = FULL if not cmg.win_w else WINDOWED
+    n_valid = graph.fblocks[0].n_valid
+    valid = (cmg.act[0] > 0.5,)
+    sync_run = lambda k: sweep_cm.run(cmg, init, CFG, k)
+    sync_warn = sync_warnings(lambda: sync_run(2))
+    sync_chunks(tag, lambda st: sweep_cm.sweep(cmg, st, CFG), init, n, are_of, are0, are_map,
+                report)
+    runners = {"wildfire": schedules.run_wildfire_cm, "priority": schedules.run_priority_cm,
+               "random": schedules.run_random_cm}
+    out = {}
+    for kind, arg, gate_sweeps in kinds:
+        gen = lambda: torch.Generator(device=cmg.act.device).manual_seed(0)
+        run = lambda k: runners[kind](cmg, init, CFG, k, arg, *((gen(),) if kind == "random"
+                                                              else ()))
+        one = stepper(kind, arg, cm_masks(cmg),
+                      lambda st, act: sweep_cm.sweep(cmg, st, CFG, active=act), valid, gen())
+        stepped, are, first, share, ares = chunked(f"{tag} {kind}", one, init, n, are_of, are0,
+                                                   are_map, n_valid, gate_sweeps)
+        M.COUNTS.reset()
+        state = sync(run(n))
+        check_counts(f"{tag} {kind}", names, n)
+        same_state(f"{tag} {kind}: the runner and the stepped sweeps", state, stepped)
+        if kind == "random":
+            same_state(f"{tag} random: a rerun from the same seed", state, sync(run(n)))
+        if gate_sweeps:
+            print(f"[schedules] {tag} {kind}({arg}): held at sweep {gate_sweeps}, ARE "
+                  f"{ares[gate_sweeps // 5 - 1]:.6f} px (initial {are0:.6f}): the reference's "
+                  f"schedule diverges on merged blocks too (tests/test_torch_schedules.py)")
+        hold_sync_warnings(f"{tag} {kind}", run, sync_warn)
+        r = dict(are=are, are_per_5=ares, first_reach=first, active_share=share,
+                 **against_sync(run, sync_run, QUALITY_SWEEPS))
+        schedule_line(f"{tag} {kind}({arg}), {n} sweeps", r, card)
+        report[f"{tag} {kind}"] = r
+        out[kind] = state
+    return out
+
+
+def schedules_path(card):
+    """Phase 25 (b): the schedule runners at full width, float32, on the card."""
+    t_phase = time.perf_counter()
+    report = {}
+    # bench64, the main path: kernels 1, 2, 3 under the schedules' masks.
+    sim = ba.simulate(**BENCH)
+    graph, means = ba.build(sim, dtype=torch.float32)
+    cmg = sweep_cm.prepare(graph, segsum_exact=True)
+    init = sweep_cm.init_state(cmg, means)
+    are_map = map_are(graph, sweep_cm.to_gbp_state(cmg, init), means, sim["k"])
+    M.COUNTS.reset()
+    below = sync(schedules.run_wildfire_cm(cmg, init, CFG, SWEEPS, -1.0))
+    check_counts("bench64 wildfire tau < 0", FULL, SWEEPS)
+    same_state(f"bench64: wildfire with tau < 0 and the synchronous run, {SWEEPS} sweeps",
+               below, sync(sweep_cm.run(cmg, init, CFG, SWEEPS)))
+    print(f"[schedules] bench64: run_wildfire_cm(tau=-1) equals sweep_cm.run bit for bit after "
+          f"{SWEEPS} sweeps; MAP ARE {are_map:.6f} px")
+    cm_schedules("bench64", sim, graph, means, cmg,
+                 (("wildfire", 1e-4, None), ("priority", 0.5, None), ("random", 0.7, None)),
+                 SWEEPS, card, are_map, report)
+    del graph, means, cmg, init, below
+
+    # bench64 on the generic engine: kernels 19, 20.
+    cfg = dataclasses.replace(CFG, message_form="pallas")
+    graph, means = ba.build(sim, dtype=torch.float32, layout="ell")
+    fb = graph.fblocks[0]
+    init = sweep.init_state(graph, means)
+    are_of = lambda st: float(ba.avg_reprojection_error(graph, st, k=sim["k"]))
+    are0 = are_of(init)
+    per_sweep = {"fused_relin_messages": 1, "fused_messages": 1, "segsum_by_id": 1}
+    sync_run = lambda k: sweep.run(graph, init, cfg, k)
+    sync_warn = sync_warnings(lambda: sync_run(2))
+    sync_chunks("bench64 generic", lambda st: sweep.sweep(graph, st, cfg), init, QUALITY_SWEEPS,
+                are_of, are0, are_map, report)
+    masks = (lambda st: schedules.init_schedule(graph, st),
+             lambda st, sc, tau: (schedules.wildfire_masks(graph, st, sc, tau),
+                                  schedules._means(graph, st)),
+             lambda st, sc, frac: (schedules.priority_masks(graph, st, sc, frac),
+                                   schedules._means(graph, st)), None)
+    for kind, arg, runner in (("wildfire", 1e-4, schedules.run_wildfire),
+                              ("priority", 0.5, schedules.run_priority)):
+        run = lambda k: runner(graph, init, cfg, k, arg)
+        one = stepper(kind, arg, masks, lambda st, act: sweep.sweep(graph, st, cfg, active=act),
+                      (fb.valid,))
+        stepped, are, first, share, ares = chunked(f"bench64 generic {kind}", one, init,
+                                                   QUALITY_SWEEPS, are_of, are0, are_map,
+                                                   fb.n_valid)
+        M.COUNTS.reset()
+        state = sync(run(QUALITY_SWEEPS))
+        check_counts(f"bench64 generic {kind}", per_sweep, QUALITY_SWEEPS)
+        same_state(f"bench64 generic {kind}: the runner and the stepped sweeps", state, stepped)
+        hold_sync_warnings(f"bench64 generic {kind}", run, sync_warn)
+        r = dict(are=are, are_per_5=ares, first_reach=first, active_share=share,
+                 **against_sync(run, sync_run, QUALITY_SWEEPS))
+        schedule_line(f"bench64 generic {kind}({arg}), {QUALITY_SWEEPS} sweeps", r, card)
+        report[f"bench64 generic {kind}"] = r
+    del graph, means, init
+    torch.cuda.empty_cache()
+    print(f"[schedules] bench64 done at {time.perf_counter() - T_START:.1f} s")
+
+    # city, windows: kernels 10, 11, 15, 16.
+    sim = ba.simulate_blocks(**CITY)
+    graph, means = ba.build(sim, dtype=torch.float32, **BIG)
+    cmg = sweep_cm.prepare(graph, segsum_exact=True, window=True)
+    are_map = map_are(graph, sweep_cm.to_gbp_state(cmg, sweep_cm.init_state(cmg, means)), means,
+                      sim["k"])
+    # Priority at frac 0.5 diverges on merged blocks after its first chunk,
+    # in the reference as here: it is held at sweep 5.
+    one_device = cm_schedules("city", sim, graph, means, cmg,
+                              (("wildfire", 1e-4, None), ("priority", 0.5, 5)), QUALITY_SWEEPS,
+                              card, are_map, report)
+    are_wf = are_px(graph, cmg, one_device["wildfire"], sim["k"])
+    del graph, means, cmg, one_device
+    torch.cuda.empty_cache()
+
+    # city cut in two (halo_cm.distribute): kernels 17, 18, 16, 15, 3.
+    graph, means = ba.build(sim, dtype=torch.float32, **HALO_BUILD)
+    hp, hcm, init, run_sync = halo_cm.distribute(graph, means, 2)
+    tmpl = sweep.init_state(graph, means)
+    are_of = lambda st: float(ba.avg_reprojection_error(
+        graph, ba.with_means(tmpl, halo.collect_means(hp, st)), k=sim["k"]))
+    are0 = are_of(init)
+    names = dict.fromkeys(halo_mode_kernels(hcm), 2)
+    n = QUALITY_SWEEPS
+    sync_run = lambda k: run_sync(hcm, init, CFG, k)
+    sync_warn = sync_warnings(lambda: sync_run(2))
+    runs = {"wildfire": (halo_schedules.make_run_wildfire_cm(hcm), (1e-4,)),
+            "priority": (halo_schedules.make_run_priority_cm(hcm, 0.5), ()),
+            "chip dropout": (halo_schedules.make_run_chip_dropout_cm(hcm), (1, 15))}
+    for kind, (runner, extra) in runs.items():
+        run = lambda k: runner(hcm, init, CFG, k, *extra)
+        M.COUNTS.reset()
+        state = sync(run(n))
+        check_counts(f"city P=2 {kind}", names, n)
+        are = gated = are_of(state)
+        note = ""
+        if kind == "priority":  # diverges on merged blocks, as on one device
+            gated = are_of(sync(run(5)))
+            note = f"; held at sweep 5: ARE {gated:.6f} px"
+        if not (math.isfinite(gated) and gated < are0):
+            raise AssertionError(f"city P=2 {kind}: ARE {gated} not finite and below {are0}")
+        if kind == "wildfire":
+            note = f"; one device {are_wf:.6f} px, difference {abs(are - are_wf):.3e}"
+            if not abs(are - are_wf) <= 5e-3:
+                raise AssertionError(f"city P=2 wildfire: ARE {are} vs one device's {are_wf}")
+        if kind == "chip dropout":
+            # Partition 1 is dead for sweeps 1-15: its factor state stays,
+            # since_relin counts 15; the run then continues to 50 sweeps.
+            st15 = sync(run(15))
+            f0, f1 = init.f, st15.f
+            for name in ("lp", "jac", "r0", "msg_eta", "msg_lam"):
+                if not all(torch.equal(a[1], b[1]) for a, b in zip(
+                        leaves(getattr(f1, name)), leaves(getattr(f0, name)))):
+                    raise AssertionError(f"city P=2 dropout: partition 1's {name} changed")
+            if not torch.equal(f1.srel[1], f0.srel[1] + 15):
+                raise AssertionError("city P=2 dropout: since_relin did not count the sweeps")
+            same_state("city P=2 dropout: 15 + 35 sweeps and one run of 50", state,
+                       sync(runner(hcm, st15, CFG, n - 15, 1, 0)))
+            note = "; partition 1's factor state after sweep 15 equals its initial one but srel"
+        print(f"[schedules] city P=2 {kind}{extra}, {n} sweeps: ARE {are:.6f} px (initial "
+              f"{are0:.6f}){note}")
+        hold_sync_warnings(f"city P=2 {kind}", run, sync_warn)
+        r = dict(are=are, **against_sync(run, sync_run, n))
+        schedule_line(f"city P=2 {kind}{extra}, {n} sweeps", r, card)
+        report[f"city P=2 {kind}"] = r
+    del graph, means, hp, hcm, init
+    torch.cuda.empty_cache()
+    print(f"[schedules] phase 25 (b) took {time.perf_counter() - t_phase:.1f} s: "
+          + json.dumps(report))
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2416,7 +2955,7 @@ def main():
         hcm, st = halo_state(ba.simulate_blocks(**HALO_BLOCKS), dtype, 2, 8)
         check_halo_kernels("blocks1280 P=2", hcm, st, dtype, other)
     hcm, st = halo_state(ba.simulate_blocks(**CITY), f32, 2, 8)
-    check_halo_kernels("city P=2", hcm, st, f32, errs, timings)
+    check_halo_kernels("city P=2", hcm, st, f32, errs, timings, masked=True)
     check_halo_kernels("city P=2 wide", halo_widened(hcm, 384), st, f32, other)
     del hcm, st
     torch.cuda.empty_cache()
@@ -2429,6 +2968,7 @@ def main():
     rows = rows_path(card)
     linear_path()
     pose_path(card)
+    schedules_path(card)
     launches.update({k: generic[k] for k in ROWS[2:]}, **{k: rows[k] for k in ROWS[:2]},
                     **{k: unfused[k] for k in UNFUSED})
     print(f"[done] {time.perf_counter() - T_START:.1f} s")

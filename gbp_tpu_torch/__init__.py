@@ -8,13 +8,17 @@ locality (expanded operands), pose-graph SLAM on the same fast path (SE(2)
 and SE(3), `python -m gbp_tpu_torch.slam`), the generic row-major engine
 with the dense oracle for every other graph, and owner-sharded halo
 partitions of a graph run through the halo exchange (`parallel.halo`,
-`parallel.halo_cm`; `--n_chips` on both command lines):
+`parallel.halo_cm`; `--n_chips` on both command lines), and the wildfire,
+priority, random and partition-dropout schedules on all four engines
+(`core.schedules`, `parallel.schedules`):
 
     from gbp_tpu_torch.models import ba, pose_graph, toy
     from gbp_tpu_torch.io import g2o
     from gbp_tpu_torch.core import oracle, sweep, sweep_cm
     from gbp_tpu_torch.core.sweep import GBPConfig
     from gbp_tpu_torch.parallel import halo, halo_cm, schur
+    from gbp_tpu_torch.core import schedules
+    from gbp_tpu_torch.parallel import schedules
 
 `sweep_cm.prepare(graph)` returns None for a graph the fast path does not
 take; run `sweep.run` on it then.

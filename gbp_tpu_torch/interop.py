@@ -17,6 +17,7 @@ import torch
 
 from gbp_tpu_torch import resolve_device
 from gbp_tpu_torch.core.graph import FactorBlock, Graph, Inbox, VariableBlock, adjacency_csr
+from gbp_tpu_torch.core.schedules import CMScheduleState, ScheduleState
 from gbp_tpu_torch.core.sweep import FactorState, GBPState, VariableState
 from gbp_tpu_torch.core.sweep_cm import CMFactorState, CMState
 from gbp_tpu_torch.factors import linear, odometry, se3
@@ -251,3 +252,27 @@ def halo_cm_state_to_numpy(state) -> dict:
             "f": {"lp": cm(f.lp), "jac": cm(f.jac), "r0": cm(f.r0), "srel": cm(f.srel),
                   "msg_eta": tuple(cm(a) for a in f.msg_eta),
                   "msg_lam": tuple(cm(a) for a in f.msg_lam)}}
+
+
+def schedule_state_from_numpy(st, device=None) -> ScheduleState:
+    """The port's ScheduleState (core/schedules.py) from the reference's with
+    numpy leaves: last_x per factor block [m, tdof], on `device` (None: the
+    card)."""
+    device = resolve_device(device)
+    return ScheduleState(last_x=tuple(_t(a, device) for a in st.last_x))
+
+
+def schedule_state_to_numpy(sched: ScheduleState) -> dict:
+    """{"last_x": (...)} with a numpy [m, tdof] array per factor block."""
+    return {"last_x": tuple(a.detach().cpu().numpy() for a in sched.last_x)}
+
+
+def cm_schedule_state_from_numpy(st, device=None) -> CMScheduleState:
+    """The port's CMScheduleState from the reference's with numpy leaves:
+    last_x [tdof, T, 128] -> [tdof, mp], in resident row order."""
+    return CMScheduleState(last_x=_cm_in(st.last_x, resolve_device(device)))
+
+
+def cm_schedule_state_to_numpy(sched: CMScheduleState) -> dict:
+    """{"last_x": [tdof, T, 128]} in the reference's layout."""
+    return {"last_x": _cm_out(sched.last_x)}

@@ -480,7 +480,7 @@ def init_state(hp: HaloProblem, means: tuple) -> HaloState:
         hfb = hp.hgraph.fblocks[fi]
         dev = hfb.z.device
         safe = torch.tensor(np.maximum(hp.fb_src_rows[fi], 0), dtype=torch.int64, device=dev)
-        x = torch.cat([means[vb].to(dev)[fb.adj[k].long()[safe]]
+        x = torch.cat([means[vb].to(dev)[fb.adj[k].to(dev).long()[safe]]
                        for k, vb in enumerate(fb.vblocks)], dim=-1).to(hfb.z.dtype)
         m_loc, t = x.shape[1], x.shape[2]
         flat = lambda a: None if a is None else a.reshape(n_parts * m_loc, *a.shape[2:])
