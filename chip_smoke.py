@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's paths on one GPU: the bundle-adjustment fast
 paths (camera table, windows, expanded operands, the unfused table kernels,
 whole-table and windowed), the BA command line on BAL files with in-engine
-annealing, the generic engine, and pose-graph SLAM (SE(2) and SE(3)).
+annealing, the generic engine, pose-graph SLAM (SE(2) and SE(3)), the halo
+paths, the schedules and the fixed-lag serving loop.
 
     python3 chip_smoke.py
 
@@ -240,6 +241,28 @@ non-zero; no phase is caught):
      counts 15), 50 sweeps each.  Two sweeps of every runner under
      `torch.cuda.set_sync_debug_mode("warn")`: no more host
      synchronizations than two synchronous sweeps of the same scene.
+ 26. streaming (models/online.py, bench/serving.py): the serving corridor
+     (120 cameras, 40 landmarks each, absolute arrivals, lag 16, 4 evicted
+     at a time, 10 sweeps a frame, capacities 16 / 2,048 / 8,192).  (a)
+     After 24 frames (two evictions) in float64 and float32 under
+     message_form "pallas": kernel 3 on the online graph's device CSRs (the
+     cameras' and landmarks' belief sums of the next sweep, the absorbed
+     messages of an eviction) and kernel 20 at the sweep's beta and at the
+     median distance, against their plain versions (float64 1e-11, float32
+     1e-4; inert rows kept bit for bit, the sums repeating bit for bit);
+     in float32 timed beside their bounds.  (b) 24 frames captured (each
+     variant one CUDA graph) against eager, bit for bit, in both message
+     forms, and two captured runs equal; the launches of the warm-ups and
+     captures counted.  (c) four steady frames' staging and replay under
+     `torch.cuda.set_sync_debug_mode("error")`.  (d) `serving.serve` at
+     full width, 120 absolute and 240 odometry frames: frames/s captured and
+     eager, p50 / p95 latency, kernels, launch calls and device ms per frame
+     (the profiler), ARE median / max / final, at most 3 graphs (and the
+     absolute stream again under message_form "pallas"); the 120-frame
+     stream's median ARE below 2.5 px and its last 10 frames below 1.25x the
+     median + 0.5, or, where the reference's own stream of this
+     configuration misses that bound too (`REFERENCE_SERVING_CPU`), below
+     the same margin over the reference's tail.
 """
 import contextlib
 import dataclasses
@@ -262,10 +285,11 @@ from gbp_tpu_torch.bench import BIG_BUILD as BIG
 from gbp_tpu_torch.bench import CFG, CITY, VENICE, card_line
 from gbp_tpu_torch.bench import compare_sums as CS
 from gbp_tpu_torch.bench import compare_windows as CW
+from gbp_tpu_torch.bench import serving
 from gbp_tpu_torch.core import anneal, oracle, schedules, sweep, sweep_cm
 from gbp_tpu_torch.core.sweep import _kernel_params
 from gbp_tpu_torch.io import bal, g2o
-from gbp_tpu_torch.models import ba, pose_graph, toy
+from gbp_tpu_torch.models import ba, online, pose_graph, toy
 from gbp_tpu_torch.ops import _build
 from gbp_tpu_torch.ops import messages as M
 from gbp_tpu_torch.parallel import halo, halo_cm, schur
@@ -1306,20 +1330,20 @@ def check_bal_kernels(tag, intrinsics, dtype, dev):
 
 
 @contextlib.contextmanager
-def recording(name):
-    """Inside, the generic sweep's calls of the wrapper `name` are recorded,
-    (args, kwargs) into the yielded list, and still run."""
-    calls, real = [], getattr(sweep, name)
+def recording(name, module=sweep):
+    """Inside, `module`'s (the generic sweep's) calls of the wrapper `name`
+    are recorded, (args, kwargs) into the yielded list, and still run."""
+    calls, real = [], getattr(module, name)
 
     def record(*args, **kw):
         calls.append((args, kw))
         return real(*args, **kw)
 
-    setattr(sweep, name, record)
+    setattr(module, name, record)
     try:
         yield calls
     finally:
-        setattr(sweep, name, real)
+        setattr(module, name, real)
 
 
 def staged_scenes():
@@ -2495,9 +2519,6 @@ def hold_masked(tag, name, kern, plain, args, kw, act, acts, kept, compare, rows
     return outs
 
 
-LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
-
-
 def launches_and_device_ms(run, n1=3, n2=8):
     """(kernel launches per sweep, device ms per sweep) of `run(n)` (n
     sweeps), by the profiler: runs of n2 and n1 sweeps differenced, so a
@@ -2510,7 +2531,7 @@ def launches_and_device_ms(run, n1=3, n2=8):
             run(n)
             torch.cuda.synchronize()
         events = prof.events()
-        got.append((sum(1 for e in events if e.name in LAUNCH_CALLS),
+        got.append((sum(1 for e in events if e.name in serving.LAUNCH_CALLS),
                     sum(e.time_range.elapsed_us() for e in events
                         if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3))
     return tuple((b - a) / (n2 - n1) for a, b in zip(*got))
@@ -2847,6 +2868,220 @@ def schedules_path(card):
     print(f"[schedules] phase 25 (b) took {time.perf_counter() - t_phase:.1f} s: "
           + json.dumps(report))
 
+
+# --- streaming (phase 26) -------------------------------------------------------------------
+
+STREAM_LAG, STREAM_EVICT, STREAM_SWEEPS = 16, 4, 10
+STREAM_CHECK_FRAMES = 24  # two evictions at lag 16
+# The reference's stream of the serving configuration (120 absolute frames)
+# on a CPU, JAX in float32: tests/test_torch_serving.py::
+# test_reference_serving_stream_tail prints these.
+REFERENCE_SERVING_CPU = dict(median=1.3684, last10=3.6451, max=39.4826, argmax=104,
+                             final=1.9356)
+
+
+def stream_frames(cfg, dtype, capture, n_frames, wrap=None, on_frame=None):
+    """The serving stream's first n_frames frames on the card (absolute
+    arrivals, lag 16, 4 evicted at a time, 10 sweeps a frame, capacities
+    16 / 2048 / 8192): (final state, the frame step)."""
+    sim, frames, chunk = serving.scene(120, 40, "absolute")
+    step = serving._make_step(cfg, STREAM_SWEEPS, STREAM_EVICT, capture)
+    ob, _ = serving._stream(serving.fresh(sim, chunk, STREAM_LAG, dtype, "cuda"),
+                            frames[:n_frames], sim["lmk_init"], chunk, STREAM_LAG,
+                            STREAM_EVICT, wrap(step) if wrap else step, on_frame)
+    return ob, step
+
+
+def check_online_kernels(dtype, timings):
+    """Phase 26 (a): kernels 3 and 20 on the online graph's own operands
+    (capacity-padded, partly valid, after two evictions), held against their
+    plain versions; in float32 timed beside their bounds."""
+    tol = TOL[dtype]
+    cfg = dataclasses.replace(serving.CFG, message_form="pallas")
+    ob, _ = stream_frames(cfg, dtype, False, STREAM_CHECK_FRAMES)
+    with recording("segsum_by_id") as sums, recording("fused_relin_messages") as rels:
+        sync(sweep.sweep(ob.graph, ob.state, cfg))
+    with recording("segsum_by_id", online) as absorbed:
+        sync(online.evict_frames(ob, STREAM_EVICT))
+    fb = ob.graph.fblocks[0]
+    n_valid = int(fb.valid.sum())
+    key = f"online {str(dtype)[6:]} ({fb.count} rows, {n_valid} valid)"
+    worst = {}
+    for tag, (args, kw) in (("cameras", sums[0]), ("landmarks", sums[1]),
+                            ("evicted", absorbed[0])):
+        got = sync(M.segsum_by_id(*args, **kw))
+        rel, err = rel_err(got, M.segsum_by_id_plain(*args, **kw))
+        if not rel <= tol:
+            raise AssertionError(f"segsum_by_id {key} {tag}: rel err {rel:.3e} > {tol:g}")
+        if not torch.equal(got, sync(M.segsum_by_id(*args, **kw))):
+            raise AssertionError(f"segsum_by_id {key} {tag}: two launches differ")
+        worst["segsum_by_id"] = max(worst.get("segsum_by_id", 0.0), rel)
+        print(f"[streaming] {key} segsum_by_id {tag} ({int(args[3][-1])} listed rows of "
+              f"{args[0].shape[0]}, {args[3].shape[0] - 1} segments): rel err {rel:.3e} "
+              f"(max abs {err:.3e}), repeats bit for bit")
+    args, kw = rels[0]
+    on = args[9] > 0.5
+    beta_mid = float((args[1] - args[4]).norm(dim=1)[on].double().median())
+    for beta in (args[0][4], beta_mid):
+        b_args = ((*args[0][:4], beta, *args[0][5:]), *args[1:])
+        got = sync(M.fused_relin_messages(*b_args, **kw))
+        ref = M.fused_relin_messages_plain(*b_args, **kw)
+        rel = max(rel_err(a, b)[0] for a, b in zip(got, ref))
+        if not rel <= tol:
+            raise AssertionError(f"fused_relin_messages {key} beta {beta:g}: rel err "
+                                 f"{rel:.3e} > {tol:g}")
+        inert = ~on
+        for out, inp in zip(got[:4], args[14:18]):
+            if not torch.equal(out[inert], inp[inert]):
+                raise AssertionError(f"fused_relin_messages {key}: an inert row changed")
+        worst["fused_relin_messages"] = max(worst.get("fused_relin_messages", 0.0), rel)
+        print(f"[streaming] {key} fused_relin_messages at beta {beta:.3g}: "
+              f"{int((got[7][on] == 0).sum())} of {int(on.sum())} valid rows relinearize, rel "
+              f"err {rel:.3e}; inert rows kept bit for bit")
+    if dtype != torch.float32:
+        return worst
+    seg_args, seg_kw = sums[1]
+    seg_out = M.segsum_by_id(*seg_args, **seg_kw)
+    me, ml, rows, offs = seg_args
+    n_listed = int(offs[-1])
+    f = seg_out.shape[1]
+    seg_bytes = (n_listed * f + seg_out.numel()) * me.element_size() + (rows.numel() +
+                                                                         offs.numel()) * 4
+    new = M.fused_relin_messages(*args, **kw)
+    for name, fn, b in (
+            ("segsum_by_id", lambda: M.segsum_by_id(*seg_args, **seg_kw),
+             bound_ms(seg_args, (seg_out,), f * n_listed, seg_bytes)),
+            ("fused_relin_messages", lambda: M.fused_relin_messages(*args, **kw),
+             bound_ms(args[1:], new, RELIN_TEST_FLOPS * fb.count
+                      + (RELIN_ROW_FLOPS + MESSAGES_ROW_FLOPS) * n_valid))):
+        dev_ms = device_ms(fn)
+        timings[name] = dict(ms=time_ms(fn, 20), device_ms=dev_ms, bound_ms=b[0],
+                             bound_by=b[1])
+        print(f"[streaming] {key} {name}: {timings[name]['ms']:.4f} ms per call (events), "
+              f"device {dev_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), share "
+              f"{b[0] / dev_ms:.3f} ({card_line()})")
+    return worst
+
+
+def streaming_path(card):
+    """Phase 26: the online model and the serving loop on the card."""
+    t_phase = time.perf_counter()
+    timings = {}
+    for dtype in (torch.float64, torch.float32):
+        check_online_kernels(dtype, timings)
+
+    # (b) captured against eager, both message forms, bit for bit; two
+    # captured runs equal; the launches the captures made.
+    for form in ("covariance", "pallas"):
+        cfg = dataclasses.replace(serving.CFG, message_form=form)
+        runs = []
+        for capture in (True, False, True):
+            M.COUNTS.reset()
+            ob, step = stream_frames(cfg, torch.float32, capture, STREAM_CHECK_FRAMES)
+            runs.append((ob, dict(M.COUNTS.kernel), dict(M.COUNTS.plain), len(step.graphs)))
+        (cap, launches, plain, n_graphs), (eager, _, _, _), (cap2, _, _, _) = runs
+        same_state(f"streaming {form}: captured and eager", online.tensors(cap),
+                   online.tensors(eager))
+        same_state(f"streaming {form}: two captured runs", online.tensors(cap),
+                   online.tensors(cap2))
+        # Each variant (plain without and with an eviction) ran once as a
+        # warm-up and once under capture: 2 sums per sweep, 1 per eviction.
+        want_sums = 2 * sum(2 * STREAM_SWEEPS + evict for evict in (0, 1))
+        path = {"segsum_by_id": want_sums}
+        if form == "pallas":
+            path.update(fused_relin_messages=2 * 2 * STREAM_SWEEPS,
+                        fused_messages=2 * 2 * STREAM_SWEEPS)
+        want = {k: path.get(k, 0) for k in M.KERNELS}
+        if n_graphs != 2 or launches != want or any(plain.values()):
+            raise AssertionError(f"streaming {form}: {n_graphs} graphs, launches {launches} "
+                                 f"(expected {want}), plain calls {plain}")
+        print(f"[streaming] {form}: {STREAM_CHECK_FRAMES} frames (2 evictions), captured = "
+              f"eager bit for bit, two captured runs equal; {n_graphs} graphs; launches at "
+              f"warm-up and capture {path}")
+
+    # (c) a steady frame's step (staging and replay) under
+    # set_sync_debug_mode("error"): no host sync but the serving point's.
+    strict = []
+
+    def wrap(step):
+        def call(ob, *args, **kw):
+            strict.append(len(strict) >= STREAM_CHECK_FRAMES - 4)
+            if not strict[-1]:
+                return step(ob, *args, **kw)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step(ob, *args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
+
+    stream_frames(serving.CFG, torch.float32, True, STREAM_CHECK_FRAMES, wrap)
+    print(f"[streaming] frames {STREAM_CHECK_FRAMES - 3}-{STREAM_CHECK_FRAMES}: staging and "
+          f"replay under set_sync_debug_mode(\"error\"): no host synchronization "
+          f"({sum(strict)} frames)")
+
+    # (d) the serving configuration at full width.
+    # The serving configuration (the reference's covariance form), and its
+    # absolute stream again under message_form "pallas" (kernels 19, 20).
+    results = {}
+    pallas = dataclasses.replace(serving.CFG, message_form="pallas")
+    for name, frames, arrivals, cfg, path in (
+            ("absolute", 120, "absolute", serving.CFG, ("segsum_by_id",)),
+            ("odometry", 240, "odometry", serving.CFG, ("segsum_by_id",)),
+            ("absolute pallas", 120, "absolute", pallas,
+             ("segsum_by_id", "fused_relin_messages", "fused_messages"))):
+        M.COUNTS.reset()
+        out = serving.serve(frames, 40, STREAM_LAG, STREAM_EVICT, STREAM_SWEEPS, arrivals,
+                            "cuda", cfg)
+        launches = {k: v for k, v in M.COUNTS.kernel.items() if v}
+        if set(launches) != set(path) or any(M.COUNTS.plain.values()):
+            raise AssertionError(f"serving {name}: launches {launches} (expected {path}), "
+                                 f"plain {dict(M.COUNTS.plain)}")
+        if out["graphs_captured"] > serving.MAX_GRAPHS:
+            raise AssertionError(f"serving {name}: {out['graphs_captured']} graphs")
+        a = np.asarray(out["are_px"])
+        if not np.isfinite(a).all():
+            raise AssertionError(f"serving {name}: non-finite ARE")
+        results[name] = out
+        print(f"[streaming] {frames} frames {name}: {out['frames_per_s_steady']:.2f} "
+              f"frames/s captured (p50 {out['frame_latency_ms_p50']:.4f} ms, p95 "
+              f"{out['frame_latency_ms_p95']:.4f} ms), eager "
+              f"{out['frames_per_s_steady_eager']:.2f} frames/s (p50 "
+              f"{out['frame_latency_ms_p50_eager']:.4f} ms); per frame "
+              f"{out['kernels_per_frame']:.1f} kernels, {out['launch_calls_per_frame']:.1f} "
+              f"launch calls captured ({out['launch_calls_per_frame_eager']:.1f} eager), "
+              f"device {out['device_ms_per_frame']:.4f} ms captured "
+              f"({out['device_ms_per_frame_eager']:.4f} eager); ARE median "
+              f"{out['are_px_median']:.4f} max {out['are_px_max']:.4f} final "
+              f"{out['are_px_final']:.4f} px; {out['graphs_captured']} graphs; launches at "
+              f"warm-up and capture {launches} ({card})")
+    # The stationarity bounds of the reference's serving test: the median
+    # below 2.5 px, the median of the last 10 frames below 1.25x the median +
+    # 0.5.  The reference's own stream of this configuration misses the
+    # second (REFERENCE_SERVING_CPU); where the card's does too, it is held
+    # to the same margin over the reference's tail.
+    a = np.asarray(results["absolute"]["are_px"])
+    med, tail = float(np.median(a)), float(np.median(a[-10:]))
+    ref = REFERENCE_SERVING_CPU
+    if not med < 2.5:
+        raise AssertionError(f"serving absolute: ARE median {med:.4f} px >= 2.5")
+    if tail < 1.25 * med + 0.5:
+        verdict = f"below the bound {1.25 * med + 0.5:.4f} px: stationary"
+    elif tail < 1.25 * ref["last10"] + 0.5:
+        verdict = (f"above the bound {1.25 * med + 0.5:.4f} px, as the reference's CPU run "
+                   f"(last 10 {ref['last10']:.4f}, median {ref['median']:.4f}, max "
+                   f"{ref['max']:.4f} at frame {ref['argmax']}); below "
+                   f"{1.25 * ref['last10'] + 0.5:.4f} px, the same margin over the reference's")
+    else:
+        raise AssertionError(f"serving absolute: last 10 {tail:.4f} px, beyond the bound and "
+                             f"the reference's tail {ref['last10']:.4f} px")
+    print(f"[streaming] 120 frames absolute: ARE median {med:.4f} < 2.5 px; last 10 "
+          f"{tail:.4f} px, max {a.max():.4f} at frame {int(a.argmax())}, {verdict}")
+    print("[streaming] serving JSON: " + json.dumps(
+        {k: {n: v for n, v in r.items() if n != "are_px"} for k, r in results.items()}))
+    print(f"[streaming] phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return timings
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2969,6 +3204,7 @@ def main():
     linear_path()
     pose_path(card)
     schedules_path(card)
+    streaming_path(card)
     launches.update({k: generic[k] for k in ROWS[2:]}, **{k: rows[k] for k in ROWS[:2]},
                     **{k: unfused[k] for k in UNFUSED})
     print(f"[done] {time.perf_counter() - T_START:.1f} s")

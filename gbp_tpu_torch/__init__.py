@@ -10,9 +10,11 @@ with the dense oracle for every other graph, and owner-sharded halo
 partitions of a graph run through the halo exchange (`parallel.halo`,
 `parallel.halo_cm`; `--n_chips` on both command lines), and the wildfire,
 priority, random and partition-dropout schedules on all four engines
-(`core.schedules`, `parallel.schedules`):
+(`core.schedules`, `parallel.schedules`), and the online model with its
+fixed-lag serving loop (`models.online`, `bench.serving`, each frame one
+CUDA-graph replay on the card):
 
-    from gbp_tpu_torch.models import ba, pose_graph, toy
+    from gbp_tpu_torch.models import ba, online, pose_graph, toy
     from gbp_tpu_torch.io import g2o
     from gbp_tpu_torch.core import oracle, sweep, sweep_cm
     from gbp_tpu_torch.core.sweep import GBPConfig

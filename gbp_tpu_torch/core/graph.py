@@ -119,6 +119,18 @@ def adjacency_csr(adj, n: int):
     return rows, offsets
 
 
+def adjacency_csr_device(adj: torch.Tensor, valid: torch.Tensor, n: int):
+    """`adjacency_csr` of the rows where `valid` holds, built on adj's device
+    in fixed shapes and with no host read: (rows [m], offsets [n + 1]) int32.
+    The other rows sort past offsets[n], where `segsum_by_id` takes them for
+    padding.  For graphs whose adjacency changes on the device (the online
+    model's add_frame and evict_frames)."""
+    key = torch.where(valid, adj.to(torch.int32), n)
+    sorted_key, rows = torch.sort(key, stable=True)
+    ids = torch.arange(n + 1, dtype=torch.int32, device=key.device)
+    return rows.to(torch.int32), torch.searchsorted(sorted_key, ids, out_int32=True)
+
+
 def build_inboxes(fblocks, vcounts, max_pad_ratio=8.0, device=None):
     """Precompute dense inboxes from factor adjacency (host-side numpy).
 

@@ -133,8 +133,9 @@ def huber_weight(fb: FactorBlock, r0: torch.Tensor) -> torch.Tensor:
     if fb.huber is None and fb.huber_arr is None:
         return torch.ones(r0.shape[0], dtype=r0.dtype, device=r0.device)
     m = torch.sqrt(torch.clamp(_mahalanobis_sq(fb.prec, r0), min=1e-12))
+    # A fill, not a copy from the host: the step stays capturable in a CUDA graph.
     t = (fb.huber_arr.to(r0.dtype) if fb.huber_arr is not None
-         else torch.tensor(fb.huber, dtype=r0.dtype, device=r0.device))
+         else torch.full((), fb.huber, dtype=r0.dtype, device=r0.device))
     w = 2.0 * t / m - (t * t) / (m * m)
     # t == 0 rows (per-factor robustification off) keep weight 1.
     return torch.where((m > t) & (t > 0), w, torch.ones_like(w))

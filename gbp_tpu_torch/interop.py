@@ -10,6 +10,7 @@ here; the memory order is the same, so the conversion is a reshape.
 """
 from __future__ import annotations
 
+import dataclasses
 import types
 
 import numpy as np
@@ -22,6 +23,7 @@ from gbp_tpu_torch.core.sweep import FactorState, GBPState, VariableState
 from gbp_tpu_torch.core.sweep_cm import CMFactorState, CMState
 from gbp_tpu_torch.factors import linear, odometry, se3
 from gbp_tpu_torch.factors.reprojection import FACTOR_TYPES as BA_FACTOR_TYPES
+from gbp_tpu_torch.models import online
 
 FACTOR_TYPES = {
     **BA_FACTOR_TYPES,
@@ -276,3 +278,32 @@ def cm_schedule_state_from_numpy(st, device=None) -> CMScheduleState:
 def cm_schedule_state_to_numpy(sched: CMScheduleState) -> dict:
     """{"last_x": [tdof, T, 128]} in the reference's layout."""
     return {"last_x": _cm_out(sched.last_x)}
+
+
+def online_from_numpy(ob, device=None):
+    """The port's OnlineBA (models/online.py) from the reference's OnlineBA
+    with numpy leaves: graph (its CSRs built on the device from adj and
+    valid, as the online model keeps them), state, the counts as 0-d int32
+    tensors, the marginals and the static chunk and lmk_prior_prec, on
+    `device` (None: the card)."""
+    device = resolve_device(device)
+    graph = graph_from_numpy(ob.graph, device)
+    graph = dataclasses.replace(graph, fblocks=tuple(
+        online._with_csr(fb, online._counts(graph)) for fb in graph.fblocks))
+    return online.OnlineBA(
+        graph=graph, state=gbp_state_from_numpy(ob.state, device),
+        n_cams=_t(ob.n_cams, device, torch.int32), n_lmks=_t(ob.n_lmks, device, torch.int32),
+        n_obs=_t(ob.n_obs, device, torch.int32),
+        marg_eta=_t(ob.marg_eta, device), marg_lam=_t(ob.marg_lam, device),
+        chunk=int(ob.chunk), lmk_prior_prec=float(ob.lmk_prior_prec))
+
+
+def online_to_numpy(ob) -> dict:
+    """{"graph", "state", "n_cams", "n_lmks", "n_obs", "marg_eta",
+    "marg_lam", "chunk", "lmk_prior_prec"}: the graph as `graph_to_numpy`
+    gives it, the state as `gbp_state_to_numpy`, the counts as Python ints."""
+    n = lambda t: None if t is None else t.detach().cpu().numpy()
+    return {"graph": graph_to_numpy(ob.graph), "state": gbp_state_to_numpy(ob.state),
+            "n_cams": int(ob.n_cams), "n_lmks": int(ob.n_lmks), "n_obs": int(ob.n_obs),
+            "marg_eta": n(ob.marg_eta), "marg_lam": n(ob.marg_lam), "chunk": ob.chunk,
+            "lmk_prior_prec": ob.lmk_prior_prec}
