@@ -3,7 +3,8 @@
 paths (camera table, windows, expanded operands, the unfused table kernels,
 whole-table and windowed), the BA command line on BAL files with in-engine
 annealing, the generic engine, pose-graph SLAM (SE(2) and SE(3)), the halo
-paths, the schedules and the fixed-lag serving loop.
+paths, the schedules, the fixed-lag serving loop, checkpoint / resume and
+the profiling helpers, and structure from motion from rendered pixels.
 
     python3 chip_smoke.py
 
@@ -263,6 +264,35 @@ non-zero; no phase is caught):
      median + 0.5, or, where the reference's own stream of this
      configuration misses that bound too (`REFERENCE_SERVING_CPU`), below
      the same margin over the reference's tail.
+ 27. utilities (utils/checkpoint.py, utils/profiling.py).  (a) Saved after 9
+     sweeps (past the first relinearization), restored into a fresh
+     template and resumed for 3 sweeps, equal bit for bit to 3 sweeps from
+     the state before saving, each resume through its kernels (launch
+     counts): the generic engine on the bench scene under message_form
+     "pallas" (kernels 20, 19, 3), the fast path at the bench scene through
+     `sweep_cm.from_gbp_state` (kernels 1-3), and the halo path at city cut
+     in two (`halo_cm.distribute`, P = 2).  (b) The fast path's state saved
+     on the card restored into a CPU template and, saved there, restored
+     into the card template: every leaf equal.  (c) `time_sweeps` of 200
+     fast-path sweeps at the bench scene (sweeps/s by CUDA events).  (d)
+     `profiling.trace` of 3 fast-path sweeps: the Chrome trace's kernel
+     events name `relin_kernel`, `messages_kernel` and the `segsum` kernels
+     (the profiler can drop some device records: up to 3 traces, until
+     each is named).
+ 28. structure from motion from pixels (frontend/, examples/
+     sfm_from_pixels.py).  (a) The example on the card: 6 cameras, 120
+     landmarks rendered at 240 x 320, Harris + ZNCC tracks, the essential +
+     PnP bootstrap, 60 generic sweeps: all 6 cameras registered and the ARE
+     below 1.5 px (the reference test's bound), the counts printed beside
+     the reference's own CPU run (`REFERENCE_SFM_CPU`), kernel 3's launches
+     counted.  (b) The same bootstrapped problem (layout "ell") for 60
+     sweeps under message_form "pallas" (kernels 20, 19, 3) and through
+     `sweep_cm.prepare` (kernels 1-3): each below 1.5 px.  (c) The
+     frontend's time per frame (CUDA events) at 64 frames of 480 x 640, 3,000
+     landmarks, max_corners 1,024: rendering, detection, description,
+     matching per pair, and `build_tracks` end to end.  (d) `triangulate` of
+     the bench scene's 469,861 observations twice on the card: equal bit
+     for bit, and to 1e-9 of the CPU's.
 """
 import contextlib
 import dataclasses
@@ -270,6 +300,7 @@ import json
 import math
 import re
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -288,12 +319,15 @@ from gbp_tpu_torch.bench import compare_windows as CW
 from gbp_tpu_torch.bench import serving
 from gbp_tpu_torch.core import anneal, oracle, schedules, sweep, sweep_cm
 from gbp_tpu_torch.core.sweep import _kernel_params
+from gbp_tpu_torch.examples import sfm_from_pixels as sfm_example
+from gbp_tpu_torch.frontend import features, pipeline
 from gbp_tpu_torch.io import bal, g2o
 from gbp_tpu_torch.models import ba, online, pose_graph, toy
 from gbp_tpu_torch.ops import _build
 from gbp_tpu_torch.ops import messages as M
 from gbp_tpu_torch.parallel import halo, halo_cm, schur
 from gbp_tpu_torch.parallel import schedules as halo_schedules
+from gbp_tpu_torch.utils import checkpoint, profiling
 
 SWEEPS = 200
 QUALITY_SWEEPS = 50  # corridor scenes: the plain schedule is taken at 50 sweeps
@@ -434,18 +468,31 @@ def time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def profiled_ms(fn, n=20):
+    """{kernel name: [device ms of each launch]} of `fn`'s kernels over n
+    calls, by the profiler, after one warm call; in a new window while it
+    recorded no launch (it may drop a window's device records)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                out.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+        if out:
+            return out
+    raise RuntimeError("the profiler recorded no launch in 5 windows")
+
+
 def device_ms(fn, n=20):
     """Mean device ms per call of every kernel `fn` launches, over n calls,
     by the profiler (an events time of a short kernel is the wrapper's host
     time), after one warm call."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    return sum(sum(ts) for ts in profiled_ms(fn, n).values()) / n
 
 
 def bound_ms(inputs, outputs, flops, nbytes=None):
@@ -1372,19 +1419,10 @@ def staged_scenes():
 
 
 def device_ms_by_kernel(fn, n=20):
-    """{kernel name: device ms per call} of the port's kernels `fn` launches,
-    by the profiler, over n calls after a warm one."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and "gbp::" in e.name:
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
-    return out
+    """{kernel name: device ms per launch} of the port's kernels `fn`
+    launches (each once a call), by the profiler: the mean of the launches
+    it recorded over n calls after a warm one."""
+    return {k: sum(ts) / len(ts) for k, ts in profiled_ms(fn, n).items() if "gbp::" in k}
 
 
 def prec_variants(prec, z, prec_full, dev):
@@ -3082,6 +3120,238 @@ def streaming_path(card):
     print(f"[streaming] phase 26 took {time.perf_counter() - t_phase:.1f} s")
     return timings
 
+# --- the utilities (phase 27) -------------------------------------------------------------
+
+# Phase 27 (a): sweeps before the checkpoint (past the first relinearization
+# at min_linear_iters = 8) and after it.
+RESUME_AT, RESUME_MORE = 9, 3
+
+
+def as_is(st):
+    return st
+
+
+def resume(tag, ck, run, graph, mid, template, path, cfg=CFG, to_saved=as_is, from_saved=as_is,
+           compared=as_is):
+    """Phase 27 (a) for one engine: the state `mid` after RESUME_AT sweeps
+    goes through a checkpoint (saved as `to_saved(mid)`, restored into
+    `template`, turned back by `from_saved`), and RESUME_MORE sweeps from it
+    through the engine's kernels (`path`: launches per sweep) equal
+    RESUME_MORE sweeps from `mid` itself, bit for bit (as `compared`)."""
+    checkpoint.save(ck, to_saved(mid), extras={"sweep": RESUME_AT})
+    want = sync(run(graph, mid, cfg, RESUME_MORE))
+    restored, extras = checkpoint.restore(ck, template, extras_template={"sweep": 0})
+    if int(extras["sweep"]) != RESUME_AT:
+        raise AssertionError(f"{tag}: extras {extras}")
+    M.COUNTS.reset()
+    got = sync(run(graph, from_saved(restored), cfg, RESUME_MORE))
+    launches = check_counts(f"{tag} resumed", path, RESUME_MORE)
+    same_state(f"{tag}: resumed and uninterrupted runs", compared(got), compared(want))
+    print(f"[utilities] {tag}: saved after {RESUME_AT} sweeps "
+          f"({ck.stat().st_size / 2**20:.1f} MiB), restored, {RESUME_MORE} more sweeps equal "
+          f"the uninterrupted run bit for bit; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def utilities_path(card):
+    """Phase 27: checkpoint / resume into the generic engine, the fast path
+    and the halo path on the card; checkpoints across devices; time_sweeps
+    and a profiler trace of the fast path."""
+    t_phase = time.perf_counter()
+    out = {}
+    sim = ba.simulate(**BENCH)
+    graph, means = ba.build(sim, dtype=torch.float32, layout="ell")
+    pallas = dataclasses.replace(CFG, message_form="pallas")
+    cmg = sweep_cm.prepare(graph, segsum_exact=True)
+    init = sweep_cm.init_state(cmg, means)
+    mid = sync(sweep_cm.run(cmg, init, CFG, RESUME_AT))
+    as_gbp = lambda st: sweep_cm.to_gbp_state(cmg, st)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) the three engines.
+        g_init = sweep.init_state(graph, means)
+        out["generic"] = resume(
+            "bench64 generic (pallas)", tmp / "generic", sweep.run, graph,
+            sync(sweep.run(graph, g_init, pallas, RESUME_AT)), g_init,
+            {"fused_relin_messages": 1, "fused_messages": 1, "segsum_by_id": 1}, pallas)
+        out["fast"] = resume(
+            "bench64 fast path", tmp / "fast", sweep_cm.run, cmg, mid, as_gbp(init), FULL,
+            to_saved=as_gbp, from_saved=lambda st: sweep_cm.from_gbp_state(cmg, st),
+            compared=lambda st: (as_gbp(st), tuple(v.mean for v in st.v)))
+        city = ba.simulate_blocks(**CITY)
+        cg, cm = ba.build(city, dtype=torch.float32, **HALO_BUILD)
+        _, hcm, h_init, h_run = halo_cm.distribute(cg, cm, 2)
+        out["halo"] = resume(
+            "city1280 P=2 halo", tmp / "halo", h_run, hcm,
+            sync(h_run(hcm, h_init, CFG, RESUME_AT)), h_init,
+            dict.fromkeys(halo_mode_kernels(hcm), 2))
+        del cg, cm, hcm, h_init
+        torch.cuda.empty_cache()
+
+        # (b) saved on the card, restored on the CPU, and back.
+        checkpoint.save(tmp / "card", as_gbp(mid))
+        on_cpu = checkpoint.restore(tmp / "card", to_device(as_gbp(init), "cpu"))
+        same_state("card -> CPU", on_cpu, to_device(as_gbp(mid), "cpu"))
+        checkpoint.save(tmp / "cpu", on_cpu)
+        back = checkpoint.restore(tmp / "cpu", as_gbp(init))
+        if any(t.device != u.device for t, u in zip(leaves(back), leaves(as_gbp(init)))):
+            raise AssertionError("a checkpoint restored into a card template left the card")
+        same_state("CPU -> card", back, as_gbp(mid))
+        print(f"[utilities] bench64 fast-path state saved on the card restored on the CPU, "
+              f"saved there and restored on the card: leaves equal ({len(leaves(back))} "
+              f"tensors)")
+
+        # (c) time_sweeps.
+        rate, _ = profiling.time_sweeps(sweep_cm.run, cmg, init, CFG, SWEEPS)
+        print(f"[utilities] time_sweeps bench64 fast path, {SWEEPS} sweeps after 5: "
+              f"{rate:.2f} sweeps/s (CUDA events; {card})")
+
+        # (d) a trace of 3 fast-path sweeps names the kernels' CUDA functions.
+        # The profiler can drop some of a window's device records: trace
+        # again, up to 3 times, until every kernel of the path is named.
+        for attempt in range(1, 4):
+            logdir = tmp / f"trace{attempt}"
+            with profiling.trace(logdir), profiling.nvtx_range("three sweeps"):
+                sync(sweep_cm.run(cmg, mid, CFG, 3))
+            files = list(logdir.glob("*.pt.trace.json"))
+            events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
+            names = [e["name"] for e in events if e.get("cat") == "kernel"]
+            seen = {k: sum(k in n for n in names) for k in ("relin_kernel", "messages_kernel",
+                                                            "segsum")}
+            print(f"[utilities] trace of 3 fast-path sweeps (attempt {attempt}): {len(files)} "
+                  f"file, {len(names)} kernel events; by name {seen} (3, 3, 6 when none is "
+                  f"dropped)")
+            if min(seen.values()) > 0:
+                break
+        else:
+            raise AssertionError(f"the trace misses the fast path's kernels: {seen}")
+    print(f"[utilities] phase 27 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# --- pixels to GBP (phase 28) ------------------------------------------------------------
+
+# The reference's own example on a CPU (`python examples/sfm_from_pixels.py`,
+# JAX in float32): what it prints.
+REFERENCE_SFM_CPU = dict(observations=156, tracks=40, cameras=6, landmarks=37, are_px=1.248)
+# Phase 28 (c): the frontend at a size users run.
+FRONTEND_SCENE = dict(n_cams=64, n_lmks=3000, seed=0, fov_frac=0.25)
+FRONTEND_SHAPE, FRONTEND_CORNERS = (480, 640), 1024
+
+
+def events_ms(fn):
+    """(fn(), ms of the stream from its first launch to its last kernel's
+    end, by CUDA events)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def frontend_timing(card):
+    """Phase 28 (c): render_scene and build_tracks' detection, description
+    and matching over 64 frames of 480 x 640, max_corners 1024, on the
+    card."""
+    sim = ba.simulate(**FRONTEND_SCENE)
+    n = FRONTEND_SCENE["n_cams"]
+    track = dict(min_score=sfm_example.TRACKING["min_score"],
+                 ratio=sfm_example.TRACKING["ratio"], max_disp=sfm_example.TRACKING["max_disp"])
+    frames, render = events_ms(lambda: pipeline.render_scene(
+        sim["cam_truth"], sim["lmk_truth"], sim["k"], shape=FRONTEND_SHAPE, seed=0))
+    dets, detect = events_ms(lambda: [features.detect(f, max_corners=FRONTEND_CORNERS)
+                                      for f in frames])
+    descs, describe = events_ms(lambda: [features.extract_patches(f, xy)
+                                         for f, (xy, _) in zip(frames, dets)])
+    pairs, match = events_ms(lambda: [
+        features.match(descs[i], descs[i + 1], dets[i][1] > 0, dets[i + 1][1] > 0, dets[i][0],
+                       dets[i + 1][0], **track) for i in range(n - 1)])
+    corners = float(torch.stack([(s > 0).sum() for _, s in dets]).float().mean())
+    matched = float(torch.stack([ok.sum() for _, ok in pairs]).float().mean())
+    t0 = time.perf_counter()
+    cam_ids, lmk_ids, obs = pipeline.build_tracks(
+        frames, max_corners=FRONTEND_CORNERS, min_track_len=3, **track)
+    tracks_s = time.perf_counter() - t0
+    print(f"[sfm] frontend, {n} frames of {FRONTEND_SHAPE[0]} x {FRONTEND_SHAPE[1]}, "
+          f"{FRONTEND_SCENE['n_lmks']} landmarks, max_corners {FRONTEND_CORNERS} (CUDA events, "
+          f"ms per frame): render_scene {render / n:.4f}, detect {detect / n:.4f}, describe "
+          f"{describe / n:.4f}, match {match / (n - 1):.4f} per pair; {corners:.1f} corners per "
+          f"frame, {matched:.1f} matches per pair; build_tracks end to end (host clock, the "
+          f"chaining on the host) {tracks_s * 1e3 / n:.4f} ms per frame, {obs.shape[0]} "
+          f"observations of {len(np.unique(lmk_ids))} tracks ({card})")
+    if not (corners > 0.9 * FRONTEND_CORNERS and matched > 0 and obs.shape[0] > 0):
+        raise AssertionError(f"frontend at {FRONTEND_SHAPE}: {corners} corners, {matched} matches")
+
+
+def sfm_path(card):
+    """Phase 28: rendered pixels -> tracks -> pose bootstrap -> GBP on the
+    card (the example), the bootstrapped problem under message_form "pallas"
+    and through the fast path, the frontend's time per frame, and
+    triangulate repeating bit for bit."""
+    t_phase = time.perf_counter()
+    dev = gbp_tpu_torch.default_device()
+    ref = REFERENCE_SFM_CPU
+    # (a) the example, through its entry point.
+    M.COUNTS.reset()
+    are, counts = sfm_example.main(log=lambda line: print(f"[sfm] example: {line.strip()}"))
+    launches = check_counts("the sfm example", {"segsum_by_id": 1}, sfm_example.SWEEPS)
+    launches = {k: v for k, v in launches.items() if v}
+    print(f"[sfm] example on the card: {counts['observations']} observations across "
+          f"{counts['tracks']} tracks, {counts['cameras']}/6 cameras and {counts['landmarks']} "
+          f"landmarks registered, ARE {are:.6f} px after {sfm_example.SWEEPS} generic sweeps "
+          f"(the reference's CPU run: {ref['observations']}, {ref['tracks']}, "
+          f"{ref['cameras']}/6, {ref['landmarks']}, {ref['are_px']} px); launches {launches}, "
+          f"plain calls 0")
+    if counts["cameras"] != 6 or not are < 1.5:
+        raise AssertionError(f"sfm example on the card: {counts}, ARE {are}")
+
+    # (b) the bootstrapped problem (layout "ell") under "pallas" and through
+    # the fast path.
+    sim = sfm_example.scene()
+    frames = pipeline.render_scene(sim["cam_truth"], sim["lmk_truth"], sfm_example.K,
+                                   shape=sfm_example.SHAPE, seed=3)
+    boot, _ = sfm_example.bootstrap(frames, dev, log=lambda line: None)
+    graph, means = ba.build(boot, huber=2.0, layout="ell")
+    are_of = lambda st: float(ba.avg_reprojection_error(graph, st, k=sfm_example.K))
+    pallas = dataclasses.replace(sfm_example.CFG, message_form="pallas")
+    n = sfm_example.SWEEPS
+    M.COUNTS.reset()
+    a_pallas = are_of(sync(sweep.run(graph, sweep.init_state(graph, means), pallas, n)))
+    check_counts("sfm pallas", {"fused_relin_messages": 1, "fused_messages": 1,
+                                "segsum_by_id": 1}, n)
+    cmg = sweep_cm.prepare(graph, segsum_exact=True)
+    M.COUNTS.reset()
+    st = sync(sweep_cm.run(cmg, sweep_cm.init_state(cmg, means), sfm_example.CFG, n))
+    check_counts("sfm fast path", FULL, n)
+    a_fast = are_of(sweep_cm.to_gbp_state(cmg, st))
+    print(f"[sfm] bootstrapped problem ({graph.fblocks[0].n_valid} factors, ELL deg "
+          f"{graph.fblocks[0].ell_deg}), {n} sweeps: ARE {a_pallas:.6f} px under \"pallas\" "
+          f"(kernels 20, 19, 3 once a sweep), {a_fast:.6f} px through sweep_cm.prepare "
+          f"({cmg.gather_mode}, kernels 1-3 once a sweep)")
+    if not (a_pallas < 1.5 and a_fast < 1.5):
+        raise AssertionError(f"sfm: ARE pallas {a_pallas}, fast path {a_fast}")
+
+    # (c) the frontend's time per frame at a size users run.
+    frontend_timing(card)
+
+    # (d) triangulate twice on the card, bench64's 469,861 observations.
+    bench = ba.simulate(**BENCH)
+    args = (bench["cam_truth"], bench["k"], bench["cam_ids"], bench["lmk_ids"], bench["obs"])
+    one, two = (sync(pipeline.triangulate(*args)) for _ in range(2))
+    rel, _ = rel_err(one.cpu(), pipeline.triangulate(*args, device="cpu"))
+    print(f"[sfm] triangulate, {bench['obs'].shape[0]} observations of "
+          f"{bench['lmk_truth'].shape[0]} landmarks (float64): two runs on the card equal bit "
+          f"for bit: {torch.equal(one, two)}; against the CPU rel {rel:.3e}")
+    if not torch.equal(one, two) or not rel <= 1e-9:
+        raise AssertionError(f"triangulate on the card: repeat {torch.equal(one, two)}, "
+                             f"rel {rel:.3e}")
+    print(f"[sfm] phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3205,6 +3475,8 @@ def main():
     pose_path(card)
     schedules_path(card)
     streaming_path(card)
+    utilities_path(card)
+    sfm_path(card)
     launches.update({k: generic[k] for k in ROWS[2:]}, **{k: rows[k] for k in ROWS[:2]},
                     **{k: unfused[k] for k in UNFUSED})
     print(f"[done] {time.perf_counter() - T_START:.1f} s")

@@ -12,7 +12,9 @@ partitions of a graph run through the halo exchange (`parallel.halo`,
 priority, random and partition-dropout schedules on all four engines
 (`core.schedules`, `parallel.schedules`), and the online model with its
 fixed-lag serving loop (`models.online`, `bench.serving`, each frame one
-CUDA-graph replay on the card):
+CUDA-graph replay on the card), checkpoint / resume and profiling
+(`utils.checkpoint`, `utils.profiling`), and structure from motion from
+rendered pixels (`frontend`, `examples.sfm_from_pixels`):
 
     from gbp_tpu_torch.models import ba, online, pose_graph, toy
     from gbp_tpu_torch.io import g2o

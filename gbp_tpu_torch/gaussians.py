@@ -1,6 +1,7 @@
 """Information-form Gaussian helpers (counterpart of gbp_tpu/gaussians.py):
-the batched (eta, lam) container, Schur marginalization, and the packed
-padding row for virtual ELL variables.
+the batched (eta, lam) container, its constructors (from moments, isotropic,
+all zeros), Schur marginalization, and the packed padding row for virtual
+ELL variables.
 """
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import NamedTuple
 
 import torch
 
+from gbp_tpu_torch import resolve_device
 from gbp_tpu_torch.utils.smalllinalg import bT, bmm, bmv, scaled_sym_inv, sym_inv, sym_solve
 
 
@@ -26,6 +28,29 @@ class Gaussian(NamedTuple):
 
     def cov(self) -> torch.Tensor:
         return sym_inv(self.lam)
+
+
+def from_moments(mu: torch.Tensor, sigma: torch.Tensor) -> Gaussian:
+    """The Gaussian of mean mu [..., d] and covariance sigma [..., d, d]."""
+    lam = sym_inv(sigma)
+    return Gaussian(bmv(lam, mu), lam)
+
+
+def isotropic(mu: torch.Tensor, prec) -> Gaussian:
+    """The Gaussian of mean mu [..., d] and precision `prec` times the
+    identity (a scalar, or a tensor broadcasting against mu's batch dims)."""
+    d = mu.shape[-1]
+    prec = torch.as_tensor(prec, dtype=mu.dtype, device=mu.device)
+    eye = torch.eye(d, dtype=mu.dtype, device=mu.device)
+    return Gaussian(prec[..., None] * mu, prec[..., None, None] * eye)
+
+
+def zeros(shape, d: int, dtype=torch.float32, device=None) -> Gaussian:
+    """An all-zero (uninformative) batch of shape `shape`; device None: the
+    card."""
+    shape, device = tuple(shape), resolve_device(device)
+    return Gaussian(torch.zeros(shape + (d,), dtype=dtype, device=device),
+                    torch.zeros(shape + (d, d), dtype=dtype, device=device))
 
 
 def marginalize(eta, lam, keep_start: int, keep_dim: int) -> Gaussian:

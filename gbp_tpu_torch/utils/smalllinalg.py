@@ -27,6 +27,11 @@ def bmv(a, v):
     return (a * v[..., None, :]).sum(-1)
 
 
+def bvm(v, a):
+    """Batched tiny vector-matrix product [..., k] x [..., k, j] -> [..., j]."""
+    return (v[..., :, None] * a).sum(-2)
+
+
 def bT(a):
     return a.transpose(-1, -2)
 

@@ -20,8 +20,14 @@ Tolerances, relative to each output's magnitude unless said otherwise:
   scatter_windows_cm 1e-12 absolute in float64 against a dense accumulation
     (the same addends in the same order), 1e-5 in float32;
   one sweep from a common state 1e-10; 6 sweeps 1e-6 absolute on the means
-    (beta-threshold relinearization amplifies roundoff); float32 ARE after
-    15 sweeps within 1e-3 px;
+    (beta-threshold relinearization amplifies roundoff);
+  float32 against float64 on the same float32-rounded inputs, not against
+    the reference's float32 (two float32 results differ by as much as each
+    differs from float64, and by how much depends on the CPU): the messages
+    within 2x the reference's own float32 error, the ARE after 15 sweeps
+    within 3x (measured: the port's error at most 1.01x the reference's for
+    every message output, 1.43x for every field of one sweep over the first
+    15, 2.1x for the windowed ARE after 15);
   3 sweeps after a to_gbp_state / from_gbp_state round trip: 1e-12 absolute.
 """
 import types
@@ -56,6 +62,10 @@ PCFG = GBPConfig(**CFG)
 BETA = GBPConfig().beta
 PRIORS = dict(cam_prior_prec=1000.0, lmk_prior_prec=1000.0)
 JDT = {} if jax is None else {torch.float64: jnp.float64, torch.float32: jnp.float32}
+# float32 results are held against float64 on the same inputs, within these
+# multiples of the reference's own float32 error there (one kernel call; a
+# 15-sweep run, whose roundoff compounds through relinearization).
+F32_OVER_REF_STAGE, F32_OVER_REF_RUN = 2.0, 3.0
 SCENES = {
     "corridor280": lambda m: m.simulate_corridor(n_cams=280, lmks_per_cam=12, window=3, seed=1),
     "corridor320": lambda m: m.simulate_corridor(n_cams=320, lmks_per_cam=20, window=3, seed=1),
@@ -255,6 +265,19 @@ def test_relin_window_plain_matches_reference(operands, which, dtype, tol):
     assert n_relin == n_valid if which == "config" else 0 < n_relin < n_valid
 
 
+def window_messages(pc, st, relin_out, act, huber, dtype):
+    """The port's windowed messages (plain version) of state `st` from the
+    relinearization outputs `relin_out` (reference arrays)."""
+    lp, jac, r0, srel = (torch.tensor(np.asarray(a).reshape(a.shape[0], -1)).to(dtype)
+                         for a in relin_out)
+    _, _, cam_tab, lmk_tab = P.belief_tables(pc, st)
+    fs = st.f
+    return M.messages_cm_tabblk_ell_plain(
+        _kernel_params(PCFG, dtype), cam_tab, lmk_tab, pc.gidx, pc.win_starts, jac, lp, r0,
+        pc.prec, srel, act, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
+        pc.win_rows, pc.win_offsets, deg=pc.fb.ell_deg, huber=huber, win_w=pc.win_w)
+
+
 @pytest.mark.parametrize("huber,dtype,tol", [(None, torch.float64, 1e-10),
                                              (1.0, torch.float64, 1e-10),
                                              (None, torch.float32, 1e-4)])
@@ -268,20 +291,29 @@ def test_messages_window_plain_matches_reference(operands, huber, dtype, tol):
         pc, st = cast_port(pc, st, dtype)
         ref = reference_operands(ref.jc, st, jdt)
     relin_ref = ref.relin(BETA)
-    lp, jac, r0, srel = (torch.tensor(np.asarray(a).reshape(a.shape[0], -1)) for a in relin_ref)
     act = pc.act.clone()
     act[0, ::5] = 0.0
-    _, _, cam_tab, lmk_tab = P.belief_tables(pc, st)
-    fs = st.f
-    got = M.messages_cm_tabblk_ell_plain(
-        _kernel_params(PCFG, dtype), cam_tab, lmk_tab, pc.gidx, pc.win_starts, jac, lp, r0,
-        pc.prec, srel, act, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1],
-        pc.win_rows, pc.win_offsets, deg=pc.fb.ell_deg, huber=huber, win_w=pc.win_w)
+    got = window_messages(pc, st, relin_ref, act, huber, dtype)
     out = ref.messages(relin_ref, jnp.asarray(act.numpy().reshape(ref.jc.act.shape), jdt), huber)
-    for g, r in zip(got[:4], out[:4]):
-        assert g.dtype == dtype and rel(g, r) <= tol
     assert got[4].shape == (pc.mp // M.TILE, M.F_CAM, pc.win_w) == out[4].shape
-    assert rel(got[4], out[4]) <= tol
+    if dtype == torch.float64:
+        for g, r in zip(got, out):
+            assert g.dtype == dtype and rel(g, r) <= tol
+    else:
+        # float64 on the same float32-rounded inputs (the state and the
+        # reference's float32 relinearization), through both packages.
+        pc64, st64 = cast_port(pc, st, torch.float64)
+        relin64 = tuple(jnp.asarray(np.asarray(a), jnp.float64) for a in relin_ref)
+        exact64 = reference_operands(ref.jc, st64, jnp.float64)
+        want = exact64.messages(relin64, jnp.asarray(act.numpy().reshape(ref.jc.act.shape),
+                                                     jnp.float64), huber)
+        port64 = window_messages(pc64, st64, relin64, act.double(), huber, torch.float64)
+        for g, r, g64, w in zip(got, out, port64, want):
+            assert rel(g64, w) <= 1e-10
+            ref_err = rel(np.asarray(r), w)
+            assert g.dtype == dtype and rel(g, w) <= F32_OVER_REF_STAGE * ref_err, (
+                rel(g, w), ref_err)
+    fs = st.f
     off = act[0] == 0
     for g, old in zip(got[:4], (fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])):
         assert torch.equal(g[:, off], old[:, off])
@@ -390,21 +422,32 @@ def test_six_windowed_sweeps_track_reference(f64):
         assert np.abs(pv.mean.numpy() - np.asarray(jv.mean)).max() <= 1e-6
 
 
-def test_f32_are_after_fifteen_windowed_sweeps(sim280):
-    """float32, 15 sweeps (through relinearization): the ARE agrees with the
-    reference's windowed run and with the port's own full-table path (280
-    cameras x 42 floats fit the unwindowed kernels' shared memory)."""
+def test_f32_are_after_fifteen_windowed_sweeps(sim280, f64):
+    """float32, 15 sweeps (through relinearization): the ARE of the port's
+    windowed run and of its own full-table path (280 cameras x 42 floats fit
+    the unwindowed kernels' shared memory) each lies within 3x the
+    reference's own float32 error of the float64 ARE (the reference's
+    windowed run; the port's float64 run equals it to 1e-9 px)."""
     (jg, jm, jc), (pg, pm, pc) = build_both(sim280, torch.float32)
     assert pc.win_w > 0
-    js = jax.jit(J.run, static_argnums=3)(jc, J.init_state(jc, jm), JCFG, 15)
-    ref = float(jba.avg_reprojection_error(jg, J.to_gbp_state(jc, js), k=sim280["k"]))
+    (jg64, jm64, jc64), (pg64, pm64, pc64) = f64
+    runj = jax.jit(J.run, static_argnums=3)
+    are_j = lambda g, c, s: float(jba.avg_reprojection_error(g, J.to_gbp_state(c, s),
+                                                             k=sim280["k"]))
+    exact = are_j(jg64, jc64, runj(jc64, J.init_state(jc64, jm64), JCFG, 15))
+    port64 = float(pba.avg_reprojection_error(
+        pg64, P.to_gbp_state(pc64, P.run(pc64, P.init_state(pc64, pm64), PCFG, 15)),
+        k=sim280["k"]))
+    assert abs(port64 - exact) <= 1e-9, (port64, exact)
+    ref_err = abs(are_j(jg, jc, runj(jc, J.init_state(jc, jm), JCFG, 15)) - exact)
     are = lambda c, s: float(pba.avg_reprojection_error(pg, P.to_gbp_state(c, s), k=sim280["k"]))
     got = are(pc, P.run(pc, P.init_state(pc, pm), PCFG, 15))
-    assert np.isfinite(got) and abs(got - ref) <= 1e-3, (got, ref)
+    assert np.isfinite(got) and abs(got - exact) <= F32_OVER_REF_RUN * ref_err, (
+        got, exact, ref_err)
     full = P.prepare(pg, window=False)
     assert full.win_w == 0 and full.vperm is None
     got_full = are(full, P.run(full, P.init_state(full, pm), PCFG, 15))
-    assert abs(got - got_full) <= 1e-3, (got, got_full)
+    assert abs(got_full - exact) <= F32_OVER_REF_RUN * ref_err, (got_full, exact, ref_err)
     assert got < are(pc, P.init_state(pc, pm))
 
 
