@@ -4,7 +4,8 @@ paths (camera table, windows, expanded operands, the unfused table kernels,
 whole-table and windowed), the BA command line on BAL files with in-engine
 annealing, the generic engine, pose-graph SLAM (SE(2) and SE(3)), the halo
 paths, the schedules, the fixed-lag serving loop, checkpoint / resume and
-the profiling helpers, and structure from motion from rendered pixels.
+the profiling helpers, structure from motion from rendered pixels, and
+the multi-process paths.
 
     python3 chip_smoke.py
 
@@ -293,12 +294,33 @@ non-zero; no phase is caught):
      matching per pair, and `build_tracks` end to end.  (d) `triangulate` of
      the bench scene's 469,861 observations twice on the card: equal bit
      for bit, and to 1e-9 of the CPU's.
+ 29. several processes (parallel/multihost.py, spmd.py, sharding.py, the
+     sharded Schur step).  Two ranks spawned on the card, joined in a gloo
+     group (NCCL takes one rank a card; CUDA tensors are staged through
+     pinned host memory), each running on its own partitions: (a) city
+     cut in two (one partition a rank), 50 halo_cm sweeps through kernels
+     17, 18, 16, 15, 3, once a sweep each on each rank; (b) city cut in
+     four (two a rank); both collected means equal the one-process run on
+     the same partitions bit for bit (or, printing why not, within 1e-6
+     relative).  (c) In this process, a one-rank NCCL group holding both
+     partitions of city cut in two: all_gather, all_reduce and shift equal
+     `halo.LocalComm` bit for bit, and so do 50 halo_cm sweeps.  (d) bench64
+     (float32, message_form "pallas") through `spmd` and through
+     `sharding` on the two ranks, 50 sweeps: ARE within 1e-3 px of the
+     one-device generic run; kernels 20 and 19 once a sweep, 3 once per
+     slot into a block without a dense inbox.  (e) The float64 bench64
+     Schur step (100 CG iterations) on the two ranks within 1e-9 relative
+     of the one-device step.  Per rank: sweeps/s, launches per sweep, bytes
+     through the communicator per sweep beside `halo.collective_bytes`,
+     and the host staging's bytes and time.  A rank that fails, or runs past
+     MP_TIMEOUT_S, fails the phase.
 """
 import contextlib
 import dataclasses
 import json
 import math
 import re
+import socket
 import sys
 import tempfile
 import time
@@ -325,7 +347,7 @@ from gbp_tpu_torch.io import bal, g2o
 from gbp_tpu_torch.models import ba, online, pose_graph, toy
 from gbp_tpu_torch.ops import _build
 from gbp_tpu_torch.ops import messages as M
-from gbp_tpu_torch.parallel import halo, halo_cm, schur
+from gbp_tpu_torch.parallel import halo, halo_cm, multihost, schur, sharding, spmd
 from gbp_tpu_torch.parallel import schedules as halo_schedules
 from gbp_tpu_torch.utils import checkpoint, profiling
 
@@ -3352,6 +3374,260 @@ def sfm_path(card):
     return launches
 
 
+# --- several processes (phase 29) ---------------------------------------------------------
+
+
+MP_SWEEPS = 50
+# The reference test's count (tests/test_schur.py): at 50 the CG is far
+# from converged and the one-device step differs from itself by 8.8e-9
+# relative between two runs (`index_add_`'s order on the card), at 100 by
+# 2.4e-12.
+MP_SCHUR_CG = 100
+MP_TIMEOUT_S = 420.0  # the ranks' time limit: a hung rank fails the phase
+
+
+def mp_halo(tag, graph, means, n_parts, comm):
+    """One rank's halo_cm run of `graph` on its partitions of `n_parts`:
+    MP_SWEEPS sweeps through the partitions' kernels (each launched once per
+    held partition and sweep, no plain call), the collected means, and a
+    timed rerun with the communicator's bytes and host staging."""
+    hp, hcm, init, run = halo_cm.distribute(graph, means, n_parts, comm=comm)
+    k = len(comm.parts)
+    M.COUNTS.reset()
+    st = sync(run(hcm, init, CFG, MP_SWEEPS))
+    launches = check_counts(f"{tag} rank {comm.rank}", dict.fromkeys(halo_mode_kernels(hcm), k),
+                            MP_SWEEPS)
+    means_out = [m.cpu() for m in multihost.collect_means(hp, st, comm)]
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    sync(run(hcm, init, CFG, MP_SWEEPS))
+    dt = time.perf_counter() - t0
+    return dict(means=means_out, sweeps_per_s=MP_SWEEPS / dt, stats=dict(comm.stats),
+                launches={n: c / MP_SWEEPS for n, c in launches.items() if c},
+                collective_bytes=halo.collective_bytes(hp), mode=hcm.gather_mode,
+                win_w=hcm.win_w, transport=comm.transport, parts=(comm.parts.start,
+                                                                  comm.parts.stop))
+
+
+def mp_spmd(tag, graph, means, n_parts, comm, shard):
+    """One rank's spmd (or, shard=True, sharding) run of the bench scene
+    under message_form "pallas": MP_SWEEPS sweeps, launches per sweep, the
+    replicated means, a timed rerun."""
+    cfg = dataclasses.replace(CFG, message_form="pallas")
+    if shard:
+        g, init = sharding.distribute(graph, sweep.init_state(graph, means), n_parts, comm=comm)
+    else:
+        g, init = spmd.distribute(graph, means, n_parts, comm=comm)
+    run = spmd.make_run(g, n_parts, comm)
+    inbox = [s is not None for s in (g.inboxes or (None,) * len(g.vblocks))]
+    # Per held partition and sweep: kernel 20 (which launches 19) once, and
+    # kernel 3 once per slot into a variable block without a dense inbox.
+    k = len(comm.parts)
+    sums = sum(1 for vb in g.fblocks[0].vblocks if not inbox[vb])
+    M.COUNTS.reset()
+    st = sync(run(g, init, cfg, MP_SWEEPS))
+    launches = check_counts(f"{tag} rank {comm.rank}", {
+        "fused_relin_messages": k, "fused_messages": k, "segsum_by_id": k * sums}, MP_SWEEPS)
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    sync(run(g, init, cfg, MP_SWEEPS))
+    dt = time.perf_counter() - t0
+    return dict(means=[vs.mean.cpu() for vs in st.v], sweeps_per_s=MP_SWEEPS / dt,
+                stats=dict(comm.stats), launches={n: c / MP_SWEEPS for n, c in launches.items()
+                                                  if c},
+                inboxes=inbox, rows=g.fblocks[0].count, transport=comm.transport,
+                parts=(comm.parts.start, comm.parts.stop))
+
+
+def mp_worker(rank, world, init_method, out_dir):
+    """Phase 29 on one rank of a gloo group whose ranks share the card."""
+    device = multihost.initialize(init_method, world, rank, backend="gloo",
+                                  device=gbp_tpu_torch.default_device())
+    gbp_tpu_torch.set_exact_f32()
+    t0 = time.perf_counter()
+    out = {}
+    city = ba.simulate_blocks(**CITY)
+    graph, means = ba.build(city, dtype=torch.float32, device=device, **HALO_BUILD)
+    for n_parts in (2, 4):
+        comm = multihost.global_comm(n_parts, device=device)
+        out[f"city P={n_parts}"] = mp_halo(f"city1280 P={n_parts}", graph, means, n_parts, comm)
+    del graph, means
+    bench = ba.simulate(**BENCH)
+    graph, means = ba.build(bench, dtype=torch.float32, device=device, layout="ell")
+    comm = multihost.global_comm(2, device=device)
+    out["spmd"] = mp_spmd("bench64 spmd", graph, means, 2, comm, shard=False)
+    out["sharding"] = mp_spmd("bench64 sharding", graph, means, 2, comm, shard=True)
+    graph, means = ba.build(bench, dtype=torch.float64, device=device, layout="ell")
+    g, _ = sharding.distribute(graph, sweep.init_state(graph, means), 2, comm=comm)
+    comm.reset_stats()
+    t1 = time.perf_counter()
+    step = sync(schur.gauss_newton_step(g, means, cg_iters=MP_SCHUR_CG, comm=comm))
+    out["schur"] = dict(means=[m.cpu() for m in step], seconds=time.perf_counter() - t1,
+                        stats=dict(comm.stats))
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+
+def spawn_ranks(world, timeout):
+    """`mp_worker` in `world` spawned processes; returns each rank's
+    results.  A rank that exits non-zero fails the phase; one still running
+    after `timeout` seconds is killed and fails it."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out:
+        procs = [ctx.Process(target=mp_worker, args=(r, world, f"tcp://localhost:{port}", out))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + timeout
+        try:
+            for p in procs:
+                p.join(max(deadline - time.perf_counter(), 0.0))
+            codes = [p.exitcode for p in procs]
+            if codes != [0] * world:
+                raise AssertionError(f"phase 29: rank exit codes {codes} (None: still running "
+                                     f"after {timeout} s)")
+            return [torch.load(Path(out) / f"rank{r}.pt") for r in range(world)]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+
+
+def same_or_close(what, got, want, why):
+    """Bit for bit, or (printing `why`) within 1e-6 relative."""
+    if all(torch.equal(a, b) for a, b in zip(got, want)):
+        print(f"[multiprocess] {what}: equal bit for bit")
+        return
+    rel = max(rel_err(a, b)[0] for a, b in zip(got, want))
+    print(f"[multiprocess] {what}: not bit for bit, {rel:.3e} relative ({why})")
+    if not rel <= 1e-6:
+        raise AssertionError(f"{what}: {rel:.3e} relative")
+
+
+def rank_line(tag, r, res):
+    st, sweeps = res["stats"], MP_SWEEPS
+    extra = ""
+    if "collective_bytes" in res:
+        extra = (f"; halo.collective_bytes {res['collective_bytes']['halo_bytes_per_sweep']} "
+                 f"bytes a partition and sweep")
+    print(f"[multiprocess] {tag} rank {r} (partitions {res.get('parts', '-')}, transport "
+          f"{res['transport']}): {res['sweeps_per_s']:.2f} sweeps/s; launches per sweep "
+          f"{res['launches']}; through the communicator per sweep {st['bytes_sent'] / sweeps:.0f} "
+          f"bytes sent, {st['bytes_received'] / sweeps:.0f} received, "
+          f"{st['collectives'] / sweeps:.0f} collectives{extra}; host staging "
+          f"{st['staged_bytes'] / sweeps:.0f} bytes and {st['staging_s'] / sweeps * 1e3:.3f} ms "
+          f"per sweep")
+
+
+def nccl_check(card):
+    """Phase 29 (c): a one-rank NCCL group holding both partitions of city
+    cut in two: the three collectives equal `LocalComm` bit for bit, and so
+    do MP_SWEEPS halo_cm sweeps."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dev = multihost.initialize(f"tcp://localhost:{port}", 1, 0, backend="nccl",
+                               device=gbp_tpu_torch.default_device())
+    try:
+        comm, local = multihost.global_comm(2, device=dev), halo.LocalComm(2)
+        x = torch.randn((2, 1000, 12), generator=torch.Generator(dev).manual_seed(0), device=dev)
+        ops = [("all_gather", comm.all_gather(x), local.all_gather(x)),
+               ("all_reduce", comm.all_reduce(x), local.all_reduce(x))]
+        ops += [(f"shift {o}", comm.shift(x, o), local.shift(x, o)) for o in (-1, 1, 2)]
+        for name, a, b in ops:
+            if not torch.equal(a, b):
+                raise AssertionError(f"nccl {name}: not equal to LocalComm")
+        sim = ba.simulate_blocks(**CITY)
+        graph, means = ba.build(sim, dtype=torch.float32, **HALO_BUILD)
+        res = mp_halo("city1280 P=2 nccl", graph, means, 2, comm)
+        hp, hcm, init, run = halo_cm.distribute(graph, means, 2)
+        want = halo.collect_means(hp, sync(run(hcm, init, CFG, MP_SWEEPS)))
+        print(f"[multiprocess] (c) one-rank NCCL group, P = 2, K = 2 ({comm.transport}): "
+              f"all_gather, all_reduce, shift -1, 1, 2 equal LocalComm bit for bit")
+        rank_line("(c) city1280 P=2", 0, res)
+        same_or_close("(c) city1280 P=2 over NCCL against one process", res["means"],
+                      [m.cpu() for m in want], "the same kernels on the same inputs")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def multiprocess_path(card):
+    """Phase 29: the halo, SPMD, sharded and Schur paths across processes on
+    the card: two gloo ranks sharing it (host-staged transport) and a
+    one-rank NCCL group, each against the one-process run."""
+    t_phase = time.perf_counter()
+    ranks = spawn_ranks(2, MP_TIMEOUT_S)
+    print(f"[multiprocess] two ranks on {card} under gloo: {ranks[0]['seconds']:.1f} / "
+          f"{ranks[1]['seconds']:.1f} s of work each, the card time-sliced between them")
+    sim = ba.simulate_blocks(**CITY)
+    graph, means = ba.build(sim, dtype=torch.float32, **HALO_BUILD)
+    tmpl = sweep.init_state(graph, means)
+    for n_parts, tag in ((2, "(a)"), (4, "(b)")):
+        key = f"city P={n_parts}"
+        hp, hcm, init, run = halo_cm.distribute(graph, means, n_parts)
+        M.COUNTS.reset()
+        t0 = time.perf_counter()
+        want = halo.collect_means(hp, sync(run(hcm, init, CFG, MP_SWEEPS)))
+        one_s = MP_SWEEPS / (time.perf_counter() - t0)
+        are = float(ba.avg_reprojection_error(graph, ba.with_means(tmpl, want), k=sim["k"]))
+        print(f"[multiprocess] {tag} city1280 P={n_parts} on 2 ranks (K = {n_parts // 2}; "
+              f"mode {ranks[0][key]['mode']}, win_w {ranks[0][key]['win_w']}); one process "
+              f"{one_s:.2f} sweeps/s, ARE {are:.6f} px")
+        for r, res in enumerate(ranks):
+            rank_line(f"{tag} city1280 P={n_parts}", r, res[key])
+            same_or_close(f"{tag} city1280 P={n_parts} rank {r} against one process",
+                          res[key]["means"], [m.cpu() for m in want],
+                          "the same kernels on the same inputs")
+    del graph, means, tmpl
+    torch.cuda.empty_cache()
+    nccl_check(card)
+
+    # (d) spmd and sharding at full width, against the single-device generic run.
+    dev = gbp_tpu_torch.default_device()
+    bench = ba.simulate(**BENCH)
+    graph, means = ba.build(bench, dtype=torch.float32, layout="ell")
+    tmpl = sweep.init_state(graph, means)
+    cfg = dataclasses.replace(CFG, message_form="pallas")
+    one = sync(sweep.run(graph, tmpl, cfg, MP_SWEEPS))
+    are_of = lambda mu: float(ba.avg_reprojection_error(
+        graph, ba.with_means(tmpl, tuple(m.to(dev) for m in mu)), k=bench["k"]))
+    are1 = are_of([vs.mean for vs in one.v])
+    for key in ("spmd", "sharding"):
+        for r, res in enumerate(ranks):
+            are = are_of(res[key]["means"])
+            print(f"[multiprocess] (d) bench64 {key} on 2 ranks ({res[key]['rows']} rows a "
+                  f"rank, dense inboxes {res[key]['inboxes']}): ARE {are:.6f} px after "
+                  f"{MP_SWEEPS} sweeps, one device {are1:.6f} (difference {abs(are - are1):.3e})")
+            rank_line(f"(d) bench64 {key}", r, res[key])
+            if not abs(are - are1) <= 1e-3:
+                raise AssertionError(f"bench64 {key} rank {r}: ARE {are} vs one device's {are1}")
+    del graph, means, tmpl, one
+    torch.cuda.empty_cache()
+
+    # (e) the sharded Schur step, float64.
+    graph, means = ba.build(bench, dtype=torch.float64, layout="ell")
+    t0 = time.perf_counter()
+    want = sync(schur.gauss_newton_step(graph, means, cg_iters=MP_SCHUR_CG))
+    one_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        rel = max(rel_err(a.to(dev), b)[0] for a, b in zip(res["schur"]["means"], want))
+        st = res["schur"]["stats"]
+        print(f"[multiprocess] (e) bench64 float64 Schur step ({MP_SCHUR_CG} CG iterations) on "
+              f"2 ranks, rank {r}: {res['schur']['seconds']:.3f} s (one device {one_s:.3f} s), "
+              f"{st['collectives']} all-reduces, {st['bytes_sent']} bytes sent, host staging "
+              f"{st['staging_s'] * 1e3:.1f} ms; {rel:.3e} relative to the one-device step")
+        if not rel <= 1e-9:
+            raise AssertionError(f"sharded Schur step rank {r}: {rel:.3e} relative")
+    print(f"[multiprocess] phase 29 took {time.perf_counter() - t_phase:.1f} s; a run across "
+          f"several cards (NCCL between cards) cannot be measured on this machine")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3477,6 +3753,7 @@ def main():
     streaming_path(card)
     utilities_path(card)
     sfm_path(card)
+    multiprocess_path(card)
     launches.update({k: generic[k] for k in ROWS[2:]}, **{k: rows[k] for k in ROWS[:2]},
                     **{k: unfused[k] for k in UNFUSED})
     print(f"[done] {time.perf_counter() - T_START:.1f} s")

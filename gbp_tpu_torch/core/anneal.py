@@ -123,11 +123,12 @@ def run_annealed_cm(cmg, state, cfg: GBPConfig, n_iters: int, every: int = 10,
 
 def halo_anchor_masks(hp, keep=DEFAULT_KEEP) -> tuple:
     """Anchor masks in the halo layout of a partitioned graph: per variable
-    block a bool [P, n_own_max, d] tensor over each partition's OWNED
+    block a bool [K, n_own_max, d] tensor over each held partition's OWNED
     variables (ghosts take their owners' beliefs, not priors)."""
     km = _keep_map(keep)
     masks = []
     for vi, ids in enumerate(hp.owned_ids):
+        ids = hp.local(ids)
         vb = hp.hgraph.vblocks[vi]
         dof = vb.prior_eta.shape[-1]
         m = np.zeros(ids.shape + (dof,), bool)

@@ -15,20 +15,28 @@ factors touch but do not own.  One sweep, per partition:
   4. owners update their beliefs (prior + own partials + received ones);
   5. updated boundary beliefs -> ghost holders, through one collective.
 
-The collectives are written once against a communicator with two
-operations (the reference's `all_gather` and `ppermute`):
+The collectives are written once against a communicator with three
+operations (the reference's `all_gather`, `ppermute` and `psum`), over the
+K partitions a process holds, stacked [K, ...]:
 
-  all_gather(x)     x [P, n, f]: partition p's block of every partition ->
-                    each partition sees [P * n, f];
-  shift(x, offset)  partition p's block goes to partition (p + offset) % P.
+  all_gather(x)     x [K, n, f]: every partition's block -> each held
+                    partition sees [P * n, f], in partition order;
+  shift(x, offset)  partition p's block goes to partition (p + offset) % P;
+  all_reduce(x)     x [K, ...]: each held partition gets the sum over all P
+                    partitions, added in partition order (0 first), so the
+                    result repeats bit for bit.
 
-`LocalComm` implements them for P partitions held stacked [P, ...] in one
-process on one device (an expand and a `torch.roll` along the partition
-axis); the factor stage then runs once per partition (each partition's
-kernels launch on their own, the multi-device program's per-rank step) and
-the owner updates run batched over P.  Every structure is stacked [P, ...]
-as the reference's, whose leading axis is sharded over a device mesh.
-Per-sweep collective bytes are O(total boundary) (`collective_bytes`).
+`LocalComm` implements them for all P partitions in one process on one
+device (K = P: an expand, a `torch.roll` along the partition axis and a
+sum in order); `parallel/multihost.DistComm` for K = P / W partitions on
+each of W ranks of a `torch.distributed` group.  The factor stage runs
+once per held partition (each partition's kernels launch on their own, the
+multi-device program's per-rank step) and the owner updates run batched
+over K.  Every structure is stacked on a leading partition axis as the
+reference's, whose leading axis is sharded over a device mesh;
+`distribute(..., comm=...)` keeps a rank's K partitions (`HaloProblem.
+parts`).  Per-sweep collective bytes are O(total boundary)
+(`collective_bytes`).
 """
 from __future__ import annotations
 
@@ -116,6 +124,22 @@ class HaloProblem:
         self.ghost_ids = ghost_ids  # per vblock [P, n_ghost_max] int64 (-1 pad)
         self.fb_src_rows = fb_src_rows  # per fblock [P, m_loc] int64 (-1 pad)
         self.src_graph = src_graph
+        # The partitions whose tensors this process holds (hgraph and state
+        # stacked [len(parts), ...]); the numpy bookkeeping stays global.
+        self.parts = range(n_parts)
+
+    def local(self, a):
+        """The held partitions' rows of a global per-partition array."""
+        return a[self.parts.start:self.parts.stop]
+
+
+def sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """x [P, ...] summed over the partition axis, partition 0 first: one
+    fixed order of addition, whoever holds the blocks."""
+    total = x[0]
+    for k in range(1, x.shape[0]):
+        total = total + x[k]
+    return total
 
 
 class LocalComm:
@@ -124,6 +148,7 @@ class LocalComm:
 
     def __init__(self, n_parts: int):
         self.n_parts = n_parts
+        self.parts = range(n_parts)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """x [P, n, ...] -> [P, P * n, ...]: every partition sees every
@@ -135,6 +160,11 @@ class LocalComm:
         """Partition p's block goes to partition (p + offset) % P: the
         reference's ppermute with perm [(p, (p + offset) % P)]."""
         return torch.roll(x, shifts=offset, dims=0)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """x [P, ...] -> [P, ...]: every partition gets the sum over all
+        partitions, added in partition order (a view of one sum)."""
+        return sum_in_order(x).unsqueeze(0).expand_as(x)
 
 
 # --------------------------------------------------------------------------
@@ -439,8 +469,8 @@ def ghost_states(hp: HaloProblem, means: tuple) -> tuple:
         d = vb.dof
         ng = hp.hgraph.comm[vbi].n_ghost_max
         dt, dev = vb.prior_eta.dtype, vb.prior_eta.device
-        gids = hp.ghost_ids[vbi]
-        n_parts = hp.n_chips
+        gids = hp.local(hp.ghost_ids[vbi])
+        n_parts = len(gids)
         ge = torch.zeros((n_parts, max(ng, 1), d), dtype=dt, device=dev)
         gl = torch.eye(d, dtype=dt, device=dev).repeat(n_parts, max(ng, 1), 1, 1)
         gm = torch.zeros((n_parts, max(ng, 1), d), dtype=dt, device=dev)
@@ -456,10 +486,11 @@ def ghost_states(hp: HaloProblem, means: tuple) -> tuple:
 
 
 def owned_means(hp: HaloProblem, means: tuple) -> tuple:
-    """Per vblock the owned means [P, n_own_max, d] (zero in the padding)."""
+    """Per vblock the held partitions' owned means [K, n_own_max, d] (zero
+    in the padding)."""
     out = []
     for vbi, vb in enumerate(hp.src_graph.vblocks):
-        ids, val = hp.owned_ids[vbi], hp.owned_valid[vbi]
+        ids, val = hp.local(hp.owned_ids[vbi]), hp.local(hp.owned_valid[vbi])
         m = torch.zeros((*ids.shape, vb.dof), dtype=vb.prior_eta.dtype,
                         device=vb.prior_eta.device)
         m[torch.tensor(val, device=m.device)] = means[vbi].to(m.device)[
@@ -472,14 +503,15 @@ def init_state(hp: HaloProblem, means: tuple) -> HaloState:
     """Beliefs = priors (owned AND ghost copies), factors linearized at
     `means`, zero messages: sweep.init_state's semantics."""
     g = hp.src_graph
-    n_parts = hp.n_chips
+    n_parts = len(hp.parts)
     vstates = tuple(VariableState(eta=hvb.prior_eta, lam=hvb.prior_lam, mean=m)
                     for hvb, m in zip(hp.hgraph.vblocks, owned_means(hp, means)))
     fstates = []
     for fi, fb in enumerate(g.fblocks):
         hfb = hp.hgraph.fblocks[fi]
         dev = hfb.z.device
-        safe = torch.tensor(np.maximum(hp.fb_src_rows[fi], 0), dtype=torch.int64, device=dev)
+        safe = torch.tensor(np.maximum(hp.local(hp.fb_src_rows[fi]), 0), dtype=torch.int64,
+                            device=dev)
         x = torch.cat([means[vb].to(dev)[fb.adj[k].to(dev).long()[safe]]
                        for k, vb in enumerate(fb.vblocks)], dim=-1).to(hfb.z.dtype)
         m_loc, t = x.shape[1], x.shape[2]
@@ -508,14 +540,15 @@ def weaken_priors(hp: HaloProblem, factor: float = 0.1,
     new_vbs = []
     for vbi, vb in enumerate(hg.vblocks):
         dof = vb.prior_eta.shape[-1]
-        scale = np.full(hp.owned_ids[vbi].shape + (dof,), factor)
-        scale[~hp.owned_valid[vbi]] = 1.0
+        ids = hp.local(hp.owned_ids[vbi])
+        scale = np.full(ids.shape + (dof,), factor)
+        scale[~hp.local(hp.owned_valid[vbi])] = 1.0
         for e in keep:
             if e[0] != vbi:
                 continue
             lo, hi = (0, dof) if len(e) < 3 else e[2]
             for gid in np.asarray(e[1]).ravel():
-                hits = np.argwhere(hp.owned_ids[vbi] == gid)
+                hits = np.argwhere(ids == gid)
                 if hits.size:
                     scale[hits[0][0], hits[0][1], lo:min(hi, dof)] = 1.0
         sc = torch.tensor(scale, dtype=vb.prior_eta.dtype, device=vb.prior_eta.device)
@@ -527,11 +560,12 @@ def weaken_priors(hp: HaloProblem, factor: float = 0.1,
 
 def collect_means(hp: HaloProblem, state) -> tuple:
     """Owned per-partition means -> global [n, d] tensors (on the state's
-    device)."""
+    device); the variables of partitions held elsewhere stay zero
+    (`multihost.collect_means` gathers them first)."""
     out = []
     for vbi, vb in enumerate(hp.src_graph.vblocks):
         m = state.v[vbi].mean
-        ids, val = hp.owned_ids[vbi], hp.owned_valid[vbi]
+        ids, val = hp.local(hp.owned_ids[vbi]), hp.local(hp.owned_valid[vbi])
         g = torch.zeros((vb.count, vb.dof), dtype=m.dtype, device=m.device)
         g[torch.tensor(ids[val], dtype=torch.int64, device=m.device)] = \
             m[torch.tensor(val, device=m.device)]
@@ -581,6 +615,23 @@ def _at(obj, p: int):
         items = [_at(o, p) for o in obj]
         return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
     return obj
+
+
+def _rows(obj, lo: int, hi: int):
+    """Rows lo..hi-1 (partitions, or factor rows) of every tensor of a
+    (nested) NamedTuple / tuple / dataclass."""
+    return _map_tensors(lambda t: t[lo:hi], obj)
+
+
+def keep_parts(hp: HaloProblem, comm) -> HaloProblem:
+    """Keep the partitions `comm` holds (`comm.parts`): a range-slice of
+    every stacked tensor of hp.hgraph; hp.parts records it."""
+    if comm.n_parts != hp.n_chips:
+        raise ValueError(f"the communicator spans {comm.n_parts} partitions, the problem "
+                         f"{hp.n_chips}")
+    hp.parts = comm.parts
+    hp.hgraph = _rows(hp.hgraph, comm.parts.start, comm.parts.stop)
+    return hp
 
 
 def _stack(parts: list):
@@ -738,40 +789,52 @@ def make_run(hp: HaloProblem, skip_exchange: bool = False, comm=None):
     return run_halo
 
 
-def to_device(obj, device):
-    """Every tensor of a (nested) NamedTuple / tuple / dataclass moved to
-    `device`."""
+def _map_tensors(fn, obj):
+    """`fn` applied to every tensor of a (nested) NamedTuple / tuple /
+    dataclass; everything else (ints, tuples of ints, strings) kept."""
     if isinstance(obj, torch.Tensor):
-        return obj.to(device)
+        return fn(obj)
     if isinstance(obj, tuple):
-        items = [to_device(o, device) for o in obj]
+        items = [_map_tensors(fn, o) for o in obj]
         return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
-            f.name: to_device(getattr(obj, f.name), device) for f in dataclasses.fields(obj)
+            f.name: _map_tensors(fn, getattr(obj, f.name)) for f in dataclasses.fields(obj)
             if isinstance(getattr(obj, f.name), (torch.Tensor, tuple))})
     return obj
 
 
+def to_device(obj, device):
+    """Every tensor of a (nested) NamedTuple / tuple / dataclass moved to
+    `device`."""
+    return _map_tensors(lambda t: t.to(device), obj)
+
+
 def distribute(graph: Graph, means: tuple, n_parts: int, device=None, anchor_slot: int = 0,
-               comm_mode: str = "auto"):
+               comm_mode: str = "auto", comm=None):
     """Partition + place: returns (HaloProblem, HaloState, run_fn), every
-    tensor on `device` (None: the card).  The reference's `distribute`
-    takes a device mesh; here the P partitions share one device and
-    exchange through `LocalComm`."""
-    device = resolve_device(device)
+    tensor on `device` (None: the communicator's device, else the card).
+    The reference's `distribute` takes a device mesh.  comm=None: the P
+    partitions share one device and exchange through `LocalComm`; with a
+    communicator (`multihost.DistComm`) every rank runs the same host-side
+    partition and keeps its own partitions."""
+    device = resolve_device(device if device is not None else getattr(comm, "device", None))
     hp = partition(graph, n_parts, anchor_slot, comm_mode)
+    if comm is not None:
+        keep_parts(hp, comm)
     hp.hgraph = to_device(hp.hgraph, device)
     state = to_device(init_state(hp, means), device)
-    return hp, state, make_run(hp)
+    return hp, state, make_run(hp, comm=comm)
 
 
-def energy_halo(hp: HaloProblem, state: HaloState) -> float:
-    """Total energy: per-partition sums over their local factors, added
-    (the reference's one psum of a scalar)."""
+def energy_halo(hp: HaloProblem, state: HaloState, comm=None) -> float:
+    """Total energy: per-partition sums over their local factors, added in
+    partition order across the communicator (the reference's one psum of
+    a scalar; default: the single-process `LocalComm`)."""
+    comm = LocalComm(hp.n_chips) if comm is None else comm
     lv = _local_beliefs(state)
-    total = 0.0
-    for p in range(hp.n_chips):
-        lgraph = _local_graph(hp.hgraph, p)
-        total += float(sweep_mod.energy(lgraph, GBPState(v=_at(lv, p), f=_at(state.f, p))))
-    return total
+    e = torch.stack([
+        sweep_mod.energy(_local_graph(hp.hgraph, p),
+                         GBPState(v=_at(lv, p), f=_at(state.f, p))).to(torch.float64)
+        for p in range(len(state.v[0].eta))])
+    return float(comm.all_reduce(e)[0])

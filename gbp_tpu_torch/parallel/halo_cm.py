@@ -29,10 +29,11 @@ the reference's rules with the port's shared-memory gates):
   rows       otherwise: expanded operands, kernels 14, 5, 4, 3.
 
 Every structure is stacked [P, ...] on one device, as the reference's
-(which shards the leading axis over a device mesh); one sweep launches each
-kernel once per partition, the multi-device program's per-rank step, and
-runs the exchange batched over P through the communicator (`halo.LocalComm`
-in one process).  Graphs the fast path does not take (several blocks, full
+(which shards the leading axis over a device mesh), or [K, ...] on each
+rank of a `torch.distributed` group (`distribute(..., comm=DistComm)`);
+one sweep launches each kernel once per held partition, the multi-device
+program's per-rank step, and runs the exchange batched over them through
+the communicator (`halo.LocalComm` in one process).  Graphs the fast path does not take (several blocks, full
 precision, no component model) stay on the generic halo path
 (`prepare` returns None).
 """
@@ -356,9 +357,10 @@ def prepare(hp: halo_mod.HaloProblem, segsum_exact: bool = True, gather_mode: st
 def init_state(hp: halo_mod.HaloProblem, hcm: HaloCMGraph, rows_global: np.ndarray,
                means: tuple) -> HaloCMState:
     """Owned and ghost beliefs = priors; the CM factor state linearized at
-    `means`, zero messages."""
+    `means`, zero messages; for the held partitions (hcm and rows_global
+    [K, mp] hold only those)."""
     fb = hp.src_graph.fblocks[0]
-    n_parts, mp = hp.n_chips, hcm.mp
+    n_parts, mp = hcm.z.shape[0], hcm.mp
     dev, dt = hcm.z.device, hcm.z.dtype
     rg = torch.tensor(rows_global, dtype=torch.int64, device=dev)
     x = torch.cat([means[vb].to(dev)[fb.adj[k].to(dev).long()[rg]]
@@ -584,14 +586,26 @@ def _ell_order_keys(graph):
     return {fb.vblocks[e]: key}
 
 
+def keep_parts(hcm: HaloCMGraph, rows_global: np.ndarray, parts: range):
+    """The held partitions of a prepared graph: (hcm, rows_global) cut to
+    `parts` along the partition axis (the layout decisions stay the ones
+    made over all P partitions)."""
+    lo, hi = parts.start, parts.stop
+    hcm = halo_mod._rows(hcm, lo, hi)._replace(n_cut=hcm.n_cut[lo:hi])
+    return hcm, rows_global[lo:hi]
+
+
 def distribute(graph, means, n_parts: int, device=None, anchor_slot: int = 0,
                comm_mode: str = "auto", segsum_exact: bool = True, gather_mode: str = "auto",
-               window: bool = True, ell_fused: bool | None = None):
-    """Partition + CM-prepare + place on `device` (None: the card): returns
-    (hp, hcm, state, run_fn), or None when the graph is CM-ineligible.  The
-    reference's `distribute` takes a device mesh; here the P partitions share
-    one device and exchange through `halo.LocalComm`."""
-    device = resolve_device(device)
+               window: bool = True, ell_fused: bool | None = None, comm=None):
+    """Partition + CM-prepare + place on `device` (None: the communicator's
+    device, else the card): returns (hp, hcm, state, run_fn), or None when
+    the graph is CM-ineligible.  The reference's `distribute` takes a device
+    mesh.  comm=None: the P partitions share one device and exchange through
+    `halo.LocalComm`; with a communicator (`multihost.DistComm`) every rank
+    runs the same host-side partition and layout and keeps its own
+    partitions."""
+    device = resolve_device(device if device is not None else getattr(comm, "device", None))
     hp = halo_mod.partition(graph, n_parts, anchor_slot, comm_mode,
                             order_keys=_ell_order_keys(graph) if window else None)
     prepped = prepare(hp, segsum_exact=segsum_exact, gather_mode=gather_mode, window=window,
@@ -599,7 +613,10 @@ def distribute(graph, means, n_parts: int, device=None, anchor_slot: int = 0,
     if prepped is None:
         return None
     hcm, rows_global = prepped
+    if comm is not None:
+        halo_mod.keep_parts(hp, comm)
+        hcm, rows_global = keep_parts(hcm, rows_global, hp.parts)
     hp.hgraph = halo_mod.to_device(hp.hgraph, device)
     hcm = halo_mod.to_device(hcm, device)
     state = halo_mod.to_device(init_state(hp, hcm, rows_global, means), device)
-    return hp, hcm, state, make_run(hcm)
+    return hp, hcm, state, make_run(hcm, comm=comm)

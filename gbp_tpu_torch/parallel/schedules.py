@@ -10,14 +10,17 @@ its boundary messages go stale as if its exchanges were dropped) only
 delays convergence (arXiv:2107.02308 §3.5).
 
 Budgets: priority takes the top `frac` of each partition's real local
-factors, with k from the partition that has the most of them, set once
-when the runner is made; lighter partitions never turn on an invalid or
-padded row.  Every mask is computed for all P partitions at once on the
-stacked [P, ...] state; nothing is read back from the device inside a
-run.  The reference's runners take a device mesh and an axis name and run
-one fori_loop under shard_map; here they take the communicator of the
-halo sweeps (default: the single-process `halo.LocalComm`), and the
-partition index p stands for the reference's chip.
+factors, with k from the partition that has the most of them (over all P,
+through the communicator), set once when the runner is made; lighter
+partitions never turn on an invalid or padded row.  Every mask is computed
+for the held partitions at once on the stacked [K, ...] state (K = P in
+one process); nothing is read back from the device inside a run.  The
+reference's runners take a device mesh and an axis name and run one
+fori_loop under shard_map; here they take the communicator of the halo
+sweeps (default: the single-process `halo.LocalComm`), and the global
+partition index p stands for the reference's chip.  Random draws are made
+for all P partitions and cut to the held ones, so a run over several
+ranks draws what one process draws.
 """
 from __future__ import annotations
 
@@ -64,11 +67,24 @@ def _comm(n_parts: int, comm):
     return halo_mod.LocalComm(n_parts) if comm is None else comm
 
 
-def _dead_mask(shape: tuple, dead_chip: int, device) -> torch.Tensor:
-    """All True except partition `dead_chip` (built once, before a loop)."""
+def _dead_mask(shape: tuple, dead_chip: int, comm, device) -> torch.Tensor:
+    """All True except global partition `dead_chip`, over the held
+    partitions (built once, before a loop)."""
     alive = torch.ones(shape, dtype=torch.bool, device=device)
-    alive[dead_chip] = False
+    if dead_chip in comm.parts:
+        alive[dead_chip - comm.parts.start] = False
     return alive
+
+
+def _draw(shape: tuple, comm, generator, device) -> torch.Tensor:
+    """Uniform [0, 1) draws for all P partitions, cut to the held ones."""
+    u = torch.rand((comm.n_parts, *shape[1:]), generator=generator, device=device)
+    return u[comm.parts.start:comm.parts.stop]
+
+
+def _most_real(counts: torch.Tensor, comm) -> int:
+    """The largest of the held partitions' counts [K] over all P."""
+    return int(comm.all_gather(counts.reshape(-1, 1)).max())
 
 
 # --------------------------------------------------------------------------
@@ -93,12 +109,13 @@ def make_run_wildfire(hp: halo_mod.HaloProblem, comm=None):
     return run
 
 
-def priority_ks(hp: halo_mod.HaloProblem, frac: float) -> tuple:
+def priority_ks(hp: halo_mod.HaloProblem, frac: float, comm=None) -> tuple:
     """Per fblock the top-k budget: frac of the largest partition's real
     factor count, at least 1, at most m_loc."""
+    comm = _comm(hp.n_chips, comm)
     ks = []
     for hfb in hp.hgraph.fblocks:
-        real = int(hfb.valid.sum(1).max())
+        real = _most_real(hfb.valid.sum(1), comm)
         ks.append(max(1, min(int(frac * real), hfb.valid.shape[1])))
     return tuple(ks)
 
@@ -107,7 +124,7 @@ def make_run_priority(hp: halo_mod.HaloProblem, frac: float, comm=None):
     """run(hgraph, state, cfg, n_iters): per partition the top `frac` of its
     real factors by urgency."""
     comm = _comm(hp.n_chips, comm)
-    ks = priority_ks(hp, frac)
+    ks = priority_ks(hp, frac, comm)
 
     def run(hgraph, state, cfg, n_iters):
         last = _init_last(state)
@@ -130,8 +147,7 @@ def make_run_random(hp: halo_mod.HaloProblem, comm=None):
 
     def run(hgraph, state, cfg, n_iters, keep_prob, generator):
         for _ in range(n_iters):
-            masks = tuple(torch.rand(fb.valid.shape, generator=generator,
-                                     device=fb.valid.device) < keep_prob
+            masks = tuple(_draw(fb.valid.shape, comm, generator, fb.valid.device) < keep_prob
                           for fb in hgraph.fblocks)
             state = halo_mod._sweep_halo(hgraph, state, cfg, comm, active=masks)
         return state
@@ -146,7 +162,7 @@ def make_run_chip_dropout(hp: halo_mod.HaloProblem, comm=None):
     comm = _comm(hp.n_chips, comm)
 
     def run(hgraph, state, cfg, n_iters, dead_chip, dead_sweeps):
-        dead = tuple(_dead_mask(fb.valid.shape, dead_chip, fb.valid.device)
+        dead = tuple(_dead_mask(fb.valid.shape, dead_chip, comm, fb.valid.device)
                      for fb in hgraph.fblocks)
         for i in range(n_iters):
             state = halo_mod._sweep_halo(hgraph, state, cfg, comm,
@@ -167,10 +183,11 @@ def _scores_cm(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((d * d).sum(1))
 
 
-def priority_k_cm(hcm, frac: float) -> int:
+def priority_k_cm(hcm, frac: float, comm=None) -> int:
     """The top-k budget of `make_run_priority_cm`: frac of the largest
     partition's real rows (hcm.act > 0.5), at least 1, at most mp."""
-    real = int((hcm.act > 0.5).reshape(hcm.act.shape[0], -1).sum(1).max())
+    comm = _comm(hcm.z.shape[0], comm)
+    real = _most_real((hcm.act > 0.5).reshape(hcm.act.shape[0], -1).sum(1), comm)
     return max(1, min(int(frac * real), hcm.mp))
 
 
@@ -194,7 +211,7 @@ def make_run_priority_cm(hcm, frac: float, comm=None):
     """run(hcm, state, cfg, n_iters): per-partition top-`frac` priority on
     the CM halo path."""
     comm = _comm(hcm.z.shape[0], comm)
-    k = priority_k_cm(hcm, frac)
+    k = priority_k_cm(hcm, frac, comm)
 
     def run(hcm, state, cfg, n_iters):
         last = torch.full_like(halo_cm_mod.expand_means(hcm, state), math.inf)
@@ -216,8 +233,7 @@ def make_run_random_cm(hcm, comm=None):
 
     def run(hcm, state, cfg, n_iters, keep_prob, generator):
         for _ in range(n_iters):
-            active = torch.rand(hcm.act.shape, generator=generator,
-                                device=hcm.act.device) < keep_prob
+            active = _draw(hcm.act.shape, comm, generator, hcm.act.device) < keep_prob
             state = halo_cm_mod._sweep_cm_halo(hcm, state, cfg, comm, active=active)
         return state
 
@@ -230,7 +246,7 @@ def make_run_chip_dropout_cm(hcm, comm=None):
     comm = _comm(hcm.z.shape[0], comm)
 
     def run(hcm, state, cfg, n_iters, dead_chip, dead_sweeps):
-        dead = _dead_mask(hcm.act.shape, dead_chip, hcm.act.device)
+        dead = _dead_mask(hcm.act.shape, dead_chip, comm, hcm.act.device)
         for i in range(n_iters):
             state = halo_cm_mod._sweep_cm_halo(hcm, state, cfg, comm,
                                                active=dead if i < dead_sweeps else None)

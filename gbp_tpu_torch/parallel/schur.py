@@ -11,6 +11,12 @@ with S applied implicitly through two factor-indexed segment sums per
 product and the reduced system solved by block-Jacobi-preconditioned CG.
 Segment sums are `index_add_` (on a CUDA device their order of addition
 varies from run to run; this is the reference solver, not the GBP path).
+
+Sharded (`comm` given, the graph from `sharding.distribute`: each factor
+block cut into contiguous row shards, the K held ones stacked along the
+rows): every segment sum is per-shard partials and one `comm.all_reduce`,
+and the priors are added once, after the reduction; the reduced system,
+the CG vectors and their dot products are replicated.
 """
 from __future__ import annotations
 
@@ -26,20 +32,38 @@ def _segment_sum(a, ids, n):
                        device=a.device).index_add_(0, ids, a)
 
 
+def _sharded_sum(comm):
+    """The segment sum of the Schur step: whole, or (comm given) per held
+    shard, reduced over every shard through `comm`."""
+    if comm is None:
+        return _segment_sum
+    k = len(comm.parts)
+
+    def seg(a, ids, n):
+        return comm.all_reduce(torch.stack([
+            _segment_sum(x, i, n) for x, i in zip(a.chunk(k), ids.chunk(k))]))[0]
+
+    return seg
+
+
 def gauss_newton_step(graph: Graph, means: tuple, fi: int = 0, cam_vi: int = 0,
-                      lmk_vi: int = 1, cg_iters: int = 50, lm_damping: float = 0.0):
+                      lmk_vi: int = 1, cg_iters: int = 50, lm_damping: float = 0.0,
+                      comm=None):
     """One Schur/CG Gauss-Newton step on a BA graph; returns new means tuple.
 
     graph: 2-slot reprojection block `fi` connecting (cam_vi, lmk_vi), with
     variable priors supplying the gauge (models/ba.build's output); diagonal
     or full measurement precision.  lm_damping: optional
-    Levenberg-Marquardt diagonal damping on Hcc / Hll."""
+    Levenberg-Marquardt diagonal damping on Hcc / Hll.  comm: the
+    communicator over the factor shards of a `sharding.distribute`d graph
+    (None: the whole block here)."""
     fb = graph.fblocks[fi]
     vb_c, vb_l = graph.vblocks[cam_vi], graph.vblocks[lmk_vi]
     d_c, d_l = vb_c.dof, vb_l.dof
     cam_ids, lmk_ids = fb.adj[0].long(), fb.adj[1].long()
-    seg_c = lambda a: _segment_sum(a, cam_ids, vb_c.count)
-    seg_l = lambda a: _segment_sum(a, lmk_ids, vb_l.count)
+    seg = _sharded_sum(comm)
+    seg_c = lambda a: seg(a, cam_ids, vb_c.count)
+    seg_l = lambda a: seg(a, lmk_ids, vb_l.count)
 
     x = torch.cat([means[cam_vi][cam_ids], means[lmk_vi][lmk_ids]], dim=-1)
     jac, r0 = linearize_block(fb, x)
@@ -101,11 +125,11 @@ def gauss_newton_step(graph: Graph, means: tuple, fi: int = 0, cam_vi: int = 0,
 
 
 def solve(graph: Graph, means: tuple, n_steps: int = 5, fi: int = 0, cam_vi: int = 0,
-          lmk_vi: int = 1, cg_iters: int = 50, lm_damping: float = 0.0):
+          lmk_vi: int = 1, cg_iters: int = 50, lm_damping: float = 0.0, comm=None):
     """n_steps Schur/CG Gauss-Newton iterations (relinearizing each step)."""
     for _ in range(n_steps):
         means = gauss_newton_step(graph, means, fi=fi, cam_vi=cam_vi, lmk_vi=lmk_vi,
-                                  cg_iters=cg_iters, lm_damping=lm_damping)
+                                  cg_iters=cg_iters, lm_damping=lm_damping, comm=comm)
     return means
 
 

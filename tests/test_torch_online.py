@@ -53,6 +53,23 @@ except ImportError:
     jax = None
 
 torch.set_num_threads(1)
+
+
+def clear_reference_caches():
+    """Empty the reference's jit caches, where JAX was imported: the
+    reference's own tests (tests/test_online.py) count the compiles of
+    `online._add_frame_jit` and `online.run` from zero, and a worker that
+    ran this file first would leave them full."""
+    if jax is not None:
+        jax.clear_caches()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_caches_cleared():
+    yield
+    clear_reference_caches()
+
+
 CAP = dict(cam_capacity=8, lmk_capacity=256, obs_capacity=512, chunk=64, lmk_prior_prec=1000.0)
 N_EVICT = 4
 CFG = dict(eta_damping=0.4, lam_damping=0.4, num_undamped_iters=6, min_linear_iters=8)
@@ -418,3 +435,15 @@ def test_tensors_and_map_tensors_round_trip():
     copy = PO.map_tensors(torch.clone, ob)
     assert all(torch.equal(a, b) and a is not b for a, b in zip(leaves, PO.tensors(copy)))
     assert dataclasses.replace(copy).chunk == 8
+
+
+@needs_jax
+def test_reference_online_caches_cleared():
+    """The module fixture's teardown leaves the reference's online jit
+    caches empty after a reference run."""
+    sim, job, _ = ref_stream(1)
+    JO.run(job, JConfig(**CFG), 3)
+    assert JO.run._cache_size() > 0
+    clear_reference_caches()
+    assert JO._add_frame_jit._cache_size() == 0
+    assert JO.run._cache_size() == 0

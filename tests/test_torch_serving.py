@@ -54,6 +54,16 @@ CFG = dict(eta_damping=0.4, lam_damping=0.4, num_undamped_iters=0, min_linear_it
 needs_jax = pytest.mark.skipif(jax is None, reason="needs the JAX reference")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _reference_caches_cleared():
+    """Empty the reference's jit caches after this file, where JAX was
+    imported: the reference's own tests (tests/test_online.py) count the
+    compiles of `online._add_frame_jit` and `online.run` from zero."""
+    yield
+    if jax is not None:
+        jax.clear_caches()
+
+
 def stream_scene(arrivals, n_cams=60):
     """The stationarity recipe's corridor (60 cameras, 20 landmarks each)."""
     sim = pba.simulate_corridor(n_cams=n_cams, lmks_per_cam=20, window=3, seed=1)
