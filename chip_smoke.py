@@ -4,8 +4,9 @@ paths (camera table, windows, expanded operands, the unfused table kernels,
 whole-table and windowed), the BA command line on BAL files with in-engine
 annealing, the generic engine, pose-graph SLAM (SE(2) and SE(3)), the halo
 paths, the schedules, the fixed-lag serving loop, checkpoint / resume and
-the profiling helpers, structure from motion from rendered pixels, and
-the multi-process paths.
+the profiling helpers, structure from motion from rendered pixels, the
+multi-process paths, the degree-class segmented layout and cameras in the
+ELL slot.
 
     python3 chip_smoke.py
 
@@ -314,6 +315,36 @@ non-zero; no phase is caught):
      through the communicator per sweep beside `halo.collective_bytes`,
      and the host staging's bytes and time.  A rank that fails, or runs past
      MP_TIMEOUT_S, fails the phase.
+ 30. the degree-class segmented layout (`sweep_cm.prepare_seg`,
+     `prepare(segment=True)`).  (a) Per class, each class's kernels against
+     their plain versions on the state after 8 sweeps (windowed: 11, 10
+     with and without Huber, 16 and 15 bit for bit; whole table: 1, 2, 3):
+     city (auto, three windowed classes of degree 6, 5, 4) and blocks7
+     (exact, three windowed and two unwindowed classes) in float32;
+     blocks8 (auto, two windowed) and the reference's segmented test scene
+     (exact, five unwindowed) in float64, where blocks7's declines (its
+     camera table exceeds the full-table kernels' 48 KB).  (b) City through
+     `prepare(segment=True)`: 50 sweeps launch 11, 10, 16, 15 three times
+     a sweep and no plain version; the ARE within 5e-3 px of the single
+     segment's; a bitwise rerun.  (c) City and venice, segmented and single
+     segment in one call: sweeps/s (8 pairs of runs in alternating order,
+     after a warm one; every run printed, the median and the pairs'
+     ratios), kernel launches and device ms per sweep (the profiler), busy
+     share.
+ 31. cameras in the ELL slot (graphs with more cameras than landmarks: the
+     landmarks gathered, slot 1, at (6, 3, 2) and (9, 3, 2)).  (a) Float64
+     and float32, every table kernel against its plain version at slot 1:
+     windowed fused (11, 10, 16, 15) and unfused (9, 8, 14), and with the
+     windows off the whole-table fused (1, 2, 3) and unfused (7, 6, 14)
+     kernels, on 640 cameras with a quarter of their landmarks
+     (`bench.dense_cameras`) as reprojection and as a BAL problem
+     (`bench.bal_scene`, per-row distortion and 9-dof cameras), the 16 x 12
+     scene in float64; the halo kernels 17, 18, 12, 13 per partition of
+     1,920 such cameras cut in two, as reprojection and 9-dof BAL.  (b) `python -m
+     gbp_tpu_torch.ba --n_cams 16 --n_lmks 12 --oracle`, with and without
+     `--n_chips 2`: kernels 1, 2 and 3 once a sweep on each partition and
+     no other launch or plain call (counted), the final ARE within 1.05x
+     the dense MAP's.
 """
 import contextlib
 import dataclasses
@@ -321,6 +352,7 @@ import json
 import math
 import re
 import socket
+import statistics
 import sys
 import tempfile
 import time
@@ -334,6 +366,7 @@ from torch.profiler import ProfilerActivity, profile
 import gbp_tpu_torch
 from gbp_tpu_torch import ba as ba_cli
 from gbp_tpu_torch import slam as slam_cli
+from gbp_tpu_torch import bench
 from gbp_tpu_torch.bench import BIG_BUILD as BIG
 from gbp_tpu_torch.bench import CFG, CITY, VENICE, card_line
 from gbp_tpu_torch.bench import compare_sums as CS
@@ -650,34 +683,26 @@ def widened(cmg, w):
                         blk_offsets=i32(blk_offsets))
 
 
-def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_kw=None):
-    """Phases 3 and 4 for one scene and dtype: the full-table kernels when
-    the prepared graph has no windows, the windowed ones when it has (with
-    the windows widened to `wide` cameras, if given).
-    Returns {kernel: max abs err}."""
-    tol = TOL[dtype]
-    masked = tag in SCHEDULE_SCENES
-    prep_kw = prep_kw or {}
-    st = to_device(cpu_state(sim, dtype, build_kw, prep_kw), dev)
-    cmg = sweep_cm.prepare(ba.build(sim, dtype=dtype, **build_kw)[0], **prep_kw)
-    if wide:
-        cmg = widened(cmg, wide)
-    win = bool(cmg.win_w)
-    fs = st.f
-    deg = cmg.fb.ell_deg
-    params = _kernel_params(CFG, dtype)
+def table_ops(cmg, st):
+    """The table kernels' operands of a single-segment CMGraph and its state
+    (`sweep_cm.belief_tables`): what `check_table_kernels` and the unfused
+    checks take, as `seg_ops` gives them for a degree class."""
     cam_mean, lmk_mean, cam_tab, lmk_tab = sweep_cm.belief_tables(cmg, st)
-    n_cam = cam_mean.shape[0]
-    tag = f"{tag} {str(dtype)[6:]}"
-    errs = {}
-    if win:
-        print(f"[kernels] {tag}: {cmg.mp // M.TILE} tiles, win_w {cmg.win_w} "
-              f"({cmg.win_w * M.F_CAM * cam_tab.element_size()} bytes of packed beliefs per "
-              f"block), locality sort {'on' if cmg.vperm is not None else 'off'}")
+    fb = cmg.fb
+    return dict(gslot=1 - fb.ell_slot, deg=fb.ell_deg, mp=cmg.mp, gidx=cmg.gidx, z=cmg.z,
+                prec=cmg.prec, act=cmg.act, args=cmg.args, comp_name=fb.ftype.name,
+                win_w=cmg.win_w, win_starts=cmg.win_starts, win_rows=cmg.win_rows,
+                win_offsets=cmg.win_offsets, blk_tiles=cmg.blk_tiles, blk_offsets=cmg.blk_offsets,
+                seg_rows=cmg.seg_rows, seg_offsets=cmg.seg_offsets, cam_mean=cam_mean,
+                cam_tab=cam_tab, lmk_mean=lmk_mean, lmk_tab=lmk_tab, fs=st.f)
 
+
+def make_compare(tag, tol, errs):
+    """`compare(name, got, ref, record=True, key=None)`: hold every output to
+    the relative tolerance `tol` and file the worst abs error in `errs`;
+    `key` files it under a kernel's name and prints one line for the call,
+    not one per output."""
     def compare(name, got, ref, record=True, key=None):
-        """Hold every output to the tolerance; `key` files the error under a
-        kernel's name and prints one line for the call, not one per output."""
         worst_rel, worst_abs = 0.0, 0.0
         for i, (a, b) in enumerate(zip(got, ref)):
             rel, err = rel_err(a, b)
@@ -691,6 +716,57 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
                   f"{worst_rel:.3e}")
         if record:
             errs[key or name] = max(errs.get(key or name, 0.0), worst_abs)
+    compare.errs = errs
+    return compare
+
+
+def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_kw=None):
+    """Phases 3 and 4 for one scene and dtype: the full-table kernels when
+    the prepared graph has no windows, the windowed ones when it has (with
+    the windows widened to `wide` cameras, if given), then the row kernels
+    and the unfused ones on the same state.
+    Returns {kernel: max abs err}."""
+    masked = tag in SCHEDULE_SCENES
+    prep_kw = prep_kw or {}
+    st = to_device(cpu_state(sim, dtype, build_kw, prep_kw), dev)
+    cmg = sweep_cm.prepare(ba.build(sim, dtype=dtype, **build_kw)[0], **prep_kw)
+    if wide:
+        cmg = widened(cmg, wide)
+    tag = f"{tag} {str(dtype)[6:]}"
+    errs = {}
+    compare = make_compare(tag, TOL[dtype], errs)
+    o = table_ops(cmg, st)
+    if cmg.win_w:
+        print(f"[kernels] {tag}: {cmg.mp // M.TILE} tiles, win_w {cmg.win_w} "
+              f"({cmg.win_w * M.F_CAM * o['cam_tab'].element_size()} bytes of packed beliefs "
+              f"per block), locality sort {'on' if cmg.vperm is not None else 'off'}")
+    ref_r, acts, _ = check_table_kernels(tag, o, dtype, compare, timings, masked)
+    if cmg.win_w:
+        check_unfused_win_kernels(tag, o, dtype, compare, timings, acts)
+    else:
+        check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings, acts)
+        check_unfused_kernels(tag, o, dtype, compare, timings, acts)
+    return errs
+
+
+def check_table_kernels(tag, o, dtype, compare, timings=None, masked=False):
+    """The fused table kernels of one graph or degree class against their
+    plain versions on its operands `o` (`table_ops`, `seg_ops`), at either
+    gathered slot: windowed, 11, 10 (Huber off and 1.0), 16 and 15 bit for
+    bit (16 against the plain version on CPU copies) and against the
+    whole-table sum where `o` has its CSR; whole table, 1, 2 and 3;
+    relinearization at the median distance (half the rows relinearize) and
+    at the config's beta; each sum repeated bit for bit.  With `masked`
+    (phase 25 (a)) 1, 2 or 11, 10 again under partial masks.  `timings`
+    collects each kernel's times for the JSON line.  Returns (the
+    relinearized state at the config's beta, the masks, {kernel: a call on
+    these operands})."""
+    g, deg, fs = o["gslot"], o["deg"], o["fs"]
+    dev = o["gidx"].device
+    win = bool(o["win_w"])
+    params = _kernel_params(CFG, dtype)
+    n_cam = o["cam_mean"].shape[0]
+    model = dict(comp_name=o["comp_name"], gslot=g, fargs=o["args"])
 
     def repeats(name, fn, args, kw, first):
         if not torch.equal(first, sync(fn(*args, **kw))):
@@ -699,27 +775,28 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
 
     if win:
         n_relin_name, n_msg_name = "relin_cm_tabblk_ell", "messages_cm_tabblk_ell"
-        relin, relin_plain = M.relin_cm_tabblk_ell, M.relin_cm_tabblk_ell_plain
-        msgs, msgs_plain = M.messages_cm_tabblk_ell, M.messages_cm_tabblk_ell_plain
-        ids, r_kw = (cmg.gidx, cmg.win_starts), dict(deg=deg, win_w=cmg.win_w)
-        sum_index = (cmg.win_rows, cmg.win_offsets)
+        ids, r_kw = (o["gidx"], o["win_starts"]), dict(deg=deg, win_w=o["win_w"])
+        sum_index = (o["win_rows"], o["win_offsets"])
     else:
         n_relin_name, n_msg_name = "relin_cm_tab_ell", "messages_cm_tab_ell"
-        relin, relin_plain = M.relin_cm_tab_ell, M.relin_cm_tab_ell_plain
-        msgs, msgs_plain = M.messages_cm_tab_ell, M.messages_cm_tab_ell_plain
-        ids, r_kw = (cmg.gidx,), dict(deg=deg)
-        sum_index = (cmg.seg_rows, cmg.seg_offsets)
+        ids, r_kw = (o["gidx"],), dict(deg=deg)
+        sum_index = (o["seg_rows"], o["seg_offsets"])
+    relin, relin_plain = getattr(M, n_relin_name), getattr(M, n_relin_name + "_plain")
+    msgs, msgs_plain = getattr(M, n_msg_name), getattr(M, n_msg_name + "_plain")
+    m_kw = dict(gslot=g, **r_kw)
+    r_kw = dict(model, **r_kw)
 
     # The median linearization-point distance of the valid rows, as beta,
     # makes half of them relinearize: the beta decision is checked both ways.
-    rows = torch.arange(cmg.mp, device=dev) // deg
-    x = torch.cat([cam_mean[cmg.gidx.long()], lmk_mean[rows]], 1).T
-    on = cmg.act[0] > 0.5
+    rows = torch.arange(o["mp"], device=dev) // deg
+    by_slot = lambda gat, ell: (gat, ell) if g == 0 else (ell, gat)
+    x = torch.cat(by_slot(o["cam_mean"][o["gidx"].long()], o["lmk_mean"][rows]), 1).T
+    on = o["act"][0] > 0.5
     beta_mid = float(((x - fs.lp) ** 2).sum(0).sqrt()[on].double().median())
     n_valid = int(on.sum())
     for beta in (beta_mid, CFG.beta):  # the config's beta last: its outputs feed on
-        relin_args = (_kernel_params(dataclasses.replace(CFG, beta=beta), dtype), cam_mean,
-                      lmk_mean, *ids, cmg.z, fs.lp, fs.jac, fs.r0, fs.srel, cmg.act)
+        relin_args = (_kernel_params(dataclasses.replace(CFG, beta=beta), dtype), o["cam_mean"],
+                      o["lmk_mean"], *ids, o["z"], fs.lp, fs.jac, fs.r0, fs.srel, o["act"])
         ref_r = sync(relin_plain(*relin_args, **r_kw))
         n_relin = int((ref_r[3] == 0).sum())
         print(f"[kernels] {tag} beta {beta:.4g}: {n_relin} of {n_valid} valid rows relinearize")
@@ -728,91 +805,97 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
         compare(n_relin_name, sync(relin(*relin_args, **r_kw)), ref_r)
 
     lp, jac, r0, srel = ref_r
-    msg_args = (params, cam_tab, lmk_tab, *ids, jac, lp, r0, cmg.prec, srel, cmg.act,
+    msg_args = (params, o["cam_tab"], o["lmk_tab"], *ids, jac, lp, r0, o["prec"], srel, o["act"],
                 fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1], *sum_index)
     for huber in (None, 1.0):
-        ref_m = sync(msgs_plain(*msg_args, huber=huber, **r_kw))
-        got_m = sync(msgs(*msg_args, huber=huber, **r_kw))
+        ref_m = sync(msgs_plain(*msg_args, huber=huber, **m_kw))
+        got_m = sync(msgs(*msg_args, huber=huber, **m_kw))
         compare(n_msg_name, got_m, ref_m)
+    calls = {n_relin_name: lambda: relin(*relin_args, **r_kw),
+             n_msg_name: lambda: msgs(*msg_args, huber=None, **m_kw)}
 
     if win:
         print(f"[kernels] {tag} relin_cm_tabblk_ell: "
-              f"{M.window_blocks_per_sm('relin_cm_tabblk_ell', cmg.win_w, dtype)} blocks of 256 "
-              f"threads per SM at win_w {cmg.win_w}")
-        print_plan(tag, "messages_cm_tabblk_ell", dtype, win_w=cmg.win_w, mp=cmg.mp)
+              f"{M.window_blocks_per_sm('relin_cm_tabblk_ell', o['win_w'], dtype)} blocks of "
+              f"256 threads per SM at win_w {o['win_w']}")
+        print_plan(tag, "messages_cm_tabblk_ell", dtype, win_w=o["win_w"], mp=o["mp"])
 
-    me, ml = ref_m[0], ref_m[1]
-    whole = sync(M.segsum_by_id_plain(me, ml, cmg.seg_rows, cmg.seg_offsets))
+    me, ml = ref_m[2 * g], ref_m[2 * g + 1]
+    whole = (None if o["seg_rows"] is None
+             else sync(M.segsum_by_id_plain(me, ml, o["seg_rows"], o["seg_offsets"])))
     if win:
-        blk_args, blk_kw = (me, ml, *sum_index), dict(n_tiles=cmg.mp // M.TILE, w=cmg.win_w)
+        blk_args, blk_kw = (me, ml, *sum_index), dict(n_tiles=o["mp"] // M.TILE, w=o["win_w"])
         part = sync(M.segsum_cm_blk(*blk_args, **blk_kw))
         hold_segsum_blk(tag, part, *blk_args)
-        errs["segsum_cm_blk"] = 0.0
         repeats("segsum_cm_blk", M.segsum_cm_blk, blk_args, blk_kw, part)
-        sc_args = (part, cmg.win_starts, cmg.blk_tiles, cmg.blk_offsets)
+        sc_args = (part, o["win_starts"], o["blk_tiles"], o["blk_offsets"])
         sc_kw = dict(n_seg=n_cam)
         got_s = sync(M.scatter_windows_cm(*sc_args, **sc_kw))
         exact("scatter_windows_cm", got_s, sync(scatter_plain(*sc_args, **sc_kw)), tag)
-        errs["scatter_windows_cm"] = 0.0
-        compare("scatter_windows_cm vs the whole-table sum", (got_s,), (whole,), record=False)
+        compare.errs["segsum_cm_blk"] = compare.errs["scatter_windows_cm"] = 0.0
+        if whole is not None:
+            compare("scatter_windows_cm vs the whole-table sum", (got_s,), (whole,), record=False)
         repeats("scatter_windows_cm", M.scatter_windows_cm, sc_args, sc_kw, got_s)
+        calls["segsum_cm_blk"] = lambda: M.segsum_cm_blk(*blk_args, **blk_kw)
+        calls["scatter_windows_cm"] = lambda: M.scatter_windows_cm(*sc_args, **sc_kw)
     else:
         seg_args = (me, ml, *sum_index)
         got_s = sync(M.segsum_by_id(*seg_args))
         print(f"[kernels] {tag} segsum_by_id form (chunk, group) "
-              f"{M.segsum_form(cmg.mp, n_cam, cmg.seg_rows.shape[0])}")
+              f"{M.segsum_form(o['mp'], n_cam, o['seg_rows'].shape[0])}")
         compare("segsum_by_id", (got_s,), (whole,))
         repeats("segsum_by_id", M.segsum_by_id, seg_args, {}, got_s)
+        calls["segsum_by_id"] = lambda: M.segsum_by_id(*seg_args)
 
-    acts = schedule_acts(x, cmg.act) if masked else None
+    acts = schedule_acts(x, o["act"]) if masked else None
     if acts:
-        hold_masked(tag, n_relin_name, relin, relin_plain, relin_args, r_kw, cmg.act, acts,
+        hold_masked(tag, n_relin_name, relin, relin_plain, relin_args, r_kw, o["act"], acts,
                     relin_kept(fs), keyed(compare))
-        outs = hold_masked(tag, n_msg_name, msgs, msgs_plain, msg_args, dict(huber=1.0, **r_kw),
-                           cmg.act, acts, messages_kept(fs), keyed(compare))
-        for label, o in outs.items():
+        outs = hold_masked(tag, n_msg_name, msgs, msgs_plain, msg_args, dict(huber=1.0, **m_kw),
+                           o["act"], acts, messages_kept(fs), keyed(compare))
+        for label, out in outs.items():
             # The camera-side sums of messages that kept their old values.
             if win:
-                hold_segsum_blk(f"{tag} {label} mask", o[-1], o[0], o[1], *sum_index)
-                sc_args = (o[-1], cmg.win_starts, cmg.blk_tiles, cmg.blk_offsets)
+                hold_segsum_blk(f"{tag} {label} mask", out[-1], out[2 * g], out[2 * g + 1],
+                                *sum_index)
+                sc_args = (out[-1], o["win_starts"], o["blk_tiles"], o["blk_offsets"])
                 exact("scatter_windows_cm", sync(M.scatter_windows_cm(*sc_args, n_seg=n_cam)),
                       sync(scatter_plain(*sc_args, n_seg=n_cam)), f"{tag} {label} mask")
             else:
-                seg_args = (o[0], o[1], *sum_index)
-                compare(f"segsum_by_id[{label} mask]", (o[-1],),
+                seg_args = (out[2 * g], out[2 * g + 1], *sum_index)
+                compare(f"segsum_by_id[{label} mask]", (out[-1],),
                         (M.segsum_by_id_plain(*seg_args),), record=False)
-                if not torch.equal(o[-1], sync(M.segsum_by_id(*seg_args))):
+                if not torch.equal(out[-1], sync(M.segsum_by_id(*seg_args))):
                     raise AssertionError(f"segsum_by_id {tag} {label} mask: two runs differ")
-    if not win:
-        check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings, acts)
-        check_unfused_kernels(tag, cmg, st, dtype, compare, timings, acts)
-    else:
-        check_unfused_win_kernels(tag, cmg, st, dtype, compare, timings, acts)
     if timings is None:
-        return errs
+        return ref_r, acts, calls
     vals = torch.cat([me, ml])
-    gl = cmg.gidx.long()
-    zeros = lambda n: torch.zeros((M.F_CAM, n), dtype=dtype, device=dev)
+    gl = o["gidx"].long()
+    width = vals.shape[0]
+    zeros = lambda n: torch.zeros((width, n), dtype=dtype, device=dev)
     n_relin_cfg = int((ref_r[3] == 0).sum())
     timed = [
         (n_relin_name, relin, relin_plain, relin_args, r_kw, ref_r,
-         RELIN_TEST_FLOPS * cmg.mp + RELIN_ROW_FLOPS * n_relin_cfg, None),
-        (n_msg_name, msgs, msgs_plain, msg_args, dict(huber=None, **r_kw), got_m,
-         (MESSAGES_ROW_FLOPS + M.F_CAM) * cmg.mp, None),
+         RELIN_TEST_FLOPS * o["mp"] + RELIN_ROW_FLOPS * n_relin_cfg, None),
+        (n_msg_name, msgs, msgs_plain, msg_args, dict(huber=None, **m_kw), got_m,
+         (MESSAGES_ROW_FLOPS + width) * o["mp"], None),
     ]
     if win:
-        tile_key = (torch.arange(cmg.mp, device=dev) // M.TILE) * cmg.win_w + (
-            gl - cmg.win_starts.long().repeat_interleave(M.TILE))
-        win_ids = (cmg.win_starts.long()[:, None] + torch.arange(cmg.win_w, device=dev)).reshape(-1)
-        part_cm = part.permute(1, 0, 2).reshape(M.F_CAM, -1).contiguous()
+        tile_key = (torch.arange(o["mp"], device=dev) // M.TILE) * o["win_w"] + (
+            gl - o["win_starts"].long().repeat_interleave(M.TILE))
+        win_ids = (o["win_starts"].long()[:, None]
+                   + torch.arange(o["win_w"], device=dev)).reshape(-1)
+        part_cm = part.permute(1, 0, 2).reshape(width, -1).contiguous()
+        n_cover = int(M.cover_lists(o["win_starts"], o["win_w"], n_cam)[1][-1])
+        n_cpad = -(-n_cam // sweep_cm.SUB) * sweep_cm.SUB  # the window table's cameras
         timed += [
             ("segsum_cm_blk", M.segsum_cm_blk, M.segsum_cm_blk_plain, blk_args, blk_kw, (part,),
-             M.F_CAM * cmg.mp,
+             width * o["mp"],
              lambda: zeros(part_cm.shape[1]).index_add_(1, tile_key, vals)),
             # One addition per covering tile, camera and component.
             ("scatter_windows_cm", M.scatter_windows_cm, scatter_plain, sc_args, sc_kw,
-             (got_s,), M.F_CAM * int(M.cover_lists(cmg.win_starts, cmg.win_w, n_cam)[1][-1]),
-             lambda: zeros(cmg.win_ncpad).index_add_(1, win_ids, part_cm)),
+             (got_s,), width * n_cover,
+             lambda: zeros(n_cpad).index_add_(1, win_ids, part_cm)),
         ]
     else:
         timed.append(("segsum_by_id", M.segsum_by_id, M.segsum_by_id_plain, seg_args, {},
@@ -837,7 +920,7 @@ def check_kernels(tag, sim, dtype, dev, build_kw, timings=None, wide=None, prep_
             report_window_kernel(tag, name, args, kw)
         if name == "segsum_cm_blk":
             report_segsum_blk(tag, *args, **kw)
-    return errs
+    return ref_r, acts, calls
 
 
 def check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings, acts=None):
@@ -942,31 +1025,38 @@ def check_row_kernels(tag, cmg, st, ref_r, dtype, compare, timings, acts=None):
               f"{b_ms:.4f} ms ({b_by}), no single library call")
 
 
-def check_unfused_kernels(tag, cmg, st, dtype, compare, timings, acts=None):
-    """Phase 12 for one scene and dtype, from the state `st` of the full-table
-    checks: `expand_ell_blk`, `relin_cm_tab` and `messages_cm_tab` against
-    their plain versions; with `acts` (phase 25 (a)) the last two again under
-    those masks."""
-    fs, fb = st.f, cmg.fb
-    deg = fb.ell_deg
+def expanded_ell(tag, o, compare):
+    """The ELL slot's per-row operands (eta, lam, mean) of the operands `o`
+    by `expand_ell_blk` (14), held bit for bit against its plain version;
+    returns them with the packed table it expanded."""
+    d_e = o["lmk_mean"].shape[1]
+    pk = torch.cat([o["lmk_tab"], o["lmk_mean"]], 1).contiguous()
+    cm = sync(M.expand_ell_blk(pk, deg=o["deg"]))
+    ref = sync(M.expand_ell_blk_plain(pk, deg=o["deg"]))
+    exact("expand_ell_blk", cm, ref, f"{tag} ({pk.shape[1]} values a row)")
+    compare("expand_ell_blk", (cm,), (ref,))
+    return (*sweep_cm._split(cm, d_e), pk, cm)
+
+
+def check_unfused_kernels(tag, o, dtype, compare, timings, acts=None):
+    """Phase 12 for one graph or degree class and dtype, on its operands `o`
+    (`table_ops`, `seg_ops`) at either gathered slot: `expand_ell_blk`,
+    `relin_cm_tab` and `messages_cm_tab` against their plain versions; with
+    `acts` (phase 25 (a)) the last two again under those masks.  Returns
+    {kernel: a call on these operands}."""
+    fs, deg, g = o["fs"], o["deg"], o["gslot"]
     dev = fs.lp.device
-    vs_c, vs_l = st.v[fb.vblocks[0]], st.v[fb.vblocks[1]]
-    pk = sweep_cm._with_identity_rows(sweep_cm._pack_beliefs(vs_l), fb.dofs[1],
-                                      cmg.nv - vs_l.eta.shape[0]).contiguous()
-    cm = sync(M.expand_ell_blk(pk, deg=deg))
-    if not torch.equal(cm, sync(M.expand_ell_blk_plain(pk, deg=deg))):
-        raise AssertionError(f"expand_ell_blk {tag}: differs from its plain version")
-    compare("expand_ell_blk", (cm,), (M.expand_ell_blk_plain(pk, deg=deg),))
-    be1, bl1, mean1 = sweep_cm._split(cm, fb.dofs[1])
-    mtab, btab = vs_c.mean.contiguous(), sweep_cm._packed(vs_c).contiguous()
-    x = torch.cat([mtab[cmg.gidx.long()].T, mean1])
-    on = cmg.act[0] > 0.5
+    be_e, bl_e, mean_e, pk, cm = expanded_ell(tag, o, compare)
+    mtab, btab = o["cam_mean"], o["cam_tab"]
+    by_slot = lambda gat, ell: (gat, ell) if g == 0 else (ell, gat)
+    x = torch.cat(by_slot(mtab[o["gidx"].long()].T, mean_e))
+    on = o["act"][0] > 0.5
     beta_mid = float(((x - fs.lp) ** 2).sum(0).sqrt()[on].double().median())
+    r_kw = dict(comp_name=o["comp_name"], gslot=g)
     for beta in (beta_mid, CFG.beta):
         params = _kernel_params(dataclasses.replace(CFG, beta=beta), dtype)
-        relin_args = (params, mean1, mtab, cmg.gidx, cmg.z, None, fs.lp, fs.jac, fs.r0, fs.srel,
-                      cmg.act)
-        r_kw = dict(comp_name=fb.ftype.name)
+        relin_args = (params, mean_e, mtab, o["gidx"], o["z"], o["args"], fs.lp, fs.jac, fs.r0,
+                      fs.srel, o["act"])
         ref_r = sync(M.relin_cm_tab_plain(*relin_args, **r_kw))
         n_relin = int((ref_r[3] == 0).sum())
         if n_relin == 0 or (beta == beta_mid and n_relin == int(on.sum())):
@@ -974,29 +1064,33 @@ def check_unfused_kernels(tag, cmg, st, dtype, compare, timings, acts=None):
         compare("relin_cm_tab", sync(M.relin_cm_tab(*relin_args, **r_kw)), ref_r,
                 key="relin_cm_tab")
     lp, jac, r0, srel = ref_r
-    msg_args = (_kernel_params(CFG, dtype), jac, lp, r0, cmg.prec, srel, cmg.act, be1, bl1, btab,
-                cmg.gidx, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])
+    msg_args = (_kernel_params(CFG, dtype), jac, lp, r0, o["prec"], srel, o["act"], be_e, bl_e,
+                btab, o["gidx"], fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])
     for huber in (1.0, None):
-        got_m = sync(M.messages_cm_tab(*msg_args, huber=huber))
+        got_m = sync(M.messages_cm_tab(*msg_args, huber=huber, gslot=g))
         compare(f"messages_cm_tab[huber={huber}]", got_m,
-                sync(M.messages_cm_tab_plain(*msg_args, huber=huber)), key="messages_cm_tab")
+                sync(M.messages_cm_tab_plain(*msg_args, huber=huber, gslot=g)),
+                key="messages_cm_tab")
     if acts:
         hold_masked(tag, "relin_cm_tab", M.relin_cm_tab, M.relin_cm_tab_plain, relin_args, r_kw,
-                    cmg.act, acts, relin_kept(fs), keyed(compare))
+                    o["act"], acts, relin_kept(fs), keyed(compare))
         hold_masked(tag, "messages_cm_tab", M.messages_cm_tab, M.messages_cm_tab_plain, msg_args,
-                    dict(huber=1.0), cmg.act, acts, messages_kept(fs), keyed(compare))
+                    dict(huber=1.0, gslot=g), o["act"], acts, messages_kept(fs), keyed(compare))
+    calls = {"expand_ell_blk": lambda: M.expand_ell_blk(pk, deg=deg),
+             "relin_cm_tab": lambda: M.relin_cm_tab(*relin_args, **r_kw),
+             "messages_cm_tab": lambda: M.messages_cm_tab(*msg_args, huber=None, gslot=g)}
     if timings is None:
-        return
-    rows = torch.arange(cmg.mp, device=dev) // deg
+        return calls
+    rows = torch.arange(o["mp"], device=dev) // deg
     pk_t = pk.T.contiguous()
     n_relin_cfg = int((ref_r[3] == 0).sum())
     timed = [
         ("expand_ell_blk", M.expand_ell_blk, M.expand_ell_blk_plain, (pk,), dict(deg=deg), (cm,),
          0, lambda: pk_t.index_select(1, rows)),
         ("relin_cm_tab", M.relin_cm_tab, M.relin_cm_tab_plain, relin_args, r_kw, ref_r,
-         RELIN_TEST_FLOPS * cmg.mp + RELIN_ROW_FLOPS * n_relin_cfg, None),
+         RELIN_TEST_FLOPS * o["mp"] + RELIN_ROW_FLOPS * n_relin_cfg, None),
         ("messages_cm_tab", M.messages_cm_tab, M.messages_cm_tab_plain, msg_args,
-         dict(huber=None), got_m, MESSAGES_ROW_FLOPS * cmg.mp, None),
+         dict(huber=None, gslot=g), got_m, MESSAGES_ROW_FLOPS * o["mp"], None),
     ]
     for name, kern, plain, args, kw, outs, flops, library in timed:
         ms = time_ms(lambda: kern(*args, **kw), 20)
@@ -1008,31 +1102,30 @@ def check_unfused_kernels(tag, cmg, st, dtype, compare, timings, acts=None):
         print(f"[kernels] {tag} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}), index_select "
               + ("none" if lib_ms is None else f"{lib_ms:.4f} ms"))
+    return calls
 
 
-def check_unfused_win_kernels(tag, cmg, st, dtype, compare, timings, acts=None):
-    """Phase 17 for one windowed scene and dtype, from the state `st` of the
-    windowed checks: `relin_cm_tabblk` (both regimes) and
-    `messages_cm_tabblk` (Huber none and scalar) against their plain
-    versions, the ELL slot expanded by `expand_ell_blk`; timed with their
-    bounds when `timings` is given; with `acts` (phase 25 (a)) both again
-    under those masks."""
-    fs, fb = st.f, cmg.fb
-    deg = fb.ell_deg
-    vs_c, vs_l = st.v[fb.vblocks[0]], st.v[fb.vblocks[1]]
-    pk = sweep_cm._with_identity_rows(sweep_cm._pack_beliefs(vs_l), fb.dofs[1],
-                                      cmg.nv - vs_l.eta.shape[0]).contiguous()
-    be1, bl1, mean1 = sweep_cm._split(sync(M.expand_ell_blk(pk, deg=deg)), fb.dofs[1])
-    mtab, btab = vs_c.mean.contiguous(), sweep_cm._packed(vs_c).contiguous()
-    w_kw = dict(win_w=cmg.win_w)
-    x = torch.cat([mtab[cmg.gidx.long()].T, mean1])
-    on = cmg.act[0] > 0.5
+def check_unfused_win_kernels(tag, o, dtype, compare, timings, acts=None):
+    """Phase 17 for one windowed graph or degree class and dtype, on its
+    operands `o` at either gathered slot: `relin_cm_tabblk` (both regimes)
+    and `messages_cm_tabblk` (Huber none and scalar) against their plain
+    versions, the ELL slot expanded by `expand_ell_blk` (held bit for bit);
+    timed with their bounds when `timings` is given; with `acts` (phase 25
+    (a)) both again under those masks.  Returns {kernel: a call on these
+    operands}."""
+    fs, deg, g = o["fs"], o["deg"], o["gslot"]
+    be_e, bl_e, mean_e, pk, _ = expanded_ell(tag, o, compare)
+    mtab, btab = o["cam_mean"], o["cam_tab"]
+    w_kw = dict(win_w=o["win_w"])
+    by_slot = lambda gat, ell: (gat, ell) if g == 0 else (ell, gat)
+    x = torch.cat(by_slot(mtab[o["gidx"].long()].T, mean_e))
+    on = o["act"][0] > 0.5
     beta_mid = float(((x - fs.lp) ** 2).sum(0).sqrt()[on].double().median())
+    r_kw = dict(comp_name=o["comp_name"], gslot=g, **w_kw)
     for beta in (beta_mid, CFG.beta):
         params = _kernel_params(dataclasses.replace(CFG, beta=beta), dtype)
-        relin_args = (params, mean1, mtab, cmg.gidx, cmg.win_starts, cmg.z, cmg.args, fs.lp,
-                      fs.jac, fs.r0, fs.srel, cmg.act)
-        r_kw = dict(comp_name=fb.ftype.name, **w_kw)
+        relin_args = (params, mean_e, mtab, o["gidx"], o["win_starts"], o["z"], o["args"], fs.lp,
+                      fs.jac, fs.r0, fs.srel, o["act"])
         ref_r = sync(M.relin_cm_tabblk_plain(*relin_args, **r_kw))
         n_relin = int((ref_r[3] == 0).sum())
         if n_relin == 0 or (beta == beta_mid and n_relin == int(on.sum())):
@@ -1040,29 +1133,33 @@ def check_unfused_win_kernels(tag, cmg, st, dtype, compare, timings, acts=None):
         compare("relin_cm_tabblk", sync(M.relin_cm_tabblk(*relin_args, **r_kw)), ref_r,
                 key="relin_cm_tabblk")
     lp, jac, r0, srel = ref_r
-    msg_args = (_kernel_params(CFG, dtype), jac, lp, r0, cmg.prec, srel, cmg.act, be1, bl1, btab,
-                cmg.gidx, cmg.win_starts, fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1],
+    msg_args = (_kernel_params(CFG, dtype), jac, lp, r0, o["prec"], srel, o["act"], be_e, bl_e,
+                btab, o["gidx"], o["win_starts"], fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1],
                 fs.msg_lam[1])
-    print_plan(tag, "messages_cm_tabblk", dtype, win_w=cmg.win_w, mp=cmg.mp)
+    m_kw = dict(gslot=g, **w_kw)
+    print_plan(tag, "messages_cm_tabblk", dtype, win_w=o["win_w"], mp=o["mp"])
     for huber in (1.0, None):
-        got_m = sync(M.messages_cm_tabblk(*msg_args, huber=huber, **w_kw))
+        got_m = sync(M.messages_cm_tabblk(*msg_args, huber=huber, **m_kw))
         compare(f"messages_cm_tabblk[huber={huber}]", got_m,
-                sync(M.messages_cm_tabblk_plain(*msg_args, huber=huber, **w_kw)),
+                sync(M.messages_cm_tabblk_plain(*msg_args, huber=huber, **m_kw)),
                 key="messages_cm_tabblk")
     if acts:
         hold_masked(tag, "relin_cm_tabblk", M.relin_cm_tabblk, M.relin_cm_tabblk_plain,
-                    relin_args, r_kw, cmg.act, acts, relin_kept(fs), keyed(compare))
+                    relin_args, r_kw, o["act"], acts, relin_kept(fs), keyed(compare))
         hold_masked(tag, "messages_cm_tabblk", M.messages_cm_tabblk, M.messages_cm_tabblk_plain,
-                    msg_args, dict(huber=1.0, **w_kw), cmg.act, acts, messages_kept(fs),
+                    msg_args, dict(huber=1.0, **m_kw), o["act"], acts, messages_kept(fs),
                     keyed(compare))
+    calls = {"expand_ell_blk": lambda: M.expand_ell_blk(pk, deg=deg),
+             "relin_cm_tabblk": lambda: M.relin_cm_tabblk(*relin_args, **r_kw),
+             "messages_cm_tabblk": lambda: M.messages_cm_tabblk(*msg_args, huber=None, **m_kw)}
     if timings is None:
-        return
+        return calls
     n_relin_cfg = int((ref_r[3] == 0).sum())
     timed = [
         ("relin_cm_tabblk", M.relin_cm_tabblk, M.relin_cm_tabblk_plain, relin_args, r_kw, ref_r,
-         RELIN_TEST_FLOPS * cmg.mp + RELIN_ROW_FLOPS * n_relin_cfg),
+         RELIN_TEST_FLOPS * o["mp"] + RELIN_ROW_FLOPS * n_relin_cfg),
         ("messages_cm_tabblk", M.messages_cm_tabblk, M.messages_cm_tabblk_plain, msg_args,
-         dict(huber=None, **w_kw), got_m, MESSAGES_ROW_FLOPS * cmg.mp),
+         dict(huber=None, **m_kw), got_m, MESSAGES_ROW_FLOPS * o["mp"]),
     ]
     for name, kern, plain, args, kw, outs, flops in timed:
         ms = time_ms(lambda: kern(*args, **kw), 20)
@@ -1072,7 +1169,8 @@ def check_unfused_win_kernels(tag, cmg, st, dtype, compare, timings, acts=None):
                              library_ms=None)
         print(f"[kernels] {tag} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}), no single library call")
-    report_window_kernel(tag, "messages_cm_tabblk", msg_args, dict(huber=None, **w_kw))
+    report_window_kernel(tag, "messages_cm_tabblk", msg_args, dict(huber=None, **m_kw))
+    return calls
 
 
 def check_pose_kernels(tag, build, dtype, dev, ptimes):
@@ -2295,8 +2393,9 @@ def check_halo_kernels(tag, hcm, st, dtype, errs, timings=None, masked=False):
     tab_e, mean_e, tab_g, mean_g, gtab_g, gmean_g = halo_cm.belief_tables(hcm, st)
     wkw = dict(win_w=hcm.win_w, n_own=no, gslot=gslot)
     print(f"[halo kernels] {tag}: {hcm.z.shape[0]} partitions, {hcm.mp // M.TILE} tiles each, "
-          f"win_w {hcm.win_w} ({hcm.win_w * M.F_CAM * tab_g.element_size()} bytes of packed "
-          f"beliefs per block), ghost table {gtab_g.shape[1]} rows, cut cameras {hcm.n_cut}")
+          f"win_w {hcm.win_w} ({hcm.win_w * tab_g.shape[2] * tab_g.element_size()} bytes of "
+          f"packed beliefs per block), ghost table {gtab_g.shape[1]} rows, cut cameras "
+          f"{hcm.n_cut}")
 
     def compare(name, got, ref):
         worst_rel, worst_abs = 0.0, 0.0
@@ -2310,7 +2409,8 @@ def check_halo_kernels(tag, hcm, st, dtype, errs, timings=None, masked=False):
         errs[name] = max(errs.get(name, 0.0), worst_abs)
 
     for name in HALO_KERNELS[1::2]:
-        print_plan(tag, name, dtype, win_w=hcm.win_w, mp=hcm.mp, gslot=gslot)
+        print_plan(tag, name, dtype, win_w=hcm.win_w, mp=hcm.mp, d0=hcm.dofs[0],
+                   d1=hcm.dofs[1], z=hcm.z.shape[1], gslot=gslot)
     for p in range(hcm.z.shape[0]):
         fs = sweep_cm.CMFactorState(*(halo._at(x, p) for x in st.f))
         cm_e = sync(M.expand_ell_blk(torch.cat([tab_e[p], mean_e[p]], 1), deg=hcm.deg))
@@ -3628,6 +3728,277 @@ def multiprocess_path(card):
           f"several cards (NCCL between cards) cannot be measured on this machine")
 
 
+# --- the segmented layout and cameras in the ELL slot (phases 30 and 31) ------------------
+
+
+# Phase 30's scenes: the reference's own segmented test scene (2 x 16
+# cameras), blocks8 (auto: two windowed classes) and blocks7 (exact:
+# windowed and unwindowed classes); city and venice (auto: three and five
+# windowed classes).
+SEG_SCENE = dict(n_blocks=2, n_cams=16, lmks_per_cam=30, window=3, seed=0, shuffle=True)
+BLOCKS8 = dict(BLOCKS7, n_blocks=8)
+SEG_SWEEPS_VENICE = 50  # sweeps per timed repeat at venice (city: SWEEPS)
+SEG_PAIRS = 8  # alternating segmented / single runs per scene
+# Phase 31's scenes: the 16 x 12 command line's, 640 cameras with a quarter
+# of their landmarks (the landmark windows engage), 1,920 cameras the same
+# way (windows per halo partition), each also as a BAL problem; the 9-dof
+# cameras take a stiff intrinsics prior (3.5 observations a camera).
+DENSE48 = dict(bench.DENSE_BLOCKS, n_blocks=48)
+BAL_INTR_PRIOR = (1e6, 1e6, 1e6)
+
+
+def seg_ops(sg, st, i):
+    """The operands class i of a segmented graph hands its kernels: its
+    rows of the shared landmark tables (`sweep_cm.sweep_seg`)."""
+    p, fb = sg.parts[i], sg.fb
+    e = fb.ell_slot
+    vs_c, vs_l = st.v[fb.vblocks[1 - e]], st.v[fb.vblocks[e]]
+    n_pad = sg.n_tab - vs_l.eta.shape[0]
+    lmk_tab = sweep_cm._with_identity_rows(sweep_cm._packed(vs_l), fb.dofs[e], n_pad)
+    lmk_mean = torch.nn.functional.pad(vs_l.mean, (0, 0, 0, n_pad))
+    rows = slice(p.v0, p.v0 + p.nv)
+    return dict(gslot=1 - e, deg=p.deg, mp=p.mp, gidx=p.gidx, z=p.z, prec=p.prec, act=p.act,
+                args=p.args, comp_name=fb.ftype.name, win_w=p.win_w, win_starts=p.win_starts,
+                win_rows=p.win_rows, win_offsets=p.win_offsets, blk_tiles=p.blk_tiles,
+                blk_offsets=p.blk_offsets, seg_rows=p.seg_rows, seg_offsets=p.seg_offsets,
+                cam_mean=vs_c.mean.contiguous(), cam_tab=sweep_cm._packed(vs_c).contiguous(),
+                lmk_mean=lmk_mean[rows].contiguous(), lmk_tab=lmk_tab[rows].contiguous(),
+                fs=st.f[i])
+
+
+def check_ops(tag, o, dtype, errs, unfused=False, times=None):
+    """Phases 30 and 31: the table kernels of one graph or degree class on
+    its operands `o` (`table_ops`, `seg_ops`) against their plain versions
+    (`check_table_kernels`); with `unfused` also 14 and 9, 8 (windowed) or
+    7, 6 on its output.  float64 to 1e-11, float32 to 1e-4, relative.
+    Given `times`, each kernel's device ms per call on these operands (the
+    profiler, the config's beta, Huber off) goes into it by name."""
+    compare = make_compare(tag, TOL[dtype], errs)
+    calls = check_table_kernels(tag, o, dtype, compare)[2]
+    if unfused:
+        check = check_unfused_win_kernels if o["win_w"] else check_unfused_kernels
+        calls.update(check(tag, o, dtype, compare, None))
+    if times is not None:
+        for name, fn in calls.items():
+            times[name] = device_ms(fn, 10)
+        print(f"[kernels] {tag} on the device (profiler, ms a call): "
+              + ", ".join(f"{name} {ms:.4f}" for name, ms in times.items()) + f" ({card_line()})")
+
+
+def seg_graph(tag, scene, mode, dtype, windows):
+    """The segmented graph of a merged-blocks scene on the card, its classes
+    windowed as `windows` says, and its state after 8 sweeps."""
+    graph, means = ba.build(ba.simulate_blocks(**scene), dtype=dtype, **BIG)
+    sg = sweep_cm.prepare_seg(graph, classes_mode=mode)
+    if not isinstance(sg, sweep_cm.CMSegGraph) or [bool(p.win_w) for p in sg.parts] != windows:
+        raise AssertionError(f"{tag}: prepare_seg gave " + ("None" if sg is None else str(
+            [(p.deg, p.win_w) for p in sg.parts])))
+    print(f"[seg] {tag} {str(dtype)[6:]}: classes (degree, landmarks, rows, win_w) "
+          f"{[(p.deg, p.n_groups, p.mp, p.win_w) for p in sg.parts]}, {sg.mp} rows")
+    return graph, means, sg, sync(sweep_cm.run(sg, sweep_cm.init_state(sg, means), CFG, 8))
+
+
+def seg_speed(tag, graph, means, sg, n, card):
+    """Sweeps/s of the segmented graph and of the single segment: runs of n
+    sweeps after a warm one, SEG_PAIRS pairs in one call, each pair in the
+    other order than the last (segmented first, then single first, ...),
+    every run printed; then kernel launches and device ms per sweep over
+    one profiled run of 10 sweeps and the busy share."""
+    runs = {}
+    for name, cmg in (("segmented", sg), ("single", sweep_cm.prepare(graph, window=True))):
+        init = sweep_cm.init_state(cmg, means)
+        runs[name] = (cmg, lambda k, cmg=cmg, init=init: sweep_cm.run(cmg, init, CFG, k))
+        sync(runs[name][1](n))
+    rates = {name: [] for name in runs}
+    for k in range(SEG_PAIRS):
+        for name in ("segmented", "single")[::1 if k % 2 == 0 else -1]:
+            rates[name].append(n / timed(lambda: runs[name][1](n))[1])
+    ratios = sorted(a / b for a, b in zip(rates["segmented"], rates["single"]))
+    for name, (cmg, run) in runs.items():
+        r = rates[name]
+        med = statistics.median(r)
+        launches, dev_ms = profiled_sweeps(run, 10)
+        print(f"[seg] {tag} {name}: {cmg.mp} rows, {med:.2f} sweeps/s (median of {len(r)} runs "
+              f"of {n} sweeps in alternating pairs; every run in order: "
+              f"{', '.join(f'{x:.2f}' for x in r)}), {launches:.1f} launches and "
+              f"{dev_ms:.4f} device ms per sweep, busy share {dev_ms * med / 1e3:.3f} ({card})")
+    print(f"[seg] {tag} segmented / single, pair by pair (sorted): "
+          f"{', '.join(f'{x:.3f}' for x in ratios)}; median {statistics.median(ratios):.3f}; "
+          f"segmented faster in {sum(x > 1 for x in ratios)} of {len(ratios)} pairs")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def profiled_sweeps(run, n):
+    """(kernel launches, device ms) per sweep of `run(n)` (n sweeps from a
+    prepared state, nothing set up), by the profiler over one run."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(n)
+        torch.cuda.synchronize()
+    events = prof.events()
+    launches = sum(1 for e in events if e.name in serving.LAUNCH_CALLS)
+    dev_us = sum(e.time_range.elapsed_us() for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    return launches / n, dev_us / 1e3 / n
+
+
+def seg_path(card):
+    """Phase 30: the degree-class segmented layout (`prepare_seg`,
+    `sweep_seg`) on the card.  (a) Per class, kernels 1, 2, 3 or 11, 10, 16,
+    15 against their plain versions: city (auto, three windowed classes)
+    and blocks7 (exact, windowed and unwindowed classes) in float32; in
+    float64 blocks7's whole camera table exceeds the full-table kernels'
+    shared memory, so `prepare_seg` declines it there, and float64 runs
+    blocks8 (auto, windowed) and the reference's test scene (exact, five
+    unwindowed classes).  (b) City through `prepare(segment=True)`: kernel
+    launches per sweep counted (11, 10, 16, 15 three times), the ARE at 50
+    sweeps within 5e-3 px of the single segment.  (c) Sweeps/s, launches
+    and device ms per sweep, segmented and single segment, at city and
+    venice."""
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    errs = {}
+    for tag, scene, mode, dtype, windows in (
+            ("city1280 auto", CITY, "auto", f32, [True] * 3),
+            ("blocks7 exact", BLOCKS7, "exact", f32, [True] * 3 + [False] * 2),
+            ("blocks8 auto", BLOCKS8, "auto", f64, [True] * 2),
+            ("scene32 exact", SEG_SCENE, "exact", f64, [False] * 5)):
+        _, _, sg, st = seg_graph(tag, scene, mode, dtype, windows)
+        for i, p in enumerate(sg.parts):
+            check_ops(f"{tag} {str(dtype)[6:]} class {i} (deg {p.deg}, "
+                      f"{'windowed' if p.win_w else 'whole table'})", seg_ops(sg, st, i), dtype,
+                      errs)
+        del sg, st
+    g7, _ = ba.build(ba.simulate_blocks(**BLOCKS7), dtype=f64, device="cpu", **BIG)
+    if sweep_cm.prepare_seg(g7, classes_mode="exact") is not None:
+        raise AssertionError("blocks7 float64: prepare_seg should decline (table gate)")
+    print(f"[seg] blocks7 exact float64: declined, its whole camera table "
+          f"({280 * M.F_CAM * 8} bytes) exceeds SMEM_TABLE_BYTES ({M.SMEM_TABLE_BYTES})")
+    print(f"[seg] kernels held per class (max abs err): {json.dumps(errs)}")
+
+    sim = ba.simulate_blocks(**CITY)
+    graph, means = ba.build(sim, dtype=f32, **BIG)
+    sg = sweep_cm.prepare(graph, window=True, segment=True)
+    if not isinstance(sg, sweep_cm.CMSegGraph) or len(sg.parts) != 3:
+        raise AssertionError(f"city: prepare(segment=True) gave {type(sg).__name__}")
+    M.COUNTS.reset()
+    st = sync(sweep_cm.run(sg, sweep_cm.init_state(sg, means), CFG, QUALITY_SWEEPS))
+    launches = check_counts("city segmented", dict.fromkeys(WINDOWED, 3), QUALITY_SWEEPS)
+    single = sweep_cm.prepare(graph, window=True)
+    st1 = sweep_cm.run(single, sweep_cm.init_state(single, means), CFG, QUALITY_SWEEPS)
+    are, are1 = are_px(graph, sg, st, sim["k"]), are_px(graph, single, st1, sim["k"])
+    print(f"[seg] city segmented: {QUALITY_SWEEPS} sweeps, launches "
+          f"{ {k: v for k, v in launches.items() if v} } ({len(sg.parts)} classes x "
+          f"{QUALITY_SWEEPS}); plain calls 0; ARE {are:.6f} px, single segment {are1:.6f} px "
+          f"(difference {abs(are - are1):.3e})")
+    if not (math.isfinite(are) and abs(are - are1) <= 5e-3):
+        raise AssertionError(f"city segmented ARE {are} vs single segment {are1}")
+    same_means("city segmented", st, sweep_cm.run(sg, sweep_cm.init_state(sg, means), CFG,
+                                                  QUALITY_SWEEPS))
+    del st, st1, single
+    seg_speed("city1280", graph, means, sg, SWEEPS, card)
+    del graph, means, sg
+    torch.cuda.empty_cache()
+    graph, means = ba.build(ba.simulate_blocks(**VENICE), dtype=f32, **BIG)
+    sg = sweep_cm.prepare(graph, window=True, segment=True)
+    if not isinstance(sg, sweep_cm.CMSegGraph):
+        raise AssertionError("venice: prepare(segment=True) declined")
+    print(f"[seg] venice10240: classes (degree, landmarks, rows, win_w) "
+          f"{[(p.deg, p.n_groups, p.mp, p.win_w) for p in sg.parts]}, {sg.mp} rows")
+    seg_speed("venice10240", graph, means, sg, SEG_SWEEPS_VENICE, card)
+    del graph, means, sg
+    torch.cuda.empty_cache()
+    print(f"[seg] phase 30 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def ell_camera_scenes(dtype):
+    """Phase 31's single-device scenes: (tag, graph, means) on the card."""
+    f64 = dtype == torch.float64
+    dense = bench.dense_cameras(ba.simulate_blocks(**bench.DENSE_BLOCKS))
+    bal_dense = bench.bal_scene(dense)
+    out = [("dense640 (6, 3, 2)", *ba.build(dense, dtype=dtype, **BIG))]
+    for intr in (False, True):
+        g, m, _ = ba.build_bal(bal_dense, dtype=dtype, optimize_intrinsics=intr,
+                               cam_prior_prec=1000.0, lmk_prior_prec=1000.0,
+                               intr_prior_prec=BAL_INTR_PRIOR)
+        out.append((f"bal dense640 {'(9, 3, 2)' if intr else '(6, 3, 2) BAL'}", g, m))
+    if f64:
+        out.append(("16x12 (6, 3, 2)", *ba.build(ba.simulate(n_cams=16, n_lmks=12, seed=0),
+                                                 dtype=dtype)))
+    return out
+
+
+def ell_cameras_path(card):
+    """Phase 31: cameras in the ELL slot (the landmarks gathered, slot 1, at
+    (6, 3, 2) and (9, 3, 2)).  (a) Every table kernel against its plain
+    version at slot 1, float64 and float32: the windowed fused and unfused
+    kernels (11, 10, 16, 15; 9, 8, 14) and, with the windows off, the
+    whole-table ones (1, 2, 3; 7, 6, 14), on 640 cameras with a quarter of
+    their landmarks (windows over landmark ids) and on the same geometry as
+    a BAL problem with 6-dof (per-row distortion) and 9-dof cameras; the
+    halo kernels 17, 18, 12, 13 per partition of 1,920 such cameras cut in
+    two, as reprojection and as 9-dof BAL.  (b) `python -m
+    gbp_tpu_torch.ba --n_cams 16 --n_lmks 12 --oracle`, on one device and
+    with `--n_chips 2`: kernels 1, 2 and 3 launched once a sweep on each
+    partition and nothing else (counted; no plain call), the final ARE
+    finite and within 1.05x the dense MAP's.  In float32 every kernel's
+    device time at slot 1 is printed (the profiler; the halo kernels on
+    partition 0 with their bounds)."""
+    t_phase = time.perf_counter()
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        f32 = dtype == torch.float32
+        for tag, graph, means in ell_camera_scenes(dtype):
+            fb = graph.fblocks[0]
+            if fb.ell_slot != 0:
+                raise AssertionError(f"{tag}: the ELL slot is {fb.ell_slot}, not the cameras")
+            for window in (True, False):
+                cmg = sweep_cm.prepare(graph, window=window)
+                if cmg.gather_mode != "table" or (window and "16x12" not in tag
+                                                  and not cmg.win_w):
+                    raise AssertionError(f"{tag}: {cmg.gather_mode}, win_w {cmg.win_w}")
+                st = sync(sweep_cm.run(cmg, sweep_cm.init_state(cmg, means), CFG, 8))
+                check_ops(f"{tag} {str(dtype)[6:]} "
+                          + (f"win_w {cmg.win_w}" if cmg.win_w else "whole table"),
+                          table_ops(cmg, st), dtype, errs, unfused=True,
+                          times={} if f32 and "16x12" not in tag else None)
+        dense48 = bench.dense_cameras(ba.simulate_blocks(**DENSE48))
+        for tag, build in (
+                ("dense1920 (6, 3, 2) P=2", lambda dv: ba.build(
+                    dense48, dtype=dtype, device=dv, **HALO_BUILD)),
+                ("bal dense1920 (9, 3, 2) P=2", lambda dv: ba.build_bal(
+                    bench.bal_scene(dense48), dtype=dtype, device=dv, layout="none",
+                    optimize_intrinsics=True, cam_prior_prec=1000.0, lmk_prior_prec=1000.0,
+                    intr_prior_prec=BAL_INTR_PRIOR)[:2])):
+            g, m = build("cpu")
+            hp, hcm, st, run = halo_cm.distribute(g, m, 2, device="cpu")
+            if hcm.e != 0 or not hcm.win_w:
+                raise AssertionError(f"{tag}: ELL slot {hcm.e}, win_w {hcm.win_w}")
+            st = run(hcm, st, CFG, 8)
+            check_halo_kernels(tag, halo.to_device(hcm, "cuda"), halo.to_device(st, "cuda"),
+                               dtype, errs, {} if f32 else None)
+    print(f"[cams in ELL] kernels held at slot 1 (max abs err): {json.dumps(errs)}")
+    for extra in ([], ["--n_chips", "2"]):
+        M.COUNTS.reset()
+        res = ba_cli.main(["--n_cams", "16", "--n_lmks", "12", "--oracle", *extra])
+        used = {k: v for k, v in M.COUNTS.kernel.items() if v}
+        final, are_map = res["are"][-1][1], res["are_map"]
+        print(f"[cams in ELL] python -m gbp_tpu_torch.ba --n_cams 16 --n_lmks 12 --oracle "
+              f"{' '.join(extra)}: path {res['path']!r}, launches {used}, plain calls "
+              f"{sum(M.COUNTS.plain.values())}; final ARE {final:.6f} px, dense MAP "
+              f"{are_map:.6f} px, ratio {final / are_map:.6f}; {res['sweeps_per_s']:.2f} "
+              f"sweeps/s ({card})")
+        # Kernels 1, 2 and 3 once a sweep on each partition (the 16 x 12 scene
+        # has no windows), no other kernel and no plain call.
+        parts = int(extra[1]) if extra else 1
+        check_counts(f"--n_cams 16 --n_lmks 12 {' '.join(extra)}", FULL,
+                     res["are"][-1][0] * parts)
+        if not (math.isfinite(final) and final <= 1.05 * are_map):
+            raise AssertionError(f"--n_cams 16 --n_lmks 12 {extra}: ARE {final} vs {are_map}")
+    print(f"[cams in ELL] phase 31 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3754,6 +4125,8 @@ def main():
     utilities_path(card)
     sfm_path(card)
     multiprocess_path(card)
+    seg_path(card)
+    ell_cameras_path(card)
     launches.update({k: generic[k] for k in ROWS[2:]}, **{k: rows[k] for k in ROWS[:2]},
                     **{k: unfused[k] for k in UNFUSED})
     print(f"[done] {time.perf_counter() - T_START:.1f} s")

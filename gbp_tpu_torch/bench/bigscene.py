@@ -11,10 +11,13 @@ BAL files:
   ba_venice  256 blocks x 40 cameras x 80 landmarks per camera
              (10,240 cameras, about 4.1 million factors)
 
-Each row runs `prepare(window=True)` (single segment; the degree-class
-segmentation of the reference's rows waits for ROADMAP A11; a full-table
-row at these camera counts would be `prepare(window=False)`, which lands on
-the expanded operands of gather mode "rows"), warms up with one run of `--sweeps`
+Each row runs `prepare(window=True, segment=True)`, as the reference's
+rows do: the degree-class segmented layout where its classes pay (city and
+venice: three and five windowed classes), else the single segment (a
+full-table row at these camera counts would be `prepare(window=False)`,
+which lands on the expanded operands of gather mode "rows").  A row
+records its rows (`mp_rows`) and, segmented, its classes (`deg_classes`:
+[degree, landmark groups] each).  It warms up with one run of `--sweeps`
 sweeps, times three more (host clock around `torch.cuda.synchronize`) and
 takes the quality at 50 sweeps from the initial state: the plain
 static-prior schedule goes non-finite on corridor scenes past about 100
@@ -59,12 +62,22 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def win_width(cmg) -> int:
+    """The camera window width of a prepared graph (the widest class's when
+    segmented), 0 without windows."""
+    if isinstance(cmg, sweep_cm.CMSegGraph):
+        return max(p.win_w for p in cmg.parts)
+    return int(cmg.win_w)
+
+
 def _measure_cm(graph, means, cfg, sweeps, window, reps=3):
-    """Warm up with one run of `sweeps` sweeps, then `reps` timed runs.
+    """Prepare (segment=True: the single segment where the segmented layout
+    does not apply, as for pose graphs), warm up with one run of `sweeps`
+    sweeps, then `reps` timed runs.
 
     Returns (sweeps/s dict with min/median/max, final state, cmg, win_w)."""
     device = graph.fblocks[0].z.device
-    cmg = sweep_cm.prepare(graph, segsum_exact=True, window=window)
+    cmg = sweep_cm.prepare(graph, segsum_exact=True, window=window, segment=True)
     state = sweep_cm.run(cmg, sweep_cm.init_state(cmg, means), cfg, sweeps)
     _sync(device)
     ts = []
@@ -76,7 +89,7 @@ def _measure_cm(graph, means, cfg, sweeps, window, reps=3):
     ts.sort()
     sps = {"median": sweeps / ts[len(ts) // 2], "min": sweeps / ts[-1],
            "max": sweeps / ts[0], "sweeps_per_rep": sweeps}
-    return sps, state, cmg, int(cmg.win_w) or None
+    return sps, state, cmg, win_width(cmg) or None
 
 
 def _city_row(out, key, sim, cfg, sweeps, device, windows=(True,)):
@@ -101,7 +114,9 @@ def _city_row(out, key, sim, cfg, sweeps, device, windows=(True,)):
             "sweeps_per_s": sps["median"], "sweeps_per_s_min_max": [sps["min"], sps["max"]],
             "sweeps_per_rep": sps["sweeps_per_rep"],
             "factor_updates_per_s": sps["median"] * m,
-            "mp_rows": int(cmg.mp), "deg_classes": None,
+            "mp_rows": int(cmg.mp),
+            "deg_classes": ([[p.deg, p.n_groups] for p in cmg.parts]
+                            if isinstance(cmg, sweep_cm.CMSegGraph) else None),
             "ns_per_valid_factor": 1e9 / (sps["median"] * m),
             "are_px_at_50_sweeps": are, "win_w": win_w,
             "sorted": cmg.vperm is not None,
@@ -110,8 +125,10 @@ def _city_row(out, key, sim, cfg, sweeps, device, windows=(True,)):
         }
         print(f"[bigscene] {key} {tag}: {sps['median']:.2f} sweeps/s "
               f"[{sps['min']:.2f}, {sps['max']:.2f}] "
-              f"({sps['median'] * m / 1e6:.0f}M factor-updates/s), ARE {are:.3f}px"
-              + (f", win_w={win_w}" if win_w else ""), flush=True)
+              f"({sps['median'] * m / 1e6:.0f}M factor-updates/s), ARE {are:.3f}px, "
+              f"{cmg.mp} rows" + (f", win_w={win_w}" if win_w else "")
+              + (f", classes {[p.deg for p in cmg.parts]}"
+                 if isinstance(cmg, sweep_cm.CMSegGraph) else ""), flush=True)
 
 
 def _pose_row(out, n_poses, sweeps, device):

@@ -176,9 +176,12 @@ def kernel_report(name, args, kw):
     b_ms = sum(t.numel() * t.element_size() for t in (*read, *outs)) / PEAK_BYTES_PER_S * 1e3
     # The mean over the launches the profiler recorded (one per call), in a
     # new window while it recorded none (it may drop a window's records).
+    # float64 and the 12-dof shapes launch the per-tile form of a windowed
+    # messages kernel (`..._tile_kernel`).
+    names = (kernel + "<", kernel.replace("_kernel", "_tile_kernel") + "<")
     for _ in range(5):
         by_kernel = device_ms(lambda: fn(*args, **kw))
-        times = [t for k, ts in by_kernel.items() if kernel + "<" in k for t in ts]
+        times = [t for k, ts in by_kernel.items() if any(n in k for n in names) for t in ts]
         if times:
             break
     else:

@@ -3,14 +3,17 @@ steady sweeps of one scene.
 
     python -m gbp_tpu_torch.bench.profile_sweep
         [--scene bench64|bench64_unfused|bench64_generic|nonlocal512|city|city1280_unfused|
-                 city1280_halo2|city1280_halo2_unfused|venice|venice10240_unfused|
-                 manhattan4000|ladybug49]
+                 city1280_seg|city1280_halo2|city1280_halo2_unfused|venice|
+                 venice10240_unfused|venice10240_seg|manhattan4000|ladybug49]
         [--sweeps 20] [--warm 10] [--out trace.json]
 
 bench64, city and venice run the component-major fast path as `prepare`
 sets it up (camera table, or windows); bench64_unfused, city1280_unfused
 and venice10240_unfused those scenes with `prepare(ell_fused=False)` (the
-unfused table kernels, or their windowed form, and the expansion); ladybug49 is
+unfused table kernels, or their windowed form, and the expansion);
+city1280_seg and venice10240_seg with `prepare(segment=True)` (the
+degree-class segmented layout: each class's windowed kernels, three and five
+classes); ladybug49 is
 data/ladybug49_sim.txt.gz through `io.bal` and `build_bal` (the BAL model
 with its per-row distortion arguments) under the in-engine annealing of
 core/anneal.py, as `python -m gbp_tpu_torch.ba` runs it;
@@ -61,11 +64,13 @@ SCENES = {
     "nonlocal512": (lambda: ba.simulate(n_cams=512, n_lmks=2000, pix_sigma=1.0, seed=0), {}),
     "city": (lambda: ba.simulate_blocks(**CITY), BIG_BUILD),
     "city1280_unfused": (lambda: ba.simulate_blocks(**CITY), BIG_BUILD),
+    "city1280_seg": (lambda: ba.simulate_blocks(**CITY), BIG_BUILD),
     "city1280_halo2": (lambda: ba.simulate_blocks(**CITY), {**BIG_BUILD, "layout": "none"}),
     "city1280_halo2_unfused": (lambda: ba.simulate_blocks(**CITY),
                                {**BIG_BUILD, "layout": "none"}),
     "venice": (lambda: ba.simulate_blocks(**VENICE), BIG_BUILD),
     "venice10240_unfused": (lambda: ba.simulate_blocks(**VENICE), BIG_BUILD),
+    "venice10240_seg": (lambda: ba.simulate_blocks(**VENICE), BIG_BUILD),
     "ladybug49": (lambda: bal.to_sim(bal.prune(bal.read_bal(LADYBUG))), {"layout": "ell"}),
 }
 LADYBUG = "data/ladybug49_sim.txt.gz"
@@ -102,7 +107,8 @@ def main(argv=None):
         rows, win_w, mode = graph.fblocks[0].count, 0, "generic"
     else:
         cmg = sweep_cm.prepare(graph, window=True,
-                               ell_fused=False if args.scene.endswith("_unfused") else None)
+                               ell_fused=False if args.scene.endswith("_unfused") else None,
+                               segment=args.scene.endswith("_seg"))
         if args.scene == "ladybug49":
             # The annealed run from its first schedule level on (sweeps past
             # the warm-up index keep the schedule's last level).
@@ -110,7 +116,11 @@ def main(argv=None):
         else:
             run = lambda st, n: sweep_cm.run(cmg, st, sweep_cfg, n)
         state = run(sweep_cm.init_state(cmg, means), args.warm)
-        rows, win_w, mode = cmg.mp, cmg.win_w, cmg.gather_mode
+        if isinstance(cmg, sweep_cm.CMSegGraph):
+            rows, win_w = cmg.mp, max(p.win_w for p in cmg.parts)
+            mode = f"segmented, classes {[p.deg for p in cmg.parts]}"
+        else:
+            rows, win_w, mode = cmg.mp, cmg.win_w, cmg.gather_mode
     torch.cuda.synchronize()
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -114,7 +114,10 @@ def run_annealed_cm(cmg, state, cfg: GBPConfig, n_iters: int, every: int = 10,
                     damp_lam: float = 0.4, masks: tuple | None = None, i0: int = 0):
     """`run_annealed` on the component-major fast path (core/sweep_cm.py):
     the same schedule on a prepared graph, whose priors live in its
-    (possibly locality-sorted) `base` graph."""
+    (possibly locality-sorted) `base` graph.  A segmented graph
+    (`sweep_cm.CMSegGraph`) raises ValueError: the annealed run takes the
+    single segment (the reference fails on one with an AttributeError)."""
+    sweep_cm.single_segment(cmg, "anneal.run_annealed_cm")
     for g, c in _schedule(cmg.base, n_iters, every, factor, times, damp_window, damp_lam, masks,
                           i0, cfg, state.f.r0.dtype):
         state = sweep_cm.sweep(cmg._replace(base=g), state, c)

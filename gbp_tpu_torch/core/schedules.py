@@ -170,7 +170,9 @@ def run_random(graph: Graph, state: GBPState, cfg: GBPConfig, n_iters: int,
 # --------------------------------------------------------------------------
 # The component-major fast path (core/sweep_cm.py): the same schedules with
 # the masks in CM layout [1, mp], in resident row order, composed with the
-# validity mask inside sweep_cm.sweep, whose kernels take `act` per row.
+# validity mask inside sweep_cm.sweep, whose kernels take `act` per row.  A
+# segmented graph (`sweep_cm.CMSegGraph`) raises ValueError at every entry:
+# the schedules take the single segment (the reference fails on one).
 # --------------------------------------------------------------------------
 
 
@@ -181,12 +183,14 @@ class CMScheduleState(NamedTuple):
 
 
 def init_schedule_cm(cmg, state) -> CMScheduleState:
+    sweep_cm.single_segment(cmg, "schedules.init_schedule_cm")
     x = sweep_cm.expand_means(cmg, state)
     return CMScheduleState(last_x=torch.full_like(x, math.inf))
 
 
 def _scores_cm(cmg, state, sched: CMScheduleState):
     """Urgency [mp] and the current means [tdof, mp] (reused for the record)."""
+    sweep_cm.single_segment(cmg, "schedules.scores_cm")
     x = sweep_cm.expand_means(cmg, state)
     d = x - sched.last_x
     return torch.sqrt((d * d).sum(0)), x
@@ -201,6 +205,7 @@ def wildfire_mask_cm(cmg, state, sched: CMScheduleState, tau: float):
 def priority_k_cm(cmg, frac: float) -> int:
     """The top-k budget of `priority_sweep_cm`: frac of the real factors, at
     least 1, at most mp."""
+    sweep_cm.single_segment(cmg, "schedules.priority_k_cm")
     fb = cmg.fb
     n_real = fb.n_valid if fb.n_valid is not None else fb.count
     return max(1, min(int(frac * n_real), cmg.mp))
@@ -245,6 +250,7 @@ def run_priority_cm(cmg, state, cfg: GBPConfig, n_iters: int, frac: float):
 
 def random_mask_cm(cmg, generator: torch.Generator, keep_prob: float) -> torch.Tensor:
     """Bernoulli(keep_prob) per CM row, [1, mp], on the graph's device."""
+    sweep_cm.single_segment(cmg, "schedules.random_mask_cm")
     return torch.rand((1, cmg.mp), generator=generator, device=cmg.act.device) < keep_prob
 
 

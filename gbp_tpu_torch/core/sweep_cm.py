@@ -64,6 +64,18 @@ Factor types whose model reads per-row arguments (the BAL model's
 distortion [k1, k2]) carry them as one more resident operand, `args`
 [n_args, mp], handed to every relinearization kernel.
 
+The degree-class segmented layout (`prepare(segment=True)`, `prepare_seg`):
+the ELL layout pads every landmark group to the largest degree, so the
+factor block is cut into classes of landmark degrees, each padded only to
+its own largest degree and run as a segment of its own through the same
+fused kernels (windowed or with the whole camera table) at its degree.  The
+state's factor part is then a tuple of CMFactorState, [F, mp] per class;
+`init_state`, `sweep`, `run`, `to_gbp_state` and `from_gbp_state` take
+either kind of graph.  A graph with more cameras than landmarks has the
+cameras in the ELL slot and gathers the landmarks (gslot 1): the same
+kernels, instantiated for it; read "camera" as the gathered slot's variable
+throughout.
+
 The reference's one-hot table dots and per-tile table stacks exist because
 a TPU kernel has no lane-dynamic gather; an index read does their job here.
 `mp`, `nv`, the windows and the row order are the reference's, so the state
@@ -195,8 +207,25 @@ class CMGraph(NamedTuple):
         return self.base.fblocks[0]
 
 
-def _unsupported(what: str, item: str):
-    return NotImplementedError(f"sweep_cm.prepare: {what} is not ported yet (ROADMAP {item})")
+def _fast_block(graph: Graph):
+    """The one factor block the fast path takes, or None for a graph it
+    declines (several factor blocks, a block that is not 2-slot or has no
+    ELL slot, a factor type without a component-form model, full
+    measurement precision).  A shape the table kernels are not instantiated
+    for raises NotImplementedError."""
+    if len(graph.fblocks) != 1:
+        return None
+    fb = graph.fblocks[0]
+    entry = COMP_FACTORS.get(getattr(fb.ftype, "name", None))
+    if (len(fb.dofs) != 2 or fb.ell_slot is None or entry is None
+            or (fb.ftype.residual_fn is not None and len(entry) < 3) or fb.prec.ndim != 2):
+        return None
+    shape = (*fb.dofs, fb.z.shape[-1])
+    if shape not in TABLE_SHAPES or shape not in ROW_SHAPES:
+        raise NotImplementedError(
+            f"sweep_cm.prepare: no kernel is instantiated for (d0, d1, z) = {shape}; the table "
+            f"kernels have {TABLE_SHAPES}, either slot gathered")
+    return fb
 
 
 def _windows(gp: np.ndarray, n_cam: int, itemsize: int, width: int = 42):
@@ -223,9 +252,19 @@ def _windows(gp: np.ndarray, n_cam: int, itemsize: int, width: int = 42):
     return starts, w, ncpad
 
 
+def _rows_by_id(gidx: np.ndarray, listed: np.ndarray, n_cam: int):
+    """(seg_rows, seg_offsets) int32: the CSR of the rows r < listed.size
+    with listed[r], by camera id gidx[r], in row order within a camera."""
+    rows = np.flatnonzero(listed)
+    seg_rows = rows[np.argsort(gidx[rows], kind="stable")].astype(np.int32)
+    seg_offsets = np.concatenate(
+        [[0], np.cumsum(np.bincount(gidx[rows], minlength=n_cam))]).astype(np.int32)
+    return seg_rows, seg_offsets
+
+
 def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
             window: bool = True, ell_fused: bool | None = None,
-            segment: bool = False) -> CMGraph | None:
+            segment: bool = False) -> CMGraph | CMSegGraph | None:
     """Build the CM static data for `graph`, or None if the fast path does
     not take it: several factor blocks, a block that is not 2-slot or has no
     ELL slot, a factor type without a component-form model, full measurement
@@ -236,19 +275,25 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     `bal_reprojection_normalized` (per-row arguments [k1, k2]),
     `bal_reprojection_intrinsics` (9-dof cameras), `se2_between` or
     `se3_between` factors in ELL layout (cameras and landmarks grouped by
-    landmark; between factors by either end), diagonal precision, no Huber, a
-    scalar threshold or per-factor thresholds, the two slots on two variable
-    blocks or on one (pose graphs).  What the reference's fast path takes
-    and this one does not yet raises NotImplementedError naming the ROADMAP
-    item: the degree-class segmented layout (A11) and cameras in the ELL
-    slot (A7).
+    landmark, or by camera on a graph with more cameras than landmarks, the
+    landmarks then gathered; between factors by either end), diagonal
+    precision, no Huber, a scalar threshold or per-factor thresholds, the
+    two slots on two variable blocks or on one (pose graphs).  A shape the
+    kernels are not instantiated for raises NotImplementedError.
+
+    segment=True first tries the degree-class segmented layout
+    (`prepare_seg`, window as given) and returns its CMSegGraph, which runs
+    through the same init_state / sweep / run / to_gbp_state /
+    from_gbp_state; where `prepare_seg` declines it falls back to the single
+    segment below, as the reference does.
 
     gather_mode "auto" (and "table") picks "table" when the camera windows
     engage or the whole packed camera table fits a block's shared memory
-    (SMEM_TABLE_BYTES: 1,024 SE(2) poses or 292 cameras or SE(3) poses in
-    float32; the reference's rule is its 4 MB of VMEM), else "rows"; "rows"
-    and "take1" force the expanded operands.  window=True gives every tile
-    of rows a camera window when the graph has camera locality, in its
+    (SMEM_TABLE_BYTES: 1,024 SE(2) poses or landmarks, or 292 cameras or
+    SE(3) poses in float32; the reference's rule is its 4 MB of VMEM), else
+    "rows"; "rows" and "take1" force the expanded operands.  window=True
+    gives every tile of rows a camera window when the graph has camera
+    locality, in its
     natural landmark order or, with the slots on two blocks, after sorting
     the landmarks by their lowest camera id (see the module docstring); the
     windows, `vperm` and `rowperm` equal the reference's.  Windows exist in
@@ -265,16 +310,14 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     del segsum_exact
     if gather_mode not in GATHER_MODES:
         raise ValueError(f"gather_mode must be one of {GATHER_MODES}, got {gather_mode!r}")
+    fb = _fast_block(graph)
+    if fb is None:
+        return None
     if segment:
-        raise _unsupported("the degree-class segmented layout", "A11")
-    if len(graph.fblocks) != 1:
-        return None
-    fb = graph.fblocks[0]
-    name = getattr(fb.ftype, "name", None)
-    entry = COMP_FACTORS.get(name)
-    if (len(fb.dofs) != 2 or fb.ell_slot is None or entry is None
-            or (fb.ftype.residual_fn is not None and len(entry) < 3) or fb.prec.ndim != 2):
-        return None
+        sg = prepare_seg(graph, window=window)
+        if sg is not None:
+            return sg
+    name = fb.ftype.name
     m, deg = fb.count, fb.ell_deg
     lcm = ROW_ALIGN * deg // math.gcd(ROW_ALIGN, deg)
     mp = ((m + lcm - 1) // lcm) * lcm
@@ -282,13 +325,8 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     # large in absolute rows.
     if mp > 4 * m and mp - m > 64 * ROW_ALIGN:
         return None
-    shape = (*fb.dofs, fb.z.shape[-1])
     e = fb.ell_slot
     g = 1 - e
-    if (shape not in TABLE_SHAPES or shape not in ROW_SHAPES
-            or (g == 1 and fb.dofs[0] != fb.dofs[1])):
-        raise _unsupported("cameras in the ELL slot (a layout other than cameras gathered, "
-                           "landmarks in ELL)", "A7")
     same_block = fb.vblocks[0] == fb.vblocks[1]
     n_cam = graph.vblocks[fb.vblocks[g]].count
     dt, dev = fb.z.dtype, fb.z.device
@@ -352,10 +390,7 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     # messages, so leaving them out changes no value; kept, they would all
     # name the camera of their landmark's first row.
     valid = np.ones(m, dtype=bool) if fb.valid is None else fb.valid.cpu().numpy()
-    listed = np.flatnonzero(valid if rowperm is None else valid[rowperm])
-    seg_rows = listed[np.argsort(gidx[listed], kind="stable")].astype(np.int32)
-    seg_offsets = np.concatenate(
-        [[0], np.cumsum(np.bincount(gidx[listed], minlength=n_cam))]).astype(np.int32)
+    seg_rows, seg_offsets = _rows_by_id(gidx, valid if rowperm is None else valid[rowperm], n_cam)
     act = torch.ones(m, dtype=dt, device=dev) if fb.valid is None else fb.valid.to(dt)
     rp = extra.get("rowperm")
     perm = lambda a: a if rp is None else a[rp]
@@ -392,7 +427,7 @@ def _rm2cm(cmg: CMGraph, a: torch.Tensor) -> torch.Tensor:
     return F.pad(a.T, (0, cmg.mp - a.shape[0])).contiguous()
 
 
-def _sorted_landmarks(cmg: CMGraph, vstates, index) -> tuple:
+def _sorted_landmarks(cmg: CMGraph | CMSegGraph, vstates, index) -> tuple:
     """`vstates` with the landmark block's tensors indexed by `index`
     (vperm: user -> sorted order, vinv: back); unchanged without the sort."""
     if index is None:
@@ -403,9 +438,11 @@ def _sorted_landmarks(cmg: CMGraph, vstates, index) -> tuple:
     return tuple(out)
 
 
-def init_state(cmg: CMGraph, means: tuple) -> CMState:
+def init_state(cmg: CMGraph | CMSegGraph, means: tuple) -> CMState:
     """Beliefs = priors, factors linearized at `means` (in user order), zero
     messages."""
+    if isinstance(cmg, CMSegGraph):
+        return init_state_seg(cmg, means)
     fb = cmg.fb
     # The factors are linearized with the user adjacency and user means;
     # their rows are sorted afterwards.  The beliefs take the sorted order
@@ -516,7 +553,7 @@ def expand_means(cmg: CMGraph, state: CMState) -> torch.Tensor:
     return torch.cat([cm_c, cm_l] if fb.ell_slot == 1 else [cm_l, cm_c])
 
 
-def sweep(cmg: CMGraph, state: CMState, cfg: GBPConfig,
+def sweep(cmg: CMGraph | CMSegGraph, state: CMState, cfg: GBPConfig,
           active: torch.Tensor | None = None) -> CMState:
     """One synchronous GBP iteration on resident-CM state.
 
@@ -524,7 +561,12 @@ def sweep(cmg: CMGraph, state: CMState, cfg: GBPConfig,
     row order, for wildfire / priority schedules: inactive factors keep
     their previous messages and skip relinearization, which is what the
     kernels' `act` operand does, so the mask composes with the validity
-    mask."""
+    mask.  A segmented graph takes no mask (ValueError), as the reference's
+    dispatcher asserts."""
+    if isinstance(cmg, CMSegGraph):
+        if active is not None:
+            single_segment(cmg, "sweep(..., active=...)")
+        return sweep_seg(cmg, state, cfg)
     fb = cmg.fb
     fs = state.f
     deg = fb.ell_deg
@@ -602,50 +644,66 @@ def sweep(cmg: CMGraph, state: CMState, cfg: GBPConfig,
 def _update_beliefs(cmg: CMGraph, state: CMState, fs: CMFactorState,
                     sum_c: torch.Tensor) -> CMState:
     """Beliefs = priors + message sums: the ELL slot by the reshape-sum over
-    the degree axis, the gathered slot from `sum_c` [d_g + d_g * d_g, n_cam].
-    With both slots on one variable block (pose graphs) the two sums land on
-    that block: prior + ELL reshape-sum + gathered sum, one solve."""
+    the degree axis, the gathered slot from `sum_c` [d_g + d_g * d_g, n_cam]
+    (`_new_beliefs`)."""
     fb = cmg.fb
-    deg = fb.ell_deg
     e = fb.ell_slot
-    g = 1 - e
-    d_c, d_l = fb.dofs[g], fb.dofs[e]
-    oe_l, ol_l = fs.msg_eta[e], fs.msg_lam[e]
     # ELL slot: padded and clone rows carry zero messages, so the plain
     # reshape-sum over the degree axis is exact.  The beliefs live in the
     # (possibly sorted) group order, so the sum is already aligned.
-    vb_c = cmg.base.vblocks[fb.vblocks[g]]
-    vb_l = cmg.base.vblocks[fb.vblocks[e]]
+    n_l = cmg.base.vblocks[fb.vblocks[e]].count
+    sum_l = _ell_sum(fs.msg_eta[e], fs.msg_lam[e], cmg.nv, fb.ell_deg)[:, :n_l]
+    return CMState(v=_new_beliefs(cmg.base, state.v, sum_l, sum_c), f=fs)
+
+
+def _ell_sum(oe: torch.Tensor, ol: torch.Tensor, nv: int, deg: int) -> torch.Tensor:
+    """The ELL slot's messages summed per variable, [d + d * d, nv]: a
+    reshape-sum over the degree axis."""
+    d = oe.shape[0]
+    return torch.cat([oe.reshape(d, nv, deg).sum(-1), ol.reshape(d * d, nv, deg).sum(-1)])
+
+
+def _new_beliefs(base: Graph, vstates: tuple, sum_l: torch.Tensor, sum_c: torch.Tensor) -> tuple:
+    """Beliefs = priors + message sums, means by `scaled_sym_solve`: sum_l
+    [d_e + d_e * d_e, n] of the ELL slot's variables, sum_c of the gathered
+    slot's.  With both slots on one variable block (pose graphs) the two
+    sums land on that block: prior + ELL sum + gathered sum, one solve."""
+    fb = base.fblocks[0]
+    e = fb.ell_slot
+    g = 1 - e
+    d_c, d_l = fb.dofs[g], fb.dofs[e]
+    vb_c = base.vblocks[fb.vblocks[g]]
+    vb_l = base.vblocks[fb.vblocks[e]]
     n_c, n_l = vb_c.count, vb_l.count
-    sum_l = torch.cat([oe_l.reshape(d_l, cmg.nv, deg).sum(-1),
-                       ol_l.reshape(d_l * d_l, cmg.nv, deg).sum(-1)])[:, :n_l]
-    new_v = list(state.v)
+    new_v = list(vstates)
     if fb.vblocks[e] == fb.vblocks[g]:
         eta = vb_l.prior_eta + sum_l[:d_l].T + sum_c[:d_l].T
         lam = (vb_l.prior_lam + sum_l[d_l:].T.reshape(n_l, d_l, d_l)
                + sum_c[d_l:].T.reshape(n_l, d_l, d_l))
         new_v[fb.vblocks[e]] = VariableState(eta=eta, lam=lam, mean=scaled_sym_solve(lam, eta))
-        return CMState(v=tuple(new_v), f=fs)
+        return tuple(new_v)
     for vi, vb, s, n, d in ((fb.vblocks[e], vb_l, sum_l, n_l, d_l),
                             (fb.vblocks[g], vb_c, sum_c, n_c, d_c)):
         eta = vb.prior_eta + s[:d].T
         lam = vb.prior_lam + s[d:].T.reshape(n, d, d)
         new_v[vi] = VariableState(eta=eta, lam=lam, mean=scaled_sym_solve(lam, eta))
-    return CMState(v=tuple(new_v), f=fs)
+    return tuple(new_v)
 
 
-def run(cmg: CMGraph, state: CMState, cfg: GBPConfig, n_iters: int) -> CMState:
-    """n_iters synchronous sweeps."""
+def run(cmg: CMGraph | CMSegGraph, state: CMState, cfg: GBPConfig, n_iters: int) -> CMState:
+    """n_iters synchronous sweeps (either layout)."""
     for _ in range(n_iters):
         state = sweep(cmg, state, cfg)
     return state
 
 
-def from_gbp_state(cmg: CMGraph, state: GBPState) -> CMState:
+def from_gbp_state(cmg: CMGraph | CMSegGraph, state: GBPState) -> CMState:
     """Resume a row-major GBPState (user order) in the CM layout.  Rows are
     sorted by `rowperm` and re-padded with zeros, which restores the
     invariants the sweep relies on: padded rows carry zero messages and
     act = 0 keeps them inert.  Landmark beliefs take the sorted order."""
+    if isinstance(cmg, CMSegGraph):
+        return from_gbp_state_seg(cmg, state)
     fb = cmg.fb
     m = fb.count
     fs = state.f[0]
@@ -661,9 +719,11 @@ def from_gbp_state(cmg: CMGraph, state: GBPState) -> CMState:
     return CMState(v=_sorted_landmarks(cmg, state.v, cmg.vperm), f=fstate)
 
 
-def to_gbp_state(cmg: CMGraph, state: CMState) -> GBPState:
+def to_gbp_state(cmg: CMGraph | CMSegGraph, state: CMState) -> GBPState:
     """Convert to the row-major GBPState in user order (diagnostics,
     checkpoints, tests): factor rows and landmark beliefs are unsorted."""
+    if isinstance(cmg, CMSegGraph):
+        return to_gbp_state_seg(cmg, state)
     fb = cmg.fb
     m = fb.count
     fs = state.f
@@ -678,3 +738,367 @@ def to_gbp_state(cmg: CMGraph, state: CMState) -> GBPState:
         since_relin=row(fs.srel).reshape(m).to(torch.int32),
     )
     return GBPState(v=_sorted_landmarks(cmg, state.v, cmg.vinv), f=(fstate,))
+
+
+# --- the degree-class segmented layout -------------------------------------------------
+#
+# The ELL layout pads every landmark group to the largest degree: on the city
+# scene 451,584 rows hold 366,973 factors.  The segmented layout cuts the
+# factor block into degree classes (contiguous ranges of landmark degrees,
+# each padded to its own largest degree) and runs each class as its own
+# segment through the same kernels at its own degree, camera windows and
+# row count.  The landmark block is relabelled to (class, locality) order,
+# as the single segment's locality sort does.  BA-class graphs only (the two
+# slots on two variable blocks); schedule masks, the annealed runner and the
+# halo paths stay on the single segment.
+
+
+class CMSegPart(NamedTuple):
+    """Static and per-row data of one degree class: n_groups landmark
+    groups of `deg` rows in (class, locality) order, padded to mp rows (a
+    multiple of lcm(ROW_ALIGN, deg)).  Static operands are edge-padded (the
+    last row repeated, so padded rows keep finite math and their camera's
+    window); act is 0 on padded rows and on the clones of groups below the
+    class degree."""
+
+    z: torch.Tensor  # [z, mp]
+    prec: torch.Tensor  # [z, mp], then the per-factor Huber thresholds
+    act: torch.Tensor  # [1, mp]
+    gidx: torch.Tensor  # [mp] int32 camera (gathered-slot) id per row
+    rows: torch.Tensor  # [mp] int64 row of `fb` per row
+    deg: int
+    mp: int
+    nv: int  # mp // deg landmark slots; the first n_groups are the class's
+    n_groups: int
+    v0: int  # the class's first landmark in the relabelled order
+    m: int  # n_groups * deg rows before the padding
+    args: torch.Tensor | None = None  # [n_args, mp] per-row factor arguments
+    # A windowed class runs kernels 11, 10, 16, 15 (as the single segment's
+    # windows, `CMGraph.win_*`); an unwindowed one runs 1, 2, 3 with the
+    # whole camera table and the CSR of its valid rows by camera id.
+    win_w: int = 0
+    win_starts: torch.Tensor | None = None  # [mp / TILE] int32
+    win_rows: torch.Tensor | None = None
+    win_offsets: torch.Tensor | None = None
+    blk_tiles: torch.Tensor | None = None
+    blk_offsets: torch.Tensor | None = None
+    seg_rows: torch.Tensor | None = None
+    seg_offsets: torch.Tensor | None = None
+
+
+class CMSegGraph(NamedTuple):
+    """Static per-graph data of the degree-class segmented CM sweep."""
+
+    base: Graph  # the landmark block's priors in (class, locality) order
+    parts: tuple  # tuple[CMSegPart], classes in descending degree
+    vperm: torch.Tensor  # [n_lmk] int64 relabelled id -> user id
+    vinv: torch.Tensor  # [n_lmk] int64 user id -> relabelled id
+    # Per row of `fb`, its row in the parts' rows laid end to end; clone rows
+    # beyond their class degree name their group's first row.
+    inv_map: torch.Tensor  # [fb.count] int64
+    n_tab: int  # rows of the shared landmark tables: max over parts of v0 + nv
+
+    @property
+    def fb(self):
+        return self.base.fblocks[0]
+
+    @property
+    def mp(self) -> int:
+        """Rows over all segments."""
+        return sum(p.mp for p in self.parts)
+
+
+def single_segment(cmg, who: str) -> None:
+    """Raise ValueError naming `who` for a CMSegGraph: schedule masks, the
+    annealed runner and the CM schedules run on the single-segment layout
+    only (the reference asserts for masks and fails on the others)."""
+    if isinstance(cmg, CMSegGraph):
+        raise ValueError(f"{who} runs on the single-segment layout: prepare the graph with "
+                         "segment=False")
+
+
+def _class_rows(groups: int, deg: int) -> int:
+    """Rows of a class of `groups` groups of `deg` rows, padded to a
+    multiple of lcm(ROW_ALIGN, deg)."""
+    lcm = ROW_ALIGN * deg // math.gcd(ROW_ALIGN, deg)
+    return -(-groups * deg // lcm) * lcm
+
+
+# The reference's class-choice constants: each extra class costs MERGE_MIN_ROWS
+# rows in the dynamic program, and the segmented layout must save MIN_SAVING
+# of the single segment's rows.
+MERGE_MIN_ROWS = 4 * ROW_ALIGN
+MIN_SAVING = 0.03
+
+
+def _degree_bounds(distinct, cnts, classes_mode: str) -> list:
+    """Degree classes as index ranges (i, j) into the descending distinct
+    degrees: "exact" one class per degree; "auto" the reference's dynamic
+    program over contiguous ranges, each class costing its padded rows
+    (`_class_rows` at max(degree, 2)) plus MERGE_MIN_ROWS."""
+    k = len(distinct)
+    if classes_mode == "exact":
+        return [(i, i) for i in range(k)]
+    if classes_mode != "auto":
+        raise ValueError(f"classes_mode must be 'auto' or 'exact', got {classes_mode!r}")
+    cost = lambda i, j: _class_rows(sum(cnts[i:j + 1]), max(int(distinct[i]), 2))
+    best, choice = [0] * (k + 1), [0] * (k + 1)
+    for j in range(k):
+        b = None
+        for i in range(j + 1):
+            v = best[i] + cost(i, j) + MERGE_MIN_ROWS
+            if b is None or v < b:
+                b, choice[j + 1] = v, i
+        best[j + 1] = b
+    bounds, j = [], k
+    while j > 0:
+        bounds.append((choice[j], j - 1))
+        j = choice[j]
+    return bounds[::-1]
+
+
+def prepare_seg(graph: Graph, window: bool = True,
+                classes_mode: str = "auto") -> CMSegGraph | None:
+    """Build the degree-class segmented CM data, or None where the layout
+    does not apply or does not pay: the graph is not fast-path BA (one
+    factor block on two variable blocks, every landmark group of the ELL
+    layout non-empty, some clone rows), a single class, a pad-row saving
+    below MIN_SAVING of the single segment's rows, or (auto mode) a class
+    without camera windows.
+
+    classes_mode "auto" chooses the classes by the reference's dynamic
+    program over contiguous degree ranges (`_degree_bounds`); "exact" takes
+    one class per distinct degree and skips both worth-it gates.  Within a
+    class the landmark groups are sorted by their lowest camera id and every
+    class tries camera windows through `_windows`, the single segment's rule
+    with its shared-memory gate, so where both packages' gates pass the
+    windows are the reference's.
+
+    The reference declines in auto mode when a class has no windows because
+    its unwindowed multi-segment sweep faults the TPU worker; the port has
+    no such fault and keeps the decline only so that both packages return
+    the same kind of graph for the same graph: classes_mode="exact" runs
+    unwindowed classes.  An unwindowed class stages the whole camera table
+    in shared memory, so where that table exceeds SMEM_TABLE_BYTES (in
+    float64 from 147 cameras on) this returns None, as the reference does
+    at its VMEM gate."""
+    fb = _fast_block(graph)
+    if fb is None or fb.vblocks[0] == fb.vblocks[1] or fb.valid is None:
+        return None
+    e = fb.ell_slot
+    g = 1 - e
+    d_max = fb.ell_deg
+    n_l = graph.vblocks[fb.vblocks[e]].count
+    if fb.count != n_l * d_max:
+        return None
+    n_cam = graph.vblocks[fb.vblocks[g]].count
+    d_g = fb.dofs[g]
+    width, itemsize = d_g + d_g * d_g, fb.z.element_size()
+    valid = fb.valid.cpu().numpy().astype(bool)
+    degv = valid.reshape(n_l, d_max).sum(1)
+    if degv.min() < 1:
+        return None
+    gidx = np.asarray(fb.adj[g].cpu(), dtype=np.int32)
+
+    distinct = np.unique(degv)[::-1]
+    cnts = [int((degv == d).sum()) for d in distinct]
+    bounds = _degree_bounds(distinct, cnts, classes_mode)
+    if len(bounds) < 2:
+        return None
+    if classes_mode != "exact":
+        rows_seg = sum(_class_rows(sum(cnts[i:j + 1]), max(int(distinct[i]), 2))
+                       for i, j in bounds)
+        if rows_seg > (1.0 - MIN_SAVING) * _class_rows(n_l, d_max):
+            return None  # too few pad rows saved for the extra launches
+
+    # The lowest camera id of each group's valid rows: the locality key.
+    gmin = np.where(valid.reshape(n_l, d_max), gidx.reshape(n_l, d_max), 2**30).min(1)
+    classes, inv_map = [], np.zeros(n_l * d_max, dtype=np.int64)
+    v0 = base = 0
+    for i, j in bounds:
+        c = max(int(distinct[i]), 2)
+        gids = np.flatnonzero(np.isin(degv, distinct[i:j + 1]))
+        gids = gids[np.argsort(gmin[gids], kind="stable")]
+        rows = (gids[:, None] * d_max + np.arange(c)).reshape(-1)
+        m_s, mp_s = rows.size, _class_rows(gids.size, c)
+        rows_p = np.pad(rows, (0, mp_s - m_s), mode="edge")
+        # Real and in-class clone rows map to their own position; clones
+        # beyond the class degree to their group's first row.
+        pos = base + np.arange(m_s)
+        inv_map[rows] = pos
+        for r in range(c, d_max):
+            inv_map[gids * d_max + r] = pos[::c]
+        gseg = gidx[rows_p]
+        classes.append(dict(deg=c, gids=gids, rows=rows_p, m=m_s, mp=mp_s, v0=v0, gidx=gseg,
+                            act=np.where(np.arange(mp_s) < m_s, valid[rows_p], False),
+                            win=_windows(gseg, n_cam, itemsize, width) if window else None))
+        v0 += gids.size
+        base += m_s
+    if v0 != n_l:
+        raise AssertionError("the degree classes do not cover every landmark")
+    unwindowed = any(cl["win"] is None for cl in classes)
+    if unwindowed and (classes_mode != "exact"
+                       or n_cam * width * itemsize > SMEM_TABLE_BYTES):
+        return None
+
+    dt, dev = fb.z.dtype, fb.z.device
+    as_i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
+    as_i64 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=dev)
+    prec = fb.prec if fb.huber_arr is None else torch.cat(
+        [fb.prec, fb.huber_arr[:, None].to(dt)], dim=1)
+    n_args = comp_n_args(fb.ftype.name)
+    parts = []
+    for cl in classes:
+        rows_t = as_i64(cl["rows"])
+        to_cm = lambda a: a.reshape(fb.count, -1)[rows_t].T.contiguous()
+        extra = {}
+        if cl["win"] is not None:
+            starts, w, _ = cl["win"]
+            win_rows, win_offsets = window_rows_csr(cl["gidx"], starts, w)
+            blk_tiles, blk_offsets = window_block_csr(starts, w, n_cam)
+            extra.update(win_w=int(w), win_starts=as_i32(starts), win_rows=as_i32(win_rows),
+                         win_offsets=as_i32(win_offsets), blk_tiles=as_i32(blk_tiles),
+                         blk_offsets=as_i32(blk_offsets))
+        else:
+            seg_rows, seg_offsets = _rows_by_id(cl["gidx"], cl["act"], n_cam)
+            extra.update(seg_rows=as_i32(seg_rows), seg_offsets=as_i32(seg_offsets))
+        if n_args:
+            extra["args"] = to_cm(fb.args.reshape(fb.count, -1)[:, :n_args].to(dt))
+        parts.append(CMSegPart(
+            z=to_cm(fb.z), prec=to_cm(prec),
+            act=torch.tensor(cl["act"], dtype=dt, device=dev)[None],
+            gidx=as_i32(cl["gidx"]), rows=rows_t, deg=cl["deg"], mp=cl["mp"],
+            nv=cl["mp"] // cl["deg"], n_groups=int(cl["gids"].size), v0=cl["v0"], m=cl["m"],
+            **extra))
+
+    perm = np.concatenate([cl["gids"] for cl in classes])
+    vperm = as_i64(perm)
+    # Relabel the landmark block to (class, locality) order: its priors, and
+    # with them the resident beliefs, live in that order across sweeps.
+    vblocks = list(graph.vblocks)
+    vb_l = vblocks[fb.vblocks[e]]
+    vblocks[fb.vblocks[e]] = dataclasses.replace(
+        vb_l, prior_eta=vb_l.prior_eta[vperm], prior_lam=vb_l.prior_lam[vperm])
+    return CMSegGraph(base=dataclasses.replace(graph, vblocks=tuple(vblocks)), parts=tuple(parts),
+                      vperm=vperm, vinv=as_i64(np.argsort(perm)), inv_map=as_i64(inv_map),
+                      n_tab=max(p.v0 + p.nv for p in parts))
+
+
+def _seg_to_cm(part: CMSegPart, a: torch.Tensor) -> torch.Tensor:
+    """Rows of `fb` [m, F] (or [m]) -> the class's resident [F, mp]: its m
+    rows, zero rows appended (padded rows carry zero messages and inert
+    factor state, as on the single segment)."""
+    rows = a.reshape(a.shape[0], -1)[part.rows[:part.m]]
+    return F.pad(rows.T, (0, part.mp - part.m)).contiguous()
+
+
+def init_state_seg(sg: CMSegGraph, means: tuple) -> CMState:
+    """`init_state` of a segmented graph: beliefs = priors (landmarks in the
+    relabelled order), factors linearized at the user-order `means`, zero
+    messages; the factor state a tuple of CMFactorState, [F, mp] per class."""
+    fb = sg.fb
+    vmeans = list(means)
+    li = fb.vblocks[fb.ell_slot]
+    vmeans[li] = means[li][sg.vperm]
+    vstates = tuple(VariableState(eta=vb.prior_eta, lam=vb.prior_lam, mean=mu)
+                    for vb, mu in zip(sg.base.vblocks, vmeans))
+    x = torch.cat([means[vb][fb.adj[k].long()] for k, vb in enumerate(fb.vblocks)], dim=-1)
+    jac, r0 = linearize_block(fb, x)
+    fstates = []
+    for p in sg.parts:
+        zeros = lambda f: torch.zeros((f, p.mp), dtype=x.dtype, device=x.device)
+        fstates.append(CMFactorState(
+            lp=_seg_to_cm(p, x), jac=_seg_to_cm(p, jac), r0=_seg_to_cm(p, r0), srel=zeros(1),
+            msg_eta=tuple(zeros(d) for d in fb.dofs),
+            msg_lam=tuple(zeros(d * d) for d in fb.dofs)))
+    return CMState(v=vstates, f=tuple(fstates))
+
+
+def sweep_seg(sg: CMSegGraph, state: CMState, cfg: GBPConfig) -> CMState:
+    """One synchronous sweep of a segmented graph: each class runs the
+    kernels at its own degree (windowed: relin_cm_tabblk_ell,
+    messages_cm_tabblk_ell with segsum_cm_blk, scatter_windows_cm;
+    unwindowed: relin_cm_tab_ell, messages_cm_tab_ell with segsum_by_id),
+    then one belief update.  The classes read one landmark table: the
+    landmarks in relabelled order, then identity rows (eta = 0, lam = I,
+    mean = 0) up to n_tab, each class the rows [v0, v0 + nv) of it, so a
+    class's padded groups read the next class's landmarks, inert under act
+    = 0, as in the reference.  The camera sums add over the classes in
+    order from zero; the landmark sums are each class's reshape-sum over its
+    degree, laid end to end."""
+    fb = sg.fb
+    e = fb.ell_slot
+    g = 1 - e
+    d_c, d_l = fb.dofs[g], fb.dofs[e]
+    dt = state.f[0].r0.dtype
+    params = _kernel_params(cfg, dt)
+    model = fb.ftype.name
+    huber = "row" if fb.huber_arr is not None else fb.huber
+    vs_c, vs_l = state.v[fb.vblocks[g]], state.v[fb.vblocks[e]]
+    n_c = vs_c.eta.shape[0]
+    n_pad = sg.n_tab - vs_l.eta.shape[0]
+    cam_mean, cam_tab = vs_c.mean.contiguous(), _packed(vs_c).contiguous()
+    lmk_tab = _with_identity_rows(_packed(vs_l), d_l, n_pad).contiguous()
+    lmk_mean = F.pad(vs_l.mean, (0, 0, 0, n_pad)).contiguous()
+    sum_c = torch.zeros((d_c + d_c * d_c, n_c), dtype=dt, device=cam_tab.device)
+    new_f, sums_l = [], []
+    for p, fs in zip(sg.parts, state.f):
+        lm, lt = lmk_mean[p.v0:p.v0 + p.nv], lmk_tab[p.v0:p.v0 + p.nv]
+        msgs = (fs.msg_eta[0], fs.msg_lam[0], fs.msg_eta[1], fs.msg_lam[1])
+        if p.win_w:
+            lp, jac, r0, srel = relin_cm_tabblk_ell(
+                params, cam_mean, lm, p.gidx, p.win_starts, p.z, fs.lp, fs.jac, fs.r0, fs.srel,
+                p.act, deg=p.deg, win_w=p.win_w, comp_name=model, gslot=g, fargs=p.args)
+            *out, part = messages_cm_tabblk_ell(
+                params, cam_tab, lt, p.gidx, p.win_starts, jac, lp, r0, p.prec, srel, p.act,
+                *msgs, p.win_rows, p.win_offsets, deg=p.deg, huber=huber, win_w=p.win_w, gslot=g)
+            s = scatter_windows_cm(part, p.win_starts, p.blk_tiles, p.blk_offsets, n_seg=n_c)
+        else:
+            lp, jac, r0, srel = relin_cm_tab_ell(
+                params, cam_mean, lm, p.gidx, p.z, fs.lp, fs.jac, fs.r0, fs.srel, p.act,
+                deg=p.deg, comp_name=model, gslot=g, fargs=p.args)
+            *out, s = messages_cm_tab_ell(
+                params, cam_tab, lt, p.gidx, jac, lp, r0, p.prec, srel, p.act, *msgs,
+                p.seg_rows, p.seg_offsets, deg=p.deg, huber=huber, gslot=g)
+        sum_c = sum_c + s
+        oe0, ol0, oe1, ol1 = out
+        new_f.append(CMFactorState(lp=lp, jac=jac, r0=r0, srel=srel, msg_eta=(oe0, oe1),
+                                   msg_lam=(ol0, ol1)))
+        sums_l.append(_ell_sum(out[2 * e], out[2 * e + 1], p.nv, p.deg)[:, :p.n_groups])
+    return CMState(v=_new_beliefs(sg.base, state.v, torch.cat(sums_l, dim=1), sum_c),
+                   f=tuple(new_f))
+
+
+def to_gbp_state_seg(sg: CMSegGraph, state: CMState) -> GBPState:
+    """`to_gbp_state` of a segmented graph: every row of `fb` takes its
+    class row (`inv_map`; clones beyond their class degree their group's
+    first row, which is what the ELL layout put there), except that
+    messages are zero on invalid rows, as the layout keeps them; landmark
+    beliefs back in user order."""
+    fb = sg.fb
+    m = fb.count
+    cat = lambda get: torch.cat([get(fs)[:, :p.m].T for p, fs in zip(sg.parts, state.f)])[
+        sg.inv_map]
+    msg = lambda get: torch.where(fb.valid[:, None], cat(get), 0.0)
+    fstate = FactorState(
+        linpoint=cat(lambda fs: fs.lp),
+        jac=cat(lambda fs: fs.jac).reshape(m, fb.z.shape[-1], fb.tdof),
+        r0=cat(lambda fs: fs.r0),
+        msg_eta=tuple(msg(lambda fs, k=k: fs.msg_eta[k]) for k in range(2)),
+        msg_lam=tuple(msg(lambda fs, k=k: fs.msg_lam[k]).reshape(m, d, d)
+                      for k, d in enumerate(fb.dofs)),
+        since_relin=cat(lambda fs: fs.srel).reshape(m).to(torch.int32),
+    )
+    return GBPState(v=_sorted_landmarks(sg, state.v, sg.vinv), f=(fstate,))
+
+
+def from_gbp_state_seg(sg: CMSegGraph, state: GBPState) -> CMState:
+    """`from_gbp_state` of a segmented graph: each class takes its rows of
+    `fb`, zero rows appended; landmark beliefs in the relabelled order."""
+    fs = state.f[0]
+    fstates = tuple(CMFactorState(
+        lp=_seg_to_cm(p, fs.linpoint), jac=_seg_to_cm(p, fs.jac), r0=_seg_to_cm(p, fs.r0),
+        srel=_seg_to_cm(p, fs.since_relin.to(fs.r0.dtype)),
+        msg_eta=tuple(_seg_to_cm(p, me) for me in fs.msg_eta),
+        msg_lam=tuple(_seg_to_cm(p, ml) for ml in fs.msg_lam)) for p in sg.parts)
+    return CMState(v=_sorted_landmarks(sg, state.v, sg.vperm), f=fstates)

@@ -6,6 +6,6 @@
 
 namespace gbp {
 
-GBP_BAL9_HALO_LAUNCHERS(, float)
+GBP_HALO_LAUNCHERS(, float, Bal9)
 
 }  // namespace gbp

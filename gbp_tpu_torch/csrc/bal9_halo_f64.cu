@@ -6,6 +6,6 @@
 
 namespace gbp {
 
-GBP_BAL9_HALO_LAUNCHERS(, double)
+GBP_HALO_LAUNCHERS(, double, Bal9)
 
 }  // namespace gbp

@@ -5,6 +5,6 @@
 
 namespace gbp {
 
-GBP_BAL9_TABLE_LAUNCHERS(, float)
+GBP_TABLE_LAUNCHERS(, float, Bal9)
 
 }  // namespace gbp

@@ -5,6 +5,6 @@
 
 namespace gbp {
 
-GBP_BAL9_TABLE_LAUNCHERS(, double)
+GBP_TABLE_LAUNCHERS(, double, Bal9)
 
 }  // namespace gbp

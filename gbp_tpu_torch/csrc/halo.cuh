@@ -4,7 +4,8 @@
 // This is the path of `parallel/halo_cm.py` when a partition's camera
 // windows engage (city and venice cut into partitions).  The entries are
 // compiled once per float type, in halo_f32.cu and halo_f64.cu, side by
-// side; the (9, 3, 2) messages instantiations in bal9_halo_*.cu.
+// side; the (9, 3, 2) messages instantiations in bal9_halo_*.cu, those of
+// the camera shapes with the landmarks gathered in lmk_halo_*.cu.
 //
 // Layout, shapes and models as in windows.cu: component-major [F, mp] per
 // partition, rows cut into tiles of TILE = 1024; every OWNED gathered id of

@@ -1,13 +1,16 @@
 // The fast path's full-table kernels for Hopper (sm_90a).
 //
 // Layout: component-major [F, mp], one thread per factor row, so the
-// threads of a warp read neighbouring addresses of every component.  Slot 0
-// is gathered by id from a per-variable table staged in shared memory
-// (cameras; poses), slot 1 is the ELL slot: row r belongs to variable
-// r / deg (landmarks; the same poses).  Instantiated for (d0, d1, z) =
+// threads of a warp read neighbouring addresses of every component.  One
+// slot (gslot) is gathered by id from a per-variable table staged in shared
+// memory (cameras; landmarks on a graph with more cameras than landmarks;
+// poses), the other is the ELL slot: row r belongs to variable r / deg
+// (landmarks; cameras; the same poses).  Instantiated for (d0, d1, z) =
 // (6, 3, 2) reprojection (normalized or BAL), (9, 3, 2) the 9-dof BAL
-// camera (in bal9_table_*.cu), (3, 3, 3) SE(2) and (6, 6, 6) SE(3) between
-// factors, with a scalar or a per-row Huber threshold.  The per-row
+// camera (in bal9_table_*.cu; with the landmarks gathered, both camera
+// shapes in lmk_table_*.cu), (3, 3, 3) SE(2) and (6, 6, 6) SE(3) between
+// factors, each with either slot gathered, with a scalar or a per-row Huber
+// threshold.  The per-row
 // arithmetic is in messages_rows.cuh and the messages kernels are in
 // table_kernels.cuh, shared with windows.cu, unfused.cu, unfused_win.cu and
 // rows.cu; the wrappers and plain versions are in

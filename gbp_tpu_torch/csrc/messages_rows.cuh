@@ -459,15 +459,20 @@ struct Shape {
   static constexpr int DG = G == 0 ? A : B;
   static constexpr int F_G = DG + DG * DG;
 };
-// Call `fn(Shape{})` for an instantiated shape; false otherwise.  Cameras and
-// landmarks are instantiated with the cameras gathered; a pose graph's ELL
-// layout may group by either end of its between factors.  The messages
-// kernels at (9, 3, 2), the 9-dof BAL camera, are compiled in sources of
-// their own (bal9_table_*.cu).
+// Call `fn(Shape{})` for an instantiated shape; false otherwise.  Every
+// shape is instantiated with either slot gathered: cameras and landmarks
+// with the cameras gathered (landmarks in the ELL slot) or, on a graph with
+// more cameras than landmarks, the landmarks gathered (cameras in the ELL
+// slot); a pose graph's ELL layout may group by either end of its between
+// factors.  The messages kernels at (9, 3, 2), the 9-dof BAL camera, and at
+// both camera shapes with the landmarks gathered are compiled in sources of
+// their own (bal9_table_*.cu, lmk_table_*.cu; table_kernels.cuh).
 template <class F>
 inline bool with_table_shape(int da, int db, int zd, int gslot, F&& fn) {
   if (da == 6 && db == 3 && zd == 2 && gslot == 0) { fn(Shape<6, 3, 2, 0>{}); return true; }
+  if (da == 6 && db == 3 && zd == 2 && gslot == 1) { fn(Shape<6, 3, 2, 1>{}); return true; }
   if (da == 9 && db == 3 && zd == 2 && gslot == 0) { fn(Shape<9, 3, 2, 0>{}); return true; }
+  if (da == 9 && db == 3 && zd == 2 && gslot == 1) { fn(Shape<9, 3, 2, 1>{}); return true; }
   if (da == 3 && db == 3 && zd == 3 && gslot == 0) { fn(Shape<3, 3, 3, 0>{}); return true; }
   if (da == 3 && db == 3 && zd == 3 && gslot == 1) { fn(Shape<3, 3, 3, 1>{}); return true; }
   if (da == 6 && db == 6 && zd == 6 && gslot == 0) { fn(Shape<6, 6, 6, 0>{}); return true; }

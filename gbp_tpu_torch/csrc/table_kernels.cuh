@@ -2,8 +2,9 @@
 // launchers, and the windowed relinearization kernels, shared by the sources
 // that dispatch on the shape at run time (messages.cu, windows.cu,
 // unfused.cu, unfused_win.cu, halo_f32.cu, halo_f64.cu) and the sources that
-// instantiate the 9-dof BAL camera shape (bal9_table_*.cu, bal9_halo_*.cu),
-// so that the heaviest instantiations compile side by side.  The windowed
+// instantiate the 9-dof BAL camera shape (bal9_table_*.cu, bal9_halo_*.cu)
+// and the camera shapes with the landmarks gathered (lmk_table_*.cu,
+// lmk_halo_*.cu), so that the heaviest instantiations compile side by side.  The windowed
 // kernels take the gathered slot's second source of the halo paths as a
 // template parameter (GHOST): ids from n_own on name rows of a ghost table
 // in device memory instead of the tile's window (halo_f32.cu).  What each
@@ -630,30 +631,41 @@ int launch_relin_tabblk(int model, int gslot, const S* x_other, const S* mtab, i
   return known ? rc : -2;
 }
 
-// The 9-dof BAL camera shape's launchers are compiled in bal9_table_*.cu.
+// Shapes whose messages launchers are compiled in sources of their own, so
+// that their compilers run beside the others': the 9-dof BAL camera
+// (bal9_table_*.cu, bal9_halo_*.cu), and both camera shapes with the
+// landmarks gathered, the cameras in the ELL slot (lmk_table_*.cu,
+// lmk_halo_*.cu).  Every other source declares them extern.
 using Bal9 = Shape<9, 3, 2, 0>;
-#define GBP_BAL9_TABLE_LAUNCHERS(MODE, S)                                                     \
-  MODE template int launch_messages_tab_ell<S, Bal9>(bool, const S*, int, const S*,          \
+using Lmk6 = Shape<6, 3, 2, 1>;
+using Lmk9 = Shape<9, 3, 2, 1>;
+#define GBP_TABLE_LAUNCHERS(MODE, S, SH)                                                      \
+  MODE template int launch_messages_tab_ell<S, SH>(bool, const S*, int, const S*,            \
       const int*, const MsgOps<S>&, int64_t, int, const MsgParams<S>&, cudaStream_t);         \
-  MODE template int launch_messages_win<S, Bal9>(bool, const S*, int, const S*, const int*,  \
+  MODE template int launch_messages_win<S, SH>(bool, const S*, int, const S*, const int*,    \
       const int*, int, const MsgOps<S>&, int64_t, int, const MsgParams<S>&, cudaStream_t,     \
       const GhostTable<S>&, int*);                                                            \
-  MODE template int launch_messages_tab<S, Bal9>(bool, const S*, int, const int*, const S*,  \
+  MODE template int launch_messages_tab<S, SH>(bool, const S*, int, const int*, const S*,    \
       const S*, const MsgOps<S>&, int64_t, const MsgParams<S>&, cudaStream_t);                \
-  MODE template int launch_messages_tabblk<S, Bal9>(bool, const S*, int, const int*,         \
+  MODE template int launch_messages_tabblk<S, SH>(bool, const S*, int, const int*,           \
       const int*, int, const S*, const S*, const MsgOps<S>&, int64_t, const MsgParams<S>&,    \
       cudaStream_t, const GhostTable<S>&, int*);
-GBP_BAL9_TABLE_LAUNCHERS(extern, float)
-GBP_BAL9_TABLE_LAUNCHERS(extern, double)
-// ... and the halo paths' (GHOST) ones in bal9_halo_*.cu.
-#define GBP_BAL9_HALO_LAUNCHERS(MODE, S)                                                      \
-  MODE template int launch_messages_win<S, Bal9, true>(bool, const S*, int, const S*,        \
+// ... and the halo paths' (GHOST) ones.
+#define GBP_HALO_LAUNCHERS(MODE, S, SH)                                                       \
+  MODE template int launch_messages_win<S, SH, true>(bool, const S*, int, const S*,          \
       const int*, const int*, int, const MsgOps<S>&, int64_t, int, const MsgParams<S>&,       \
       cudaStream_t, const GhostTable<S>&, int*);                                              \
-  MODE template int launch_messages_tabblk<S, Bal9, true>(bool, const S*, int, const int*,   \
+  MODE template int launch_messages_tabblk<S, SH, true>(bool, const S*, int, const int*,     \
       const int*, int, const S*, const S*, const MsgOps<S>&, int64_t, const MsgParams<S>&,    \
       cudaStream_t, const GhostTable<S>&, int*);
-GBP_BAL9_HALO_LAUNCHERS(extern, float)
-GBP_BAL9_HALO_LAUNCHERS(extern, double)
+#define GBP_OWN_SOURCE_SHAPES(MODE, S)                                                        \
+  GBP_TABLE_LAUNCHERS(MODE, S, Bal9)                                                          \
+  GBP_TABLE_LAUNCHERS(MODE, S, Lmk6)                                                          \
+  GBP_TABLE_LAUNCHERS(MODE, S, Lmk9)                                                          \
+  GBP_HALO_LAUNCHERS(MODE, S, Bal9)                                                           \
+  GBP_HALO_LAUNCHERS(MODE, S, Lmk6)                                                           \
+  GBP_HALO_LAUNCHERS(MODE, S, Lmk9)
+GBP_OWN_SOURCE_SHAPES(extern, float)
+GBP_OWN_SOURCE_SHAPES(extern, double)
 
 }  // namespace gbp

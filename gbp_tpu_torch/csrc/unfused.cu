@@ -6,8 +6,7 @@
 //
 // Layout, shapes and models as in messages.cu: component-major [F, mp], one
 // thread per factor row, (d0, d1, z) = (6, 3, 2), (9, 3, 2), (3, 3, 3),
-// (6, 6, 6), scalar or per-row Huber; the gathered slot is slot 0, or for
-// the pose shapes either slot.  The per-row arithmetic is messages_rows.cuh,
+// (6, 6, 6), scalar or per-row Huber, either slot gathered.  The per-row arithmetic is messages_rows.cuh,
 // the same code as every other kernel; the messages kernel is in
 // table_kernels.cuh.  The wrappers and plain versions are in
 // gbp_tpu_torch/ops/messages.py.  Kernels allocate nothing and launch on the

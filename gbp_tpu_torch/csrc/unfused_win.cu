@@ -8,8 +8,7 @@
 // Layout, shapes and models as in windows.cu: component-major [F, mp], rows
 // cut into tiles of TILE = 1024, every gathered id of tile i inside the
 // window [starts[i], starts[i] + w); (d0, d1, z) = (6, 3, 2), (9, 3, 2),
-// (3, 3, 3), (6, 6, 6), scalar or per-row Huber, either slot gathered for
-// the equal-slot shapes.  The per-row arithmetic is messages_rows.cuh and
+// (3, 3, 3), (6, 6, 6), scalar or per-row Huber, either slot gathered.  The per-row arithmetic is messages_rows.cuh and
 // the messages kernel is in table_kernels.cuh, the same code as every other
 // kernel.  The wrappers and plain versions are in
 // gbp_tpu_torch/ops/messages.py.  Kernels allocate nothing and launch on the

@@ -1,8 +1,9 @@
 // The windowed large-scene kernels for Hopper (sm_90a): city and venice
 // bundle adjustment, and long pose chains, where the gathered slot's table
 // no longer fits one block's shared memory.  Shapes and models as in
-// messages.cu ((6, 3, 2), (9, 3, 2), (3, 3, 3), (6, 6, 6); scalar or per-row
-// Huber); the messages kernel is in table_kernels.cuh.
+// messages.cu ((6, 3, 2), (9, 3, 2), (3, 3, 3), (6, 6, 6), either slot
+// gathered; scalar or per-row Huber); the messages kernel is in
+// table_kernels.cuh.
 //
 // Rows are cut into tiles of TILE = 1024 factor rows.  After the locality
 // sort of core/sweep_cm.py every camera id of tile i lies in the window

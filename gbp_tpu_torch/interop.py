@@ -46,7 +46,7 @@ def factor_type(name: str):
                          ("observation", linear.observation)):
         if name.startswith(prefix) and name[len(prefix):].isdigit():
             return make(int(name[len(prefix):]))
-    raise NotImplementedError(f"factor type {name!r} is not ported yet (ROADMAP A7)")
+    raise NotImplementedError(f"factor type {name!r} has no counterpart in gbp_tpu_torch")
 
 
 def graph_from_numpy(g, device=None) -> Graph:
@@ -167,35 +167,39 @@ def cm_state_from_numpy(st, device=None) -> CMState:
     permutations from the same graph, so the state converts leaf for leaf
     and no permutation is applied here.  User order is restored by
     `to_gbp_state` on either side.  A same-block (pose-graph) state has one
-    variable block and converts the same way."""
+    variable block and converts the same way.  The state of a segmented
+    graph (`sweep_cm.CMSegGraph`) has a tuple of factor states, one per
+    degree class, [F, T_s, 128] each: it converts to a tuple of [F, mp_s]."""
     device = resolve_device(device)
-    f = st.f
+    one = lambda f: CMFactorState(
+        lp=_cm_in(f.lp, device), jac=_cm_in(f.jac, device), r0=_cm_in(f.r0, device),
+        srel=_cm_in(f.srel, device),
+        msg_eta=tuple(_cm_in(a, device) for a in f.msg_eta),
+        msg_lam=tuple(_cm_in(a, device) for a in f.msg_lam))
     return CMState(
         v=tuple(VariableState(eta=_t(vs.eta, device), lam=_t(vs.lam, device),
                               mean=_t(vs.mean, device)) for vs in st.v),
-        f=CMFactorState(
-            lp=_cm_in(f.lp, device), jac=_cm_in(f.jac, device), r0=_cm_in(f.r0, device),
-            srel=_cm_in(f.srel, device),
-            msg_eta=tuple(_cm_in(a, device) for a in f.msg_eta),
-            msg_lam=tuple(_cm_in(a, device) for a in f.msg_lam),
-        ),
+        f=tuple(one(p) for p in st.f) if isinstance(st.f, (tuple, list)) else one(st.f),
     )
 
 
 def cm_state_to_numpy(state: CMState) -> dict:
     """Nested dict of numpy arrays in the reference's layout:
     {"v": [{"eta", "lam", "mean"}, ...], "f": {"lp", "jac", "r0", "srel",
-    "msg_eta": (...), "msg_lam": (...)}} with [F, T, 128] factor arrays."""
+    "msg_eta": (...), "msg_lam": (...)}} with [F, T, 128] factor arrays;
+    a segmented graph's state has "f" a tuple of such dicts, one per degree
+    class."""
+    one = lambda f: {
+        "lp": _cm_out(f.lp), "jac": _cm_out(f.jac), "r0": _cm_out(f.r0),
+        "srel": _cm_out(f.srel),
+        "msg_eta": tuple(_cm_out(a) for a in f.msg_eta),
+        "msg_lam": tuple(_cm_out(a) for a in f.msg_lam),
+    }
     f = state.f
     return {
         "v": [{k: getattr(vs, k).detach().cpu().numpy() for k in ("eta", "lam", "mean")}
               for vs in state.v],
-        "f": {
-            "lp": _cm_out(f.lp), "jac": _cm_out(f.jac), "r0": _cm_out(f.r0),
-            "srel": _cm_out(f.srel),
-            "msg_eta": tuple(_cm_out(a) for a in f.msg_eta),
-            "msg_lam": tuple(_cm_out(a) for a in f.msg_lam),
-        },
+        "f": one(f) if isinstance(f, CMFactorState) else tuple(one(p) for p in f),
     }
 
 

@@ -9,11 +9,13 @@ Layout: component-major, every per-factor operand is [F, mp] (component k
 of factor row r at [k, r]), the memory order of the reference's
 [F, mp/128, 128].  One slot is gathered by id from a per-variable table
 (slot `gslot`), the other is the ELL slot (row r belongs to variable
-r // deg).  The table kernels are instantiated for TABLE_SHAPES: (6, 3, 2)
-cameras and landmarks under `reprojection_normalized` with the cameras
-gathered (gslot 0), (3, 3, 3) SE(2) and (6, 6, 6) SE(3) poses under
-`se2_between` / `se3_between` (both slots on one variable block) with either
-slot gathered; a wrapper reads the shape off its operands.  The names of
+r // deg).  The table kernels are instantiated for TABLE_SHAPES, each with
+either slot gathered: (6, 3, 2) cameras and landmarks under
+`reprojection_normalized`, with the cameras gathered (gslot 0) or, on a
+graph with more cameras than landmarks, the landmarks gathered and the
+cameras in the ELL slot (gslot 1), and (3, 3, 3) SE(2) and (6, 6, 6) SE(3)
+poses under `se2_between` / `se3_between` (both slots on one variable
+block); a wrapper reads the shape off its operands.  The names of
 the arguments keep the bundle-adjustment words (cam = gathered slot, lmk =
 ELL slot).  (9, 3, 2) is the 9-dof BAL camera of
 `bal_reprojection_intrinsics`.  Every relinearization entry takes the
@@ -125,8 +127,9 @@ KERNELS = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id",
            "messages_cm_tabblkg_ell", "relin_cm_tabblkg_ell")
 # (d0, d1, z) the expanded-operand messages kernel is instantiated for.
 ROW_SHAPES = ((6, 3, 2), (1, 1, 1), (3, 3, 3), (6, 6, 6), (9, 3, 2))
-# (d0, d1, z) of the table kernels, and the measurement models of the
-# relinearization kernels with their ids in the C entries.
+# (d0, d1, z) of the table kernels, each instantiated with either slot
+# gathered, and the measurement models of the relinearization kernels with
+# their ids in the C entries.
 TABLE_SHAPES = ((6, 3, 2), (3, 3, 3), (6, 6, 6), (9, 3, 2))
 MODELS = {"reprojection_normalized": (0, (6, 3, 2)), "se2_between": (1, (3, 3, 3)),
           "se3_between": (2, (6, 6, 6)), "bal_reprojection_normalized": (3, (6, 3, 2)),
@@ -693,18 +696,13 @@ def _raise_on(rc, name):
 
 def _table_shape(name, d0, d1, z, gslot=0):
     """Raise unless the table kernels are instantiated for (d0, d1, z) with
-    slot `gslot` gathered: every TABLE_SHAPES entry with slot 0 gathered, the
-    shapes of equal slots (pose graphs) also with slot 1."""
+    slot `gslot` gathered: every TABLE_SHAPES entry, with either slot."""
     if gslot not in (0, 1):
         raise ValueError(f"{name}: gslot must be 0 or 1, got {gslot}")
     if (d0, d1, z) not in TABLE_SHAPES:
         raise NotImplementedError(
             f"{name}: the kernel is not instantiated for (d0, d1, z) = ({d0}, {d1}, {z}); "
             f"it has {TABLE_SHAPES}")
-    if gslot == 1 and d0 != d1:
-        raise NotImplementedError(
-            f"{name}: at (d0, d1, z) = ({d0}, {d1}, {z}) only slot 0 is gathered (cameras in "
-            f"the ELL slot: ROADMAP A7)")
 
 
 def _model(name, comp_name, d0, d1, z, gslot=0):

@@ -181,9 +181,10 @@ def prepare(hp: halo_mod.HaloProblem, segsum_exact: bool = True, gather_mode: st
     and without windows "table" needs the whole local table within
     SMEM_TABLE_BYTES, else "rows".  Wherever both reach "table" the
     windows, cut lists and remapped ids equal the reference's.  A BA graph
-    with at least as many cameras as landmarks would gather slot 1 at
-    (6, 3, 2) or (9, 3, 2): that raises NotImplementedError (ROADMAP A7),
-    as sweep_cm.prepare does.  segsum_exact is accepted for the reference's
+    with at least as many cameras as landmarks gathers the landmarks (slot 1
+    at (6, 3, 2) or (9, 3, 2)); the gates then take the landmark table's
+    width, 12 values a row.  A shape the kernels are not instantiated for
+    raises NotImplementedError, as sweep_cm.prepare does.  segsum_exact is accepted for the reference's
     signature: the sums always run at full precision."""
     del segsum_exact
     if gather_mode not in GATHER_MODES:
@@ -206,10 +207,10 @@ def prepare(hp: halo_mod.HaloProblem, segsum_exact: bool = True, gather_mode: st
     e = 0 if counts[0] >= counts[1] else 1
     gs = 1 - e
     shape = (*fb.dofs, zdim)
-    if shape not in TABLE_SHAPES or shape not in ROW_SHAPES or (gs == 1 and fb.dofs[0] != fb.dofs[1]):
+    if shape not in TABLE_SHAPES or shape not in ROW_SHAPES:
         raise NotImplementedError(
-            "halo_cm.prepare: cameras in the ELL slot (a graph with at least as many cameras as "
-            "landmarks gathers the landmarks) are not ported yet (ROADMAP A7)")
+            f"halo_cm.prepare: no kernel is instantiated for (d0, d1, z) = {shape}; the table "
+            f"kernels have {TABLE_SHAPES}, either slot gathered")
     vb_e, vb_g = fb.vblocks[e], fb.vblocks[gs]
     c_e, c_g = hp.hgraph.comm[vb_e], hp.hgraph.comm[vb_g]
     n_loc_e = c_e.n_own_max + max(c_e.n_ghost_max, 1)

@@ -188,10 +188,20 @@ def test_cli_generic_engine_and_oracle(capsys, monkeypatch):
     assert out["cmg"] is None and np.isfinite(out["are"][-1][1])
 
 
-def test_cli_refuses_several_devices():
-    """Several partitions run (tests/test_torch_halo_cm.py); what is refused
-    is a scene with at least as many cameras as landmarks, whose halo
-    layout would gather the landmarks (cameras in the ELL slot, ROADMAP A7),
-    as on one device."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        cli.main(["--n_cams", "16", "--n_lmks", "12", "--n_chips", "2", "--device", "cpu"])
+def test_cli_refuses_several_devices(capsys, monkeypatch):
+    """A scene with more cameras than landmarks on two partitions: its halo
+    layout groups by camera and gathers the landmarks (the cameras in the
+    ELL slot), as the reference's does; the ARE every 10 sweeps matches the
+    reference's command line (run on two of the conftest's virtual CPU
+    devices), as the test above does on one device."""
+    argv = ["--n_cams", "16", "--n_lmks", "12", "--n_chips", "2", "--n_iters", "30"]
+    out = cli.main([*argv, "--device", "cpu"])
+    got_text = capsys.readouterr().out
+    ref_text = _reference_cli(argv, capsys, monkeypatch)
+    got, ref = _ares(got_text), _ares(ref_text)
+    assert sorted(got) == sorted(ref) == [0, 10, 20, 30]
+    for it in ref:
+        assert abs(got[it] - ref[it]) <= 1e-3, (it, got[it], ref[it])
+    assert "path: halo_cm (owner-sharded, per-chip CM fast path) on 2 partitions" in got_text
+    hcm = out["hcm"]
+    assert out["hp"].n_chips == 2 and hcm.e == 0 and hcm.gather_mode == "table"

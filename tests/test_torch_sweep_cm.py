@@ -172,13 +172,15 @@ def _with_fb(graph, **kw):
 @pytest.mark.parametrize("case", ["segment", "huber_arr", "full_prec", "factor_type",
                                   "cam_table", "two_blocks", "ell_fused", "no_ell"])
 def test_prepare_rejects_what_is_not_ported(f64, case):
-    """What the reference's fast path takes and the port's does not yet
-    raises, naming its ROADMAP item; what the reference declines returns
-    None (the caller runs the generic sweep); a camera table beyond shared
-    memory without camera locality lands on the expanded operands; per-factor
-    Huber thresholds, `ell_fused=False` and the BAL model with its per-row
-    arguments are taken, a factor type without a component model declined."""
-    _, _, (pg, _, _) = f64
+    """What the reference declines returns None (the caller runs the generic
+    sweep); a camera table beyond shared memory without camera locality
+    lands on the expanded operands; per-factor Huber thresholds,
+    `ell_fused=False` and the BAL model with its per-row arguments are
+    taken, a factor type without a component model declined; with
+    segment=True the reference's `prepare_seg` declines this scene (its
+    degree classes save too few rows) and both packages return the single
+    segment."""
+    _, (jg, _, _), (pg, _, _) = f64
     fb = pg.fblocks[0]
     kw = {}
     if case == "huber_arr":
@@ -220,8 +222,10 @@ def test_prepare_rejects_what_is_not_ported(f64, case):
         cmg = P.prepare(pg, **kw)
         assert cmg.gather_mode == "table" and not cmg.ell_fused and P.prepare(pg).ell_fused
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            P.prepare(pg, **kw)
+        assert isinstance(J.prepare(jg, segsum_exact=True, **kw), J.CMGraph)
+        cmg = P.prepare(pg, **kw)
+        assert isinstance(cmg, P.CMGraph) and P.prepare_seg(pg) is None
+        assert torch.equal(cmg.gidx, P.prepare(pg).gidx) and cmg.win_w == 0
 
 
 def test_port_never_imports_jax():
