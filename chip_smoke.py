@@ -5,8 +5,8 @@ whole-table and windowed), the BA command line on BAL files with in-engine
 annealing, the generic engine, pose-graph SLAM (SE(2) and SE(3)), the halo
 paths, the schedules, the fixed-lag serving loop, checkpoint / resume and
 the profiling helpers, structure from motion from rendered pixels, the
-multi-process paths, the degree-class segmented layout and cameras in the
-ELL slot.
+multi-process paths, the degree-class segmented layout, cameras in the
+ELL slot and the benchmark layer.
 
     python3 chip_smoke.py
 
@@ -345,14 +345,31 @@ non-zero; no phase is caught):
      `--n_chips 2`: kernels 1, 2 and 3 once a sweep on each partition and
      no other launch or plain call (counted), the final ARE within 1.05x
      the dense MAP's.
+ 32. the benchmark layer (gbp_tpu_torch/bench: headline, convergence,
+     per_chip_rate, scaling, window_profile; utils/capture.py).  (a)
+     `python -m gbp_tpu_torch.bench` in its own process: bench.py's six
+     keys, 469,861 factors, vs_baseline from the cached baseline, a finite
+     wall-clock to 1.05x the MAP ARE, and its captured sweeps/s above the
+     eager rate it logs.  (b) In this process, the headline's measurement:
+     the captured 200 sweeps equal the eager 200 from the same state bit for
+     bit, the ARE after 200 sweeps within 1.05x the MAP ARE, reached at
+     sweep 10 or one chunk from it; one replay of the 5-sweep chunk against
+     5 eager sweeps by the profiler (the port's kernels as often, one launch
+     call), device ms and busy share a sweep both ways.  (c) convergence,
+     per_chip_rate (one partition's ARE within 5e-3 px of plain CM's),
+     scaling (1, 2 and 4 partitions, paths halo and halo_cm: every column
+     finite) and window_profile (fused and unfused: every stage finite),
+     each through its `main`.
 """
 import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import socket
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -371,6 +388,7 @@ from gbp_tpu_torch.bench import BIG_BUILD as BIG
 from gbp_tpu_torch.bench import CFG, CITY, VENICE, card_line
 from gbp_tpu_torch.bench import compare_sums as CS
 from gbp_tpu_torch.bench import compare_windows as CW
+from gbp_tpu_torch.bench import convergence, headline, per_chip_rate, scaling, window_profile
 from gbp_tpu_torch.bench import serving
 from gbp_tpu_torch.core import anneal, oracle, schedules, sweep, sweep_cm
 from gbp_tpu_torch.core.sweep import _kernel_params
@@ -3999,6 +4017,156 @@ def ell_cameras_path(card):
     print(f"[cams in ELL] phase 31 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- the benchmark layer (phase 32) ------------------------------------------------------------
+
+# bench_baseline.json's entry at the bench size (469,861 factors), s a sweep.
+BASELINE_S_PER_SWEEP = 80.87697839736938
+BENCH_FACTORS = 469861
+HARNESS_TIMEOUT_S = 300.0  # the headline's process: a hung run fails the phase
+
+
+def headline_cli(card):
+    """Phase 32 (a): `python -m gbp_tpu_torch.bench` in its own process (its
+    stderr echoed), its last line parsed; returns it with the eager rate
+    the process logged."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gbp_tpu_torch.bench"], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=HARNESS_TIMEOUT_S)
+    for line in proc.stderr.splitlines():
+        print(f"[bench cli] {line}")
+    if proc.returncode:
+        raise AssertionError(f"python -m gbp_tpu_torch.bench exited {proc.returncode}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    eager = float(re.search(r"eager \d+ sweeps: [\d.]+s -> ([\d.]+) sweeps/s",
+                            proc.stderr).group(1))
+    print(f"[bench cli] python -m gbp_tpu_torch.bench ({time.perf_counter() - t0:.1f} s, {card}): "
+          f"{json.dumps(res)}; eager {eager:.2f} sweeps/s")
+    keys = {"metric", "value", "unit", "vs_baseline", "wall_clock_to_convergence_s", "n_factors"}
+    if set(res) != keys or res["n_factors"] != BENCH_FACTORS:
+        raise AssertionError(f"the headline line {res} lacks bench.py's keys or its factors")
+    # Both numbers are rounded to 2 decimals from the same unrounded rate.
+    if not abs(res["vs_baseline"] - res["value"] * BASELINE_S_PER_SWEEP) <= (
+            0.005 * BASELINE_S_PER_SWEEP + 0.005):
+        raise AssertionError(f"vs_baseline {res['vs_baseline']} is not the cached baseline's")
+    if not (res["wall_clock_to_convergence_s"] is not None
+            and math.isfinite(res["wall_clock_to_convergence_s"])):
+        raise AssertionError("the headline did not reach 1.05x the MAP ARE")
+    if not res["value"] > eager:
+        raise AssertionError(f"captured {res['value']} sweeps/s not above eager {eager}")
+    return res, eager
+
+
+def replay_records(fn, n=3):
+    """({device record name: count}, launch calls, device ms) per call of
+    `fn` over n calls, by the profiler, after one warm call; in a new window
+    while it recorded no device activity."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        names, launches, dev_us = {}, 0, 0.0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                names[e.name] = names.get(e.name, 0) + 1
+                dev_us += e.time_range.elapsed_us()
+            elif e.name in serving.LAUNCH_CALLS:
+                launches += 1
+        if names:
+            return {k: v / n for k, v in names.items()}, launches / n, dev_us / 1e3 / n
+    raise RuntimeError("the profiler recorded no device activity in 5 windows")
+
+
+def bench_layer_path(card):
+    """Phase 32: the benchmark layer (`gbp_tpu_torch.bench`).  (a) `python
+    -m gbp_tpu_torch.bench` in its own process: bench.py's six keys,
+    469,861 factors, vs_baseline from the cached baseline, a finite
+    wall-clock to 1.05x the MAP ARE and a captured rate above the eager one
+    it logs.  (b) In this process, `headline.measure` on the bench scene:
+    the captured 200 timed sweeps equal the eager 200 from the same state
+    bit for bit, the ARE after 200 sweeps from the start within 1.05x the
+    MAP ARE, reached at sweep 10 or one chunk from it; one replay of the
+    5-sweep chunk against 5 eager sweeps by the profiler: the same kernels
+    of the port, as often, in one graph launch; device ms and busy share
+    per sweep, captured and eager.  (c) The four harnesses in this process:
+    convergence, per_chip_rate, scaling (`--chips 1 2 4`, paths halo and
+    halo_cm) and window_profile (fused and `--unfused`), at their defaults
+    unless the argument lists below say otherwise."""
+    t_phase = time.perf_counter()
+    res, eager_cli = headline_cli(card)
+    t_b = time.perf_counter()
+    p = headline.problem(ba.simulate(**BENCH), "cuda")
+    r = headline.measure(p)
+    print(f"[bench] in process ({card}): captured {r.sweeps_per_s:.2f} sweeps/s, eager "
+          f"{r.eager_sweeps_per_s:.2f} ({r.sweeps_per_s / r.eager_sweeps_per_s:.2f}x); "
+          f"captured == eager bit for bit: {r.captured_equals_eager}; MAP ARE "
+          f"{r.are_map_px:.6f} px, ARE after {len(r.ares) * headline.CHUNK} sweeps "
+          f"{r.ares[-1]:.6f} (ratio {r.ares[-1] / r.are_map_px:.6f}); 1.05x MAP at sweep "
+          f"{r.conv_sweeps} in {r.t_conv} s; ARE per chunk "
+          + " ".join(f"{a:.4f}" for a in r.ares[:6]))
+    if not r.captured_equals_eager:
+        raise AssertionError("the captured 200 sweeps differ from the eager 200")
+    if not r.ares[-1] <= 1.05 * r.are_map_px:
+        raise AssertionError(f"ARE {r.ares[-1]} after 200 sweeps vs MAP {r.are_map_px}")
+    if r.conv_sweeps not in (5, 10, 15):
+        raise AssertionError(f"1.05x MAP reached at sweep {r.conv_sweeps}, not 10 +- 5")
+    st = r.run.state
+    own = lambda d: {k: v for k, v in d.items() if "gbp::" in k}
+    for _ in range(3):  # the profiler may drop some of a window's device records
+        cap, cap_launches, cap_ms = replay_records(r.run)
+        eag, eag_launches, eag_ms = replay_records(
+            lambda: sweep_cm.run(p.cmg, st, CFG, headline.CHUNK))
+        if own(cap) == own(eag):
+            break
+    n = headline.CHUNK
+    print(f"[bench] one replay of {n} sweeps: {sum(cap.values()) / n:.1f} device records and "
+          f"{cap_launches / n:.2f} launch calls a sweep, {cap_ms / n:.4f} device ms a sweep, "
+          f"busy {cap_ms / n * r.sweeps_per_s / 1e3:.3f}; eager {sum(eag.values()) / n:.1f} "
+          f"records, {eag_launches / n:.1f} launch calls, {eag_ms / n:.4f} device ms, busy "
+          f"{eag_ms / n * r.eager_sweeps_per_s / 1e3:.3f} ({card})")
+    print(f"[bench] records a replay not in the eager sweeps: "
+          f"{ {k: v for k, v in cap.items() if v != eag.get(k)} }")
+    if own(cap) != own(eag) or cap_launches != 1:
+        raise AssertionError(f"a replay launched {own(cap)} in {cap_launches} launch calls, "
+                             f"5 eager sweeps {own(eag)}")
+    del r, st
+    torch.cuda.empty_cache()
+    print(f"[bench] (b) took {time.perf_counter() - t_b:.1f} s")
+
+    for module, argv in ((convergence, []), (per_chip_rate, []),
+                         (scaling, ["--chips", "1", "2", "4"]),
+                         (scaling, ["--chips", "1", "2", "4", "--path", "halo_cm"]),
+                         (window_profile, []), (window_profile, ["--unfused"])):
+        t0 = time.perf_counter()
+        out = module.main(argv)
+        print(f"[bench] {module.__name__.rsplit('.', 1)[-1]} {' '.join(argv)}: exit 0 in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if module is convergence and not math.isfinite(out["gbp_seconds"]):
+            raise AssertionError(f"convergence: not within tol of GN: {out}")
+        if module is per_chip_rate:
+            row = out["results"]["ba"]
+            if not abs(row["are_halo_cm_px"] - row["are_plain_cm_px"]) <= 5e-3:
+                raise AssertionError(f"per_chip_rate: one partition's ARE vs plain CM's: {row}")
+        if module is scaling:
+            bad = [row for row in out["results"] for k in ("raw_efficiency",
+                   "collective_overhead_efficiency", "single_process_same_size_ratio")
+                   if not math.isfinite(row[k])]
+            if bad:
+                raise AssertionError(f"scaling: a column is not finite: {bad}")
+        if module is window_profile:
+            for key, sc in out["scenes"].items():
+                if not all(math.isfinite(sc[f"{s}_ms"]) for s in (
+                        "full", "tabprep", "relin", "messages", "segsum", "other")):
+                    raise AssertionError(f"window_profile {key}: {sc}")
+        torch.cuda.empty_cache()
+    print(f"[bench] phase 32 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4127,6 +4295,7 @@ def main():
     multiprocess_path(card)
     seg_path(card)
     ell_cameras_path(card)
+    bench_layer_path(card)
     launches.update({k: generic[k] for k in ROWS[2:]}, **{k: rows[k] for k in ROWS[:2]},
                     **{k: unfused[k] for k in UNFUSED})
     print(f"[done] {time.perf_counter() - T_START:.1f} s")

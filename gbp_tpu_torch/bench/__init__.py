@@ -1,5 +1,7 @@
 """Benchmark and profiling scripts of the port, and what they share: the
-large scenes' arguments, the sweep configuration and the card's name line."""
+large scenes' arguments, the sweep configuration, the card's name line and
+the kernels a run went through.  `python -m gbp_tpu_torch.bench` is the
+headline benchmark (`headline.py`)."""
 from __future__ import annotations
 
 import subprocess
@@ -7,6 +9,7 @@ import subprocess
 import numpy as np
 
 from gbp_tpu_torch.core.sweep import GBPConfig
+from gbp_tpu_torch.ops.messages import COUNTS
 
 CFG = GBPConfig(eta_damping=0.4, num_undamped_iters=6, min_linear_iters=8)
 # `models.ba.simulate_blocks` arguments: shuffled landmark ids, so the camera
@@ -95,3 +98,11 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernels_used() -> list:
+    """The kernels (`ops.messages.KERNELS` names) whose wrappers ran since
+    `COUNTS.reset()`: launched on the card, or their plain versions on the
+    CPU.  Under a capture a wrapper runs at the warm-up and the capture
+    only, so this names the kernels, not how often a replay launches them."""
+    return [k for k in COUNTS.kernel if COUNTS.kernel[k] or COUNTS.plain[k]]

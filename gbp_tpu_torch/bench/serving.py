@@ -40,6 +40,7 @@ from gbp_tpu_torch import resolve_device
 from gbp_tpu_torch.bench import card_line
 from gbp_tpu_torch.core.sweep import GBPConfig
 from gbp_tpu_torch.models import ba, online
+from gbp_tpu_torch.utils.capture import capture, write_back
 from gbp_tpu_torch.utils.lie import so3_exp, so3_log
 from gbp_tpu_torch.utils.smalllinalg import bT, bmm, bmv
 
@@ -98,7 +99,7 @@ class FrameStep:
         self._stage(inputs)
         key = (bool(odometry), bool(do_evict))
         if not self.capture:
-            self._write_back(self._frame(self.ob, *key))
+            write_back(self.ob, self._frame(self.ob, *key))
         else:
             if key not in self.graphs:
                 if len(self.graphs) == MAX_GRAPHS:
@@ -154,30 +155,11 @@ class FrameStep:
         ob = online.weaken_landmark_priors(ob, 0.6, floor=1.0)
         return online.weaken_camera_priors(ob, 0.7, floor=1000.0)
 
-    def _write_back(self, new):
-        """Copy the frame's results into the shared state tensors.  A result
-        that is still (a view of) a shared tensor other than its own target is
-        copied first, so no write lands before a read."""
-        dst, src = online.tensors(self.ob), online.tensors(new)
-        shared = {d.untyped_storage().data_ptr() for d in dst}
-        src = [s.clone() if s is not d and s.untyped_storage().data_ptr() in shared else s
-               for d, s in zip(dst, src)]
-        for d, s in zip(dst, src):
-            if s is not d:
-                d.copy_(s)
-
     def _capture(self, key):
         # Warm-up on a copy of the state, on a side stream: every kernel and
         # library is loaded before the capture, and the state is untouched.
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self._frame(online.map_tensors(torch.clone, self.ob), *key)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._write_back(self._frame(self.ob, *key))
-        return graph
+        return capture(lambda: write_back(self.ob, self._frame(self.ob, *key)),
+                       lambda: self._frame(online.map_tensors(torch.clone, self.ob), *key))
 
 
 def _make_step(cfg: GBPConfig, n_sweeps: int, n_evict: int, capture: bool | None = None):

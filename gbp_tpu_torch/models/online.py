@@ -36,6 +36,7 @@ from gbp_tpu_torch.core.graph import FactorBlock, Graph, VariableBlock, adjacenc
 from gbp_tpu_torch.core.sweep import FactorState, GBPConfig, GBPState, VariableState
 from gbp_tpu_torch.factors import reprojection
 from gbp_tpu_torch.ops.messages import segsum_by_id
+from gbp_tpu_torch.utils.capture import map_tensors, tensors  # noqa: F401 (re-exported)
 
 D_C, D_L, ZD = 6, 3, 2
 
@@ -59,31 +60,6 @@ class OnlineBA:
     # unobservable depth and, under a weak prior, its mean wanders (behind
     # the camera at worst); `weaken_landmark_priors` relaxes it per frame.
     lmk_prior_prec: float = 50.0
-
-
-def tensors(obj) -> list:
-    """Every tensor of an OnlineBA (or of any nesting of dataclasses, named
-    tuples and tuples of tensors), in a fixed order."""
-    if isinstance(obj, torch.Tensor):
-        return [obj]
-    if isinstance(obj, tuple):
-        return [t for o in obj for t in tensors(o)]
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return [t for f in dataclasses.fields(obj) for t in tensors(getattr(obj, f.name))]
-    return []
-
-
-def map_tensors(fn, obj):
-    """`obj` with every tensor t (in the nesting `tensors` walks) replaced by fn(t)."""
-    if isinstance(obj, torch.Tensor):
-        return fn(obj)
-    if isinstance(obj, tuple):
-        items = [map_tensors(fn, o) for o in obj]
-        return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.replace(obj, **{f.name: map_tensors(fn, getattr(obj, f.name))
-                                           for f in dataclasses.fields(obj)})
-    return obj
 
 
 def _with_csr(fb: FactorBlock, counts) -> FactorBlock:
