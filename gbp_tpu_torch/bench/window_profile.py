@@ -99,7 +99,8 @@ def stages(cmg, state, cfg) -> dict:
                 win_w=cmg.win_w, comp_name=model, gslot=g, fargs=cmg.args)
             out["messages"] = lambda: M.messages_cm_tabblk_ell(
                 params, cam_tab, lmk_tab, cmg.gidx, cmg.win_starts, *mes, *msgs, cmg.win_rows,
-                cmg.win_offsets, deg=deg, huber=huber, win_w=cmg.win_w, gslot=g)
+                cmg.win_offsets, deg=deg, huber=huber, win_w=cmg.win_w, gslot=g,
+                tile_counts=cmg.win_counts)
         else:
             out["relin"] = lambda: M.relin_cm_tab_ell(
                 params, cam_mean, lmk_mean, cmg.gidx, cmg.z, *rel, deg=deg, comp_name=model,

@@ -185,6 +185,9 @@ class CMGraph(NamedTuple):
     win_starts: torch.Tensor | None = None  # [n_tiles] int32, multiples of SUB
     win_rows: torch.Tensor | None = None  # [mp] int32: each tile's rows by window column
     win_offsets: torch.Tensor | None = None  # [n_tiles * win_w + 1] int32
+    # [n_tiles] int32 zeros: the windowed messages launch's counters of the
+    # tiles it splits between blocks (zero again after each launch).
+    win_counts: torch.Tensor | None = None
     # The tiles meeting each block of SCATTER_CAMS cameras, ascending (the
     # kernel's walk of `scatter_windows_cm`).
     blk_tiles: torch.Tensor | None = None
@@ -382,6 +385,7 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
         blk_tiles, blk_offsets = window_block_csr(starts, w, n_cam)
         extra.update(win_w=int(w), win_ncpad=int(ncpad), win_starts=as_i32(starts),
                      win_rows=as_i32(win_rows), win_offsets=as_i32(win_offsets),
+                     win_counts=as_i32(np.zeros(len(starts))),
                      blk_tiles=as_i32(blk_tiles), blk_offsets=as_i32(blk_offsets))
 
     # CSR of the valid rows by camera id, in row order (ascending within a
@@ -625,7 +629,7 @@ def sweep(cmg: CMGraph | CMSegGraph, state: CMState, cfg: GBPConfig,
         *out, part = messages_cm_tabblk_ell(
             params, cam_tab, lmk_tab, cmg.gidx, cmg.win_starts, jac, lp, r0, cmg.prec,
             srel, act, *msgs, cmg.win_rows, cmg.win_offsets, deg=deg, huber=huber,
-            win_w=cmg.win_w, gslot=g)
+            win_w=cmg.win_w, gslot=g, tile_counts=cmg.win_counts)
         sum_c = scatter_windows_cm(part, cmg.win_starts, cmg.blk_tiles, cmg.blk_offsets,
                                    n_seg=n_cam)
     else:
@@ -780,6 +784,7 @@ class CMSegPart(NamedTuple):
     win_starts: torch.Tensor | None = None  # [mp / TILE] int32
     win_rows: torch.Tensor | None = None
     win_offsets: torch.Tensor | None = None
+    win_counts: torch.Tensor | None = None
     blk_tiles: torch.Tensor | None = None
     blk_offsets: torch.Tensor | None = None
     seg_rows: torch.Tensor | None = None
@@ -957,8 +962,8 @@ def prepare_seg(graph: Graph, window: bool = True,
             win_rows, win_offsets = window_rows_csr(cl["gidx"], starts, w)
             blk_tiles, blk_offsets = window_block_csr(starts, w, n_cam)
             extra.update(win_w=int(w), win_starts=as_i32(starts), win_rows=as_i32(win_rows),
-                         win_offsets=as_i32(win_offsets), blk_tiles=as_i32(blk_tiles),
-                         blk_offsets=as_i32(blk_offsets))
+                         win_offsets=as_i32(win_offsets), win_counts=as_i32(np.zeros(len(starts))),
+                         blk_tiles=as_i32(blk_tiles), blk_offsets=as_i32(blk_offsets))
         else:
             seg_rows, seg_offsets = _rows_by_id(cl["gidx"], cl["act"], n_cam)
             extra.update(seg_rows=as_i32(seg_rows), seg_offsets=as_i32(seg_offsets))
@@ -1051,7 +1056,8 @@ def sweep_seg(sg: CMSegGraph, state: CMState, cfg: GBPConfig) -> CMState:
                 p.act, deg=p.deg, win_w=p.win_w, comp_name=model, gslot=g, fargs=p.args)
             *out, part = messages_cm_tabblk_ell(
                 params, cam_tab, lt, p.gidx, p.win_starts, jac, lp, r0, p.prec, srel, p.act,
-                *msgs, p.win_rows, p.win_offsets, deg=p.deg, huber=huber, win_w=p.win_w, gslot=g)
+                *msgs, p.win_rows, p.win_offsets, deg=p.deg, huber=huber, win_w=p.win_w, gslot=g,
+                tile_counts=p.win_counts)
             s = scatter_windows_cm(part, p.win_starts, p.blk_tiles, p.blk_offsets, n_seg=n_c)
         else:
             lp, jac, r0, srel = relin_cm_tab_ell(

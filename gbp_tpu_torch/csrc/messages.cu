@@ -32,20 +32,38 @@
 //   args [n_args, mp] in the relinearizing branch only.
 //
 // messages_cm_tab_ell
-//   Replaces `fused_messages_cm_tab_ell`'s first four outputs
-//   (`_kernel_tab_ell` + `_message_math`).
+//   Replaces `fused_messages_cm_tab_ell` (`_kernel_tab_ell` + `_message_math`
+//   and, for its 5th output, `_segsum_partial_full`): the four new messages
+//   and the gathered-slot sum of the new gathered-slot messages over the
+//   rows the CSR (seg_rows, seg_offsets) lists, computed in the same launch
+//   as the TPU kernel computes it.
 //   Bound: registers.  One thread holds a 6x6 cavity, its Jacobi-scaled
 //   Schur-recursion inverse, the 2x9 Jacobian and the 6x6 message at once
 //   (the -Xptxas -v report gives the spill bytes), while the bytes moved
 //   are ~100 components per row.
-//   Design: the packed camera belief table (n_cam x 42) is staged in shared
-//   memory; landmark beliefs come from row / deg.  The whole per-factor
-//   computation stays in one thread with fully unrolled fixed-size arrays;
-//   masked rows keep their old message through a select.
-//
-// The camera-side sum of the new messages (the 5th output of
-// `fused_messages_cm_tab_ell`) is `segsum_by_id` in segsum.cu, launched by
-// the wrapper after the messages kernel.
+//   Design (messages_kernel, table_kernels.cuh): persistent blocks over
+//   contiguous ranges of units of rows (128-row units three to an SM in
+//   float32 up to 9 slot dofs, 256-row units one to an SM otherwise; the
+//   occupancy API sets the blocks, each takes q or q + 1 units).  A block
+//   stages the packed table (n_cam x F) in shared memory once; a row's
+//   landmark belief comes from row / deg.  The per-row computation stays in
+//   one thread with fully unrolled fixed-size arrays; masked rows keep their
+//   old message through a select.  After each unit the block folds the
+//   unit's new gathered-slot messages, staged from L2, into its partial sums
+//   [F, n_seg] (table_kernels.cuh, "the gathered-slot sum folded into the
+//   messages launches"): a cursor a segment walks its CSR list past the
+//   unit, and the unit's listed rows are added in row order, in passes
+//   where no camera has more than a few rows in the unit (bench64: a
+//   camera's rows of the unit's two landmarks), else one thread per
+//   (segment, component) walking the segment's rows, so the messages are
+//   never read back from device memory.  At most mp / (8
+//   n_seg) blocks (the wrapper's cap, `fold_max_blocks`), so the partials
+//   stay within 1/8 of the messages, but never fewer than one per SM: a
+//   table too wide for that rule (a 1,000-pose graph's) keeps its
+//   parallelism, its partials within 132 tables (48 KB each).  The same
+//   entry then launches segsum_combine_kernel, which adds the blocks'
+//   partials in a fixed order (16 phases).  Deterministic: no
+//   floating-point atomics; the order is set by the launch plan.
 #include "table_kernels.cuh"
 
 namespace gbp {
@@ -95,17 +113,22 @@ int messages(int da, int db, int zd, int gslot, int huber_row, const S* cam_tab,
              const S* act, const S* me0, const S* ml0, const S* me1, const S* ml1,
              S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp, int deg, double eta_damping,
              double lam_damping, double num_undamped, double floor, double jitter,
-             int has_huber, double huber, void* stream) {
+             int has_huber, double huber, const int* seg_rows, const int* seg_offsets,
+             int n_seg, S* part, int max_blocks, S* out, void* stream, int* info) {
   (void)nv;
-  if (mp <= 0) return static_cast<int>(cudaGetLastError());
+  if (mp <= 0 && !info) return static_cast<int>(cudaGetLastError());
   const auto p =
       msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber);
   const MsgOps<S> o{jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1};
+  int rc = 0;
   const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
-    launch_messages_tab_ell<S, decltype(sh)>(huber_row != 0, cam_tab, n_cam, lmk_tab, gidx, o,
-                                             mp, deg, p, static_cast<cudaStream_t>(stream));
+    rc = launch_messages_tab_ell<S, decltype(sh)>(
+        huber_row != 0, cam_tab, n_cam, lmk_tab, gidx, o, mp, deg, p,
+        static_cast<cudaStream_t>(stream), seg_rows, seg_offsets, n_seg, part, max_blocks, out,
+        info);
   });
-  return known ? static_cast<int>(cudaGetLastError()) : -2;
+  if (!known) return -2;
+  return rc ? rc : static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace gbp
@@ -127,11 +150,13 @@ int messages(int da, int db, int zd, int gslot, int huber_row, const S* cam_tab,
       const S* act, const S* me0, const S* ml0, const S* me1, const S* ml1,          \
       S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp, int deg, double eta_damping,       \
       double lam_damping, double num_undamped, double floor, double jitter,          \
-      int has_huber, double huber, void* stream) {                                   \
+      int has_huber, double huber, const int* seg_rows, const int* seg_offsets,      \
+      int n_seg, S* part, int max_blocks, S* out, void* stream, int* info) {         \
     return gbp::messages<S>(da, db, zd, gslot, huber_row, cam_tab, n_cam, lmk_tab,   \
                             nv, gidx, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, \
                             oe0, ol0, oe1, ol1, mp, deg, eta_damping, lam_damping,   \
-                            num_undamped, floor, jitter, has_huber, huber, stream);  \
+                            num_undamped, floor, jitter, has_huber, huber, seg_rows, \
+                            seg_offsets, n_seg, part, max_blocks, out, stream, info); \
   }
 
 GBP_ENTRIES(f32, float)

@@ -5,15 +5,18 @@
 // caller's stream; the C entry returns cudaGetLastError().
 //
 // segsum_by_id
-//   Replaces gbp_tpu/ops/messages_pallas.py `segsum_cm` (`_kernel_segsum`)
-//   and the 5th output of `fused_messages_cm_tab_ell`
-//   (`_segsum_partial_full`): out[k, s] = sum over i in [offsets[s],
+//   Replaces gbp_tpu/ops/messages_pallas.py `segsum_cm` (`_kernel_segsum`):
+//   the sums the unfused, rows, generic, halo-ghost and streaming paths
+//   launch (the 5th output of `fused_messages_cm_tab_ell` is computed in
+//   the messages launch, messages.cu, and only its stage 2,
+//   segsum_combine_kernel in table_kernels.cuh, is shared):
+//   out[k, s] = sum over i in [offsets[s],
 //   offsets[s + 1]) of comp_k[rows[i]], comp = me | ml, f = d + d * d
 //   components, component-major operands [f, m] in and [f, n_seg] out (the
 //   fast path) or row-major [m, ld] in and [n_seg, f] out (the generic
 //   sweep).
-//   Bound: device-memory bytes, the f message components read once (86 MB
-//   at bench64 in float32); the CSR and the outputs are small beside them.
+//   Bound: device-memory bytes, the f message components read once; the
+//   CSR and the outputs are small beside them.
 //   The TPU kernel walks row tiles in order into one resident accumulator;
 //   blocks here run in no order, so the sum is cut into chunk partials and
 //   a second pass, both in a fixed order.  Two forms, picked by the wrapper
@@ -22,7 +25,7 @@
 //   [n_chunk, f, n_seg] stay within 1/8 of the messages' bytes at one chunk
 //   per SM or more and the CSR lists at least half the rows, short
 //   otherwise.
-//   Chunked (long segments: every camera-side sum of the fast path).
+//   Chunked (long segments: the unfused and rows paths' camera-side sums).
 //     Stage 1, one block per chunk of C consecutive factor rows: the
 //     chunk's slice of each component (C contiguous values) streams into a
 //     ring of shared-memory stages by 16-byte cp.async, up to three
@@ -61,8 +64,6 @@
 namespace gbp {
 
 constexpr int SEG_THREADS = 256;  // stage 1: eight warps per chunk
-constexpr int COMBINE_PHASES = 16;
-constexpr int COMBINE_COLS = 32;
 
 template <typename S, class L>
 __global__ void __launch_bounds__(BLOCK)
@@ -227,30 +228,6 @@ segsum_chunk_kernel(const S* __restrict__ me, int64_t me_ld, const S* __restrict
   }
 }
 
-// Stage 2: out[idx] = the sum over the chunks of part[c][idx], idx <
-// n_out; blockDim (COMBINE_COLS, COMBINE_PHASES).
-template <typename S>
-__global__ void __launch_bounds__(COMBINE_COLS * COMBINE_PHASES)
-segsum_combine_kernel(const S* __restrict__ part, int n_chunk, int64_t n_out,
-                      S* __restrict__ out) {
-  __shared__ S red[COMBINE_PHASES][COMBINE_COLS];
-  const int x = threadIdx.x, y = threadIdx.y;
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * COMBINE_COLS + x;
-  S acc = S(0.0);
-  if (idx < n_out) {
-#pragma unroll 4
-    for (int c = y; c < n_chunk; c += COMBINE_PHASES) acc += part[c * n_out + idx];
-  }
-  red[y][x] = acc;
-  __syncthreads();
-  if (y == 0 && idx < n_out) {
-    S t = red[0][x];
-#pragma unroll
-    for (int p = 1; p < COMBINE_PHASES; ++p) t += red[p][x];
-    out[idx] = t;
-  }
-}
-
 template <typename S, int NS>
 int launch_chunked(const S* me, int64_t me_ld, const S* ml, int64_t ml_ld, int d,
                    const int* rows, const int* offsets, int n_seg, int64_t m, int chunk,
@@ -265,10 +242,7 @@ int launch_chunked(const S* me, int64_t me_ld, const S* ml, int64_t ml_ld, int d
   kernel<<<n_chunk, SEG_THREADS, smem, st>>>(me, me_ld, ml, ml_ld, d, rows, offsets, n_seg, m,
                                              chunk, group, part);
   if (const cudaError_t rc = cudaGetLastError()) return static_cast<int>(rc);
-  const int64_t n_out = static_cast<int64_t>(f) * n_seg;
-  const unsigned int blocks = static_cast<unsigned int>((n_out + COMBINE_COLS - 1) / COMBINE_COLS);
-  segsum_combine_kernel<S><<<blocks, dim3(COMBINE_COLS, COMBINE_PHASES), 0, st>>>(
-      part, n_chunk, n_out, out);
+  launch_combine(part, n_chunk, static_cast<int64_t>(f) * n_seg, out, st);
   return static_cast<int>(cudaGetLastError());
 }
 

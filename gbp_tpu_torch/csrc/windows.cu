@@ -24,30 +24,55 @@
 //   TPU's per-tile table stacks and one-hot dots become that index read.
 //
 // messages_cm_tabblk_ell
-//   Replaces the first four outputs of `fused_messages_cm_tabblk_ell`
-//   (`_kernel_tab_blk_ell`).
+//   Replaces `fused_messages_cm_tabblk_ell` (`_kernel_tab_blk_ell` and, for
+//   its 5th output, `_segsum_partial_blk`): the four new messages and the
+//   per-tile window partials part[i, k, j] of the new gathered-slot
+//   messages over the rows of tile i whose id is starts[i] + j, computed in
+//   the same launch as the TPU kernel computes them.
 //   Bound: device-memory bytes (about 570 bytes per row at (6, 3, 2) in
-//   float32), and short of them the latency of the per-row loads at the few
-//   warps the registers leave an SM (one row per thread, 150-170 registers
-//   at (6, 3, 2) float32); the window of packed beliefs is w x 42 values
-//   (21.5 KB at w = 128 in float32, 64.5 KB at w = 384, twice that in
-//   float64).
+//   float32, the partials [n_tiles, F, w] besides), and short of them the
+//   latency of the per-row loads at the few warps the registers leave an SM
+//   (one row per thread, 150-170 registers at (6, 3, 2) float32); the
+//   window of packed beliefs is w x 42 values (21.5 KB at w = 128 in
+//   float32, 64.5 KB at w = 384, twice that in float64).
 //   Design (window_messages, table_kernels.cuh): persistent blocks over
 //   units of rows, balanced to one unit; each tile's window arrives by a
-//   bulk copy into one of two buffers while the tile before it computes,
-//   each unit's operands by bulk copies into a ring of shared-memory
-//   stages; the launch plan keeps the most threads resident per SM
-//   (`ops.messages.window_plan`).  The per-row arithmetic is the full-table
-//   kernel's, so the outputs are its bits.  An id outside its tile's window
-//   is a fault of the prepared graph: the kernel traps, it never clamps.
+//   bulk copy while the tile before it computes; the launch plan keeps the
+//   most threads resident per SM (`ops.messages.window_plan`).  The per-row
+//   arithmetic is the full-table kernel's, so the four messages are its
+//   bits.  An id outside its tile's window is a fault of the prepared
+//   graph: the kernel traps, it never clamps.  The fold (WinFold,
+//   table_kernels.cuh): where a block enters a tile it scatters the tile's
+//   CSR positions into shared memory, so each unit's run of a column is the
+//   span of its rows' positions; after each unit the block adds the unit's
+//   new gathered-slot messages, staged from L2, onto the tile's running
+//   column sums (a slab in shared memory, the columns past it in the
+//   output), each column's rows in row order from zero, so the messages are
+//   never read back from device memory and kernel 16's launch is gone.  A
+//   tile that runs in one block (every tile of the per-tile form, float64
+//   and 12 dofs; in the persistent form those inside a block's range) is
+//   equal bit for bit to segsum_cm_blk.  A tile the persistent split cuts
+//   between blocks is summed per block into a piece; the last block to
+//   finish the tile (an integer counter a tile, reset by that block; one
+//   thread's fence releases a block's piece after a barrier) adds the
+//   pieces in block order: deterministic, fixed by the launch plan, not
+//   segsum_cm_blk's bits there.  The counters belong to the caller (the
+//   prepared graph's, or made for one call), never to the library.  Whole
+//   tiles a block, timed on the same operands (NVIDIA H100 80GB HBM3,
+//   700 W, compare_windows.py): q or q + 1 tiles on the same 396 blocks
+//   took 0.2599 / 0.2580 ms at city against 0.1881 / 0.1884 ms (441 tiles:
+//   45 blocks run two tiles while the rest wait) and 1.7305 / 1.7168 ms at
+//   venice against 1.7761 / 1.7723 ms (4,695 tiles); the per-tile form (one
+//   256-thread block a tile, 180 registers, one block an SM) 0.2713 and
+//   2.3225 ms.  So the split stays.  No floating-point atomics.
 //
 // segsum_cm_blk
 //   Replaces `segsum_cm_blk`'s kernel stage (`_kernel_segsum_blk`,
-//   gbp_tpu/ops/messages_pallas.py) and the 5th output of
-//   `fused_messages_cm_tabblk_ell` (`_segsum_partial_blk`): part[i, k, j] =
-//   sum of component k over the rows of tile i whose camera id is
-//   starts[i] + j, added in the order of the CSR of `window_rows_csr`
-//   (segment i * w + j) starting from zero.
+//   gbp_tpu/ops/messages_pallas.py), for the paths that run it on their own
+//   (unfused windows, the halo paths; the fused sweep's partials come from
+//   the messages launch): part[i, k, j] = sum of component k over the rows
+//   of tile i whose camera id is starts[i] + j, added in the order of the
+//   CSR of `window_rows_csr` (segment i * w + j) starting from zero.
 //   Bound: device-memory bytes: the f message components read once, the
 //   CSR read once, the [n_tiles, f, w] partials written once (mostly zeros:
 //   a locality-sorted tile touches 3-11 of its 128 window columns).  At
@@ -398,18 +423,20 @@ int messages_win(int da, int db, int zd, int gslot, int huber_row, const S* cam_
                  const S* prec, const S* srel, const S* act, const S* me0, const S* ml0,
                  const S* me1, const S* ml1, S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp,
                  int deg, double eta_damping, double lam_damping, double num_undamped,
-                 double floor, double jitter, int has_huber, double huber, void* stream,
-                 int* info) {
+                 double floor, double jitter, int has_huber, double huber,
+                 const int* win_rows, const int* win_offsets, S* part, S* piece, int* count,
+                 void* stream, int* info) {
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
   const auto p =
       msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber);
   const MsgOps<S> o{jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1};
+  const WinFoldArgs<S> fa{win_rows, win_offsets, part, piece, count};
   int rc = 0;
   const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
     rc = launch_messages_win<S, decltype(sh)>(huber_row != 0, cam_tab, n_cam, lmk_tab, gidx,
                                               starts, win_w, o, mp, deg, p,
                                               static_cast<cudaStream_t>(stream), GhostTable<S>{},
-                                              info);
+                                              info, fa);
   });
   if (!known) return -2;
   return rc ? rc : static_cast<int>(cudaGetLastError());
@@ -499,12 +526,14 @@ int scatter_win(const S* part, const int* starts, const int* blk_tiles, const in
       const S* prec, const S* srel, const S* act, const S* me0, const S* ml0,          \
       const S* me1, const S* ml1, S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp, int deg, \
       double eta_damping, double lam_damping, double num_undamped, double floor,       \
-      double jitter, int has_huber, double huber, void* stream, int* info) {           \
+      double jitter, int has_huber, double huber, const int* win_rows,                 \
+      const int* win_offsets, S* part, S* piece, int* count, void* stream, int* info) { \
     return gbp::messages_win<S>(da, db, zd, gslot, huber_row, cam_tab, n_cam, lmk_tab, \
                                 gidx, starts, win_w, jac, lp, r0, prec, srel, act, me0, ml0, \
                                 me1, ml1, oe0, ol0, oe1, ol1, mp, deg, eta_damping,    \
                                 lam_damping, num_undamped, floor, jitter, has_huber,   \
-                                huber, stream, info);                                  \
+                                huber, win_rows, win_offsets, part, piece, count, stream, \
+                                info);                                                 \
   }                                                                                    \
   extern "C" int gbp_segsum_cm_blk_##SFX(const S* me, const S* ml, int d,              \
                                          const int* rows, const int* offsets,          \

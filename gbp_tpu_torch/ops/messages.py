@@ -24,10 +24,13 @@ per-row factor arguments `fargs` of models that read them
 ([m, n_args] row-major), None for the others.
 
   relin_cm_tab_ell     replaces gbp_tpu.ops.messages_pallas.fused_relin_cm_tab_ell
-  messages_cm_tab_ell  replaces gbp_tpu.ops.messages_pallas.fused_messages_cm_tab_ell
-  segsum_by_id         replaces gbp_tpu.ops.messages_pallas.segsum_cm and the
-                       5th output of fused_messages_cm_tab_ell (csrc/segsum.cu;
-                       the chunked or the short form by `segsum_form`)
+  messages_cm_tab_ell  replaces gbp_tpu.ops.messages_pallas.fused_messages_cm_tab_ell;
+                       its 5th output, the gathered-slot sum, is computed in
+                       the messages launch and its blocks' partials added by
+                       one more (`table_plan`; `fold_table_sum` models the order)
+  segsum_by_id         replaces gbp_tpu.ops.messages_pallas.segsum_cm for the
+                       paths without the fold (csrc/segsum.cu; the chunked or
+                       the short form by `segsum_form`)
 
 Large scenes (csrc/windows.cu): rows are cut into tiles of TILE rows and
 every camera id of tile i lies in the window [win_starts[i], win_starts[i] +
@@ -36,10 +39,12 @@ messages kernels: persistent blocks over units of rows, each bringing in the
 window of every tile its units enter; `window_plan`).
 
   relin_cm_tabblk_ell     replaces fused_relin_cm_tabblk_ell
-  messages_cm_tabblk_ell  replaces fused_messages_cm_tabblk_ell
-  segsum_cm_blk           replaces the kernel stage of segsum_cm_blk and the
-                          5th output of fused_messages_cm_tabblk_ell: per-tile
-                          window partials [n_tiles, F, w]
+  messages_cm_tabblk_ell  replaces fused_messages_cm_tabblk_ell; its 5th output,
+                          the per-tile window partials [n_tiles, F, w], is
+                          computed in the messages launch (`fold_window_sum`
+                          models the order)
+  segsum_cm_blk           replaces the kernel stage of segsum_cm_blk for the
+                          paths without the fold: per-tile window partials
   scatter_windows_cm      replaces scatter_windows_cm: the partials combined
                           over the overlapping windows, tiles in ascending order;
                           the kernel walks per block of SCATTER_CAMS cameras the
@@ -100,6 +105,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -516,10 +522,11 @@ def messages_cm_tab_ell_plain(params, cam_tab, lmk_tab, gidx, jac, lp, r0,
 
 def messages_cm_tabblk_ell_plain(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp,
                                  r0, prec, srel, act, me0, ml0, me1, ml1, win_rows,
-                                 win_offsets, *, deg, huber, win_w, gslot=0):
+                                 win_offsets, *, deg, huber, win_w, gslot=0, tile_counts=None):
     """Plain version of `messages_cm_tabblk_ell`: the four new messages and
     the per-tile window partials of the new gathered-slot messages
-    [n_tiles, d_g + d_g * d_g, win_w]."""
+    [n_tiles, d_g + d_g * d_g, win_w] (it takes the kernel's `tile_counts`
+    and needs none)."""
     COUNTS.plain["messages_cm_tabblk_ell"] += 1
     out = _messages_plain(
         params, _window_rows(cam_tab, gidx, win_starts, win_w), lmk_tab, jac, lp, r0,
@@ -582,6 +589,103 @@ def scatter_windows_cm_plain(part, win_starts, cov_tiles, cov_offsets, *, n_seg)
             raise ValueError("a cover list names a tile whose window does not hold the camera")
         out[:, sel] += part[t, :, off].T
     return out
+
+
+# --- the fold's order (the kernels of messages_cm_tab_ell, _tabblk_ell) -----------
+
+
+def fold_split(units, blocks):
+    """The persistent launches' split (`table_plan`, `window_plan`): block b
+    takes the units [first[b], end[b]), q or q + 1 of them, q and rem the
+    quotient and remainder of the units over the blocks (int64 arrays)."""
+    q, rem = divmod(int(units), int(blocks))
+    b = np.arange(int(blocks))
+    first = b * q + np.minimum(b, rem)
+    return first, first + q + (b < rem)
+
+
+def _chains(vals, rows, keys, n_keys):
+    """out[:, key] = the sum of vals[:, row] over the (row, key) pairs, each
+    key's rows added from zero in ascending row order (pass j adds every
+    key's j-th row)."""
+    order = np.lexsort((rows, keys))
+    rows, keys = rows[order], keys[order]
+    rank = np.arange(keys.size) - np.searchsorted(keys, keys, side="left")
+    out = torch.zeros((vals.shape[0], n_keys), dtype=vals.dtype)
+    for j in range(int(rank.max()) + 1 if rank.size else 0):
+        sel = rank == j
+        out[:, torch.from_numpy(keys[sel])] += vals[:, torch.from_numpy(rows[sel])]
+    return out
+
+
+def _csr_pairs(rows, offsets):
+    """(rows, segment) int64 arrays of the rows a CSR lists."""
+    off = offsets.cpu().numpy().astype(np.int64)
+    seg = np.repeat(np.arange(off.size - 1), np.diff(off))
+    return rows.cpu().numpy()[:seg.size].astype(np.int64), seg
+
+
+def fold_table_sum(me, ml, seg_rows, seg_offsets, *, blocks, unit):
+    """`messages_cm_tab_ell`'s fifth output as its kernel adds it, for a
+    launch of `blocks` blocks over units of `unit` rows (`table_plan`;
+    `fold_split`): block b adds each segment's listed rows in its range from
+    zero in row order into part[b] [f, n_seg]; phase y adds part[y], part[y +
+    16], ... from zero, then the 16 phases are added in order
+    (segsum_combine_kernel).  CPU tensors: me [d, mp], ml [d*d, mp]."""
+    vals = torch.cat([me, ml])
+    f, mp = vals.shape
+    n_seg = seg_offsets.shape[0] - 1
+    rows, seg = _csr_pairs(seg_rows, seg_offsets)
+    first, _ = fold_split(-(-mp // unit), blocks)
+    blk = np.searchsorted(first * unit, rows, side="right") - 1
+    part = _chains(vals, rows, blk * n_seg + seg, blocks * n_seg).reshape(f, blocks, n_seg)
+    phases = [torch.zeros((f, n_seg), dtype=vals.dtype) for _ in range(16)]
+    for b in range(blocks):
+        phases[b % 16] = phases[b % 16] + part[:, b]
+    out = phases[0]
+    for y in range(1, 16):
+        out = out + phases[y]
+    return out
+
+
+def fold_window_sum(me, ml, win_rows, win_offsets, *, n_tiles, w, blocks, unit):
+    """`messages_cm_tabblk_ell`'s fifth output [n_tiles, f, w] as its kernel
+    adds it, for a launch of `blocks` blocks over units of `unit` rows
+    (`window_plan`; unit TILE: one block a tile): a tile's column j sums its
+    listed rows from zero in row order within each block that runs part of
+    the tile, and the blocks' pieces are added in block order.  A tile inside
+    one block is one piece: `segsum_cm_blk`'s sum, the same bits.  CPU
+    tensors: me [d, mp], ml [d*d, mp]."""
+    vals = torch.cat([me, ml])
+    f, mp = vals.shape
+    rows, seg = _csr_pairs(win_rows, win_offsets)
+    tile, col = seg // w, seg % w
+    if unit == TILE:
+        block_of = lambda r: np.asarray(r) // TILE
+    else:
+        starts = fold_split(mp // unit, blocks)[0] * unit
+        block_of = lambda r: np.searchsorted(starts, r, side="right") - 1
+    t = np.arange(n_tiles)
+    b0, b1 = block_of(t * TILE), block_of(t * TILE + TILE - 1)
+    n_pieces = int((b1 - b0).max()) + 1 if n_tiles else 1
+    key = ((tile * n_pieces + block_of(rows) - b0[tile]) * w + col)
+    pieces = _chains(vals, rows, key, n_tiles * n_pieces * w).reshape(f, n_tiles, n_pieces, w)
+    part = pieces[:, :, 0]
+    for j in range(1, n_pieces):
+        part = part + pieces[:, :, j]
+    return part.permute(1, 0, 2).contiguous()
+
+
+def fold_whole_tiles(n_tiles, mp, *, blocks, unit):
+    """bool [n_tiles]: the tiles whose rows all run in one block of the
+    windowed launch (unit TILE: all), where its fifth output is
+    `segsum_cm_blk`'s bit for bit."""
+    if unit == TILE:
+        return np.ones(n_tiles, dtype=bool)
+    starts = fold_split(mp // unit, blocks)[0] * unit
+    t = np.arange(n_tiles) * TILE
+    return (np.searchsorted(starts, t, side="right")
+            == np.searchsorted(starts, t + TILE - 1, side="right"))
 
 
 # --- window index structures (numpy, built once per graph) --------------------
@@ -827,7 +931,11 @@ def messages_cm_tab_ell(params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec,
     cam_tab [n, d_g + d_g * d_g] and lmk_tab [nv, d_e + d_e * d_e] are the
     packed (eta | lam) beliefs of the gathered slot (slot `gslot`) and the
     ELL slot; huber is None, the scalar Mahalanobis threshold, or "row"
-    (per-row thresholds as prec's last component, 0 = off)."""
+    (per-row thresholds as prec's last component, 0 = off).  The sum runs
+    over the rows of the CSR (seg_rows, seg_offsets), each segment's rows
+    ascending and named by their gathered id; the kernel computes it in the
+    messages launch and adds its blocks' partials in one more
+    (`fold_table_sum` models the order)."""
     if not _on_card(jac):
         return messages_cm_tab_ell_plain(
             params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1,
@@ -843,6 +951,10 @@ def messages_cm_tab_ell(params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec,
     if mp != nv * deg:
         raise ValueError(f"messages_cm_tab_ell: mp={mp} != nv*deg={nv}*{deg}")
     out = _message_outputs(me0, me1)
+    f, n_seg = d_g + d_g * d_g, seg_offsets.shape[0] - 1
+    max_blocks = fold_max_blocks(mp, n_seg)
+    # One allocation: the sum, then the blocks' partials [max_blocks, f, n_seg].
+    buf = torch.empty(f * n_seg * (1 + max_blocks), dtype=dt, device=jac.device)
     args = [
         *_shape_args(d0, d1, zd, gslot, huber),
         _check("cam_tab", cam_tab, (n_cam, d_g + d_g * d_g), dt), ctypes.c_int(n_cam),
@@ -851,12 +963,48 @@ def messages_cm_tab_ell(params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec,
         *_message_state_args(jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, d0, d1, zd,
                              huber),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
-        ctypes.c_int64(mp), ctypes.c_int(deg), *_message_scalars(params, huber),
+        ctypes.c_int64(mp), ctypes.c_int(deg), *_message_scalars(params, huber)[:-1],
+        _check("seg_rows", seg_rows, (seg_rows.shape[0],), torch.int32),
+        _check("seg_offsets", seg_offsets, (n_seg + 1,), torch.int32), ctypes.c_int(n_seg),
+        ctypes.c_void_p(buf[f * n_seg:].data_ptr()), ctypes.c_int(max_blocks),
+        ctypes.c_void_p(buf.data_ptr()), _stream(), ctypes.c_void_p(None),
     ]
     fn = getattr(library(), f"gbp_messages_cm_tab_ell_{_suffix(dt)}")
     _raise_on(fn(*args), "messages_cm_tab_ell")
     COUNTS.kernel["messages_cm_tab_ell"] += 1
-    return (*out, segsum_by_id(out[2 * gslot], out[2 * gslot + 1], seg_rows, seg_offsets))
+    return (*out, buf[:f * n_seg].view(f, n_seg))
+
+
+def fold_max_blocks(mp, n_seg):
+    """The most blocks of `messages_cm_tab_ell`'s kernel: its partials
+    [blocks, f, n_seg] stay within 1/8 of the gathered-slot messages [f, mp]
+    (`segsum_form`'s rule), mp // (8 n_seg), except that a table too wide
+    for one block per SM under that rule still gets N_SM blocks: its
+    partials then stay within N_SM tables (48 KB each at most)."""
+    return max(N_SM, mp // (8 * max(n_seg, 1)))
+
+
+TABLE_PLAN_KEYS = ("units", "unit_rows", "blocks", "smem_bytes", "registers", "local_bytes",
+                   "blocks_per_sm")
+
+
+def table_plan(dtype, *, n_cam, n_seg, mp, d0=D0, d1=D1, z=Z, gslot=0, huber=None):
+    """How `messages_cm_tab_ell`'s kernel launches on this card for mp rows,
+    a gathered-slot table of n_cam rows and a sum over n_seg segments:
+    {units, unit_rows, blocks, smem_bytes, registers, local_bytes,
+    blocks_per_sm} (persistent blocks, each taking q or q + 1 contiguous
+    units; `fold_split`)."""
+    from gbp_tpu_torch.ops._build import library
+
+    _table_shape("messages_cm_tab_ell", d0, d1, z, gslot)
+    null, i, dbl = ctypes.c_void_p(None), ctypes.c_int, ctypes.c_double
+    info = (ctypes.c_int * len(TABLE_PLAN_KEYS))()
+    args = [*_shape_args(d0, d1, z, gslot, huber), null, i(n_cam), null, i(1), *[null] * 15,
+            ctypes.c_int64(mp), i(1), *[dbl(0.0)] * 5, i(0), dbl(0.0), null, null, i(n_seg),
+            null, i(fold_max_blocks(mp, n_seg)), null, null, info]
+    fn = getattr(library(), f"gbp_messages_cm_tab_ell_{_suffix(dtype)}")
+    _raise_on(fn(*args), "messages_cm_tab_ell plan")
+    return dict(zip(TABLE_PLAN_KEYS, info))
 
 
 def _table_smem(name, n, width, dt):
@@ -1346,10 +1494,11 @@ def window_plan(name, dtype, *, win_w, mp, d0=D0, d1=D1, z=Z, gslot=0, huber=Non
     ell, ghost = name.endswith("_ell"), "tabblkg" in name
     mid = ([null, i(0)] + ([null, i(1)] if ghost else []) + ([null] if ell else [])
            + [null, null, i(win_w)] + ([i(0)] if ghost else []) + ([] if ell else [null, null]))
+    fold = [null] * 5 if name == "messages_cm_tabblk_ell" else []
     info = (ctypes.c_int * len(WINDOW_PLAN_KEYS))()
     args = [*_shape_args(d0, d1, z, gslot, huber), *mid, *[null] * 14, ctypes.c_int64(mp),
             *([i(1)] if ell else []), *[ctypes.c_double(0.0)] * 5, i(0), ctypes.c_double(0.0),
-            null, info]
+            *fold, null, info]
     _raise_on(getattr(library(), f"gbp_{name}_{_suffix(dtype)}")(*args), f"{name} plan")
     return dict(zip(WINDOW_PLAN_KEYS, info))
 
@@ -1403,12 +1552,18 @@ def relin_cm_tabblk_ell(params, cam_mean, lmk_mean, gidx, win_starts, z, lp, jac
 
 def messages_cm_tabblk_ell(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, r0,
                            prec, srel, act, me0, ml0, me1, ml1, win_rows, win_offsets,
-                           *, deg, huber, win_w, gslot=0):
+                           *, deg, huber, win_w, gslot=0, tile_counts=None):
     """`messages_cm_tab_ell` for large scenes; returns (eta0, lam0, eta1,
     lam1, part) like the reference: part [mp / TILE, d_g + d_g * d_g, win_w]
     holds the per-tile window partials of the new gathered-slot messages
-    (`segsum_cm_blk` on the outputs), to be combined by
-    `scatter_windows_cm`."""
+    over the rows of the CSR (win_rows, win_offsets) of `window_rows_csr`,
+    to be combined by `scatter_windows_cm`.  The kernel computes them in the
+    messages launch (`fold_window_sum` models its order; a tile that runs in
+    one block is `segsum_cm_blk`'s bits).  tile_counts: int32 [mp / TILE]
+    zeros, the launch's per-tile counters of the tiles it splits between
+    blocks, zero again when it ends (the prepared graph's `win_counts`;
+    launches that share them go one at a time, as on one stream); None
+    makes them for this call."""
     if not _on_card(jac):
         return messages_cm_tabblk_ell_plain(
             params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, r0, prec, srel, act,
@@ -1427,6 +1582,19 @@ def messages_cm_tabblk_ell(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, 
         raise ValueError(f"messages_cm_tabblk_ell: mp={mp} != nv*deg={nv}*{deg}")
     _window_smem("messages_cm_tabblk_ell", win_w, d_g + d_g * d_g, dt)
     out = _message_outputs(me0, me1)
+    f = d_g + d_g * d_g
+    part = torch.empty((n_tiles, f, win_w), dtype=dt, device=jac.device)
+    plan = _window_plan_cached(jac.device, dt, win_w, mp, d0, d1, zd, gslot,
+                               _huber_mode(huber, False)[0])
+    # The persistent launch's pieces [blocks, 2, f, w] and tile counters; the
+    # per-tile launch (one block a tile) needs neither.
+    split = plan["unit_rows"] != TILE
+    piece = torch.empty(plan["blocks"] * 2 * f * win_w if split else 0, dtype=dt,
+                        device=jac.device)
+    if split and tile_counts is None:
+        tile_counts = torch.zeros(n_tiles, dtype=torch.int32, device=jac.device)
+    count = (_check("tile_counts", tile_counts, (n_tiles,), torch.int32) if split
+             else ctypes.c_void_p(None))
     args = [
         *_shape_args(d0, d1, zd, gslot, huber),
         _check("cam_tab", cam_tab, (n_cam, d_g + d_g * d_g), dt), ctypes.c_int(n_cam),
@@ -1436,14 +1604,25 @@ def messages_cm_tabblk_ell(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, 
         *_message_state_args(jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, d0, d1, zd,
                              huber),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
-        ctypes.c_int64(mp), ctypes.c_int(deg), *_message_scalars(params, huber),
-        ctypes.c_void_p(None),
+        ctypes.c_int64(mp), ctypes.c_int(deg), *_message_scalars(params, huber)[:-1],
+        _check("win_rows", win_rows, (mp,), torch.int32),
+        _check("win_offsets", win_offsets, (n_tiles * win_w + 1,), torch.int32),
+        ctypes.c_void_p(part.data_ptr()), ctypes.c_void_p(piece.data_ptr() if split else None),
+        count, _stream(), ctypes.c_void_p(None),
     ]
     fn = getattr(library(), f"gbp_messages_cm_tabblk_ell_{_suffix(dt)}")
     _raise_on(fn(*args), "messages_cm_tabblk_ell")
     COUNTS.kernel["messages_cm_tabblk_ell"] += 1
-    return (*out, segsum_cm_blk(out[2 * gslot], out[2 * gslot + 1], win_rows, win_offsets,
-                                n_tiles=n_tiles, w=win_w))
+    return (*out, part)
+
+
+@functools.lru_cache(maxsize=64)
+def _window_plan_cached(device, dtype, win_w, mp, d0, d1, z, gslot, huber_row):
+    """`window_plan` of `messages_cm_tabblk_ell`, once per launch shape and
+    card (the wrapper sizes the pieces by its blocks)."""
+    with torch.cuda.device(device):
+        return window_plan("messages_cm_tabblk_ell", dtype, win_w=win_w, mp=mp, d0=d0, d1=d1,
+                           z=z, gslot=gslot, huber="row" if huber_row else None)
 
 
 def segsum_cm_blk(me, ml, win_rows, win_offsets, *, n_tiles, w):

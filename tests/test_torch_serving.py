@@ -197,9 +197,12 @@ def test_reference_serving_stream_tail(capsys):
 
 
 def test_online_slam_example():
+    # One thread in the child: under the suite's parallel workers a child that
+    # spreads over every core runs tens of times slower, and gains nothing alone.
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "gbp_tpu_torch.examples.online_slam", "--device", "cpu"],
-        capture_output=True, text=True, timeout=420, cwd=_ROOT)
+        capture_output=True, text=True, timeout=420, cwd=_ROOT, env=env)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
     lines = out.stdout.splitlines()
     batch = [l for l in lines if l.startswith("final avg reprojection error")]
