@@ -40,10 +40,9 @@ non-zero; no phase is caught):
      and 384 (city, float32), where a block stages more than 48 KB and the
      launch asks for dynamic shared memory; `messages_cm_tabblk_ell`'s
      fifth output (the window partials its launch computes) must equal the
-     model of its order (`fold_window_sum`, `window_plan`) and, at every
-     tile that runs in one block, `segsum_cm_blk` on the same messages bit
-     for bit, also at the pose and BAL shapes, at venice (phase 7) and
-     under the schedule masks; `segsum_cm_blk` and `scatter_windows_cm` must repeat bit for
+     model of its order (`fold_window_sum`, `window_plan`) bit for bit,
+     also at the pose and BAL shapes, at venice (phase 7) and under the
+     schedule masks; `segsum_cm_blk` and `scatter_windows_cm` must repeat bit for
      bit, their combination is held against the whole-table camera sum, and
      `scatter_windows_cm` must equal its plain version bit for bit (max abs
      err 0.0), here, at the pose shapes and per halo partition, and a dense
@@ -59,8 +58,10 @@ non-zero; no phase is caught):
      device time by the profiler, bound and share
      (`bench/compare_sums.segsum_blk_report`).
      Each windowed check prints the launch plan of `messages_cm_tabblk_ell`
-     (`ops.messages.window_plan`: units of rows, persistent blocks,
-     shared bytes, registers, local bytes, blocks per SM); at city, and at venice in phase 7, its device time by
+     (`ops.messages.window_plan`: units of rows, persistent blocks, the
+     split's grain, shared bytes, registers, local bytes, blocks per SM,
+     the slots a warp keeps in shared memory), as each fold check does for
+     kernels 2 and 10 (`hold_fold`); at city, and at venice in phase 7, its device time by
      the profiler, bound and share (`bench/compare_windows.kernel_report`).
      At the bench scene (full-table kernels) and the city scene (windowed
      kernels), float32, each kernel is timed against its plain version, its
@@ -705,9 +706,9 @@ def hold_fold(tag, dtype, got, o, again=None, huber=None):
     """Kernels 2 and 10 return the camera-side sum themselves: the fifth
     output `got[4]` of their wrappers on the operands `o` equals the model of
     the kernel's order at this card's launch plan (`M.fold_table_sum`,
-    `M.fold_window_sum` on CPU copies) bit for bit, and for kernel 10
-    `segsum_cm_blk` on the same messages bit for bit at every tile that runs
-    in one block; with `again`, a second run gives the same bits."""
+    `M.fold_window_sum` on CPU copies) bit for bit; with `again`, a second
+    run gives the same bits.  Prints the plan: grid, registers, local bytes,
+    blocks per SM, the warps' slots in shared memory."""
     g, mp = o["gslot"], o["mp"]
     me, ml = got[2 * g], got[2 * g + 1]
     shape = dict(d0=got[0].shape[0], d1=got[2].shape[0], z=o["z"].shape[0], gslot=g,
@@ -716,23 +717,19 @@ def hold_fold(tag, dtype, got, o, again=None, huber=None):
     if o["win_w"]:
         name, n_tiles, w = "messages_cm_tabblk_ell", mp // M.TILE, o["win_w"]
         plan = M.window_plan(name, dtype, win_w=w, mp=mp, **shape)
-        split = dict(blocks=plan["blocks"], unit=plan["unit_rows"])
-        model = M.fold_window_sum(me.cpu(), ml.cpu(), o["win_rows"].cpu(),
-                                  o["win_offsets"].cpu(), n_tiles=n_tiles, w=w, **split)
-        whole = torch.from_numpy(M.fold_whole_tiles(n_tiles, mp, **split)).to(me.device)
-        blk = sync(M.segsum_cm_blk(me, ml, o["win_rows"], o["win_offsets"], n_tiles=n_tiles,
-                                   w=w))
-        if not torch.equal(got[4][whole], blk[whole]):
-            raise AssertionError(f"{name} {tag}: a tile run in one block differs from "
-                                 f"segsum_cm_blk")
-        extra = (f"; {int(whole.sum())} of {n_tiles} tiles run in one block, there equal to "
-                 f"segsum_cm_blk bit for bit")
+        csr = (me.cpu(), ml.cpu(), o["win_rows"].cpu(), o["win_offsets"].cpu())
+        if plan["folded"]:
+            model = M.fold_window_sum(*csr, n_tiles=n_tiles, w=w, threads=plan["threads"])
+            extra = "; folded, whole tiles a block"
+        else:
+            model = M.segsum_cm_blk_plain(*csr, n_tiles=n_tiles, w=w)
+            extra = "; not folded: kernel 16 after the launch"
     else:
         name = "messages_cm_tab_ell"
         plan = M.table_plan(dtype, n_cam=o["cam_tab"].shape[0],
                             n_seg=o["seg_offsets"].shape[0] - 1, mp=mp, **shape)
         model = M.fold_table_sum(me.cpu(), ml.cpu(), o["seg_rows"].cpu(), o["seg_offsets"].cpu(),
-                                 blocks=plan["blocks"], unit=plan["unit_rows"])
+                                 blocks=plan["blocks"], unit_rows=plan["unit_rows"])
     if not torch.equal(got[4].cpu(), model):
         raise AssertionError(f"{name} {tag}: the fifth output is not the model of the kernel's "
                              f"order (max abs {float((got[4].cpu() - model).abs().max()):.3e})")
@@ -740,10 +737,12 @@ def hold_fold(tag, dtype, got, o, again=None, huber=None):
         if not all(torch.equal(a, b) for a, b in zip(got, sync(again()))):
             raise AssertionError(f"{name} {tag}: two runs differ")
         extra += "; two runs bitwise equal"
-    print(f"[fold] {tag} {name}: fifth output from the messages launch ({plan['units']} units "
-          f"of {plan['unit_rows']} rows on {plan['blocks']} blocks, {plan['registers']} "
-          f"registers, {plan['local_bytes']} local bytes, {plan['smem_bytes']} shared bytes, "
-          f"{plan['blocks_per_sm']} blocks per SM) equal to the model of its order bit for "
+    print(f"[fold] {tag} {name}: fifth output ({plan['units']} units "
+          f"of {plan['unit_rows']} rows on {plan['blocks']} blocks of {plan['threads']} "
+          f"threads, split every {plan['split_rows']} rows, {plan['registers']} registers, "
+          f"{plan['local_bytes']} local bytes, {plan['smem_bytes']} shared bytes, "
+          f"{plan['blocks_per_sm']} blocks per SM, {plan['slab_slots']} slots a warp in shared "
+          f"memory ({plan['slab_bytes']} bytes)) equal to the model of its order bit for "
           f"bit{extra}")
     return plan
 
@@ -805,8 +804,9 @@ def table_ops(cmg, st):
                 prec=cmg.prec, act=cmg.act, args=cmg.args, comp_name=fb.ftype.name,
                 win_w=cmg.win_w, win_starts=cmg.win_starts, win_rows=cmg.win_rows,
                 win_offsets=cmg.win_offsets, blk_tiles=cmg.blk_tiles, blk_offsets=cmg.blk_offsets,
-                seg_rows=cmg.seg_rows, seg_offsets=cmg.seg_offsets, cam_mean=cam_mean,
-                cam_tab=cam_tab, lmk_mean=lmk_mean, lmk_tab=lmk_tab, fs=st.f)
+                seg_rows=cmg.seg_rows, seg_offsets=cmg.seg_offsets, seg_ids=cmg.seg_ids,
+                cam_mean=cam_mean, cam_tab=cam_tab, lmk_mean=lmk_mean, lmk_tab=lmk_tab,
+                fs=st.f)
 
 
 def make_compare(tag, tol, errs):
@@ -896,7 +896,8 @@ def check_table_kernels(tag, o, dtype, compare, timings=None, masked=False):
         sum_index = (o["seg_rows"], o["seg_offsets"])
     relin, relin_plain = getattr(M, n_relin_name), getattr(M, n_relin_name + "_plain")
     msgs, msgs_plain = getattr(M, n_msg_name), getattr(M, n_msg_name + "_plain")
-    m_kw = dict(gslot=g, **r_kw)
+    # Kernel 2 reads the CSR as the graph's per-row map.
+    m_kw = dict(gslot=g, **r_kw, **({} if win else dict(seg_ids=o["seg_ids"])))
     r_kw = dict(model, **r_kw)
 
     # The median linearization-point distance of the valid rows, as beta,
@@ -1012,11 +1013,13 @@ def check_table_kernels(tag, o, dtype, compare, timings=None, masked=False):
         timed.append(("segsum_by_id", M.segsum_by_id, M.segsum_by_id_plain, seg_args, {},
                       (got_s,), None,
                       lambda: zeros(n_cam).index_add_(1, gl, vals)))
+    # What each kernel reads: kernel 2 the per-row map in place of the CSR.
+    reads = {} if win else {n_msg_name: (*msg_args[:-2], o["seg_ids"])}
     for name, kern, plain, args, kw, outs, flops, library in timed:
         ms = time_ms(lambda: kern(*args, **kw), 20)
         plain_ms = time_ms(lambda: plain(*args, **kw), 3)
         b_ms, b_by = (segsum_bound_ms(args, outs[0]) if name == "segsum_by_id"
-                      else bound_ms(args, outs, flops))
+                      else bound_ms(reads.get(name, args), outs, flops))
         lib_ms = None if library is None else time_ms(library, 20)
         timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=lib_ms)
@@ -1879,17 +1882,23 @@ def window_vs_full():
 STANDALONE_SUMS = ("segsum_chunk_kernel", "gbp::segsum_kernel", "segsum_blk_kernel")
 
 
-def hold_fold_path(tag, sweep, n=5):
-    """A fused path's sweeps by the profiler: none launches the standalone
-    sums (the messages launches return them); prints the device records a
-    sweep."""
+def hold_fold_path(tag, sweep, n=5, unfolded=False):
+    """A fused path's sweeps by the profiler: the messages launches return
+    the camera-side sums, so none launches the standalone sums, except
+    kernel 16 after a windowed launch that does not fold (`unfolded`: at
+    most once a sweep, and at least once in the run); prints the device
+    records a sweep."""
     recs = {k: len(v) / n for k, v in profiled_ms(sweep, n).items()}
-    bad = {k: v for k, v in recs.items() if any(s in k for s in STANDALONE_SUMS)}
+    allowed = lambda k, v: unfolded and "segsum_blk_kernel" in k and v <= 1
+    bad = {k: v for k, v in recs.items()
+           if any(s in k for s in STANDALONE_SUMS) and not allowed(k, v)}
     ours = {k.split("<")[0].split("gbp::")[-1]: v for k, v in recs.items() if "gbp::" in k}
     print(f"[{tag}] a sweep by the profiler: {sum(recs.values()):.1f} device records, the "
           f"port's kernels {ours}")
     if bad:
         raise AssertionError(f"{tag}: the fused sweep launched the standalone sums {bad}")
+    if unfolded and not any("segsum_blk_kernel" in k for k in recs):
+        raise AssertionError(f"{tag}: the windowed launch did not fold, and kernel 16 never ran")
 
 
 def timed_sweeps(tag, cmg, init, n, n_valid, card, cfg=CFG):
@@ -1972,7 +1981,10 @@ def big_path(tag, scene, card, against_plain):
     are = are_px(graph, cmg, state, sim["k"])
     print(f"[{tag}] {QUALITY_SWEEPS} sweeps (first call) in {t_first:.3f} s; launches "
           f"{launches}; plain calls 0; ARE {are:.6f} px")
-    hold_fold_path(tag, lambda: sweep_cm.sweep(cmg, state, CFG))
+    plan = M.window_plan("messages_cm_tabblk_ell", torch.float32, win_w=cmg.win_w, mp=cmg.mp)
+    print(f"[{tag}] kernel 10 {'folds' if plan['folded'] else 'does not fold'}: "
+          f"{cmg.mp // M.TILE} tiles on {plan['blocks']} blocks")
+    hold_fold_path(tag, lambda: sweep_cm.sweep(cmg, state, CFG), unfolded=not plan["folded"])
     if not (math.isfinite(are) and are < are0):
         raise AssertionError(f"{tag}: ARE {are} is not finite and below the initial {are0}")
 
@@ -3929,7 +3941,8 @@ def seg_ops(sg, st, i):
                 args=p.args, comp_name=fb.ftype.name, win_w=p.win_w, win_starts=p.win_starts,
                 win_rows=p.win_rows, win_offsets=p.win_offsets, blk_tiles=p.blk_tiles,
                 blk_offsets=p.blk_offsets, seg_rows=p.seg_rows, seg_offsets=p.seg_offsets,
-                cam_mean=vs_c.mean.contiguous(), cam_tab=sweep_cm._packed(vs_c).contiguous(),
+                seg_ids=p.seg_ids, cam_mean=vs_c.mean.contiguous(),
+                cam_tab=sweep_cm._packed(vs_c).contiguous(),
                 lmk_mean=lmk_mean[rows].contiguous(), lmk_tab=lmk_tab[rows].contiguous(),
                 fs=st.f[i])
 

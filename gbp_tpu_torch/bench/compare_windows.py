@@ -3,7 +3,7 @@ operands at city, venice and city cut in two, by one or several checkouts
 of the port in one call.
 
     python -m gbp_tpu_torch.bench.compare_windows [--label NAME] [--scenes city,halo2,venice,bench64]
-        [--save DIR | --load DIR]
+        [--only WRAPPER,...] [--save DIR | --load DIR]
     cd OTHER && PYTHONPATH=. python /path/to/compare_windows.py --label NAME [--load DIR]
 
 For each scene the process builds it in float32 (bench.CITY, bench.VENICE),
@@ -30,7 +30,8 @@ timed the same inputs.  A kernel's time depends on its operands (a state
 ten sweeps on differs in its last bits between checkouts whose camera
 sums add in different orders), so `--save DIR` writes the recorded
 operands (one file a scene) and `--load DIR` times another checkout on
-exactly those.  The fused wrappers (2, 10) also return the
+exactly those (`--only` times the listed wrappers alone).  The fused
+wrappers (2, 10) also return the
 camera-side sum; a checkout may compute it in the messages launch or in
 launches of its own, so each wrapper's entry is reported too: the device
 time a call of every kernel it launched, and the bound of all five outputs
@@ -153,10 +154,11 @@ def tensors(args, kw):
     return [t for t in (*args, *kw.values()) if isinstance(t, torch.Tensor)]
 
 
-# Keyword operands that hold no data (the windowed fold's tile counters, zero
-# before and after each launch): left out of the operands' checksum, and
-# passed only to a checkout whose wrapper takes them.
-STATE_KW = ("tile_counts",)
+# Keyword operands that hold no data of their own (the windowed fold's tile
+# counters, zero before and after each launch; kernel 2's per-row segment
+# map, made from the CSR): left out of the operands' checksum, and passed
+# only to a checkout whose wrapper takes them.
+STATE_KW = ("tile_counts", "seg_ids")
 
 
 def taken(fn, kw):
@@ -260,7 +262,7 @@ def ptxas_lines():
             if name.startswith(PTXAS_KERNELS)]
 
 
-def measure(label, scenes, save=None, load=None):
+def measure(label, scenes, save=None, load=None, only=None):
     dev = gbp_tpu_torch.default_device()
     gbp_tpu_torch.set_exact_f32()
     _build.build()
@@ -279,6 +281,8 @@ def measure(label, scenes, save=None, load=None):
             t for a, k in calls.values()
             for t in tensors(a, {n: v for n, v in k.items() if n not in STATE_KW}))}
         for name, (args, kw) in calls.items():
+            if only and name not in only:
+                continue
             rec[name] = kernel_report(name, args, taken(getattr(M, name), kw))
             print(f"[windows] {label} {scene} {report_line(name, rec[name])}")
         out["scenes"][scene] = rec
@@ -292,11 +296,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--scenes", default="city,halo2,venice,bench64")
+    ap.add_argument("--only", default=None, help="time these wrappers alone (comma-separated)")
     ops = ap.add_mutually_exclusive_group()
     ops.add_argument("--save", default=None, help="write the recorded operands here")
     ops.add_argument("--load", default=None, help="time the operands written by --save")
     args = ap.parse_args(argv)
-    measure(args.label, args.scenes.split(","), args.save, args.load)
+    measure(args.label, args.scenes.split(","), args.save, args.load,
+            args.only.split(",") if args.only else None)
 
 
 if __name__ == "__main__":

@@ -99,15 +99,14 @@ def stages(cmg, state, cfg) -> dict:
                 win_w=cmg.win_w, comp_name=model, gslot=g, fargs=cmg.args)
             out["messages"] = lambda: M.messages_cm_tabblk_ell(
                 params, cam_tab, lmk_tab, cmg.gidx, cmg.win_starts, *mes, *msgs, cmg.win_rows,
-                cmg.win_offsets, deg=deg, huber=huber, win_w=cmg.win_w, gslot=g,
-                tile_counts=cmg.win_counts)
+                cmg.win_offsets, deg=deg, huber=huber, win_w=cmg.win_w, gslot=g)
         else:
             out["relin"] = lambda: M.relin_cm_tab_ell(
                 params, cam_mean, lmk_mean, cmg.gidx, cmg.z, *rel, deg=deg, comp_name=model,
                 gslot=g, fargs=cmg.args)
             out["messages"] = lambda: M.messages_cm_tab_ell(
                 params, cam_tab, lmk_tab, cmg.gidx, *mes, *msgs, cmg.seg_rows, cmg.seg_offsets,
-                deg=deg, huber=huber, gslot=g)
+                deg=deg, huber=huber, gslot=g, seg_ids=cmg.seg_ids)
     else:
         vs_c, vs_l = sweep_cm._slot_states(cmg, state)
         be_l, bl_l, mean_l = sweep_cm._expand_ell(cmg, vs_l)

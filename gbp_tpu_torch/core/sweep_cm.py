@@ -120,6 +120,7 @@ from gbp_tpu_torch.ops.messages import (
     relin_cm_tabblk,
     relin_cm_tabblk_ell,
     scatter_windows_cm,
+    segment_ids,
     segsum_by_id,
     segsum_cm_blk,
     window_block_csr,
@@ -185,9 +186,6 @@ class CMGraph(NamedTuple):
     win_starts: torch.Tensor | None = None  # [n_tiles] int32, multiples of SUB
     win_rows: torch.Tensor | None = None  # [mp] int32: each tile's rows by window column
     win_offsets: torch.Tensor | None = None  # [n_tiles * win_w + 1] int32
-    # [n_tiles] int32 zeros: the windowed messages launch's counters of the
-    # tiles it splits between blocks (zero again after each launch).
-    win_counts: torch.Tensor | None = None
     # The tiles meeting each block of SCATTER_CAMS cameras, ascending (the
     # kernel's walk of `scatter_windows_cm`).
     blk_tiles: torch.Tensor | None = None
@@ -204,6 +202,9 @@ class CMGraph(NamedTuple):
     # (`bal_reprojection_normalized`: k1, k2), in resident row order; None
     # for the others.
     args: torch.Tensor | None = None
+    # [mp] int32: the CSR's per-row map, each row's camera id or -1 where the
+    # CSR leaves the row out (`segment_ids`; kernel 2's fold reads it).
+    seg_ids: torch.Tensor | None = None
 
     @property
     def fb(self):
@@ -385,7 +386,6 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
         blk_tiles, blk_offsets = window_block_csr(starts, w, n_cam)
         extra.update(win_w=int(w), win_ncpad=int(ncpad), win_starts=as_i32(starts),
                      win_rows=as_i32(win_rows), win_offsets=as_i32(win_offsets),
-                     win_counts=as_i32(np.zeros(len(starts))),
                      blk_tiles=as_i32(blk_tiles), blk_offsets=as_i32(blk_offsets))
 
     # CSR of the valid rows by camera id, in row order (ascending within a
@@ -395,6 +395,7 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     # name the camera of their landmark's first row.
     valid = np.ones(m, dtype=bool) if fb.valid is None else fb.valid.cpu().numpy()
     seg_rows, seg_offsets = _rows_by_id(gidx, valid if rowperm is None else valid[rowperm], n_cam)
+    seg_ids = segment_ids(torch.from_numpy(seg_rows), torch.from_numpy(seg_offsets), mp)
     act = torch.ones(m, dtype=dt, device=dev) if fb.valid is None else fb.valid.to(dt)
     rp = extra.get("rowperm")
     perm = lambda a: a if rp is None else a[rp]
@@ -414,6 +415,7 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
         gidx=as_i32(gidx),
         seg_rows=as_i32(seg_rows),
         seg_offsets=as_i32(seg_offsets),
+        seg_ids=seg_ids.to(dev),
         mp=mp,
         nv=mp // deg,
         gather_mode=gather_mode,
@@ -629,7 +631,7 @@ def sweep(cmg: CMGraph | CMSegGraph, state: CMState, cfg: GBPConfig,
         *out, part = messages_cm_tabblk_ell(
             params, cam_tab, lmk_tab, cmg.gidx, cmg.win_starts, jac, lp, r0, cmg.prec,
             srel, act, *msgs, cmg.win_rows, cmg.win_offsets, deg=deg, huber=huber,
-            win_w=cmg.win_w, gslot=g, tile_counts=cmg.win_counts)
+            win_w=cmg.win_w, gslot=g)
         sum_c = scatter_windows_cm(part, cmg.win_starts, cmg.blk_tiles, cmg.blk_offsets,
                                    n_seg=n_cam)
     else:
@@ -639,7 +641,8 @@ def sweep(cmg: CMGraph | CMSegGraph, state: CMState, cfg: GBPConfig,
             fs.srel, act, deg=deg, comp_name=model, gslot=g, fargs=cmg.args)
         *out, sum_c = messages_cm_tab_ell(
             params, cam_tab, lmk_tab, cmg.gidx, jac, lp, r0, cmg.prec, srel,
-            act, *msgs, cmg.seg_rows, cmg.seg_offsets, deg=deg, huber=huber, gslot=g)
+            act, *msgs, cmg.seg_rows, cmg.seg_offsets, deg=deg, huber=huber, gslot=g,
+            seg_ids=cmg.seg_ids)
     oe0, ol0, oe1, ol1 = out
     return _update_beliefs(cmg, state, CMFactorState(
         lp=lp, jac=jac, r0=r0, srel=srel, msg_eta=(oe0, oe1), msg_lam=(ol0, ol1)), sum_c)
@@ -784,11 +787,11 @@ class CMSegPart(NamedTuple):
     win_starts: torch.Tensor | None = None  # [mp / TILE] int32
     win_rows: torch.Tensor | None = None
     win_offsets: torch.Tensor | None = None
-    win_counts: torch.Tensor | None = None
     blk_tiles: torch.Tensor | None = None
     blk_offsets: torch.Tensor | None = None
     seg_rows: torch.Tensor | None = None
     seg_offsets: torch.Tensor | None = None
+    seg_ids: torch.Tensor | None = None  # [mp] int32 (`CMGraph.seg_ids`)
 
 
 class CMSegGraph(NamedTuple):
@@ -962,11 +965,13 @@ def prepare_seg(graph: Graph, window: bool = True,
             win_rows, win_offsets = window_rows_csr(cl["gidx"], starts, w)
             blk_tiles, blk_offsets = window_block_csr(starts, w, n_cam)
             extra.update(win_w=int(w), win_starts=as_i32(starts), win_rows=as_i32(win_rows),
-                         win_offsets=as_i32(win_offsets), win_counts=as_i32(np.zeros(len(starts))),
+                         win_offsets=as_i32(win_offsets),
                          blk_tiles=as_i32(blk_tiles), blk_offsets=as_i32(blk_offsets))
         else:
             seg_rows, seg_offsets = _rows_by_id(cl["gidx"], cl["act"], n_cam)
-            extra.update(seg_rows=as_i32(seg_rows), seg_offsets=as_i32(seg_offsets))
+            extra.update(seg_rows=as_i32(seg_rows), seg_offsets=as_i32(seg_offsets),
+                         seg_ids=segment_ids(torch.from_numpy(seg_rows),
+                                             torch.from_numpy(seg_offsets), cl["mp"]).to(dev))
         if n_args:
             extra["args"] = to_cm(fb.args.reshape(fb.count, -1)[:, :n_args].to(dt))
         parts.append(CMSegPart(
@@ -1056,8 +1061,7 @@ def sweep_seg(sg: CMSegGraph, state: CMState, cfg: GBPConfig) -> CMState:
                 p.act, deg=p.deg, win_w=p.win_w, comp_name=model, gslot=g, fargs=p.args)
             *out, part = messages_cm_tabblk_ell(
                 params, cam_tab, lt, p.gidx, p.win_starts, jac, lp, r0, p.prec, srel, p.act,
-                *msgs, p.win_rows, p.win_offsets, deg=p.deg, huber=huber, win_w=p.win_w, gslot=g,
-                tile_counts=p.win_counts)
+                *msgs, p.win_rows, p.win_offsets, deg=p.deg, huber=huber, win_w=p.win_w, gslot=g)
             s = scatter_windows_cm(part, p.win_starts, p.blk_tiles, p.blk_offsets, n_seg=n_c)
         else:
             lp, jac, r0, srel = relin_cm_tab_ell(
@@ -1065,7 +1069,7 @@ def sweep_seg(sg: CMSegGraph, state: CMState, cfg: GBPConfig) -> CMState:
                 deg=p.deg, comp_name=model, gslot=g, fargs=p.args)
             *out, s = messages_cm_tab_ell(
                 params, cam_tab, lt, p.gidx, jac, lp, r0, p.prec, srel, p.act, *msgs,
-                p.seg_rows, p.seg_offsets, deg=p.deg, huber=huber, gslot=g)
+                p.seg_rows, p.seg_offsets, deg=p.deg, huber=huber, gslot=g, seg_ids=p.seg_ids)
         sum_c = sum_c + s
         oe0, ol0, oe1, ol1 = out
         new_f.append(CMFactorState(lp=lp, jac=jac, r0=r0, srel=srel, msg_eta=(oe0, oe1),

@@ -36,34 +36,38 @@
 //   and, for its 5th output, `_segsum_partial_full`): the four new messages
 //   and the gathered-slot sum of the new gathered-slot messages over the
 //   rows the CSR (seg_rows, seg_offsets) lists, computed in the same launch
-//   as the TPU kernel computes it.
-//   Bound: registers.  One thread holds a 6x6 cavity, its Jacobi-scaled
+//   as the TPU kernel computes it; the kernel reads the CSR as a per-row
+//   segment map (seg_ids: the row's segment, -1 where the CSR does not list
+//   it), made once per prepared graph.
+//   Bound: the latency of each row's dependent arithmetic at the warps its
+//   registers leave an SM.  One thread holds a 6x6 cavity, its Jacobi-scaled
 //   Schur-recursion inverse, the 2x9 Jacobian and the 6x6 message at once
-//   (the -Xptxas -v report gives the spill bytes), while the bytes moved
-//   are ~100 components per row.
-//   Design (messages_kernel, table_kernels.cuh): persistent blocks over
-//   contiguous ranges of units of rows (128-row units three to an SM in
-//   float32 up to 9 slot dofs, 256-row units one to an SM otherwise; the
-//   occupancy API sets the blocks, each takes q or q + 1 units).  A block
-//   stages the packed table (n_cam x F) in shared memory once; a row's
-//   landmark belief comes from row / deg.  The per-row computation stays in
-//   one thread with fully unrolled fixed-size arrays; masked rows keep their
-//   old message through a select.  After each unit the block folds the
-//   unit's new gathered-slot messages, staged from L2, into its partial sums
-//   [F, n_seg] (table_kernels.cuh, "the gathered-slot sum folded into the
-//   messages launches"): a cursor a segment walks its CSR list past the
-//   unit, and the unit's listed rows are added in row order, in passes
-//   where no camera has more than a few rows in the unit (bench64: a
-//   camera's rows of the unit's two landmarks), else one thread per
-//   (segment, component) walking the segment's rows, so the messages are
-//   never read back from device memory.  At most mp / (8
-//   n_seg) blocks (the wrapper's cap, `fold_max_blocks`), so the partials
-//   stay within 1/8 of the messages, but never fewer than one per SM: a
-//   table too wide for that rule (a 1,000-pose graph's) keeps its
-//   parallelism, its partials within 132 tables (48 KB each).  The same
-//   entry then launches segsum_combine_kernel, which adds the blocks'
-//   partials in a fixed order (16 phases).  Deterministic: no
-//   floating-point atomics; the order is set by the launch plan.
+//   (the -Xptxas -v report gives the registers and spill bytes), while the
+//   bytes moved are ~100 components per row; only more warps hide that
+//   latency.
+//   Design (messages_kernel, table_kernels.cuh): blocks of 128 threads over
+//   contiguous ranges of 128-row units, as many as the SMs hold at once
+//   (q or q + 1 units a block), within 128 registers so that four blocks
+//   (16 warps) share an SM in float32 with the cameras gathered (three with
+//   the landmarks gathered; 256 threads, one block an SM, in float64 and at
+//   12 dofs).  A block stages the packed table (n_cam x F) in shared memory
+//   once; a row's landmark belief comes from row / deg.  The per-row
+//   computation stays in one thread with fully unrolled fixed-size arrays;
+//   masked rows keep their old message through a select.  The fold
+//   (table_kernels.cuh, "the gathered-slot sum folded into the messages
+//   launches") costs no barrier a unit: after each unit every warp adds its
+//   listed rows onto its own slab, the rows of one camera first added among
+//   their lanes by shuffles (bench64: a warp's 32 rows are one landmark's, 32
+//   distinct cameras, so each row goes straight onto its camera's slot), and
+//   the messages are never read back from device memory.  The table and
+//   four warps' slabs of 64 cameras take 54.8 KB at bench64, within the 56
+//   KB a block has at four blocks an SM; slots past that lie in device
+//   memory (a 1,000-pose table's).  At most mp / (8 n_seg) blocks (the
+//   wrapper's cap, `fold_max_blocks`), so the partials stay within 1/8 of
+//   the messages, but never fewer than one per SM.  The same entry then
+//   launches segsum_combine_kernel, which adds the blocks' partials in a
+//   fixed order (16 phases).  Deterministic: no floating-point atomics; the
+//   order is set by the launch plan.
 #include "table_kernels.cuh"
 
 namespace gbp {
@@ -113,8 +117,8 @@ int messages(int da, int db, int zd, int gslot, int huber_row, const S* cam_tab,
              const S* act, const S* me0, const S* ml0, const S* me1, const S* ml1,
              S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp, int deg, double eta_damping,
              double lam_damping, double num_undamped, double floor, double jitter,
-             int has_huber, double huber, const int* seg_rows, const int* seg_offsets,
-             int n_seg, S* part, int max_blocks, S* out, void* stream, int* info) {
+             int has_huber, double huber, const int* seg_ids, int n_seg, S* part,
+             int max_blocks, S* slab, S* out, void* stream, int* info) {
   (void)nv;
   if (mp <= 0 && !info) return static_cast<int>(cudaGetLastError());
   const auto p =
@@ -124,8 +128,7 @@ int messages(int da, int db, int zd, int gslot, int huber_row, const S* cam_tab,
   const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
     rc = launch_messages_tab_ell<S, decltype(sh)>(
         huber_row != 0, cam_tab, n_cam, lmk_tab, gidx, o, mp, deg, p,
-        static_cast<cudaStream_t>(stream), seg_rows, seg_offsets, n_seg, part, max_blocks, out,
-        info);
+        static_cast<cudaStream_t>(stream), seg_ids, n_seg, part, max_blocks, slab, out, info);
   });
   if (!known) return -2;
   return rc ? rc : static_cast<int>(cudaGetLastError());
@@ -150,13 +153,13 @@ int messages(int da, int db, int zd, int gslot, int huber_row, const S* cam_tab,
       const S* act, const S* me0, const S* ml0, const S* me1, const S* ml1,          \
       S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp, int deg, double eta_damping,       \
       double lam_damping, double num_undamped, double floor, double jitter,          \
-      int has_huber, double huber, const int* seg_rows, const int* seg_offsets,      \
-      int n_seg, S* part, int max_blocks, S* out, void* stream, int* info) {         \
+      int has_huber, double huber, const int* seg_ids, int n_seg, S* part,           \
+      int max_blocks, S* slab, S* out, void* stream, int* info) {                    \
     return gbp::messages<S>(da, db, zd, gslot, huber_row, cam_tab, n_cam, lmk_tab,   \
                             nv, gidx, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, \
                             oe0, ol0, oe1, ol1, mp, deg, eta_damping, lam_damping,   \
-                            num_undamped, floor, jitter, has_huber, huber, seg_rows, \
-                            seg_offsets, n_seg, part, max_blocks, out, stream, info); \
+                            num_undamped, floor, jitter, has_huber, huber, seg_ids,  \
+                            n_seg, part, max_blocks, slab, out, stream, info);       \
   }
 
 GBP_ENTRIES(f32, float)

@@ -21,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "comp_factors.cuh"
 #include "comp_linalg.cuh"
 
@@ -234,16 +236,29 @@ __device__ __forceinline__ void slot_terms(const S (&be)[D], const S (&bl)[D][D]
   mv(j, dx, q);
 }
 
+// Where a row's new messages of one slot go besides the outputs: `sink(k,
+// value)` for component k (eta | lam) as it is written (the fold of
+// messages.cu); SLOT is the slot it takes, -1 for none.
+struct NoSink {
+  static constexpr int SLOT = -1;
+  NoSink() = default;
+  template <class T>
+  __host__ __device__ explicit NoSink(const T&) {}
+  template <typename S>
+  __device__ __forceinline__ void operator()(int, S) const {}
+};
+
 // The message to slot a from the other slot's (p_o, q_o), damped and
-// selected, written straight to the outputs.
-template <typename S, int D, int ZD, class L>
+// selected, written straight to the outputs (and handed to `sink`).
+template <typename S, int D, int ZD, class L, class Sink = NoSink>
 __device__ __forceinline__ void emit(const S (&j)[ZD][D], const S (&x0)[D],
                                      const S (&sigma)[ZD][ZD], const S (&p_o)[ZD][ZD],
                                      const S (&q_o)[ZD], const S (&r0)[ZD],
                                      const S* __restrict__ me_old, int64_t me_ld,
                                      const S* __restrict__ ml_old, int64_t ml_ld,
                                      S* __restrict__ oe, int64_t oe_ld, S* __restrict__ ol,
-                                     int64_t ol_ld, int64_t r, S damp, S ldamp, bool on) {
+                                     int64_t ol_ld, int64_t r, S damp, S ldamp, bool on,
+                                     const Sink& sink = Sink()) {
   S sp[ZD][ZD], s_mat[ZD][ZD], s_inv[ZD][ZD];
 #pragma unroll
   for (int i = 0; i < ZD; ++i) {
@@ -266,12 +281,15 @@ __device__ __forceinline__ void emit(const S (&j)[ZD][D], const S (&x0)[D],
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     const S old = me_old[L::at(i, r, me_ld)];
-    oe[L::at(i, r, oe_ld)] = on ? (S(1.0) - damp) * eta[i] + damp * old : old;
+    const S e = on ? (S(1.0) - damp) * eta[i] + damp * old : old;
+    oe[L::at(i, r, oe_ld)] = e;
+    sink(i, e);
 #pragma unroll
     for (int k = 0; k < D; ++k) {
       const S old_l = ml_old[L::at(i * D + k, r, ml_ld)];
-      ol[L::at(i * D + k, r, ol_ld)] =
-          on ? (S(1.0) - ldamp) * lam[i][k] + ldamp * old_l : old_l;
+      const S l = on ? (S(1.0) - ldamp) * lam[i][k] + ldamp * old_l : old_l;
+      ol[L::at(i * D + k, r, ol_ld)] = l;
+      sink(D + i * D + k, l);
     }
   }
 }
@@ -298,15 +316,16 @@ inline MsgParams<S> msg_params(double eta_damping, double lam_damping, double nu
 // holds the row's full [ZD][ZD] precision instead of its diagonal.
 // HUBER_ROW: the row's own Huber threshold rides as the component after
 // the precision (0 = off for that row); otherwise p.has_huber / p.huber.
+// `sink` takes slot Sink::SLOT's new messages as they are written.
 template <typename S, int DA, int DB, int ZD, class L, bool PREC_FULL, bool HUBER_ROW, class B0,
-          class B1, class LD>
+          class B1, class LD, class Sink = NoSink>
 __device__ __forceinline__ void messages_core(
     const B0& b0, const B1& b1, const S* __restrict__ jac, const S* __restrict__ lp,
     const S* __restrict__ r0g, const S* __restrict__ prec, const S* __restrict__ srel,
     const S* __restrict__ act, const S* __restrict__ me0, const S* __restrict__ ml0,
     const S* __restrict__ me1, const S* __restrict__ ml1, S* __restrict__ oe0,
     S* __restrict__ ol0, S* __restrict__ oe1, S* __restrict__ ol1, const LD& ld, int64_t r,
-    const MsgParams<S>& p) {
+    const MsgParams<S>& p, const Sink& sink = Sink()) {
   constexpr int TD = DA + DB;
   S j0[ZD][DA], j1[ZD][DB];
 #pragma unroll
@@ -419,35 +438,40 @@ __device__ __forceinline__ void messages_core(
   const S damp = undamped ? p.eta_damping : S(0.0);
   const S ldamp = undamped ? p.lam_damping : S(0.0);
   const bool on = act[L::at(0, r, ld[M_ACT])] > S(0.5);
-  emit<S, DA, ZD, L>(j0, x00, sigma, p1, q1, r0, me0, ld[M_ME0], ml0, ld[M_ML0], oe0,
-                     ld[M_OE0], ol0, ld[M_OL0], r, damp, ldamp, on);
-  emit<S, DB, ZD, L>(j1, x01, sigma, p0, q0, r0, me1, ld[M_ME1], ml1, ld[M_ML1], oe1,
-                     ld[M_OE1], ol1, ld[M_OL1], r, damp, ldamp, on);
+  using Sink0 = std::conditional_t<Sink::SLOT == 0, Sink, NoSink>;
+  using Sink1 = std::conditional_t<Sink::SLOT == 1, Sink, NoSink>;
+  const Sink0 s0 = Sink0(sink);
+  const Sink1 s1 = Sink1(sink);
+  emit<S, DA, ZD, L, Sink0>(j0, x00, sigma, p1, q1, r0, me0, ld[M_ME0], ml0, ld[M_ML0], oe0,
+                            ld[M_OE0], ol0, ld[M_OL0], r, damp, ldamp, on, s0);
+  emit<S, DB, ZD, L, Sink1>(j1, x01, sigma, p0, q0, r0, me1, ld[M_ME1], ml1, ld[M_ML1], oe1,
+                            ld[M_OE1], ol1, ld[M_OL1], r, damp, ldamp, on, s1);
 }
 
 // The table form on component-major [F, mp] state, diagonal precision.  gat:
 // the gathered slot's packed belief row (eta | lam); the ELL slot's is read
-// at r / deg.  The gathered slot is slot GSLOT.
-template <typename S, int DA, int DB, int ZD, bool HUBER_ROW, int GSLOT>
+// at r / deg.  The gathered slot is slot GSLOT; `sink` takes its new
+// messages as they are written.
+template <typename S, int DA, int DB, int ZD, bool HUBER_ROW, int GSLOT, class Sink = NoSink>
 __device__ __forceinline__ void messages_row(
     const S* __restrict__ gat, const S* __restrict__ ell_tab, const S* __restrict__ jac,
     const S* __restrict__ lp, const S* __restrict__ r0g, const S* __restrict__ prec,
     const S* __restrict__ srel, const S* __restrict__ act, const S* __restrict__ me0,
     const S* __restrict__ ml0, const S* __restrict__ me1, const S* __restrict__ ml1,
     S* __restrict__ oe0, S* __restrict__ ol0, S* __restrict__ oe1, S* __restrict__ ol1,
-    int64_t mp, int deg, int64_t r, const MsgParams<S>& p) {
+    int64_t mp, int deg, int64_t r, const MsgParams<S>& p, const Sink& sink = Sink()) {
   if constexpr (GSLOT == 0) {
     const PackedBelief<S, DA> b0{gat};
     const EllBelief<S, DB> b1{ell_tab, r, deg};
     messages_core<S, DA, DB, ZD, ColMajor, false, HUBER_ROW>(
         b0, b1, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1,
-        UniformLd{mp}, r, p);
+        UniformLd{mp}, r, p, sink);
   } else {
     const EllBelief<S, DA> b0{ell_tab, r, deg};
     const PackedBelief<S, DB> b1{gat};
     messages_core<S, DA, DB, ZD, ColMajor, false, HUBER_ROW>(
         b0, b1, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1,
-        UniformLd{mp}, r, p);
+        UniformLd{mp}, r, p, sink);
   }
 }
 

@@ -205,431 +205,286 @@ __host__ __device__ size_t win_bytes(int win_w, int f) {
 //
 // The messages launches of messages.cu and windows.cu also return the sum of
 // their own new gathered-slot messages (eta | lam, F = d_g + d_g * d_g
-// components) over the rows the caller's CSR lists, as the TPU kernels' fifth
-// output does.  Rows arrive in units of NT rows, one a thread.  Once a unit's
-// messages are written, each thread re-reads its row's F new components
-// (from L2, where its own stores just went: no second pass over device
-// memory) into a shared-memory stage, a group of components at a time, and
-// names its segment (camera, window column; -1 where the CSR does not list
-// the row).  One lane for each segment a warp names registers it as a
-// candidate of the unit (the list's order changes no sum).  A candidate's
-// listed rows in the unit are one run [lo, hi) of its CSR list (rows
-// ascending).  The rows of each run are added one by one, in row order,
-// onto the segment's running sum: the first n_sh segments' in a
-// shared-memory slab, the others' in device memory (the block's own part of
-// the output, read and written by this block alone), either by one thread
-// per (candidate, component) walking the run through the stage, or, where
-// no run is longer than FOLD_PASSES rows, in passes: pass j adds each run's
-// j-th row, its own thread adding the row's F staged values.  So each
-// segment's sum over a block's rows is one chain of additions from zero in
-// row order: no floating-point atomics, and two runs give the same bits.  A
-// row the CSR does not list (padding, ELL clones, a degree class's inactive
-// rows) is never added, whatever its message.  The unit's bookkeeping
-// alternates between two sets, so that clearing one needs no barrier of its
-// own: a unit costs two barriers (three and one a pass where runs are
-// short and the cursors find them, messages.cu).
+// components) over the rows the caller lists, as the TPU kernels' fifth
+// output does: per gathered id (kernel 2) or per tile and window column
+// (kernel 10).  A thread runs one row, a warp 32 consecutive rows, a block
+// units of NT rows.  Once a unit's messages are written, each thread
+// re-reads its row's F new components (from L2, where its own stores just
+// went: no second pass over device memory) and names its row's slot (kernel
+// 2: the row's segment; kernel 10: the rank of its window column among the
+// tile's non-empty ones; -1 where the row is not listed).  The lanes of a
+// warp that name one slot (__match_any_sync) add their values by shuffles in
+// a fixed tree over their lane order (warp_tree_sum), and the group's first
+// lane adds the result onto the warp's own running sum of the slot: a slab
+// per warp, [slots][F] at an odd stride in shared memory, the slots past the
+// shared memory the launch leaves in device memory (per block and warp, read
+// and written by that warp alone).  So a unit costs no barrier, no atomic
+// and no bookkeeping: no warp touches another's sums.  At the end of the
+// block's range (kernel 2) or of a tile (kernel 10) one barrier, then each
+// output is the warps' sums added from zero in warp order.  Every sum is
+// fixed by the launch plan alone: no floating-point atomics, and two runs
+// give the same bits; a row that is not listed (padding, ELL clones, a
+// degree class's inactive rows) is never added, whatever its message.
+// ops.messages.fold_table_sum and fold_window_sum model the order.
 
-// Components re-read per group: at most 45 (float32: one group at (6, 3, 2))
-// or 14 (float64) a row, at stage[row * KGP + kk]; the odd stride keeps a
-// warp's writes on distinct banks.
+constexpr int WARP = 32;
+// One SM's shared memory on sm_90 (228 KB) and what the system keeps of it
+// for each resident block.
+constexpr size_t SMEM_SM_BYTES = 233472;
+constexpr size_t SMEM_BLOCK_RESERVED = 1024;
+
+template <typename T>
+__host__ __device__ constexpr T lesser(T a, T b) {
+  return a < b ? a : b;
+}
+
+// x through an opaque copy: a loop's unit index the compiler sees as a new
+// value each iteration, so that it does not strength-reduce every operand's
+// address into a pointer carried across the loop (kernel 2 at (6, 3, 2)
+// float32: 76 / 136 bytes spilled at 128 registers with it, 84 / 156
+// without; PERF.md).
+__device__ __forceinline__ int opaque(int x) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("mov.b32 %0, %0;" : "+r"(x));
+#endif
+  return x;
+}
+
+// The shared memory each of `blocks` blocks resident on one SM may take.
+__host__ __device__ constexpr size_t smem_share(int blocks) {
+  return lesser(SMEM_SM_BYTES / blocks - SMEM_BLOCK_RESERVED, SMEM_BLOCK_MAX);
+}
+
+// Components re-read and reduced together: at most 45 (float32: all 42 at
+// (6, 3, 2)) or 14 (float64) a row.  FP: a slab slot's stride, odd, so that
+// lanes on distinct slots hit distinct banks.
 template <typename S, int F>
 struct FoldGroups {
   static constexpr int KMAX = sizeof(S) == 4 ? 45 : 14;
   static constexpr int GROUPS = (F + KMAX - 1) / KMAX;
   static constexpr int KG = (F + GROUPS - 1) / GROUPS;
-  static constexpr int KGP = KG | 1;
-};
-// Segments whose running sums live in shared memory: FOLD_SLAB_BYTES of
-// them (a 128-column window of (6, 3, 2) float32 messages, 64 cameras).
-constexpr int FOLD_SLAB_BYTES = 24 * 1024;
-template <typename S, int F>
-__host__ __device__ constexpr int fold_slab_segs() {
-  return FOLD_SLAB_BYTES / (F * static_cast<int>(sizeof(S)));
-}
-constexpr int FOLD_PASSES = 8;
-
-// The fold's shared memory from byte `base` on: the slab [n_sh][F], the
-// stage [NT][KGP], n_cur ints of the caller's (cursors, row positions), two
-// sets of unit bookkeeping (per segment a mark and the run's bounds; the
-// candidates [NT], their count, the longest run) and the rows' ranks [NT].
-template <typename S, int F, int NT>
-struct FoldLayout {
-  size_t slab, stage, cur, sets, set_ints, bytes;
-  __host__ __device__ FoldLayout(size_t base, int n_sh, int n_seg, int n_cur) {
-    slab = align16(base);
-    stage = align16(slab + sizeof(S) * n_sh * F);
-    cur = align16(stage + sizeof(S) * NT * FoldGroups<S, F>::KGP);
-    sets = align16(cur + sizeof(int) * n_cur);
-    set_ints = 3 * static_cast<size_t>(n_seg) + NT + 2;
-    bytes = sets + sizeof(int) * (2 * set_ints + NT + 1);
-  }
+  static constexpr int FP = F | 1;
 };
 
-struct FoldSet {
-  int *mark, *lo, *hi, *cand, *n_cand, *max_run;
-};
-
-template <typename S>
-struct FoldShared {
-  S* slab;
-  S* stage;
-  int* cur;
-  int* sets;
-  int set_ints, n_seg;
-  int *rank, *flag;
-  __device__ FoldSet set(int parity) const {
-    int* b = sets + parity * set_ints;
-    return {b, b + n_seg, b + 2 * n_seg, b + 3 * n_seg, b + 3 * n_seg + blockDim.x,
-            b + 3 * n_seg + blockDim.x + 1};
-  }
-};
-
-// The fold's shared pointers, its bookkeeping cleared (every thread calls
-// it; a barrier must follow before the first unit).
-template <typename S, int F, int NT>
-__device__ __forceinline__ FoldShared<S> fold_shared(unsigned char* smem,
-                                                      const FoldLayout<S, F, NT>& l, int n_seg) {
-  int* sets = reinterpret_cast<int*>(smem + l.sets);
-  const FoldShared<S> fs{reinterpret_cast<S*>(smem + l.slab), reinterpret_cast<S*>(smem + l.stage),
-                         reinterpret_cast<int*>(smem + l.cur), sets,
-                         static_cast<int>(l.set_ints), n_seg,
-                         sets + 2 * l.set_ints, sets + 2 * l.set_ints + NT};
-  for (int i = threadIdx.x; i < 2 * static_cast<int>(l.set_ints); i += NT) {
-    const int j = i % static_cast<int>(l.set_ints);
-    sets[i] = j >= n_seg && j < 2 * n_seg ? 0x7fffffff : 0;  // lo starts high, the rest 0
-  }
-  fs.rank[threadIdx.x] = -1;
-  return fs;
-}
-
-// Components k0 .. k0 + KG - 1 (zero past F) of row r's new gathered-slot
-// messages: eta [DG, mp] | lam [DG * DG, mp], just written by this thread,
-// re-read from L2, all loads in flight together.
+// Components k0 .. k0 + KG - 1 (zero past F, and where `on` is false) of
+// row r's new gathered-slot messages: eta [DG, mp] | lam [DG * DG, mp], just
+// written by this thread, re-read from L2, all loads in flight together.
 template <typename S, int F, int DG, int KG>
 __device__ __forceinline__ void fold_load(S (&v)[KG], const S* oe, const S* ol, int64_t mp,
-                                          int64_t r, int k0) {
+                                          int64_t r, int k0, bool on) {
 #pragma unroll
   for (int kk = 0; kk < KG; ++kk) {
     const int k = k0 + kk;
-    v[kk] = k < F ? __ldcg(k < DG ? oe + k * mp + r : ol + (k - DG) * mp + r) : S(0.0);
+    v[kk] = on && k < F ? __ldcg(k < DG ? oe + k * mp + r : ol + (k - DG) * mp + r) : S(0.0);
   }
 }
 
-template <typename S, int F, int DG, int NT>
-__device__ __forceinline__ void fold_stage(const FoldShared<S>& fs, const S* oe, const S* ol,
-                                           int64_t mp, int64_t r, int k0) {
-  using G = FoldGroups<S, F>;
-  if (r < mp) {
-    S v[G::KG];
-    fold_load<S, F, DG, G::KG>(v, oe, ol, mp, r, k0);
-#pragma unroll
-    for (int kk = 0; kk < G::KG; ++kk) fs.stage[threadIdx.x * G::KGP + kk] = v[kk];
-  }
-}
-
-// Register the calling thread's segment (-1: none) as a candidate of the
-// unit once: one lane of each segment a warp names, one count update a
-// warp.  With `pos` (the row's CSR position, rows of a segment ascending
-// in lane order) the run's bounds too.
-__device__ __forceinline__ void fold_mark(const FoldSet& st, int seg, int pos = -1) {
+// v summed over the lanes of the calling warp in `peers` (the caller's group,
+// from __match_any_sync) in a fixed tree over their lane order: at step d =
+// 1, 2, 4, ... the member of rank i, i a multiple of 2d, adds the partial of
+// the member of rank i + d (found by pointer jumping).  The group's first lane
+// ends with the sum.  n_max: the warp's largest group (ceil(log2 n_max)
+// steps: none where every group is one lane).  Every lane calls.
+template <typename S, int K>
+__device__ __forceinline__ void warp_tree_sum(S (&v)[K], unsigned peers, int n_max) {
   const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const unsigned peers = __match_any_sync(full, seg);
-  const bool lead = seg >= 0 && __ffs(peers) - 1 == lane;
-  if (seg >= 0 && pos >= 0) {
-    if (lead) atomicMin(st.lo + seg, pos);
-    if (31 - __clz(peers) == lane) atomicMax(st.hi + seg, pos + 1);
+  const int lane = threadIdx.x & (WARP - 1);
+  const int rank = __popc(peers & ((1u << lane) - 1u));
+  const unsigned above = lane == WARP - 1 ? 0u : peers & (full << (lane + 1));
+  int next = above ? __ffs(above) - 1 : -1;  // the member d ranks on
+#pragma unroll 1
+  for (int d = 1; d < n_max; d <<= 1) {
+    const bool take = next >= 0 && (rank & (2 * d - 1)) == 0;
+    const int src = next >= 0 ? next : lane;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const S o = __shfl_sync(full, v[k], src);
+      if (take) v[k] += o;
+    }
+    const int far = __shfl_sync(full, next, src);
+    next = next >= 0 ? far : -1;  // the member 2d ranks on
   }
-  const bool fresh = lead && atomicExch(st.mark + seg, 1) == 0;
-  const unsigned fm = __ballot_sync(full, fresh);
-  int base = 0;
-  if (lane == 0 && fm) base = atomicAdd(st.n_cand, __popc(fm));
-  base = __shfl_sync(full, base, 0);
-  if (fresh) st.cand[base + __popc(fm & ((1u << lane) - 1u))] = seg;
 }
 
-// Where segment s's running sum of component k lies.
+// A warp's running sums: slot s below n_sh at sh[s * FP + k] in shared
+// memory, the others at gl[(s - n_sh) * F + k] in device memory.
 template <typename S, int F>
-struct FoldCells {
-  S* slab;
-  int n_sh;
+struct WarpSlab {
+  S* sh;
   S* gl;
-  int64_t gld;
+  int n_sh;
+  template <int KG>
+  __device__ __forceinline__ void add(int s, int k0, const S (&v)[KG]) const {
+    if (s < n_sh) {
+      S* c = sh + s * FoldGroups<S, F>::FP + k0;
+#pragma unroll
+      for (int kk = 0; kk < KG; ++kk)
+        if (k0 + kk < F) c[kk] += v[kk];
+    } else {
+      S* c = gl + static_cast<int64_t>(s - n_sh) * F + k0;
+#pragma unroll
+      for (int kk = 0; kk < KG; ++kk)
+        if (k0 + kk < F) __stcg(c + kk, __ldcg(c + kk) + v[kk]);
+    }
+  }
+  __device__ __forceinline__ S get(int s, int k) const {
+    return s < n_sh ? sh[s * FoldGroups<S, F>::FP + k]
+                    : __ldcg(gl + static_cast<int64_t>(s - n_sh) * F + k);
+  }
+  // Slots [0, n) to zero, by the 32 lanes of the warp (`lane`).
+  __device__ __forceinline__ void zero(int n, int lane) const {
+    for (int i = lane; i < lesser(n, n_sh) * FoldGroups<S, F>::FP; i += WARP) sh[i] = S(0.0);
+    for (int64_t i = lane; i < static_cast<int64_t>(n - n_sh) * F; i += WARP) __stcg(gl + i, S(0.0));
+  }
 };
 
-// Add each candidate's run of rows onto its sums, one thread per
-// (candidate, component of the staged group k0 .. k0 + nk - 1).
-template <typename S, int F, int NT>
-__device__ __forceinline__ void fold_pairs(const FoldShared<S>& fs, const FoldSet& st, int nc,
-                                           const FoldCells<S, F>& cells,
-                                           const int* __restrict__ rows, int64_t u0, int k0,
-                                           int nk) {
+// Add the calling warp's listed rows of a unit onto its slab: `key` the
+// calling thread's slot (-1: its row is not listed), r its row.  Every lane
+// calls.
+template <typename S, int F, int DG>
+__device__ __forceinline__ void fold_warp(const WarpSlab<S, F>& slab, const S* oe, const S* ol,
+                                          int64_t mp, int64_t r, int key) {
   using G = FoldGroups<S, F>;
-  // Components fastest: a warp's lanes walk few candidates' rows.
-  for (int q = threadIdx.x; q < nc * nk; q += NT) {
-    const int a = q / nk, kk = q - a * nk;
-    const int s = st.cand[a];
-    const int p0 = st.lo[s], p1 = st.hi[s];
-    const S* v = fs.stage + kk;
-    // (Unrolled, so that a chain's loads are in flight together.)
-    if (s < cells.n_sh) {
-      S* cell = cells.slab + s * F + k0 + kk;
-      S acc = *cell;
-#pragma unroll 8
-      for (int p = p0; p < p1; ++p) acc += v[static_cast<int>(rows[p] - u0) * G::KGP];
-      *cell = acc;
-    } else {
-      S* cell = cells.gl + (k0 + kk) * cells.gld + s;
-      S acc = __ldcg(cell);
-#pragma unroll 8
-      for (int p = p0; p < p1; ++p) acc += v[static_cast<int>(rows[p] - u0) * G::KGP];
-      __stcg(cell, acc);
-    }
-  }
-}
-
-// Clear the set a unit used (after the unit's last barrier); the other set
-// is the next unit's, and this one is used again only after two barriers.
-__device__ __forceinline__ void fold_clear(const FoldSet& st, int nc, int* rank) {
-  for (int a = threadIdx.x; a < nc; a += blockDim.x) {
-    const int s = st.cand[a];
-    st.mark[s] = 0;
-    st.lo[s] = 0x7fffffff;
-    st.hi[s] = 0;
-  }
-  rank[threadIdx.x] = -1;
-  if (threadIdx.x == 0) {
-    *st.n_cand = 0;
-    *st.max_run = 0;
-  }
-}
-
-// The groups after the first: stage, barrier, pairs, barrier each.
-template <typename S, int F, int DG, int NT>
-__device__ __forceinline__ void fold_rest(const FoldShared<S>& fs, const FoldSet& st, int nc,
-                                          const FoldCells<S, F>& cells,
-                                          const int* __restrict__ rows, const S* oe, const S* ol,
-                                          int64_t mp, int64_t u0) {
-  using G = FoldGroups<S, F>;
+  const unsigned full = 0xffffffffu;
+  const unsigned peers = __match_any_sync(full, key);
+  const int n_max = __reduce_max_sync(full, key >= 0 ? __popc(peers) : 0);
+  if (n_max == 0) return;  // no listed row in the warp
+  const int lane = threadIdx.x & (WARP - 1);
+  const bool lead = key >= 0 && (peers & ((1u << lane) - 1u)) == 0;
+  __syncwarp();  // the other lanes' additions of the warp's last unit are seen
 #pragma unroll 1
-  for (int k0 = G::KG; k0 < F; k0 += G::KG) {
-    fold_stage<S, F, DG, NT>(fs, oe, ol, mp, u0 + threadIdx.x, k0);
-    __syncthreads();
-    fold_pairs<S, F, NT>(fs, st, nc, cells, rows, u0, k0, min(G::KG, F - k0));
-    __syncthreads();
-  }
-}
-
-// The first position in [lo, hi) of an ascending run whose row is at least key.
-__device__ __forceinline__ int first_at_least(const int* __restrict__ rows, int lo, int hi,
-                                              int64_t key) {
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (rows[mid] < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-// The end of the run of rows below `end` from position p0 on, p0 <= hi:
-// probes p0, p0 + 1, p0 + 3, p0 + 7, ... then a binary search, so a run of
-// n rows costs about 2 log2(n) loads.
-__device__ __forceinline__ int run_end(const int* __restrict__ rows, int p0, int hi, int64_t end) {
-  int lo = p0, probe = p0, step = 1;
-  while (probe < hi && rows[probe] < end) {
-    lo = probe + 1;
-    probe += step;
-    step <<= 1;
-  }
-  return first_at_least(rows, lo, min(probe, hi), end);
-}
-
-// Zero the running sums of n_seg segments: the slab's first n_sh, the rest
-// at gl[k * gld + s].
-template <typename S, int F, int NT>
-__device__ __forceinline__ void fold_zero(const FoldCells<S, F>& c, int n_seg) {
-  for (int i = threadIdx.x; i < c.n_sh * F; i += NT) c.slab[i] = S(0.0);
-  const int n_gl = n_seg - c.n_sh;
-  for (int e = threadIdx.x; e < F * n_gl; e += NT) {
-    const int k = e / n_gl;
-    __stcg(c.gl + k * c.gld + c.n_sh + (e - k * n_gl), S(0.0));
+  for (int k0 = 0; k0 < F; k0 += G::KG) {
+    S v[G::KG];
+    fold_load<S, F, DG, G::KG>(v, oe, ol, mp, r, k0, key >= 0);
+    warp_tree_sum(v, peers, n_max);
+    if (lead) slab.add(key, k0, v);
   }
 }
 
 // No fold: the windowed messages kernels of the unfused and halo paths.
 struct NoFold {
-  __device__ __forceinline__ void begin(int, int64_t, int64_t) {}
+  __device__ __forceinline__ void begin(int) {}
   __device__ __forceinline__ void unit(int64_t, int) {}
   __device__ __forceinline__ void end() {}
 };
 
 // The windowed fold's operands (windows.cu): the CSR of `window_rows_csr`
 // (segment t * w + j lists the rows of tile t whose gathered id is
-// starts[t] + j, ascending), the output part [n_tiles, F, w], and for the
-// persistent launch the pieces [blocks, 2, F, w] and the per-tile counters
-// [n_tiles] (zero between launches).
+// starts[t] + j, ascending), the output part [n_tiles, F, w], the warps'
+// slots past shared memory [blocks, warps, w - n_sh, F] and n_sh, the
+// slots a warp keeps in shared memory (the launcher's).
 template <typename S>
 struct WinFoldArgs {
   const int* rows;
   const int* offsets;
   S* part;
-  S* piece;
-  int* count;
+  S* slab;
+  int n_sh;
 };
 
-// The windowed fold: a tile's segments are its window's w columns.  Where a
-// block enters a tile it scatters the tile's CSR positions into pos[] (TILE
-// ints, -1 for a row the CSR does not list), so a unit's run of each column
-// is the span of its rows' positions: no search.  A tile whose rows all run
-// in one block (every tile of the per-tile kernel, and of the persistent
-// one those that lie inside a block's range) is summed in that block from
-// zero in row order, as segsum_cm_blk adds it: the same bits.  A tile the
-// persistent launch splits between blocks (its range ends inside the tile)
-// is summed by each block over its own rows into a piece; the last block to
-// finish (an integer counter a tile) adds the pieces in block order, the
-// first block's first, so the result is fixed by the launch plan but not
-// that of one chain.  Pieces and the combination cover the tile's non-empty
-// columns only; the others are zero.
+// The windowed fold, for launches that run every tile in one block (the
+// per-tile kernel; the persistent one with whole tiles a block).  A tile's
+// slots are its non-empty window columns in column order, so a warp's slab
+// holds the few columns a locality-sorted tile touches (3-11 of 128 at
+// city).  Where a block enters a tile it ranks the tile's non-empty columns
+// from the CSR's offsets, a column a thread, and, unless the CSR lists every
+// row of the tile (as `window_rows_csr` does), marks the listed rows in a
+// bit mask; at the tile's end it writes the tile's part from its warps'
+// sums.  Columns with no listed row are zero.
 template <typename S, int F, int DG, int NT>
 struct WinFold {
+  static constexpr int W = NT / WARP, FP = FoldGroups<S, F>::FP;
+  // One slot in every warp's slab.
+  static constexpr size_t SLOT_BYTES = sizeof(S) * W * FP;
   WinFoldArgs<S> a;
   const S* oe;
   const S* ol;
   int64_t mp;
-  int w, q, rem;  // q: the persistent launch's units a block (0: one block a tile)
-  FoldShared<S> fs;
-  FoldCells<S, F> cells;
-  int* pos;
-  unsigned* nonempty;
-  int* ncol;  // the tile's non-empty columns, ascending, then their count
-  int tile, unit_no;
-  bool whole;
+  int w;
+  unsigned* listed;  // [TILE / 32]: the tile's listed rows
+  int* cidx;         // [w]: a column's slot, -1 where it is empty
+  int* wcount;       // [W]: the non-empty columns each warp ranks
+  S* sh;             // the warps' slabs [W][n_sh][FP]
+  int tile;
+  bool all_listed;
 
-  // The row positions [TILE], the non-empty columns' bits, their list [w + 1].
-  static __host__ __device__ FoldLayout<S, F, NT> layout(size_t base, int w) {
-    return FoldLayout<S, F, NT>(base, min(w, fold_slab_segs<S, F>()), w,
-                                TILE + (w + 31) / 32 + w + 1);
+  // Where the slabs start, for a fold placed from byte `base` on.
+  static __host__ __device__ size_t slabs_at(size_t base, int w) {
+    return align16(align16(base) + sizeof(unsigned) * (TILE / 32) + sizeof(int) * (w + W));
   }
   __device__ WinFold(const WinFoldArgs<S>& args, const S* oe_g, const S* ol_g, int64_t mp_,
-                     int w_, int q_, int rem_, unsigned char* smem, size_t base)
-      : a(args), oe(oe_g), ol(ol_g), mp(mp_), w(w_), q(q_), rem(rem_), unit_no(0) {
-    fs = fold_shared<S, F, NT>(smem, layout(base, w), w);
-    cells = FoldCells<S, F>{fs.slab, min(w, fold_slab_segs<S, F>()), nullptr, w};
-    pos = fs.cur;
-    nonempty = reinterpret_cast<unsigned*>(fs.cur + TILE);
-    ncol = fs.cur + TILE + (w + 31) / 32;
+                     int w_, unsigned char* smem, size_t base)
+      : a(args), oe(oe_g), ol(ol_g), mp(mp_), w(w_) {
+    listed = reinterpret_cast<unsigned*>(smem + align16(base));
+    cidx = reinterpret_cast<int*>(listed + TILE / 32);
+    wcount = cidx + w;
+    sh = reinterpret_cast<S*>(smem + slabs_at(base, w));
   }
-  // The block that runs unit u, and the first tile of block b's range.
-  __device__ int block_of(int u) const {
-    const int big = rem * (q + 1);
-    return u < big ? u / (q + 1) : rem + (u - big) / q;
+  __device__ WarpSlab<S, F> slab(int warp) const {
+    return {sh + warp * a.n_sh * FP,
+            a.slab + (static_cast<int64_t>(blockIdx.x) * W + warp) * (w - a.n_sh) * F, a.n_sh};
   }
-  __device__ int first_tile(int b) const { return (b * q + min(b, rem)) / (TILE / WIN_UNIT); }
-  __device__ bool is_nonempty(int c) const { return (nonempty[c >> 5] >> (c & 31)) & 1u; }
 
-  // Tile t's rows [r0, r1) run in this block.
-  __device__ void begin(int t, int64_t r0, int64_t r1) {
+  // Tile t, all of whose rows run in this block.
+  __device__ void begin(int t) {
+    __syncthreads();  // the last tile's end is done with the slabs and ranks
     tile = t;
     const int64_t row0 = static_cast<int64_t>(t) * TILE;
-    whole = r0 == row0 && r1 == row0 + TILE;
-    const int slot = first_tile(blockIdx.x) == t ? 0 : 1;
-    cells.gl = whole ? a.part + static_cast<int64_t>(t) * F * w
-                     : a.piece + (static_cast<int64_t>(blockIdx.x) * 2 + slot) * F * w;
-    fold_zero<S, F, NT>(cells, w);
     const int* off = a.offsets + static_cast<int64_t>(t) * w;
-    if (threadIdx.x < 32) {  // one warp lists the non-empty columns
-      const int lane = threadIdx.x;
-      int n = 0;
-      for (int c0 = 0; c0 < w; c0 += 32) {
-        const int c = c0 + lane;
-        const bool ne = c < w && off[c + 1] > off[c];
-        const unsigned m = __ballot_sync(0xffffffffu, ne);
-        if (ne) ncol[n + __popc(m & ((1u << lane) - 1u))] = c;
-        if (lane == 0) nonempty[c0 >> 5] = m;
-        n += __popc(m);
+    all_listed = off[w] - off[0] == TILE;
+    // Rank the non-empty columns, NT at a time, a column a thread: its
+    // warp's ballot, then the counts of the warps before it.
+    const int lane = threadIdx.x & (WARP - 1), warp = threadIdx.x / WARP;
+    int n = 0;
+    for (int c0 = 0; c0 < w; c0 += NT) {
+      const int c = c0 + threadIdx.x;
+      const bool ne = c < w && off[c + 1] > off[c];
+      const unsigned m = __ballot_sync(0xffffffffu, ne);
+      if (lane == 0) wcount[warp] = __popc(m);
+      __syncthreads();
+      int s = n + __popc(m & ((1u << lane) - 1u));
+      for (int v = 0; v < W; ++v) {
+        s += v < warp ? wcount[v] : 0;
+        n += wcount[v];
       }
-      if (lane == 0) ncol[w] = n;
+      if (c < w) cidx[c] = ne ? s : -1;
+      __syncthreads();  // the counts are read before the next columns'
     }
-    for (int i = threadIdx.x; i < TILE; i += NT) pos[i] = -1;
-    __syncthreads();
-    // The tile's CSR positions of the rows in this block's range.
-    for (int p = off[0] + threadIdx.x; p < off[w]; p += NT) {
-      const int64_t r = a.rows[p];
-      if (r < row0 || r >= row0 + TILE) __trap();
-      if (r >= r0 && r < r1) pos[r - row0] = p;
+    if (!all_listed)
+      for (int i = threadIdx.x; i < TILE / 32; i += NT) listed[i] = 0u;
+    // The warps' running sums of the tile's non-empty columns from zero.
+    slab(warp).zero(n, lane);
+    if (!all_listed) {
+      __syncthreads();  // the mask is clear
+      for (int p = off[0] + threadIdx.x; p < off[w]; p += NT) {
+        const int64_t r = a.rows[p];
+        if (r < row0 || r >= row0 + TILE) __trap();
+        const int i = static_cast<int>(r - row0);
+        atomicOr(listed + (i >> 5), 1u << (i & 31));
+      }
     }
     __syncthreads();
   }
   // The unit from row u0 on; col: the calling thread's window column.
   __device__ void unit(int64_t u0, int col) {
-    const int tid = threadIdx.x;
-    const FoldSet st = fs.set(unit_no++ & 1);
-    const int p = pos[u0 - static_cast<int64_t>(tile) * TILE + tid];
-    fold_stage<S, F, DG, NT>(fs, oe, ol, mp, u0 + tid, 0);
-    fold_mark(st, p >= 0 ? col : -1, p);
-    __syncthreads();
-    const int nc = *st.n_cand;
-    fold_pairs<S, F, NT>(fs, st, nc, cells, a.rows, u0, 0, min(FoldGroups<S, F>::KG, F));
-    __syncthreads();
-    fold_rest<S, F, DG, NT>(fs, st, nc, cells, a.rows, oe, ol, mp, u0);
-    fold_clear(st, nc, fs.rank);
+    const int i = static_cast<int>(u0 - static_cast<int64_t>(tile) * TILE) + threadIdx.x;
+    const bool on = all_listed || ((listed[i >> 5] >> (i & 31)) & 1u);
+    fold_warp<S, F, DG>(slab(threadIdx.x / WARP), oe, ol, mp, u0 + threadIdx.x,
+                        on ? cidx[col] : -1);
   }
+  // The tile's part: each column's warps' sums added from zero in warp order.
   __device__ void end() {
-    const int nt = threadIdx.x;
-    const int n_sh = cells.n_sh;
     S* out = a.part + static_cast<int64_t>(tile) * F * w;
-    __syncthreads();  // the last unit's sums
-    if (whole) {
-      for (int e = nt; e < F * n_sh; e += NT) {
-        const int k = e / n_sh, c = e - k * n_sh;
-        out[k * w + c] = fs.slab[c * F + k];
+    __syncthreads();  // every warp's sums of the tile
+    for (int e = threadIdx.x; e < F * w; e += NT) {
+      const int k = e / w, s = cidx[e - k * w];
+      S acc = S(0.0);
+      if (s >= 0) {
+#pragma unroll
+        for (int v = 0; v < W; ++v) acc += slab(v).get(s, k);
       }
-      __syncthreads();
-      return;
+      out[e] = acc;
     }
-    // The piece's non-empty columns (those past the slab are in it already).
-    const int n_ne = ncol[w];
-    for (int e = nt; e < F * n_ne; e += NT) {
-      const int k = e / n_ne, c = ncol[e - k * n_ne];
-      if (c < n_sh) __stcg(cells.gl + k * w + c, fs.slab[c * F + k]);
-    }
-    // One thread releases the block's piece (the barrier orders the others'
-    // stores before its fence) and counts it; the last acquires the rest.
-    __syncthreads();
-    constexpr int UPT = TILE / WIN_UNIT;
-    const int units = static_cast<int>(gridDim.x) * q + rem;
-    const int b0 = block_of(tile * UPT), b1 = block_of(min((tile + 1) * UPT, units) - 1);
-    if (nt == 0) {
-      __threadfence();
-      const int last = atomicAdd(a.count + tile, 1) == b1 - b0;
-      if (last) {
-        atomicExch(a.count + tile, 0);
-        __threadfence();
-      }
-      *fs.flag = last;
-    }
-    __syncthreads();
-    if (*fs.flag) {
-      auto piece_of = [&](int b) {
-        return a.piece + (static_cast<int64_t>(b) * 2 + (first_tile(b) == tile ? 0 : 1)) * F * w;
-      };
-      for (int e = nt; e < F * n_ne; e += NT) {
-        const int k = e / n_ne;
-        const int64_t at = static_cast<int64_t>(k) * w + ncol[e - k * n_ne];
-        S acc = __ldcg(piece_of(b0) + at);
-#pragma unroll 4
-        for (int b = b0 + 1; b <= b1; ++b) acc += __ldcg(piece_of(b) + at);
-        out[at] = acc;
-      }
-      for (int e = nt; e < F * w; e += NT) {
-        const int c = e % w;
-        if (!is_nonempty(c)) out[e] = S(0.0);
-      }
-    }
-    __syncthreads();
   }
 };
 
@@ -665,10 +520,11 @@ __device__ __forceinline__ void issue_span(unsigned char* buf, const S* src, int
 }
 
 // The rows of one persistent windowed messages launch (kernels 8, 10, 12,
-// 17), q or q + 1 units of WIN_UNIT rows per block: the gathered slot's
-// belief from the tile's window of `tab` (with GHOST, ids
-// from n_own on from the ghost table), the other slot's at r / deg of
-// ell_tab or, with OTHER, from the expanded operands be_o, bl_o.
+// 17), q or q + 1 grains of `grain` units of WIN_UNIT rows per block (grain
+// 1, or a tile's units: whole tiles a block): the gathered slot's belief
+// from the tile's window of `tab` (with GHOST, ids from n_own on from the
+// ghost table), the other slot's at r / deg of ell_tab or, with OTHER, from
+// the expanded operands be_o, bl_o.
 template <typename S, class Sh, bool HUBER_ROW, bool GHOST, bool OTHER, class Fold>
 __device__ __forceinline__ void window_messages(
     const S* __restrict__ tab, int n_tab, const int* __restrict__ gidx,
@@ -678,7 +534,8 @@ __device__ __forceinline__ void window_messages(
     const S* __restrict__ srel, const S* __restrict__ act, const S* __restrict__ me0,
     const S* __restrict__ ml0, const S* __restrict__ me1, const S* __restrict__ ml1,
     S* __restrict__ oe0, S* __restrict__ ol0, S* __restrict__ oe1, S* __restrict__ ol1,
-    int64_t mp, int q, int rem, const MsgParams<S>& p, const GhostTable<S>& gh, Fold& fold) {
+    int64_t mp, int q, int rem, int grain, const MsgParams<S>& p, const GhostTable<S>& gh,
+    Fold& fold) {
   constexpr int F = Sh::F_G, UPT = TILE / WIN_UNIT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem_raw);
@@ -695,20 +552,13 @@ __device__ __forceinline__ void window_messages(
     __syncthreads();  // the window's end elements
     mbar_wait(bar, 0);
   };
-  // Block b's units: [b q + min(b, rem), + q + (b < rem)), q and rem the
-  // quotient and remainder of the units over the blocks.
+  // Block b's units: grains [b q + min(b, rem), + q + (b < rem)), q and rem
+  // the quotient and remainder of the grains over the blocks.
   const int b = blockIdx.x;
-  int u = b * q + min(b, rem);
-  const int u1 = u + q + (b < rem ? 1 : 0);
-  // Tile t's rows in this block's range, for the fold.
-  auto in_range = [&](int t, int64_t& r0, int64_t& r1) {
-    r0 = static_cast<int64_t>(max(t * UPT, u)) * WIN_UNIT;
-    r1 = static_cast<int64_t>(min((t + 1) * UPT, u1)) * WIN_UNIT;
-  };
-  int64_t t0, t1;
+  int u = (b * q + min(b, rem)) * grain;
+  const int u1 = u + (q + (b < rem ? 1 : 0)) * grain;
   load_window(u / UPT);
-  in_range(u / UPT, t0, t1);
-  fold.begin(u / UPT, t0, t1);
+  fold.begin(u / UPT);
 #pragma unroll 1
   for (; u < u1; ++u) {
     const int64_t r = static_cast<int64_t>(u) * WIN_UNIT + threadIdx.x;
@@ -728,15 +578,15 @@ __device__ __forceinline__ void window_messages(
     if ((u + 1) % UPT == 0 || u + 1 == u1) fold.end();
     if ((u + 1) % UPT == 0 && u + 1 < u1) {  // the next tile
       load_window((u + 1) / UPT);
-      in_range((u + 1) / UPT, t0, t1);
-      fold.begin((u + 1) / UPT, t0, t1);
+      fold.begin((u + 1) / UPT);
     }
   }
 }
 
 // windows.cu: the tile's window of the gathered-slot table, the ELL slot at
-// r / deg; with GHOST (halo_f32.cu) ghost ids read the ghost table.
-template <typename S, class Sh, bool HUBER_ROW, bool GHOST>
+// r / deg; with GHOST (halo_f32.cu) ghost ids read the ghost table; with
+// FOLD (whole tiles a block) the gathered-slot sum folded into `fa`.
+template <typename S, class Sh, bool HUBER_ROW, bool GHOST, bool FOLD>
 __global__ void __launch_bounds__(WIN_UNIT, WIN_MIN_BLOCKS)
 messages_win_kernel(const S* __restrict__ cam_tab, int n_cam,
                     const S* __restrict__ lmk_tab, const int* __restrict__ gidx,
@@ -748,21 +598,21 @@ messages_win_kernel(const S* __restrict__ cam_tab, int n_cam,
                     const S* __restrict__ me1, const S* __restrict__ ml1,
                     S* __restrict__ oe0, S* __restrict__ ol0,
                     S* __restrict__ oe1, S* __restrict__ ol1, int64_t mp, int deg, int q, int rem,
-                    MsgParams<S> p, GhostTable<S> gh, WinFoldArgs<S> fa) {
-  if constexpr (GHOST) {
-    NoFold fold;
-    window_messages<S, Sh, HUBER_ROW, GHOST, false>(
-        cam_tab, n_cam, gidx, starts, win_w, lmk_tab, deg, nullptr, nullptr, jac, lp, r0g, prec,
-        srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp, q, rem, p, gh, fold);
-  } else {
-    // The fold's shared memory follows the window buffer (win_launch).
+                    int grain, MsgParams<S> p, GhostTable<S> gh, WinFoldArgs<S> fa) {
+  if constexpr (FOLD) {
+    // The fold's shared memory follows the window buffer (launch_messages_win).
     extern __shared__ __align__(16) unsigned char smem_raw[];
     WinFold<S, Sh::F_G, Sh::DG, WIN_UNIT> fold(fa, Sh::GSLOT ? oe1 : oe0, Sh::GSLOT ? ol1 : ol0,
-                                               mp, win_w, q, rem, smem_raw,
+                                               mp, win_w, smem_raw,
                                                win_bytes<S, true>(win_w, Sh::F_G));
     window_messages<S, Sh, HUBER_ROW, GHOST, false>(
         cam_tab, n_cam, gidx, starts, win_w, lmk_tab, deg, nullptr, nullptr, jac, lp, r0g, prec,
-        srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp, q, rem, p, gh, fold);
+        srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp, q, rem, grain, p, gh, fold);
+  } else {
+    NoFold fold;
+    window_messages<S, Sh, HUBER_ROW, GHOST, false>(
+        cam_tab, n_cam, gidx, starts, win_w, lmk_tab, deg, nullptr, nullptr, jac, lp, r0g, prec,
+        srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp, q, rem, grain, p, gh, fold);
   }
 }
 
@@ -784,12 +634,14 @@ messages_tabblk_kernel(const S* __restrict__ btab, int n_g, const int* __restric
   NoFold fold;
   window_messages<S, Sh, HUBER_ROW, GHOST, true>(
       btab, n_g, gidx, starts, win_w, nullptr, 1, be_o, bl_o, jac, lp, r0g, prec, srel, act, me0,
-      ml0, me1, ml1, oe0, ol0, oe1, ol1, mp, q, rem, p, gh, fold);
+      ml0, me1, ml1, oe0, ol0, oe1, ol1, mp, q, rem, 1, p, gh, fold);
 }
 
 // The same, as before the persistent form (float64 and the 12-dof shapes):
-// one block per tile stages the tile's window and walks its rows in passes
-// of BLOCK.
+// a block stages a tile's window and walks its rows in passes of BLOCK; with
+// the fold the blocks the SMs hold at once take tiles b, b + grid, ..., so
+// that the warps' slots past shared memory need one area a resident block,
+// without one block a tile.
 template <typename S, class Sh, bool HUBER_ROW, bool GHOST>
 __global__ void __launch_bounds__(BLOCK)
 messages_win_tile_kernel(const S* __restrict__ cam_tab, int n_cam,
@@ -806,12 +658,12 @@ messages_win_tile_kernel(const S* __restrict__ cam_tab, int n_cam,
   constexpr int F_G = Sh::F_G;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* tab = reinterpret_cast<S*>(smem_raw);
-  const int start = starts[blockIdx.x];
-  const int n_in = min(win_w, n_cam - start);
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * TILE;
-  auto rows = [&](auto& fold) {
+  auto rows = [&](auto& fold, int t) {
+    const int start = starts[t];
+    const int n_in = min(win_w, n_cam - start);
+    const int64_t row0 = static_cast<int64_t>(t) * TILE;
     stage_window(cam_tab, F_G, start, n_in, tab);
-    fold.begin(blockIdx.x, row0, row0 + TILE);
+    fold.begin(t);
 #pragma unroll 1
     for (int s = 0; s < TILE / BLOCK; ++s) {
       const int64_t r = row0 + s * BLOCK + threadIdx.x;
@@ -825,12 +677,14 @@ messages_win_tile_kernel(const S* __restrict__ cam_tab, int n_cam,
   };
   if constexpr (GHOST) {
     NoFold fold;
-    rows(fold);
+    rows(fold, blockIdx.x);
   } else {
-    // The fold's shared memory follows the window (win_launch).
+    // The fold's shared memory follows the window (launch_messages_win).
     WinFold<S, F_G, Sh::DG, BLOCK> fold(fa, Sh::GSLOT ? oe1 : oe0, Sh::GSLOT ? ol1 : ol0, mp,
-                                        win_w, 0, 0, smem_raw, win_bytes<S, false>(win_w, F_G));
-    rows(fold);
+                                        win_w, smem_raw, win_bytes<S, false>(win_w, F_G));
+    const int n_tiles = static_cast<int>(mp / TILE);
+#pragma unroll 1
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) rows(fold, t);
   }
 }
 
@@ -871,27 +725,25 @@ inline int n_sms() {
   return n;
 }
 
-// The launch of a windowed messages kernel: persistent, shared memory for
-// the mbarrier and one window and as many blocks as the SMs hold at once
-// (the occupancy API), at most one per unit; else one block per tile and
-// its window.  Returns 0 or the CUDA error (a window beyond one block's
-// shared memory: cudaErrorInvalidValue).
+// A launch of a messages kernel: units of unit_rows rows, `threads` a block,
+// q or q + 1 grains of `grain` units a block, the shared memory and resident
+// blocks per SM; with a fold, the slots a warp keeps in shared memory (n_sh)
+// and their bytes, every warp's, and whether the launch folds (folded).
 struct WinLaunch {
   int units, unit_rows, threads, blocks, smem, blocks_per_sm;
-  int q() const { return units / blocks; }
-  int rem() const { return units % blocks; }
+  int grain = 1, n_sh = 0, slab_bytes = 0, folded = 0;
+  int q() const { return units / grain / blocks; }
+  int rem() const { return units / grain % blocks; }
 };
-// `fold`: the fold's shared memory after the window (fold_bytes, the kernels'
-// own layout) in place of the window alone.
-template <typename S, class Sh, bool PERSISTENT>
-size_t fold_bytes(int win_w) {
-  constexpr int NT = PERSISTENT ? WIN_UNIT : BLOCK;
-  return WinFold<S, Sh::F_G, Sh::DG, NT>::layout(win_bytes<S, PERSISTENT>(win_w, Sh::F_G), win_w)
-      .bytes;
-}
-template <typename S, bool PERSISTENT, typename K>
-int win_launch(K kernel, int win_w, int f, int64_t mp, WinLaunch& l, size_t fold = 0) {
-  const size_t smem = fold ? fold : win_bytes<S, PERSISTENT>(win_w, f);
+
+// The launch of a windowed messages kernel with `smem` bytes of shared memory
+// a block: persistent, as many blocks as the SMs hold at once (the occupancy
+// API), at most one per unit; else one block per tile and its window, or
+// with `resident` as many as the SMs hold, each taking every blocks-th tile.
+// Returns 0 or the CUDA error (beyond one block's shared memory:
+// cudaErrorInvalidValue).
+template <bool PERSISTENT, typename K>
+int win_launch(K kernel, size_t smem, int64_t mp, WinLaunch& l, bool resident = false) {
   if (smem > SMEM_BLOCK_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (int rc = allow_smem(kernel, smem)) return rc;
   const int threads = PERSISTENT ? WIN_UNIT : BLOCK;
@@ -901,57 +753,103 @@ int win_launch(K kernel, int win_w, int f, int64_t mp, WinLaunch& l, size_t fold
   if (bps < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int rows = PERSISTENT ? WIN_UNIT : TILE;
   const int units = static_cast<int>(mp / rows);
-  l = WinLaunch{units, rows, threads, PERSISTENT ? min(units, bps * n_sms()) : units,
+  l = WinLaunch{units, rows, threads, PERSISTENT || resident ? min(units, bps * n_sms()) : units,
                 static_cast<int>(smem), bps};
   return 0;
 }
 
-// The plan of a launch for `info` (units, rows per unit, blocks, shared
-// bytes, registers and local bytes per thread, blocks per SM).
+// The plan of a launch for `info` (ops.messages.PLAN_KEYS): units, rows per
+// unit, blocks, shared bytes, registers and local bytes per thread, blocks
+// per SM, threads, rows of the split's grain, warps, slots a warp keeps in
+// shared memory and the bytes of every warp's, whether it folds.
 template <typename K>
 int win_info(K kernel, const WinLaunch& l, int* info) {
   cudaFuncAttributes fa{};
   if (cudaError_t rc = cudaFuncGetAttributes(&fa, kernel)) return static_cast<int>(rc);
-  const int v[7] = {l.units, l.unit_rows, l.blocks, l.smem, fa.numRegs,
-                    static_cast<int>(fa.localSizeBytes), l.blocks_per_sm};
-  for (int i = 0; i < 7; ++i) info[i] = v[i];
+  const int v[13] = {l.units, l.unit_rows, l.blocks, l.smem, fa.numRegs,
+                     static_cast<int>(fa.localSizeBytes), l.blocks_per_sm, l.threads,
+                     l.grain * l.unit_rows, l.threads / WARP, l.n_sh, l.slab_bytes, l.folded};
+  for (int i = 0; i < 13; ++i) info[i] = v[i];
   return 0;
 }
 
+// Kernel 10 folds the gathered-slot sum into its launch where the
+// persistent launch gives every block at least WIN_WHOLE_TILES whole tiles
+// (q or q + 1 of them: at most 1 / WIN_WHOLE_TILES of imbalance; venice),
+// and always in the per-tile form.  Elsewhere (city: 441 tiles on 396
+// blocks) it runs without the fold over 128-row units, and the caller sums
+// the window partials with kernel 16 (windows.cu): splitting tiles between
+// blocks cost more than kernel 16 there (PERF.md).
+constexpr int WIN_WHOLE_TILES = 8;
+
 // With GHOST the kernel also reads the ghost table `gh` (the halo paths);
-// without, it folds the gathered-slot sum into `fa` (windows.cu).  Given
-// `info`, no launch: the plan (win_info).
+// without, it folds the gathered-slot sum into `fa` where it runs whole
+// tiles (windows.cu), each warp keeping as many slots in shared memory as
+// the blocks per SM of the launch bounds leave beside the window; `folded`
+// (if given) says whether it did.  Given `info`, no launch: the plan
+// (win_info).
 template <typename S, class Sh, bool GHOST = false>
 int launch_messages_win(bool huber_row, const S* cam_tab, int n_cam, const S* lmk_tab,
                         const int* gidx, const int* starts, int win_w, const MsgOps<S>& o,
                         int64_t mp, int deg, const MsgParams<S>& p, cudaStream_t st,
                         const GhostTable<S>& gh = GhostTable<S>{}, int* info = nullptr,
-                        const WinFoldArgs<S>& fa = WinFoldArgs<S>{}) {
+                        const WinFoldArgs<S>& fa = WinFoldArgs<S>{}, bool* folded = nullptr) {
   constexpr bool PERSISTENT = win_persistent<S, Sh>();
-  const size_t fold = GHOST ? 0 : fold_bytes<S, Sh, PERSISTENT>(win_w);
-  auto go = [&](auto k) {
+  using WF = WinFold<S, Sh::F_G, Sh::DG, PERSISTENT ? WIN_UNIT : BLOCK>;
+  const size_t window = win_bytes<S, PERSISTENT>(win_w, Sh::F_G);
+  // The fold's shared memory: the window, then the warps' slabs.
+  const size_t at = WF::slabs_at(window, win_w);
+  const size_t share = smem_share(PERSISTENT ? WIN_MIN_BLOCKS : 1);
+  const int n_sh = at < share ? static_cast<int>(lesser((share - at) / WF::SLOT_BYTES,
+                                                        static_cast<size_t>(win_w)))
+                              : 0;
+  const size_t fold_smem = at + WF::SLOT_BYTES * n_sh;
+  const int n_tiles = static_cast<int>(mp / TILE);
+  auto go = [&](auto k, bool fold) {
     WinLaunch l;
-    if (int rc = win_launch<S, PERSISTENT>(k, win_w, Sh::F_G, mp, l, fold)) return rc;
+    if (int rc = win_launch<PERSISTENT>(k, fold ? fold_smem : window, mp, l, fold)) return rc;
+    if (fold) {
+      l.n_sh = n_sh;
+      l.slab_bytes = static_cast<int>(WF::SLOT_BYTES * n_sh);
+      if (PERSISTENT) {
+        l.grain = TILE / WIN_UNIT;
+        l.blocks = min(l.blocks, n_tiles);
+      }
+    }
+    l.folded = fold;
+    if (folded) *folded = fold;
     if (info) return win_info(k, l, info);
+    WinFoldArgs<S> f = fa;
+    f.n_sh = n_sh;
     if constexpr (PERSISTENT) {
       k<<<l.blocks, l.threads, l.smem, st>>>(
           cam_tab, n_cam, lmk_tab, gidx, starts, win_w, o.jac, o.lp, o.r0, o.prec, o.srel,
           o.act, o.me0, o.ml0, o.me1, o.ml1, o.oe0, o.ol0, o.oe1, o.ol1, mp, deg, l.q(),
-          l.rem(), p, gh, fa);
+          l.rem(), l.grain, p, gh, f);
     } else {
       k<<<l.blocks, l.threads, l.smem, st>>>(
           cam_tab, n_cam, lmk_tab, gidx, starts, win_w, o.jac, o.lp, o.r0, o.prec, o.srel,
-          o.act, o.me0, o.ml0, o.me1, o.ml1, o.oe0, o.ol0, o.oe1, o.ol1, mp, deg, p, gh, fa);
+          o.act, o.me0, o.ml0, o.me1, o.ml1, o.oe0, o.ol0, o.oe1, o.ol1, mp, deg, p, gh, f);
     }
     return 0;
   };
-  if constexpr (PERSISTENT) {
-    return huber_row ? go(messages_win_kernel<S, Sh, true, GHOST>)
-                     : go(messages_win_kernel<S, Sh, false, GHOST>);
-  } else {
-    return huber_row ? go(messages_win_tile_kernel<S, Sh, true, GHOST>)
-                     : go(messages_win_tile_kernel<S, Sh, false, GHOST>);
-  }
+  auto pick = [&](auto hr) {
+    constexpr bool HR = decltype(hr)::value;
+    if constexpr (!PERSISTENT) {
+      return go(messages_win_tile_kernel<S, Sh, HR, GHOST>, !GHOST);
+    } else if constexpr (GHOST) {
+      return go(messages_win_kernel<S, Sh, HR, GHOST, false>, false);
+    } else {
+      // Whole tiles a block where each block gets WIN_WHOLE_TILES of them.
+      auto k = messages_win_kernel<S, Sh, HR, false, true>;
+      WinLaunch l;
+      if (int rc = win_launch<PERSISTENT>(k, fold_smem, mp, l)) return rc;
+      return n_tiles >= WIN_WHOLE_TILES * l.blocks
+                 ? go(k, true)
+                 : go(messages_win_kernel<S, Sh, HR, false, false>, false);
+    }
+  };
+  return huber_row ? pick(std::true_type{}) : pick(std::false_type{});
 }
 
 template <typename S, class Sh, bool GHOST = false>
@@ -963,7 +861,8 @@ int launch_messages_tabblk(bool huber_row, const S* btab, int n_g, const int* gi
   constexpr bool PERSISTENT = win_persistent<S, Sh>();
   auto go = [&](auto k) {
     WinLaunch l;
-    if (int rc = win_launch<S, PERSISTENT>(k, win_w, Sh::F_G, mp, l)) return rc;
+    if (int rc = win_launch<PERSISTENT>(k, win_bytes<S, PERSISTENT>(win_w, Sh::F_G), mp, l))
+      return rc;
     if (info) return win_info(k, l, info);
     if constexpr (PERSISTENT) {
       k<<<l.blocks, l.threads, l.smem, st>>>(
@@ -985,17 +884,44 @@ int launch_messages_tabblk(bool huber_row, const S* btab, int n_g, const int* gi
   }
 }
 
+
 // --- messages.cu: the whole gathered-slot table, the sum folded in -----------------------
 //
-// Persistent blocks as the windowed kernels' (q or q + 1 contiguous units of
-// NT rows, as many blocks as the SMs hold, at most `max_blocks`): 128-thread
-// units three to an SM where win_persistent, one 256-thread block per SM
-// otherwise.  Each block stages the packed table once, runs its rows and
-// folds their gathered-slot messages into its partial sums part[b] = [F,
-// n_seg] (segments: the gathered ids; the CSR (seg_rows, seg_offsets) lists
-// each id's rows ascending, and a cursor per segment walks it past each
-// unit); a second launch (segsum_combine_kernel) adds the blocks' partials
-// in a fixed order.
+// Blocks of NT threads over contiguous ranges of units of NT rows (q or q +
+// 1 units a block, as many blocks as the SMs hold at once and at most
+// `max_blocks`; the parent's form, more blocks than the SMs hold, each a
+// chunk of rows, timed no faster: PERF.md).  Each block stages
+// the packed table once, runs its rows and folds their gathered-slot
+// messages onto its warps' slabs (a slot a segment, the gathered ids; the
+// row's segment from the per-row map seg_ids, -1 where the CSR does not list
+// the row).  At the end of its range it writes part[b] = [F, n_seg], the
+// warps' sums added from zero in warp order, and a second launch
+// (segsum_combine_kernel) adds the blocks' partials in a fixed order.
+// NT = 128 threads, TAB_MIN_BLOCKS blocks an SM with the cameras gathered
+// and WIN_MIN_BLOCKS with the landmarks gathered, in float32 up to 9 dofs
+// (win_persistent); 256 threads and one block an SM otherwise.
+constexpr int TAB_MIN_BLOCKS = 4;
+// A row's slot in its warp's slab (null: none).  Where no two lanes of a
+// warp name one segment and every segment's slot lies in shared memory
+// (bench64: a warp's 32 rows are one landmark's, 32 distinct cameras), each
+// row adds its gathered-slot messages onto its slot as it writes them: no
+// re-read from L2, the same sums (PERF.md: 0.152 against 0.159 ms).
+template <typename S, int SLOT_>
+struct SlabSink {
+  static constexpr int SLOT = SLOT_;
+  S* cell;
+  __device__ __forceinline__ void operator()(int k, S v) const {
+    if (cell) cell[k] += v;
+  }
+};
+template <typename S, class Sh>
+__host__ __device__ constexpr int tab_threads() {
+  return win_persistent<S, Sh>() ? WIN_UNIT : BLOCK;
+}
+template <typename S, class Sh>
+__host__ __device__ constexpr int tab_min_blocks() {
+  return !win_persistent<S, Sh>() ? 1 : Sh::GSLOT == 0 ? TAB_MIN_BLOCKS : WIN_MIN_BLOCKS;
+}
 
 // Stage 2 of the camera-side sums (segsum.cu, messages.cu): out[idx] = the
 // sum over the chunks of part[c][idx], idx < n_out, in 16 phases (phase y
@@ -1033,16 +959,9 @@ void launch_combine(const S* part, int n_chunk, int64_t n_out, S* out, cudaStrea
                                                                                   n_out, out);
 }
 
-// Shared memory: the table [n_cam][F], then the fold (FoldLayout, a cursor a
-// segment).
-template <typename S, int F, int NT>
-__host__ __device__ FoldLayout<S, F, NT> tab_fold_layout(int n_cam, int n_seg) {
-  return FoldLayout<S, F, NT>(sizeof(S) * n_cam * F, min(n_seg, fold_slab_segs<S, F>()), n_seg,
-                              n_seg);
-}
-
-template <typename S, class Sh, bool HUBER_ROW, int NT>
-__global__ void __launch_bounds__(NT, NT == WIN_UNIT ? WIN_MIN_BLOCKS : 1)
+// Shared memory: the table [n_cam][F], then the warps' slabs [W][n_sh][FP].
+template <typename S, class Sh, bool HUBER_ROW, int NT, int MIN_BLOCKS>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
 messages_kernel(const S* __restrict__ cam_tab, int n_cam,
                 const S* __restrict__ lmk_tab, const int* __restrict__ gidx,
                 const S* __restrict__ jac, const S* __restrict__ lp,
@@ -1052,107 +971,71 @@ messages_kernel(const S* __restrict__ cam_tab, int n_cam,
                 const S* __restrict__ me1, const S* __restrict__ ml1,
                 S* __restrict__ oe0, S* __restrict__ ol0,
                 S* __restrict__ oe1, S* __restrict__ ol1, int64_t mp, int deg, int q, int rem,
-                MsgParams<S> p, const int* __restrict__ seg_rows,
-                const int* __restrict__ seg_offsets, int n_seg, S* __restrict__ part) {
-  constexpr int F = Sh::F_G;
-  using G = FoldGroups<S, F>;
+                MsgParams<S> p, const int* __restrict__ seg_ids, int n_seg, int n_sh,
+                S* __restrict__ part, S* __restrict__ slab_gl) {
+  constexpr int F = Sh::F_G, W = NT / WARP, FP = FoldGroups<S, F>::FP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* tab = reinterpret_cast<S*>(smem_raw);
-  const FoldShared<S> fs =
-      fold_shared<S, F, NT>(smem_raw, tab_fold_layout<S, F, NT>(n_cam, n_seg), n_seg);
-  const int tid = threadIdx.x, b = blockIdx.x;
-  const FoldCells<S, F> cells{fs.slab, min(n_seg, fold_slab_segs<S, F>()),
-                              part + static_cast<int64_t>(b) * F * n_seg, n_seg};
-  const int u0 = b * q + min(b, rem), u1 = u0 + q + (b < rem ? 1 : 0);
+  S* sh = reinterpret_cast<S*>(smem_raw + align16(sizeof(S) * n_cam * F));
+  const int tid = threadIdx.x, b = blockIdx.x, n_gl = n_seg - n_sh;
+  // Warp w's slab: slots past n_sh at [blocks, W, n_gl, F] in device memory.
+  auto slab = [&](int w) {
+    return WarpSlab<S, F>{sh + w * n_sh * FP,
+                          slab_gl + (static_cast<int64_t>(b) * W + w) * n_gl * F, n_sh};
+  };
   for (int i = tid; i < n_cam * F; i += NT) tab[i] = cam_tab[i];
-  fold_zero<S, F, NT>(cells, n_seg);
-  // A cursor a segment: its first CSR position at or past the block's rows.
-  for (int s = tid; s < n_seg; s += NT)
-    fs.cur[s] = first_at_least(seg_rows, seg_offsets[s], seg_offsets[s + 1],
-                               static_cast<int64_t>(u0) * NT);
+  slab(tid / WARP).zero(n_seg, tid & (WARP - 1));
   __syncthreads();
   const S* oe_g = Sh::GSLOT ? oe1 : oe0;
   const S* ol_g = Sh::GSLOT ? ol1 : ol0;
+  const int u0 = b * q + min(b, rem), u1 = u0 + q + (b < rem ? 1 : 0);
 #pragma unroll 1
   for (int u = u0; u < u1; ++u) {
-    const int64_t base = static_cast<int64_t>(u) * NT, r = base + tid;
-    int seg = -1;
+    const int64_t r = static_cast<int64_t>(opaque(u)) * NT + tid;
+    const int key = r < mp ? seg_ids[r] : -1;
+    if (key >= n_seg) __trap();  // a fault of the caller's map
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    const bool direct = __all_sync(0xffffffffu, key < n_sh && (key < 0 || peers ==
+                                                          1u << (tid & (WARP - 1))));
+    __syncwarp();  // the warp's last unit's additions are seen
     if (r < mp) {
-      const int id = gidx[r];
+      S* cell = direct && key >= 0 ? sh + (tid / WARP * n_sh + key) * FP : nullptr;
       messages_row<S, Sh::DA, Sh::DB, Sh::ZD, HUBER_ROW, Sh::GSLOT>(
-          tab + id * F, lmk_tab, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0,
-          oe1, ol1, mp, deg, r, p);
-      seg = id < n_seg ? id : -1;
+          tab + gidx[r] * F, lmk_tab, jac, lp, r0g, prec, srel, act, me0, ml0, me1, ml1, oe0,
+          ol0, oe1, ol1, mp, deg, r, p, SlabSink<S, Sh::GSLOT>{cell});
     }
-    const FoldSet st = fs.set(u & 1);
-    fold_stage<S, F, Sh::DG, NT>(fs, oe_g, ol_g, mp, r, 0);
-    fold_mark(st, seg);
-    __syncthreads();
-    // Each candidate's run: its cursor walks the CSR list past the unit;
-    // where runs are short, each row's rank in its run.
-    const int nc = *st.n_cand;
-    int longest = 0;
-    for (int a = tid; a < nc; a += NT) {
-      const int s = st.cand[a];
-      const int p0 = fs.cur[s], p1 = run_end(seg_rows, p0, seg_offsets[s + 1], base + NT);
-      fs.cur[s] = st.hi[s] = p1;
-      st.lo[s] = p0;
-      if (p1 - p0 <= FOLD_PASSES) {
-        for (int i = p0; i < p1; ++i) fs.rank[static_cast<int>(seg_rows[i] - base)] = i - p0;
-      }
-      longest = max(longest, p1 - p0);
-    }
-    longest = __reduce_max_sync(0xffffffffu, longest);
-    if ((tid & 31) == 0 && longest > 0) atomicMax(st.max_run, longest);
-    __syncthreads();
-    const int passes = *st.max_run;  // (a late read after the clear below sees 0 only
-                                     // when it was 0: passes end on a barrier)
-    if (G::GROUPS == 1 && passes <= FOLD_PASSES) {
-      // Pass j: each run's j-th row, its thread adding its staged values.
-      const int rank = fs.rank[tid];
-      for (int j = 0; j < passes; ++j) {
-        if (rank == j) {
-          const S* v = fs.stage + tid * G::KGP;
-          if (seg < cells.n_sh) {
-#pragma unroll
-            for (int k = 0; k < F; ++k) cells.slab[seg * F + k] += v[k];
-          } else {
-#pragma unroll
-            for (int k = 0; k < F; ++k) {
-              S* cell = cells.gl + k * cells.gld + seg;
-              __stcg(cell, __ldcg(cell) + v[k]);
-            }
-          }
-        }
-        __syncthreads();
-      }
-    } else {
-      fold_pairs<S, F, NT>(fs, st, nc, cells, seg_rows, base, 0, G::KG);
-      __syncthreads();
-      fold_rest<S, F, Sh::DG, NT>(fs, st, nc, cells, seg_rows, oe_g, ol_g, mp, base);
-    }
-    fold_clear(st, nc, fs.rank);
+    if (!direct) fold_warp<S, F, Sh::DG>(slab(tid / WARP), oe_g, ol_g, mp, r, key);
   }
   __syncthreads();
-  for (int e = tid; e < F * cells.n_sh; e += NT) {
-    const int k = e / cells.n_sh, s = e - k * cells.n_sh;
-    cells.gl[static_cast<int64_t>(k) * n_seg + s] = fs.slab[s * F + k];
+  S* out = part + static_cast<int64_t>(b) * F * n_seg;
+  for (int e = tid; e < F * n_seg; e += NT) {
+    const int k = e / n_seg, s = e - k * n_seg;
+    S acc = S(0.0);
+#pragma unroll
+    for (int w = 0; w < W; ++w) acc += slab(w).get(s, k);
+    out[e] = acc;
   }
 }
 
 // The launch of messages_kernel and the combine of its partials into out
-// [F, n_seg]; part holds max_blocks * F * n_seg values.  Given `info`, no
-// launch: {units, rows per unit, blocks, shared bytes, registers and local
-// bytes per thread, blocks per SM} (win_info).
+// [F, n_seg]: part holds max_blocks * F * n_seg values, slab_gl the warps'
+// slots past shared memory (blocks * warps * (n_seg - slab_slots) * F
+// values, `table_plan`).  Each warp keeps as many slots in shared memory as
+// the blocks per SM of the launch bounds leave beside the table.  Given
+// `info`, no launch: the plan (win_info).
 template <typename S, class Sh>
 int launch_messages_tab_ell(bool huber_row, const S* cam_tab, int n_cam, const S* lmk_tab,
                             const int* gidx, const MsgOps<S>& o, int64_t mp, int deg,
-                            const MsgParams<S>& p, cudaStream_t st, const int* seg_rows,
-                            const int* seg_offsets, int n_seg, S* part, int max_blocks, S* out,
-                            int* info) {
-  constexpr int NT = win_persistent<S, Sh>() ? WIN_UNIT : BLOCK;
+                            const MsgParams<S>& p, cudaStream_t st, const int* seg_ids,
+                            int n_seg, S* part, int max_blocks, S* slab_gl, S* out, int* info) {
+  constexpr int NT = tab_threads<S, Sh>(), MIN_BLOCKS = tab_min_blocks<S, Sh>(), F = Sh::F_G;
+  constexpr size_t SLOT_BYTES = sizeof(S) * (NT / WARP) * FoldGroups<S, F>::FP;
+  const size_t table = align16(sizeof(S) * n_cam * F), share = smem_share(MIN_BLOCKS);
+  const int n_sh = table < share ? static_cast<int>(lesser((share - table) / SLOT_BYTES,
+                                                           static_cast<size_t>(n_seg)))
+                                 : 0;
+  const size_t smem = table + SLOT_BYTES * n_sh;
   auto go = [&](auto k) {
-    const size_t smem = tab_fold_layout<S, Sh::F_G, NT>(n_cam, n_seg).bytes;
     if (smem > SMEM_BLOCK_MAX) return static_cast<int>(cudaErrorInvalidValue);
     if (int rc = allow_smem(k, smem)) return rc;
     int bps = 0;
@@ -1160,18 +1043,22 @@ int launch_messages_tab_ell(bool huber_row, const S* cam_tab, int n_cam, const S
       return static_cast<int>(rc);
     if (bps < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     const int units = static_cast<int>((mp + NT - 1) / NT);
-    const WinLaunch l{units, NT, NT, max(1, min(min(units, bps * n_sms()), max_blocks)),
-                      static_cast<int>(smem), bps};
+    WinLaunch l{units, NT, NT, max(1, min(min(units, bps * n_sms()), max_blocks)),
+                static_cast<int>(smem), bps};
+    l.n_sh = n_sh;
+    l.slab_bytes = static_cast<int>(SLOT_BYTES * n_sh);
+    l.folded = 1;
     if (info) return win_info(k, l, info);
     k<<<l.blocks, NT, smem, st>>>(cam_tab, n_cam, lmk_tab, gidx, o.jac, o.lp, o.r0, o.prec,
                                   o.srel, o.act, o.me0, o.ml0, o.me1, o.ml1, o.oe0, o.ol0, o.oe1,
-                                  o.ol1, mp, deg, l.q(), l.rem(), p, seg_rows, seg_offsets, n_seg,
-                                  part);
+                                  o.ol1, mp, deg, l.q(), l.rem(), p, seg_ids, n_seg, n_sh, part,
+                                  slab_gl);
     if (const cudaError_t rc = cudaGetLastError()) return static_cast<int>(rc);
-    if (n_seg > 0) launch_combine(part, l.blocks, static_cast<int64_t>(Sh::F_G) * n_seg, out, st);
+    if (n_seg > 0) launch_combine(part, l.blocks, static_cast<int64_t>(F) * n_seg, out, st);
     return 0;
   };
-  return huber_row ? go(messages_kernel<S, Sh, true, NT>) : go(messages_kernel<S, Sh, false, NT>);
+  return huber_row ? go(messages_kernel<S, Sh, true, NT, MIN_BLOCKS>)
+                   : go(messages_kernel<S, Sh, false, NT, MIN_BLOCKS>);
 }
 
 // windows.cu: masked relinearization with the gathered slot's means from
@@ -1284,10 +1171,10 @@ using Lmk9 = Shape<9, 3, 2, 1>;
 #define GBP_TABLE_LAUNCHERS(MODE, S, SH)                                                      \
   MODE template int launch_messages_tab_ell<S, SH>(bool, const S*, int, const S*,            \
       const int*, const MsgOps<S>&, int64_t, int, const MsgParams<S>&, cudaStream_t,          \
-      const int*, const int*, int, S*, int, S*, int*);                                        \
+      const int*, int, S*, int, S*, S*, int*);                                                \
   MODE template int launch_messages_win<S, SH>(bool, const S*, int, const S*, const int*,    \
       const int*, int, const MsgOps<S>&, int64_t, int, const MsgParams<S>&, cudaStream_t,     \
-      const GhostTable<S>&, int*, const WinFoldArgs<S>&);                                     \
+      const GhostTable<S>&, int*, const WinFoldArgs<S>&, bool*);                              \
   MODE template int launch_messages_tab<S, SH>(bool, const S*, int, const int*, const S*,    \
       const S*, const MsgOps<S>&, int64_t, const MsgParams<S>&, cudaStream_t);                \
   MODE template int launch_messages_tabblk<S, SH>(bool, const S*, int, const int*,           \
@@ -1297,7 +1184,7 @@ using Lmk9 = Shape<9, 3, 2, 1>;
 #define GBP_HALO_LAUNCHERS(MODE, S, SH)                                                       \
   MODE template int launch_messages_win<S, SH, true>(bool, const S*, int, const S*,          \
       const int*, const int*, int, const MsgOps<S>&, int64_t, int, const MsgParams<S>&,       \
-      cudaStream_t, const GhostTable<S>&, int*, const WinFoldArgs<S>&);                       \
+      cudaStream_t, const GhostTable<S>&, int*, const WinFoldArgs<S>&, bool*);                \
   MODE template int launch_messages_tabblk<S, SH, true>(bool, const S*, int, const int*,     \
       const int*, int, const S*, const S*, const MsgOps<S>&, int64_t, const MsgParams<S>&,    \
       cudaStream_t, const GhostTable<S>&, int*);

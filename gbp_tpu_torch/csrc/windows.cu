@@ -27,8 +27,9 @@
 //   Replaces `fused_messages_cm_tabblk_ell` (`_kernel_tab_blk_ell` and, for
 //   its 5th output, `_segsum_partial_blk`): the four new messages and the
 //   per-tile window partials part[i, k, j] of the new gathered-slot
-//   messages over the rows of tile i whose id is starts[i] + j, computed in
-//   the same launch as the TPU kernel computes them.
+//   messages over the rows of tile i whose id is starts[i] + j, in the same
+//   launch as the TPU kernel computes them where whole tiles a block pay,
+//   else by kernel 16 in the same call.
 //   Bound: device-memory bytes (about 570 bytes per row at (6, 3, 2) in
 //   float32, the partials [n_tiles, F, w] besides), and short of them the
 //   latency of the per-row loads at the few warps the registers leave an SM
@@ -41,36 +42,30 @@
 //   most threads resident per SM (`ops.messages.window_plan`).  The per-row
 //   arithmetic is the full-table kernel's, so the four messages are its
 //   bits.  An id outside its tile's window is a fault of the prepared
-//   graph: the kernel traps, it never clamps.  The fold (WinFold,
-//   table_kernels.cuh): where a block enters a tile it scatters the tile's
-//   CSR positions into shared memory, so each unit's run of a column is the
-//   span of its rows' positions; after each unit the block adds the unit's
-//   new gathered-slot messages, staged from L2, onto the tile's running
-//   column sums (a slab in shared memory, the columns past it in the
-//   output), each column's rows in row order from zero, so the messages are
-//   never read back from device memory and kernel 16's launch is gone.  A
-//   tile that runs in one block (every tile of the per-tile form, float64
-//   and 12 dofs; in the persistent form those inside a block's range) is
-//   equal bit for bit to segsum_cm_blk.  A tile the persistent split cuts
-//   between blocks is summed per block into a piece; the last block to
-//   finish the tile (an integer counter a tile, reset by that block; one
-//   thread's fence releases a block's piece after a barrier) adds the
-//   pieces in block order: deterministic, fixed by the launch plan, not
-//   segsum_cm_blk's bits there.  The counters belong to the caller (the
-//   prepared graph's, or made for one call), never to the library.  Whole
-//   tiles a block, timed on the same operands (NVIDIA H100 80GB HBM3,
-//   700 W, compare_windows.py): q or q + 1 tiles on the same 396 blocks
-//   took 0.2599 / 0.2580 ms at city against 0.1881 / 0.1884 ms (441 tiles:
-//   45 blocks run two tiles while the rest wait) and 1.7305 / 1.7168 ms at
-//   venice against 1.7761 / 1.7723 ms (4,695 tiles); the per-tile form (one
-//   256-thread block a tile, 180 registers, one block an SM) 0.2713 and
-//   2.3225 ms.  So the split stays.  No floating-point atomics.
+//   graph: the kernel traps, it never clamps.  The fifth output: where the
+//   persistent launch can give every block at least WIN_WHOLE_TILES whole
+//   tiles (venice: 4,695 tiles on 396 blocks), and always in the per-tile
+//   form of float64 and 12 dofs, the launch folds it (WinFold,
+//   table_kernels.cuh): a block entering a tile ranks the tile's non-empty
+//   window columns (a column a thread) and each warp adds its rows of a
+//   column onto its own slab slot, lanes of one column first added among
+//   themselves by shuffles, with no barrier a unit; the tile's part is the
+//   warps' sums in warp order.  Elsewhere (city: 441 tiles on 396 blocks)
+//   the launch runs without the fold over 128-row units and this entry
+//   launches segsum_cm_blk (kernel 16) after it, on the new messages.
+//   Timed on the same operands (NVIDIA H100 80GB HBM3, 700 W,
+//   compare_windows.py, PERF.md): the fold split between blocks at
+//   unit boundaries (pieces, and the last block adding them) took 0.191 ms
+//   at city against 0.171 for the kernel and kernel 16, whole tiles a
+//   block 0.213; at venice the whole-tile fold 1.49 ms against 1.58.  No
+//   floating-point atomics; the order of each form is fixed
+//   (`ops.messages.fold_window_sum`, `segsum_cm_blk_plain`).
 //
 // segsum_cm_blk
 //   Replaces `segsum_cm_blk`'s kernel stage (`_kernel_segsum_blk`,
-//   gbp_tpu/ops/messages_pallas.py), for the paths that run it on their own
-//   (unfused windows, the halo paths; the fused sweep's partials come from
-//   the messages launch): part[i, k, j] = sum of component k over the rows
+//   gbp_tpu/ops/messages_pallas.py), for the paths without the fold
+//   (unfused windows, the halo paths, and after kernel 10 where its launch
+//   does not fold): part[i, k, j] = sum of component k over the rows
 //   of tile i whose camera id is starts[i] + j, added in the order of the
 //   CSR of `window_rows_csr` (segment i * w + j) starting from zero.
 //   Bound: device-memory bytes: the f message components read once, the
@@ -417,6 +412,10 @@ int relin_win(int model, int gslot, const S* cam_mean, int n_cam, const S* lmk_m
 }
 
 template <typename S>
+int segsum_blk(const S* me, const S* ml, int d, const int* rows, const int* offsets, int n_tiles,
+               int w, int64_t mp, S* out, void* stream, int* info);
+
+template <typename S>
 int messages_win(int da, int db, int zd, int gslot, int huber_row, const S* cam_tab,
                  int n_cam, const S* lmk_tab, const int* gidx, const int* starts, int win_w,
                  const S* jac, const S* lp, const S* r0,
@@ -424,22 +423,30 @@ int messages_win(int da, int db, int zd, int gslot, int huber_row, const S* cam_
                  const S* me1, const S* ml1, S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp,
                  int deg, double eta_damping, double lam_damping, double num_undamped,
                  double floor, double jitter, int has_huber, double huber,
-                 const int* win_rows, const int* win_offsets, S* part, S* piece, int* count,
-                 void* stream, int* info) {
+                 const int* win_rows, const int* win_offsets, S* part, S* slab, void* stream,
+                 int* info) {
   if (mp <= 0) return static_cast<int>(cudaGetLastError());
   const auto p =
       msg_params<S>(eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber);
   const MsgOps<S> o{jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1};
-  const WinFoldArgs<S> fa{win_rows, win_offsets, part, piece, count};
-  int rc = 0;
+  const WinFoldArgs<S> fa{win_rows, win_offsets, part, slab, 0};
+  int rc = 0, d_g = 0;
+  bool folded = true;
   const bool known = with_table_shape(da, db, zd, gslot, [&](auto sh) {
+    d_g = decltype(sh)::DG;
     rc = launch_messages_win<S, decltype(sh)>(huber_row != 0, cam_tab, n_cam, lmk_tab, gidx,
                                               starts, win_w, o, mp, deg, p,
                                               static_cast<cudaStream_t>(stream), GhostTable<S>{},
-                                              info, fa);
+                                              info, fa, &folded);
   });
   if (!known) return -2;
-  return rc ? rc : static_cast<int>(cudaGetLastError());
+  if (rc || info) return rc;
+  if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  // Without the fold, kernel 16 sums the new gathered-slot messages.
+  if (!folded)
+    return segsum_blk<S>(gslot ? oe1 : oe0, gslot ? ol1 : ol0, d_g, win_rows, win_offsets,
+                         static_cast<int>(mp / TILE), win_w, mp, part, stream, nullptr);
+  return 0;
 }
 
 // segsum_cm_blk's launch for n_tiles tiles of d-dof messages.  With `info`,
@@ -527,13 +534,12 @@ int scatter_win(const S* part, const int* starts, const int* blk_tiles, const in
       const S* me1, const S* ml1, S* oe0, S* ol0, S* oe1, S* ol1, int64_t mp, int deg, \
       double eta_damping, double lam_damping, double num_undamped, double floor,       \
       double jitter, int has_huber, double huber, const int* win_rows,                 \
-      const int* win_offsets, S* part, S* piece, int* count, void* stream, int* info) { \
+      const int* win_offsets, S* part, S* slab, void* stream, int* info) {             \
     return gbp::messages_win<S>(da, db, zd, gslot, huber_row, cam_tab, n_cam, lmk_tab, \
                                 gidx, starts, win_w, jac, lp, r0, prec, srel, act, me0, ml0, \
                                 me1, ml1, oe0, ol0, oe1, ol1, mp, deg, eta_damping,    \
                                 lam_damping, num_undamped, floor, jitter, has_huber,   \
-                                huber, win_rows, win_offsets, part, piece, count, stream, \
-                                info);                                                 \
+                                huber, win_rows, win_offsets, part, slab, stream, info); \
   }                                                                                    \
   extern "C" int gbp_segsum_cm_blk_##SFX(const S* me, const S* ml, int d,              \
                                          const int* rows, const int* offsets,          \

@@ -40,10 +40,10 @@ _ARGTYPES = {
     # d0, d1, z, gslot, huber_row, cam_tab, n_cam, lmk_tab, nv, gidx, jac, lp,
     # r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp, deg,
     # eta_damping, lam_damping, num_undamped, floor, jitter, has_huber, huber,
-    # seg_rows, seg_offsets, n_seg, part, max_blocks, out, stream, info (NULL:
-    # launch; else int[7], the launch plan and no launch)
+    # seg_ids, n_seg, part, max_blocks, slab, out, stream, info (NULL: launch;
+    # else int[13], the launch plan and no launch)
     "gbp_messages_cm_tab_ell": [_I] * 5 + [_P, _I, _P, _I] + [_P] * 7 + [_P] * 4 + [_P] * 4
-    + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P, _P, _I, _P, _I, _P, _P, _P],
+    + [_I64, _I, _D, _D, _D, _D, _D, _I, _D, _P, _I, _P, _I, _P, _P, _P, _P],
     # me, me_ld, ml, ml_ld, d, row_major, rows, offsets, n_seg, m, chunk, group,
     # part, out, stream
     "gbp_segsum_by_id": [_P, _I64, _P, _I64, _I, _I, _P, _P, _I, _I64, _I, _I, _P, _P, _P],
@@ -55,11 +55,11 @@ _ARGTYPES = {
     # d0, d1, z, gslot, huber_row, cam_tab, n_cam, lmk_tab, gidx, starts, win_w,
     # jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1, oe0, ol0, oe1, ol1, mp,
     # deg, eta_damping, lam_damping, num_undamped, floor, jitter, has_huber,
-    # huber, win_rows, win_offsets, part, piece, count, stream, info (NULL:
-    # launch; else int[7], the launch plan and no launch, as for every
-    # windowed messages entry)
+    # huber, win_rows, win_offsets, part, slab, stream, info (NULL: launch;
+    # else int[13], the launch plan and no launch, as for every windowed
+    # messages entry)
     "gbp_messages_cm_tabblk_ell": [_I] * 5 + [_P, _I, _P, _P, _P, _I] + [_P] * 6 + [_P] * 4
-    + [_P] * 4 + [_I64, _I, _D, _D, _D, _D, _D, _I, _D] + [_P] * 5 + [_P, _P],
+    + [_P] * 4 + [_I64, _I, _D, _D, _D, _D, _D, _I, _D] + [_P] * 4 + [_P, _P],
     # me, ml, d, rows, offsets, n_tiles, w, mp, out, stream
     "gbp_segsum_cm_blk": [_P, _P, _I, _P, _P, _I, _I, _I64, _P, _P],
     # d, n_tiles, info[9]: segsum_cm_blk's launch (ops.messages.segsum_blk_plan)

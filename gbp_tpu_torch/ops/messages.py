@@ -510,9 +510,10 @@ def expand_ell_blk_plain(tab, *, deg):
 
 def messages_cm_tab_ell_plain(params, cam_tab, lmk_tab, gidx, jac, lp, r0,
                               prec, srel, act, me0, ml0, me1, ml1, seg_rows,
-                              seg_offsets, *, deg, huber, gslot=0):
+                              seg_offsets, *, deg, huber, gslot=0, seg_ids=None):
     """Plain version of `messages_cm_tab_ell`: the four new messages and the
-    sum of the new gathered-slot messages per variable [d_g + d_g * d_g, n]."""
+    sum of the new gathered-slot messages per variable [d_g + d_g * d_g, n]
+    (it takes the kernel's `seg_ids` and needs none)."""
     COUNTS.plain["messages_cm_tab_ell"] += 1
     out = _messages_plain(
         params, cam_tab[gidx.long()], lmk_tab, jac, lp, r0, prec, srel, act,
@@ -522,11 +523,10 @@ def messages_cm_tab_ell_plain(params, cam_tab, lmk_tab, gidx, jac, lp, r0,
 
 def messages_cm_tabblk_ell_plain(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp,
                                  r0, prec, srel, act, me0, ml0, me1, ml1, win_rows,
-                                 win_offsets, *, deg, huber, win_w, gslot=0, tile_counts=None):
+                                 win_offsets, *, deg, huber, win_w, gslot=0):
     """Plain version of `messages_cm_tabblk_ell`: the four new messages and
     the per-tile window partials of the new gathered-slot messages
-    [n_tiles, d_g + d_g * d_g, win_w] (it takes the kernel's `tile_counts`
-    and needs none)."""
+    [n_tiles, d_g + d_g * d_g, win_w]."""
     COUNTS.plain["messages_cm_tabblk_ell"] += 1
     out = _messages_plain(
         params, _window_rows(cam_tab, gidx, win_starts, win_w), lmk_tab, jac, lp, r0,
@@ -593,9 +593,11 @@ def scatter_windows_cm_plain(part, win_starts, cov_tiles, cov_offsets, *, n_seg)
 
 # --- the fold's order (the kernels of messages_cm_tab_ell, _tabblk_ell) -----------
 
+WARP = 32  # rows a warp of the fold kernels runs, one a lane
+
 
 def fold_split(units, blocks):
-    """The persistent launches' split (`table_plan`, `window_plan`): block b
+    """The persistent launch's split (`table_plan`): block b
     takes the units [first[b], end[b]), q or q + 1 of them, q and rem the
     quotient and remainder of the units over the blocks (int64 arrays)."""
     q, rem = divmod(int(units), int(blocks))
@@ -604,18 +606,58 @@ def fold_split(units, blocks):
     return first, first + q + (b < rem)
 
 
-def _chains(vals, rows, keys, n_keys):
-    """out[:, key] = the sum of vals[:, row] over the (row, key) pairs, each
-    key's rows added from zero in ascending row order (pass j adds every
-    key's j-th row)."""
+def segment_ids(seg_rows, seg_offsets, mp):
+    """int32 [mp] on seg_rows' device: the segment of each row the CSR
+    (seg_rows, seg_offsets) lists, -1 for the rows it leaves out (entries of
+    seg_rows past seg_offsets[-1] are padding).  The per-row map that
+    `messages_cm_tab_ell`'s kernel reads; made without a host
+    synchronization."""
+    dev = seg_rows.device
+    pos = torch.arange(seg_rows.shape[0], device=dev)
+    seg = torch.searchsorted(seg_offsets[1:].long(), pos, right=True)
+    listed = pos < seg_offsets[-1]
+    ids = torch.full((mp + 1,), -1, dtype=torch.int32, device=dev)
+    # Padding entries land on the extra last slot, cut off below.
+    ids.scatter_(0, torch.where(listed, seg_rows.long(), mp),
+                 torch.where(listed, seg, -1).to(torch.int32))
+    return ids[:mp]
+
+
+def _tree_sums(vals, rows, keys):
+    """Sums of the columns vals[:, rows] that share a key, each group's
+    members (the lanes of one warp, in row order) added as the fold's
+    `warp_tree_sum` adds them: at step d = 1, 2, 4, ... the member of rank i,
+    i a multiple of 2d, adds the partial of the member of rank i + d.
+    Returns (sums [f, n_groups], the groups' keys, their first rows)."""
     order = np.lexsort((rows, keys))
     rows, keys = rows[order], keys[order]
-    rank = np.arange(keys.size) - np.searchsorted(keys, keys, side="left")
-    out = torch.zeros((vals.shape[0], n_keys), dtype=vals.dtype)
+    first = np.searchsorted(keys, keys, side="left")
+    size = np.searchsorted(keys, keys, side="right") - first
+    rank = np.arange(keys.size) - first
+    v = vals[:, torch.from_numpy(rows)]
+    d = 1
+    while rank.size and d < int(size.max()):
+        at = torch.from_numpy(np.flatnonzero((rank % (2 * d) == 0) & (rank + d < size)))
+        v[:, at] = v[:, at] + v[:, at + d]
+        d *= 2
+    head = np.flatnonzero(rank == 0)
+    return v[:, torch.from_numpy(head)], keys[head], rows[head]
+
+
+def _chains(vals, order, keys):
+    """Sums of the columns of vals by key, each key's columns added from zero
+    in ascending `order` (pass j adds every key's j-th column): (sums [f,
+    n_keys], the keys, ascending)."""
+    at = np.lexsort((order, keys))
+    keys = keys[at]
+    uniq, first = np.unique(keys, return_index=True)
+    slot = np.searchsorted(uniq, keys)
+    rank = np.arange(keys.size) - first[slot]
+    out = torch.zeros((vals.shape[0], uniq.size), dtype=vals.dtype)
     for j in range(int(rank.max()) + 1 if rank.size else 0):
         sel = rank == j
-        out[:, torch.from_numpy(keys[sel])] += vals[:, torch.from_numpy(rows[sel])]
-    return out
+        out[:, torch.from_numpy(slot[sel])] += vals[:, torch.from_numpy(at[sel])]
+    return out, uniq
 
 
 def _csr_pairs(rows, offsets):
@@ -625,20 +667,30 @@ def _csr_pairs(rows, offsets):
     return rows.cpu().numpy()[:seg.size].astype(np.int64), seg
 
 
-def fold_table_sum(me, ml, seg_rows, seg_offsets, *, blocks, unit):
+def fold_table_sum(me, ml, seg_rows, seg_offsets, *, blocks, unit_rows):
     """`messages_cm_tab_ell`'s fifth output as its kernel adds it, for a
-    launch of `blocks` blocks over units of `unit` rows (`table_plan`;
-    `fold_split`): block b adds each segment's listed rows in its range from
-    zero in row order into part[b] [f, n_seg]; phase y adds part[y], part[y +
-    16], ... from zero, then the 16 phases are added in order
-    (segsum_combine_kernel).  CPU tensors: me [d, mp], ml [d*d, mp]."""
+    launch of `blocks` blocks over units of `unit_rows` rows, one a thread
+    (`table_plan`; `fold_split`): a warp's rows of one segment in a unit are
+    added in `_tree_sums`' tree, each warp adds those group sums onto its
+    running sum of the segment from zero in unit order, block b's partial
+    part[b] is its warps' sums added from zero in warp order; phase y adds
+    part[y], part[y + 16], ... from zero, then the 16 phases are added in
+    order (segsum_combine_kernel).  CPU tensors: me [d, mp], ml [d*d, mp]."""
     vals = torch.cat([me, ml])
     f, mp = vals.shape
     n_seg = seg_offsets.shape[0] - 1
+    warps = unit_rows // WARP
     rows, seg = _csr_pairs(seg_rows, seg_offsets)
-    first, _ = fold_split(-(-mp // unit), blocks)
-    blk = np.searchsorted(first * unit, rows, side="right") - 1
-    part = _chains(vals, rows, blk * n_seg + seg, blocks * n_seg).reshape(f, blocks, n_seg)
+    first, _ = fold_split(-(-mp // unit_rows), blocks)
+    g, key, row = _tree_sums(vals, rows, (rows // WARP) * n_seg + seg)
+    unit, warp = row // unit_rows, row % unit_rows // WARP
+    blk = np.searchsorted(first, unit, side="right") - 1
+    per_warp, key = _chains(g, unit, (blk * warps + warp) * n_seg + key % n_seg)
+    per_block, key = _chains(per_warp, key // n_seg % warps,
+                             key // (n_seg * warps) * n_seg + key % n_seg)
+    part = torch.zeros((f, blocks * n_seg), dtype=vals.dtype)
+    part[:, torch.from_numpy(key)] = per_block
+    part = part.reshape(f, blocks, n_seg)
     phases = [torch.zeros((f, n_seg), dtype=vals.dtype) for _ in range(16)]
     for b in range(blocks):
         phases[b % 16] = phases[b % 16] + part[:, b]
@@ -648,44 +700,25 @@ def fold_table_sum(me, ml, seg_rows, seg_offsets, *, blocks, unit):
     return out
 
 
-def fold_window_sum(me, ml, win_rows, win_offsets, *, n_tiles, w, blocks, unit):
+def fold_window_sum(me, ml, win_rows, win_offsets, *, n_tiles, w, threads):
     """`messages_cm_tabblk_ell`'s fifth output [n_tiles, f, w] as its kernel
-    adds it, for a launch of `blocks` blocks over units of `unit` rows
-    (`window_plan`; unit TILE: one block a tile): a tile's column j sums its
-    listed rows from zero in row order within each block that runs part of
-    the tile, and the blocks' pieces are added in block order.  A tile inside
-    one block is one piece: `segsum_cm_blk`'s sum, the same bits.  CPU
-    tensors: me [d, mp], ml [d*d, mp]."""
+    folds it (`window_plan`'s "folded"), each tile in one block of `threads`
+    threads, one row a thread: a warp's rows of one window column in a pass
+    of `threads` rows are added in `_tree_sums`' tree, each warp adds those
+    group sums onto its running sum of the column from zero in row order,
+    and the tile's part is its warps' sums added from zero in warp order.
+    CPU tensors: me [d, mp], ml [d*d, mp]."""
     vals = torch.cat([me, ml])
-    f, mp = vals.shape
+    f = vals.shape[0]
+    warps = threads // WARP
     rows, seg = _csr_pairs(win_rows, win_offsets)
-    tile, col = seg // w, seg % w
-    if unit == TILE:
-        block_of = lambda r: np.asarray(r) // TILE
-    else:
-        starts = fold_split(mp // unit, blocks)[0] * unit
-        block_of = lambda r: np.searchsorted(starts, r, side="right") - 1
-    t = np.arange(n_tiles)
-    b0, b1 = block_of(t * TILE), block_of(t * TILE + TILE - 1)
-    n_pieces = int((b1 - b0).max()) + 1 if n_tiles else 1
-    key = ((tile * n_pieces + block_of(rows) - b0[tile]) * w + col)
-    pieces = _chains(vals, rows, key, n_tiles * n_pieces * w).reshape(f, n_tiles, n_pieces, w)
-    part = pieces[:, :, 0]
-    for j in range(1, n_pieces):
-        part = part + pieces[:, :, j]
-    return part.permute(1, 0, 2).contiguous()
-
-
-def fold_whole_tiles(n_tiles, mp, *, blocks, unit):
-    """bool [n_tiles]: the tiles whose rows all run in one block of the
-    windowed launch (unit TILE: all), where its fifth output is
-    `segsum_cm_blk`'s bit for bit."""
-    if unit == TILE:
-        return np.ones(n_tiles, dtype=bool)
-    starts = fold_split(mp // unit, blocks)[0] * unit
-    t = np.arange(n_tiles) * TILE
-    return (np.searchsorted(starts, t, side="right")
-            == np.searchsorted(starts, t + TILE - 1, side="right"))
+    g, key, row = _tree_sums(vals, rows, (rows // WARP) * w + seg % w)
+    col, warp = key % w, row % threads // WARP
+    per_warp, key = _chains(g, row // threads, ((row // TILE) * warps + warp) * w + col)
+    part, key = _chains(per_warp, key // w % warps, key // (w * warps) * w + key % w)
+    out = torch.zeros((f, n_tiles * w), dtype=vals.dtype)
+    out[:, torch.from_numpy(key)] = part
+    return out.reshape(f, n_tiles, w).permute(1, 0, 2).contiguous()
 
 
 # --- window index structures (numpy, built once per graph) --------------------
@@ -923,7 +956,7 @@ def relin_cm_tab_ell(params, cam_mean, lmk_mean, gidx, z, lp, jac, r0, srel,
 
 def messages_cm_tab_ell(params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec,
                         srel, act, me0, ml0, me1, ml1, seg_rows, seg_offsets,
-                        *, deg, huber, gslot=0):
+                        *, deg, huber, gslot=0, seg_ids=None):
     """Factor -> variable messages; returns (eta0 [d0, mp], lam0 [d0 * d0,
     mp], eta1 [d1, mp], lam1 [d1 * d1, mp], gathered-slot sum [d_g + d_g *
     d_g, n]) like the reference.
@@ -931,11 +964,12 @@ def messages_cm_tab_ell(params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec,
     cam_tab [n, d_g + d_g * d_g] and lmk_tab [nv, d_e + d_e * d_e] are the
     packed (eta | lam) beliefs of the gathered slot (slot `gslot`) and the
     ELL slot; huber is None, the scalar Mahalanobis threshold, or "row"
-    (per-row thresholds as prec's last component, 0 = off).  The sum runs
-    over the rows of the CSR (seg_rows, seg_offsets), each segment's rows
-    ascending and named by their gathered id; the kernel computes it in the
-    messages launch and adds its blocks' partials in one more
-    (`fold_table_sum` models the order)."""
+    (per-row thresholds as prec's last component, 0 = off for that row).
+    The sum runs over the rows of the CSR (seg_rows, seg_offsets), each
+    segment's rows ascending and named by their gathered id; the kernel
+    computes it in the messages launch from the CSR's per-row map `seg_ids`
+    (`segment_ids`: the prepared graph's, or made here when None) and adds
+    its blocks' partials in one more (`fold_table_sum` models the order)."""
     if not _on_card(jac):
         return messages_cm_tab_ell_plain(
             params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec, srel, act, me0, ml0, me1, ml1,
@@ -950,11 +984,17 @@ def messages_cm_tab_ell(params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec,
     n_cam, nv = cam_tab.shape[0], lmk_tab.shape[0]
     if mp != nv * deg:
         raise ValueError(f"messages_cm_tab_ell: mp={mp} != nv*deg={nv}*{deg}")
+    if seg_ids is None:
+        seg_ids = segment_ids(seg_rows, seg_offsets, mp)
     out = _message_outputs(me0, me1)
     f, n_seg = d_g + d_g * d_g, seg_offsets.shape[0] - 1
     max_blocks = fold_max_blocks(mp, n_seg)
-    # One allocation: the sum, then the blocks' partials [max_blocks, f, n_seg].
-    buf = torch.empty(f * n_seg * (1 + max_blocks), dtype=dt, device=jac.device)
+    plan = _table_plan_cached(jac.device, dt, n_cam, n_seg, mp, d0, d1, zd, gslot,
+                              _huber_mode(huber, False)[0])
+    # One allocation: the sum, the blocks' partials [max_blocks, f, n_seg],
+    # the warps' slots past shared memory [blocks, warps, n_seg - slab_slots, f].
+    n_gl = plan["blocks"] * plan["warps"] * (n_seg - plan["slab_slots"]) * f
+    buf = torch.empty(f * n_seg * (1 + max_blocks) + n_gl, dtype=dt, device=jac.device)
     args = [
         *_shape_args(d0, d1, zd, gslot, huber),
         _check("cam_tab", cam_tab, (n_cam, d_g + d_g * d_g), dt), ctypes.c_int(n_cam),
@@ -964,9 +1004,9 @@ def messages_cm_tab_ell(params, cam_tab, lmk_tab, gidx, jac, lp, r0, prec,
                              huber),
         *[ctypes.c_void_p(o.data_ptr()) for o in out],
         ctypes.c_int64(mp), ctypes.c_int(deg), *_message_scalars(params, huber)[:-1],
-        _check("seg_rows", seg_rows, (seg_rows.shape[0],), torch.int32),
-        _check("seg_offsets", seg_offsets, (n_seg + 1,), torch.int32), ctypes.c_int(n_seg),
+        _check("seg_ids", seg_ids, (mp,), torch.int32), ctypes.c_int(n_seg),
         ctypes.c_void_p(buf[f * n_seg:].data_ptr()), ctypes.c_int(max_blocks),
+        ctypes.c_void_p(buf[f * n_seg * (1 + max_blocks):].data_ptr()),
         ctypes.c_void_p(buf.data_ptr()), _stream(), ctypes.c_void_p(None),
     ]
     fn = getattr(library(), f"gbp_messages_cm_tab_ell_{_suffix(dt)}")
@@ -984,27 +1024,43 @@ def fold_max_blocks(mp, n_seg):
     return max(N_SM, mp // (8 * max(n_seg, 1)))
 
 
-TABLE_PLAN_KEYS = ("units", "unit_rows", "blocks", "smem_bytes", "registers", "local_bytes",
-                   "blocks_per_sm")
+# A launch plan of a messages kernel (`table_plan`, `window_plan`): units of
+# unit_rows rows over `blocks` blocks of `threads` threads (one row a thread),
+# each block a range of q or q + 1 grains of split_rows rows; the shared
+# bytes a block, registers and local-memory bytes a thread, resident blocks
+# per SM; for the fold, the warps a block, the slots each warp keeps in
+# shared memory (segments, or a tile's non-empty window columns; the others
+# lie in device memory), the bytes of all the warps' slots, and whether the
+# launch folds the gathered-slot sum (1; 0: kernel 16 sums it after).
+PLAN_KEYS = ("units", "unit_rows", "blocks", "smem_bytes", "registers", "local_bytes",
+             "blocks_per_sm", "threads", "split_rows", "warps", "slab_slots", "slab_bytes",
+             "folded")
 
 
 def table_plan(dtype, *, n_cam, n_seg, mp, d0=D0, d1=D1, z=Z, gslot=0, huber=None):
     """How `messages_cm_tab_ell`'s kernel launches on this card for mp rows,
-    a gathered-slot table of n_cam rows and a sum over n_seg segments:
-    {units, unit_rows, blocks, smem_bytes, registers, local_bytes,
-    blocks_per_sm} (persistent blocks, each taking q or q + 1 contiguous
-    units; `fold_split`)."""
+    a gathered-slot table of n_cam rows and a sum over n_seg segments: a dict
+    of PLAN_KEYS (blocks each taking q or q + 1 contiguous units; `fold_split`)."""
     from gbp_tpu_torch.ops._build import library
 
     _table_shape("messages_cm_tab_ell", d0, d1, z, gslot)
     null, i, dbl = ctypes.c_void_p(None), ctypes.c_int, ctypes.c_double
-    info = (ctypes.c_int * len(TABLE_PLAN_KEYS))()
+    info = (ctypes.c_int * len(PLAN_KEYS))()
     args = [*_shape_args(d0, d1, z, gslot, huber), null, i(n_cam), null, i(1), *[null] * 15,
-            ctypes.c_int64(mp), i(1), *[dbl(0.0)] * 5, i(0), dbl(0.0), null, null, i(n_seg),
-            null, i(fold_max_blocks(mp, n_seg)), null, null, info]
+            ctypes.c_int64(mp), i(1), *[dbl(0.0)] * 5, i(0), dbl(0.0), null, i(n_seg),
+            null, i(fold_max_blocks(mp, n_seg)), null, null, null, info]
     fn = getattr(library(), f"gbp_messages_cm_tab_ell_{_suffix(dtype)}")
     _raise_on(fn(*args), "messages_cm_tab_ell plan")
-    return dict(zip(TABLE_PLAN_KEYS, info))
+    return dict(zip(PLAN_KEYS, info))
+
+
+@functools.lru_cache(maxsize=64)
+def _table_plan_cached(device, dtype, n_cam, n_seg, mp, d0, d1, z, gslot, huber_row):
+    """`table_plan`, once per launch shape and card (the wrapper sizes the
+    warps' slots in device memory by it)."""
+    with torch.cuda.device(device):
+        return table_plan(dtype, n_cam=n_cam, n_seg=n_seg, mp=mp, d0=d0, d1=d1, z=z,
+                          gslot=gslot, huber="row" if huber_row else None)
 
 
 def _table_smem(name, n, width, dt):
@@ -1469,19 +1525,15 @@ def window_blocks_per_sm(name, win_w, dtype):
     return n
 
 
-WINDOW_PLAN_KEYS = ("units", "unit_rows", "blocks", "smem_bytes", "registers", "local_bytes",
-                    "blocks_per_sm")
-
-
 def window_plan(name, dtype, *, win_w, mp, d0=D0, d1=D1, z=Z, gslot=0, huber=None):
     """How the windowed messages kernel `name` ("messages_cm_tabblk_ell",
     "messages_cm_tabblk", "messages_cm_tabblkg_ell" or
     "messages_cm_tabblkg") launches on this card for mp rows and windows of
-    `win_w` rows of the gathered slot's table.  Returns {units, unit_rows,
-    blocks, smem_bytes, registers, local_bytes, blocks_per_sm}: the grid
-    (units of unit_rows rows over `blocks` persistent blocks; in float64 and
-    at 12 dofs one block per tile of 1024 rows), the shared bytes per block,
-    registers and local-memory bytes per thread, resident blocks per SM."""
+    `win_w` rows of the gathered slot's table: a dict of PLAN_KEYS (units of
+    unit_rows rows over `blocks` persistent blocks, each taking q or q + 1
+    grains of split_rows rows: whole tiles where kernel 10 folds; in float64
+    and at 12 dofs units of a tile, one block a tile, or with the fold the
+    blocks the SMs hold, each taking every blocks-th tile)."""
     from gbp_tpu_torch.ops._build import library
 
     kinds = ("messages_cm_tabblk_ell", "messages_cm_tabblk", "messages_cm_tabblkg_ell",
@@ -1494,13 +1546,13 @@ def window_plan(name, dtype, *, win_w, mp, d0=D0, d1=D1, z=Z, gslot=0, huber=Non
     ell, ghost = name.endswith("_ell"), "tabblkg" in name
     mid = ([null, i(0)] + ([null, i(1)] if ghost else []) + ([null] if ell else [])
            + [null, null, i(win_w)] + ([i(0)] if ghost else []) + ([] if ell else [null, null]))
-    fold = [null] * 5 if name == "messages_cm_tabblk_ell" else []
-    info = (ctypes.c_int * len(WINDOW_PLAN_KEYS))()
+    fold = [null] * 4 if name == "messages_cm_tabblk_ell" else []
+    info = (ctypes.c_int * len(PLAN_KEYS))()
     args = [*_shape_args(d0, d1, z, gslot, huber), *mid, *[null] * 14, ctypes.c_int64(mp),
             *([i(1)] if ell else []), *[ctypes.c_double(0.0)] * 5, i(0), ctypes.c_double(0.0),
             *fold, null, info]
     _raise_on(getattr(library(), f"gbp_{name}_{_suffix(dtype)}")(*args), f"{name} plan")
-    return dict(zip(WINDOW_PLAN_KEYS, info))
+    return dict(zip(PLAN_KEYS, info))
 
 
 def _tiles(name, mp):
@@ -1552,18 +1604,16 @@ def relin_cm_tabblk_ell(params, cam_mean, lmk_mean, gidx, win_starts, z, lp, jac
 
 def messages_cm_tabblk_ell(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, r0,
                            prec, srel, act, me0, ml0, me1, ml1, win_rows, win_offsets,
-                           *, deg, huber, win_w, gslot=0, tile_counts=None):
+                           *, deg, huber, win_w, gslot=0):
     """`messages_cm_tab_ell` for large scenes; returns (eta0, lam0, eta1,
     lam1, part) like the reference: part [mp / TILE, d_g + d_g * d_g, win_w]
     holds the per-tile window partials of the new gathered-slot messages
     over the rows of the CSR (win_rows, win_offsets) of `window_rows_csr`,
-    to be combined by `scatter_windows_cm`.  The kernel computes them in the
-    messages launch (`fold_window_sum` models its order; a tile that runs in
-    one block is `segsum_cm_blk`'s bits).  tile_counts: int32 [mp / TILE]
-    zeros, the launch's per-tile counters of the tiles it splits between
-    blocks, zero again when it ends (the prepared graph's `win_counts`;
-    launches that share them go one at a time, as on one stream); None
-    makes them for this call."""
+    to be combined by `scatter_windows_cm`.  Where the launch runs whole
+    tiles a block, the kernel computes them in the messages launch
+    (`fold_window_sum` models its order); elsewhere the same call sums them
+    with kernel 16 after it (`segsum_cm_blk`'s order; `window_plan` says
+    which: "folded")."""
     if not _on_card(jac):
         return messages_cm_tabblk_ell_plain(
             params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, r0, prec, srel, act,
@@ -1586,15 +1636,9 @@ def messages_cm_tabblk_ell(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, 
     part = torch.empty((n_tiles, f, win_w), dtype=dt, device=jac.device)
     plan = _window_plan_cached(jac.device, dt, win_w, mp, d0, d1, zd, gslot,
                                _huber_mode(huber, False)[0])
-    # The persistent launch's pieces [blocks, 2, f, w] and tile counters; the
-    # per-tile launch (one block a tile) needs neither.
-    split = plan["unit_rows"] != TILE
-    piece = torch.empty(plan["blocks"] * 2 * f * win_w if split else 0, dtype=dt,
-                        device=jac.device)
-    if split and tile_counts is None:
-        tile_counts = torch.zeros(n_tiles, dtype=torch.int32, device=jac.device)
-    count = (_check("tile_counts", tile_counts, (n_tiles,), torch.int32) if split
-             else ctypes.c_void_p(None))
+    # The warps' slots past shared memory [blocks, warps, w - slab_slots, f].
+    n_gl = plan["blocks"] * plan["warps"] * (win_w - plan["slab_slots"]) * f * plan["folded"]
+    slab = torch.empty(n_gl, dtype=dt, device=jac.device)
     args = [
         *_shape_args(d0, d1, zd, gslot, huber),
         _check("cam_tab", cam_tab, (n_cam, d_g + d_g * d_g), dt), ctypes.c_int(n_cam),
@@ -1607,8 +1651,8 @@ def messages_cm_tabblk_ell(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, 
         ctypes.c_int64(mp), ctypes.c_int(deg), *_message_scalars(params, huber)[:-1],
         _check("win_rows", win_rows, (mp,), torch.int32),
         _check("win_offsets", win_offsets, (n_tiles * win_w + 1,), torch.int32),
-        ctypes.c_void_p(part.data_ptr()), ctypes.c_void_p(piece.data_ptr() if split else None),
-        count, _stream(), ctypes.c_void_p(None),
+        ctypes.c_void_p(part.data_ptr()), ctypes.c_void_p(slab.data_ptr()), _stream(),
+        ctypes.c_void_p(None),
     ]
     fn = getattr(library(), f"gbp_messages_cm_tabblk_ell_{_suffix(dt)}")
     _raise_on(fn(*args), "messages_cm_tabblk_ell")
@@ -1619,7 +1663,7 @@ def messages_cm_tabblk_ell(params, cam_tab, lmk_tab, gidx, win_starts, jac, lp, 
 @functools.lru_cache(maxsize=64)
 def _window_plan_cached(device, dtype, win_w, mp, d0, d1, z, gslot, huber_row):
     """`window_plan` of `messages_cm_tabblk_ell`, once per launch shape and
-    card (the wrapper sizes the pieces by its blocks)."""
+    card (the wrapper sizes the warps' slots by it)."""
     with torch.cuda.device(device):
         return window_plan("messages_cm_tabblk_ell", dtype, win_w=win_w, mp=mp, d0=d0, d1=d1,
                            z=z, gslot=gslot, huber="row" if huber_row else None)

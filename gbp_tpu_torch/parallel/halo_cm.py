@@ -69,6 +69,7 @@ from gbp_tpu_torch.ops.messages import (
     relin_cm_tabblkg,
     relin_cm_tabblkg_ell,
     scatter_windows_cm,
+    segment_ids,
     segsum_by_id,
     segsum_cm_blk,
     window_block_csr,
@@ -109,6 +110,7 @@ class HaloCMGraph(NamedTuple):
     # deterministic sum `segsum_by_id`); rows mode: the expanding gather.
     seg_rows: torch.Tensor | None = None  # [P, most valid rows of a partition] int32
     seg_offsets: torch.Tensor | None = None  # [P, n_loc_g + 1] int32
+    seg_ids: torch.Tensor | None = None  # [P, mp] int32 per-row map (`segment_ids`)
     gidx_rm: torch.Tensor | None = None  # [P, mp] int64
     # Windows (win_w == 0: none).  Every owned id (< n_own_max) of tile i
     # lies in [win_starts[p, i], + win_w); the ghost table holds the
@@ -329,7 +331,9 @@ def prepare(hp: halo_mod.HaloProblem, segsum_exact: bool = True, gather_mode: st
         n_val = max(int((act > 0.5).sum(axis=1).max()), 1)
         seg = [_by_id_csr(gidx[c], act[c] > 0.5, n_loc_g, n_val) for c in range(n_parts)]
         extra.update(seg_rows=as_i32(np.stack([a for a, _ in seg])),
-                     seg_offsets=as_i32(np.stack([b for _, b in seg])))
+                     seg_offsets=as_i32(np.stack([b for _, b in seg])),
+                     seg_ids=torch.stack([segment_ids(torch.from_numpy(a), torch.from_numpy(b),
+                                                      mp) for a, b in seg]).to(dev))
         if gather_mode == "rows":
             extra["gidx_rm"] = torch.tensor(gidx, dtype=torch.int64, device=dev)
     fused = (True if ell_fused is None else bool(ell_fused)) and gather_mode == "table" and deg > 1
@@ -521,7 +525,8 @@ def _sweep_cm_halo(hcm: HaloCMGraph, state: HaloCMState, cfg: GBPConfig, comm,
                 fargs=fargs, **rkw)
             *o, s_g = messages_cm_tab_ell(
                 params, tab_g[p], tab_e[p], hcm.gidx[p], jac, lp, r0, hcm.prec[p], srel, act[p],
-                *msgs, hcm.seg_rows[p], hcm.seg_offsets[p], deg=hcm.deg, **mkw)
+                *msgs, hcm.seg_rows[p], hcm.seg_offsets[p], deg=hcm.deg, seg_ids=hcm.seg_ids[p],
+                **mkw)
         else:
             lp, jac, r0, srel = relin_cm_tab(params, x_e, mean_g[p], hcm.gidx[p], hcm.z[p],
                                              fargs, *state_r, **rkw)

@@ -43,6 +43,14 @@ BA_CFG = dict(eta_damping=0.4, num_undamped_iters=6, min_linear_iters=8)
 PCFG = GBPConfig(**BA_CFG)
 JCFG = JConfig(message_form="pallas", **BA_CFG)
 
+# The reference's one sweep as one compiled program (an eager call compiles
+# each of its operations apart, about twice the time; the results agree with
+# it to roundoff).
+_jsweep = jax.jit(J.sweep, static_argnums=2)
+# The reference's ARE as one compiled program (eager, it compiles each of its
+# operations apart, seconds a graph; the value agrees to roundoff).
+_jare = jax.jit(jba.avg_reprojection_error, static_argnames="fi")
+
 
 def rel(got, ref):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
@@ -262,7 +270,7 @@ def test_build_pixel_space_matches_reference():
     from gbp_tpu.core.sweep import init_state as j_init
     from gbp_tpu_torch.core.sweep import init_state as p_init
     a = float(pba.avg_reprojection_error(pg, p_init(pg, pm)))
-    assert abs(a - float(jba.avg_reprojection_error(jg, j_init(jg, jm)))) <= 1e-10
+    assert abs(a - float(_jare(jg, j_init(jg, jm)))) <= 1e-10
     ng, nm = pba.build(sim, dtype=torch.float64, device="cpu")
     assert abs(a - float(pba.avg_reprojection_error(ng, p_init(ng, nm), k=sim["k"]))) <= 1e-9
 
@@ -303,7 +311,7 @@ def test_one_bal_sweep_matches_reference(toy_cm, start):
     jc, _, pc, pm = toy_cm
     ps = P.run(pc, P.init_state(pc, pm), PCFG, start)
     js = _jax_state(interop.cm_state_to_numpy(ps))
-    ps, js = P.sweep(pc, ps, PCFG), J.sweep(jc, js, JCFG)
+    ps, js = P.sweep(pc, ps, PCFG), _jsweep(jc, js, JCFG)
     if start:
         assert 0 < int((ps.f.srel == 0).sum()) < pc.mp  # part of the rows relinearize
     for a, b in zip(ps.f.msg_eta + ps.f.msg_lam, js.f.msg_eta + js.f.msg_lam):

@@ -40,6 +40,9 @@ JCFG = JConfig(eta_damping=0.4, num_undamped_iters=6, min_linear_iters=8, messag
 SCENE = dict(n_cams=8, n_lmks=200, pix_sigma=1.0, seed=0)
 CHUNKS = 12
 KEYS = {"metric", "value", "unit", "vs_baseline", "wall_clock_to_convergence_s", "n_factors"}
+# The reference's ARE as one compiled program (eager, it compiles each of its
+# operations apart, seconds a graph; the value agrees to roundoff).
+_jare = jax.jit(jba.avg_reprojection_error, static_argnames="fi")
 
 
 @pytest.fixture(scope="module")
@@ -55,12 +58,11 @@ def reference(sim, jdtype):
     st, ares = J.init_state(jc, jm), []
     for _ in range(CHUNKS):
         st = runj(jc, st, JCFG, headline.CHUNK)
-        ares.append(float(jba.avg_reprojection_error(jg, J.to_gbp_state(jc, st), k=sim["k"])))
+        ares.append(float(_jare(jg, J.to_gbp_state(jc, st), k=sim["k"])))
     mu = jm
     for _ in range(6):
         mu = jschur.gauss_newton_step(jg, mu, cg_iters=60)
-    are_map = float(jba.avg_reprojection_error(jg, jba.with_means(J.to_gbp_state(jc, st), mu),
-                                               k=sim["k"]))
+    are_map = float(_jare(jg, jba.with_means(J.to_gbp_state(jc, st), mu), k=sim["k"]))
     return np.array(ares), are_map
 
 

@@ -39,6 +39,14 @@ from gbp_tpu_torch.parallel import halo, halo_cm
 torch.set_num_threads(1)
 CFG = dict(eta_damping=0.4, num_undamped_iters=6, min_linear_iters=8)
 JCFG = JConfig(message_form="pallas", **CFG)
+
+# The reference's one sweep as one compiled program (an eager call compiles
+# each of its operations apart, about twice the time; the results agree with
+# it to roundoff).
+_jsweep = jax.jit(J.sweep, static_argnums=2)
+# The reference's ARE as one compiled program (eager, it compiles each of its
+# operations apart, seconds a graph; the value agrees to roundoff).
+_jare = jax.jit(jba.avg_reprojection_error, static_argnames="fi")
 PCFG = GBPConfig(**CFG)
 PRIORS = dict(cam_prior_prec=1000.0, lmk_prior_prec=1000.0)
 
@@ -104,7 +112,7 @@ def test_one_sweep_matches_reference(scene, fused):
     jc, pc = J.prepare(jg, segsum_exact=True, ell_fused=fused), P.prepare(pg, ell_fused=fused)
     assert pc.ell_fused == jc.ell_fused == (fused is None)
     st = P.run(pc, P.init_state(pc, pm), PCFG, 9)
-    ref = J.sweep(jc, jax_state(interop.cm_state_to_numpy(st)), JCFG)
+    ref = _jsweep(jc, jax_state(interop.cm_state_to_numpy(st)), JCFG)
     M.COUNTS.reset()
     got = P.sweep(pc, st, PCFG)
     for a, b in zip(got.f.msg_eta + got.f.msg_lam + (got.f.lp, got.f.jac, got.f.r0),
@@ -136,7 +144,7 @@ def test_twenty_sweeps_match_reference(fused):
     for pv, jv in zip(pgs.v, jgs.v):
         np.testing.assert_allclose(pv.mean.numpy(), np.asarray(jv.mean), atol=1e-6)
     are_p = float(pba.avg_reprojection_error(pg, pgs))
-    assert abs(are_p - float(jba.avg_reprojection_error(jg, jgs))) <= 1e-6
+    assert abs(are_p - float(_jare(jg, jgs))) <= 1e-6
     assert are_p < float(pba.avg_reprojection_error(pg, P.to_gbp_state(pc, P.init_state(pc, pm))))
 
 

@@ -55,6 +55,11 @@ from gbp_tpu_torch.utils import lie as plie
 torch.set_num_threads(1)
 G2O_FILE = "data/manhattan_sim.g2o"
 JCFG = dataclasses.replace(jpg.default_config(), message_form="pallas")
+
+# The reference's one sweep as one compiled program (an eager call compiles
+# each of its operations apart, about twice the time; the results agree with
+# it to roundoff).
+_jsweep = jax.jit(J.sweep, static_argnums=2)
 PCFG = ppg.default_config()
 T = lambda a: torch.tensor(np.asarray(a))
 
@@ -336,7 +341,7 @@ def test_one_sweep_matches_reference(sim120, mode):
     assert (pc.gather_mode, pc.ell_fused) == (jc.gather_mode, jc.ell_fused)
     ps = P.run(pc, P.init_state(pc, pm), PCFG, 11)
     js = jax_state(interop.cm_state_to_numpy(ps))
-    ps, js = P.sweep(pc, ps, PCFG), J.sweep(jc, js, JCFG)
+    ps, js = P.sweep(pc, ps, PCFG), _jsweep(jc, js, JCFG)
     n_relin = int(((ps.f.srel[0] == 0) & (pc.act[0] > 0)).sum())
     assert 0 < n_relin < int(pc.act.sum())
     for a, b in zip(ps.f.msg_eta + ps.f.msg_lam, js.f.msg_eta + js.f.msg_lam):
@@ -353,7 +358,7 @@ def test_one_windowed_sweep_matches_reference():
     ps = P.run(pc, P.init_state(pc, pm), PCFG, 6)
     js = jax_state(interop.cm_state_to_numpy(ps))
     M.COUNTS.reset()
-    ps, js = P.sweep(pc, ps, PCFG), J.sweep(jc, js, JCFG)
+    ps, js = P.sweep(pc, ps, PCFG), _jsweep(jc, js, JCFG)
     assert M.COUNTS.plain["messages_cm_tabblk_ell"] == M.COUNTS.plain["scatter_windows_cm"] == 1
     assert rel(ps.v[0].mean, js.v[0].mean) <= 1e-10
     for a, b in zip(ps.f.msg_eta + ps.f.msg_lam, js.f.msg_eta + js.f.msg_lam):

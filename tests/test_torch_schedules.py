@@ -53,6 +53,10 @@ try:  # the card's machine has no JAX: only the cuda-marked cases run there
     from gbp_tpu.core.sweep import GBPConfig as JConfig
     from gbp_tpu.models import ba as jba
     from tests.test_sweep_linear import build_chain
+
+    # The reference's ARE as one compiled program (eager, it compiles each of its
+    # operations apart, seconds a graph; the value agrees to roundoff).
+    _jare = jax.jit(jba.avg_reprojection_error, static_argnames="fi")
 except ImportError:
     jax = None
 
@@ -461,7 +465,7 @@ def test_priority_diverges_on_merged_blocks_as_in_the_reference():
                  for n in (5, 10))
     js = jax.jit(JSch.run_priority_cm, static_argnums=(3, 4))(jc, JC.init_state(jc, jm), JCFG,
                                                                10, 0.5)
-    jare = float(jba.avg_reprojection_error(jg, JC.to_gbp_state(jc, js), k=sim["k"]))
+    jare = float(_jare(jg, JC.to_gbp_state(jc, js), k=sim["k"]))
     assert are(pg, five) < are0 < are(pg, ten)
     assert abs(are(pg, ten) - jare) <= 1e-6 * jare
 

@@ -25,6 +25,8 @@ Tolerances:
     (tests/test_torch_window.py's rule);
   round trips and a resumed run: bit for bit.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -72,8 +74,23 @@ def port(name, dtype=torch.float64):
 
 
 def reference(sim, name, dtype=None):
-    jg, jm = jba.build(sim, layout="ell", dtype=dtype or jnp.float64, **PRIORS)
+    """The reference's graph, means and segmented graph of scene `name`
+    (`sim`, its simulation), built once per module and dtype: the compiled
+    sweep `_jsweep` is reused by every test of the scene."""
+    return _reference(name, dtype or jnp.float64)
+
+
+@functools.cache
+def _reference(name, dtype):
+    jg, jm = jba.build(pba.simulate_blocks(**SCENES[name][0]), layout="ell", dtype=dtype,
+                       **PRIORS)
     return jg, jm, J.prepare_seg(jg, segsum_exact=True, classes_mode=SCENES[name][1])
+
+
+# The reference's float64 sweep as one compiled program, shared by the tests
+# of this module (an eager call compiles each of its operations apart, about
+# twice the time; the results agree with it to roundoff).
+_jsweep = jax.jit(J.sweep, static_argnums=2)
 
 
 def jax_state(d, dtype=None):
@@ -206,7 +223,7 @@ def test_one_sweep_matches_reference(name):
     _, _, js = reference(sim, name)
     st = P.run(sg, P.init_state(sg, pm), PCFG, 9)
     jst = jax_state(interop.cm_state_to_numpy(st))
-    ref = J.sweep(js, jst, JConfig(message_form="pallas", **CFG))
+    ref = _jsweep(js, jst, JConfig(message_form="pallas", **CFG))
     got = P.sweep(sg, st, PCFG)
     for pv, jv in zip(got.v, ref.v):
         assert rel(pv.mean, jv.mean) <= 1e-10 and rel(pv.eta, jv.eta) <= 1e-10
@@ -227,7 +244,7 @@ def test_float32_within_reference_error(name):
     _, _, j32 = reference(sim, name, jnp.float32)
     st = P.run(sg, P.init_state(sg, pm), PCFG, 9)
     d = interop.cm_state_to_numpy(st)
-    want = J.sweep(j64, jax_state(d, jnp.float64), JConfig(message_form="pallas", **CFG))
+    want = _jsweep(j64, jax_state(d, jnp.float64), JConfig(message_form="pallas", **CFG))
     ref = J.sweep(j32, jax_state(d, jnp.float32), JConfig(message_form="pallas", **CFG))
     got = P.sweep(sg, st, PCFG)
     pairs = [(g.mean, r.mean, w.mean) for g, r, w in zip(got.v, ref.v, want.v)]

@@ -45,6 +45,10 @@ try:  # the card's machine has no JAX
     from gbp_tpu.core.sweep import GBPConfig as JConfig
     from gbp_tpu.models import ba as jba
     from gbp_tpu.models import online as JO
+
+    # The reference's ARE as one compiled program (eager, it compiles each of its
+    # operations apart, seconds a graph; the value agrees to roundoff).
+    _jare = jax.jit(jba.avg_reprojection_error, static_argnames="fi")
 except ImportError:
     jax = None
 
@@ -180,8 +184,7 @@ def test_reference_serving_stream_tail(capsys):
 
     def on_frame(i, ob):
         m = ob.graph.fblocks[0].count
-        ares.append(float(jba.avg_reprojection_error(ob.graph, ob.state,
-                                                     px_scale=np.full((m, 2), f_px))))
+        ares.append(float(_jare(ob.graph, ob.state, px_scale=np.full((m, 2), f_px))))
 
     JSrv._stream(ob, frames, sim["lmk_init"], chunk, JConfig(**CFG), 10, 16, 4, JO, jnp,
                  JSrv._make_step(JO, jax), on_frame=on_frame)

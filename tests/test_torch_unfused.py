@@ -22,6 +22,7 @@ call, so that on a machine with a card and no JAX the card cases run alone:
     python -m pytest tests/test_torch_unfused.py -m cuda --noconftest
 """
 import dataclasses
+import functools
 import types
 
 import numpy as np
@@ -61,6 +62,16 @@ def reference():
 
     return types.SimpleNamespace(jnp=jnp, J=J, JConfig=JConfig, JVar=JVar,
                                  j_kernel_params=j_kernel_params, jba=jba, jpg=jpg, mp=mp)
+
+
+@functools.cache
+def jsweep():
+    """The reference's one sweep as one compiled program (an eager call
+    compiles each of its operations apart, about twice the time; the results
+    agree with it to roundoff)."""
+    import jax
+
+    return jax.jit(reference().J.sweep, static_argnums=2)
 
 
 def jax_state(d):
@@ -224,7 +235,7 @@ def test_messages_cm_tab_plain_matches_reference(setup, huber):
 def test_one_unfused_sweep_matches_reference(setup):
     _, _, pc, pcfg, st, ref = setup
     M.COUNTS.reset()
-    ps, js = P.sweep(pc, st, pcfg), reference().J.sweep(ref["jc"], ref["jst"], ref["jcfg"])
+    ps, js = P.sweep(pc, st, pcfg), jsweep()(ref["jc"], ref["jst"], ref["jcfg"])
     assert M.COUNTS.plain == {k: int(k in UNFUSED) for k in M.KERNELS}
     assert M.COUNTS.kernel == dict.fromkeys(M.KERNELS, 0)
     for a, b in zip(ps.f.msg_eta + ps.f.msg_lam, js.f.msg_eta + js.f.msg_lam):

@@ -58,6 +58,13 @@ except ImportError:
 torch.set_num_threads(1)
 CFG = dict(eta_damping=0.4, num_undamped_iters=6, min_linear_iters=8)
 JCFG = None if jax is None else JConfig(message_form="pallas", **CFG)
+# The reference's one sweep as one compiled program (an eager call compiles
+# each of its operations apart, about twice the time; the results agree with
+# it to roundoff).
+_jsweep = None if jax is None else jax.jit(J.sweep, static_argnums=2)
+# The reference's ARE as one compiled program (eager, it compiles each of its
+# operations apart, seconds a graph; the value agrees to roundoff).
+_jare = None if jax is None else jax.jit(jba.avg_reprojection_error, static_argnames="fi")
 PCFG = GBPConfig(**CFG)
 BETA = GBPConfig().beta
 PRIORS = dict(cam_prior_prec=1000.0, lmk_prior_prec=1000.0)
@@ -400,7 +407,7 @@ def test_one_windowed_sweep_matches_reference(f64, start):
     ps = P.run(pc, P.init_state(pc, pm), PCFG, start)
     js = jax_state(interop.cm_state_to_numpy(ps))
     M.COUNTS.reset()
-    ps, js = P.sweep(pc, ps, PCFG), J.sweep(jc, js, JCFG)
+    ps, js = P.sweep(pc, ps, PCFG), _jsweep(jc, js, JCFG)
     windowed = ("relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
                 "scatter_windows_cm")
     assert M.COUNTS.plain == {k: int(k in windowed) for k in M.KERNELS}
@@ -434,7 +441,8 @@ def test_f32_are_after_fifteen_windowed_sweeps(sim280, f64):
     runj = jax.jit(J.run, static_argnums=3)
     are_j = lambda g, c, s: float(jba.avg_reprojection_error(g, J.to_gbp_state(c, s),
                                                              k=sim280["k"]))
-    exact = are_j(jg64, jc64, runj(jc64, J.init_state(jc64, jm64), JCFG, 15))
+    exact = float(_jare(jg64, J.to_gbp_state(jc64, runj(jc64, J.init_state(jc64, jm64), JCFG,
+                                                        15)), k=sim280["k"]))
     port64 = float(pba.avg_reprojection_error(
         pg64, P.to_gbp_state(pc64, P.run(pc64, P.init_state(pc64, pm64), PCFG, 15)),
         k=sim280["k"]))

@@ -23,6 +23,7 @@ The CUDA kernels run only on a card: the `cuda`-marked case holds them
 against these plain versions there; chip_smoke.py does so at city scale.
 """
 import dataclasses
+import functools
 import types
 
 import numpy as np
@@ -67,6 +68,21 @@ def reference():
 
     return types.SimpleNamespace(jax=jax, jnp=jnp, J=J, JConfig=JConfig, JVar=JVar,
                                  j_kernel_params=j_kernel_params, jba=jba, jpg=jpg, mp=mp)
+
+
+@functools.cache
+def jsweep():
+    """The reference's one sweep as one compiled program (an eager call
+    compiles each of its operations apart, about twice the time; the results
+    agree with it to roundoff)."""
+    return reference().jax.jit(reference().J.sweep, static_argnums=2)
+
+
+@functools.cache
+def jare():
+    """The reference's ARE as one compiled program (eager, it compiles each
+    of its operations apart, seconds a graph; the value agrees to roundoff)."""
+    return reference().jax.jit(reference().jba.avg_reprojection_error, static_argnames="fi")
 
 
 def jax_state(d, jdt=None):
@@ -231,7 +247,7 @@ def test_one_unfused_windowed_sweep_matches_reference(ba_both, start):
     js = jax_state(interop.cm_state_to_numpy(ps))
     M.COUNTS.reset()
     ps = P.sweep(pc, ps, PCFG)
-    js = r.J.sweep(jc, js, r.JConfig(message_form="pallas", **BA_CFG))
+    js = jsweep()(jc, js, r.JConfig(message_form="pallas", **BA_CFG))
     assert {k: v for k, v in M.COUNTS.plain.items() if v} == dict.fromkeys(UNFUSED_WIN, 1)
     for a, b in zip(ps.f.msg_eta + ps.f.msg_lam, js.f.msg_eta + js.f.msg_lam):
         assert rel(a, b) <= 1e-10
@@ -257,7 +273,7 @@ def test_fifteen_unfused_windowed_sweeps_track_reference_and_fused(ba_both):
     for pv, jv in zip(su.v, js.v):
         assert np.abs(pv.mean.numpy() - np.asarray(jv.mean)).max() <= 1e-4
     are = float(pba.avg_reprojection_error(pg, P.to_gbp_state(pu, su), k=sim["k"]))
-    are_ref = float(r.jba.avg_reprojection_error(jg, r.J.to_gbp_state(jc, js), k=sim["k"]))
+    are_ref = float(jare()(jg, r.J.to_gbp_state(jc, js), k=sim["k"]))
     assert abs(are - are_ref) <= 1e-4
 
 
@@ -303,7 +319,7 @@ def test_degree_one_prepare_matches_reference():
     js = jax_state(interop.cm_state_to_numpy(ps))
     M.COUNTS.reset()
     ps = P.sweep(pc, ps, PCFG)
-    js = r.J.sweep(jc, js, r.JConfig(message_form="pallas", **BA_CFG))
+    js = jsweep()(jc, js, r.JConfig(message_form="pallas", **BA_CFG))
     assert {k: v for k, v in M.COUNTS.plain.items() if v} == dict.fromkeys(UNFUSED_WIN, 1)
     for a, b in zip(ps.f.msg_eta + ps.f.msg_lam, js.f.msg_eta + js.f.msg_lam):
         assert rel(a, b) <= 1e-10
