@@ -3514,7 +3514,7 @@ def utilities_path(card):
         # again, up to 3 times, until every kernel of the path is named.
         for attempt in range(1, 4):
             logdir = tmp / f"trace{attempt}"
-            with profiling.trace(logdir), profiling.nvtx_range("three sweeps"):
+            with profiling.trace(logdir):
                 sync(sweep_cm.run(cmg, mid, CFG, 3))
             files = list(logdir.glob("*.pt.trace.json"))
             events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []

@@ -126,6 +126,7 @@ from gbp_tpu_torch.ops.messages import (
     window_block_csr,
     window_rows_csr,
 )
+from gbp_tpu_torch.utils.profiling import span
 from gbp_tpu_torch.utils.smalllinalg import scaled_sym_solve
 
 # Rows are padded to a multiple of lcm(ROW_ALIGN, deg), the reference's
@@ -344,49 +345,50 @@ def prepare(graph: Graph, gather_mode: str = "auto", segsum_exact: bool = True,
     edge_pad = lambda a: np.pad(a, (0, pad), mode="edge") if pad else a
     win, rowperm, order = None, None, None
     fused = deg > 1 if ell_fused is None else bool(ell_fused)
-    if gather_mode in ("auto", "table"):
-        if window:
-            win = _windows(edge_pad(gidx), n_cam, itemsize, width)
-            if win is None and not same_block:
-                # The natural landmark order is not camera-local (random
-                # numbering: real BAL files, the corridor scenes): sort the
-                # ELL groups (blocks of `deg` rows) by their lowest camera
-                # id and try again.  Same-block graphs get windows in their
-                # natural order only (chain numbering is already local).
-                n_ell = m // deg
-                order = np.argsort(gidx.reshape(n_ell, deg).min(1), kind="stable")
-                rowperm = (order[:, None] * deg + np.arange(deg)).reshape(-1)
-                win = _windows(edge_pad(gidx[rowperm]), n_cam, itemsize, width)
-                if win is None:
-                    rowperm = order = None
-        fits = n_cam * width * itemsize <= SMEM_TABLE_BYTES
-        gather_mode = "table" if win is not None or fits else "rows"
+    with span("sweep_cm.prepare.windows"):
+        if gather_mode in ("auto", "table"):
+            if window:
+                win = _windows(edge_pad(gidx), n_cam, itemsize, width)
+                if win is None and not same_block:
+                    # The natural landmark order is not camera-local (random
+                    # numbering: real BAL files, the corridor scenes): sort the
+                    # ELL groups (blocks of `deg` rows) by their lowest camera
+                    # id and try again.  Same-block graphs get windows in their
+                    # natural order only (chain numbering is already local).
+                    n_ell = m // deg
+                    order = np.argsort(gidx.reshape(n_ell, deg).min(1), kind="stable")
+                    rowperm = (order[:, None] * deg + np.arange(deg)).reshape(-1)
+                    win = _windows(edge_pad(gidx[rowperm]), n_cam, itemsize, width)
+                    if win is None:
+                        rowperm = order = None
+            fits = n_cam * width * itemsize <= SMEM_TABLE_BYTES
+            gather_mode = "table" if win is not None or fits else "rows"
 
-    as_i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
-    as_i64 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=dev)
-    extra = {}
-    if rowperm is not None:
-        vb_l = graph.vblocks[fb.vblocks[e]]
-        if m // deg != vb_l.count:
-            raise AssertionError("the ELL layout does not cover every landmark")
-        gidx = gidx[rowperm]
-        vperm = as_i64(order)
-        # The sort relabels the landmark block: its priors, and with them
-        # the resident beliefs, live in sorted order, so a sweep pays
-        # nothing for it.
-        vblocks = list(graph.vblocks)
-        vblocks[fb.vblocks[e]] = dataclasses.replace(
-            vb_l, prior_eta=vb_l.prior_eta[vperm], prior_lam=vb_l.prior_lam[vperm])
-        graph = dataclasses.replace(graph, vblocks=tuple(vblocks))
-        extra.update(vperm=vperm, vinv=as_i64(np.argsort(order)), rowperm=as_i64(rowperm))
-    gidx = edge_pad(gidx)
-    if win is not None:
-        starts, w, ncpad = win
-        win_rows, win_offsets = window_rows_csr(gidx, starts, w)
-        blk_tiles, blk_offsets = window_block_csr(starts, w, n_cam)
-        extra.update(win_w=int(w), win_ncpad=int(ncpad), win_starts=as_i32(starts),
-                     win_rows=as_i32(win_rows), win_offsets=as_i32(win_offsets),
-                     blk_tiles=as_i32(blk_tiles), blk_offsets=as_i32(blk_offsets))
+        as_i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
+        as_i64 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=dev)
+        extra = {}
+        if rowperm is not None:
+            vb_l = graph.vblocks[fb.vblocks[e]]
+            if m // deg != vb_l.count:
+                raise AssertionError("the ELL layout does not cover every landmark")
+            gidx = gidx[rowperm]
+            vperm = as_i64(order)
+            # The sort relabels the landmark block: its priors, and with them
+            # the resident beliefs, live in sorted order, so a sweep pays
+            # nothing for it.
+            vblocks = list(graph.vblocks)
+            vblocks[fb.vblocks[e]] = dataclasses.replace(
+                vb_l, prior_eta=vb_l.prior_eta[vperm], prior_lam=vb_l.prior_lam[vperm])
+            graph = dataclasses.replace(graph, vblocks=tuple(vblocks))
+            extra.update(vperm=vperm, vinv=as_i64(np.argsort(order)), rowperm=as_i64(rowperm))
+        gidx = edge_pad(gidx)
+        if win is not None:
+            starts, w, ncpad = win
+            win_rows, win_offsets = window_rows_csr(gidx, starts, w)
+            blk_tiles, blk_offsets = window_block_csr(starts, w, n_cam)
+            extra.update(win_w=int(w), win_ncpad=int(ncpad), win_starts=as_i32(starts),
+                         win_rows=as_i32(win_rows), win_offsets=as_i32(win_offsets),
+                         blk_tiles=as_i32(blk_tiles), blk_offsets=as_i32(blk_offsets))
 
     # CSR of the valid rows by camera id, in row order (ascending within a
     # camera): the fixed summation order that makes the camera-side sum

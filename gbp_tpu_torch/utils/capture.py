@@ -21,13 +21,17 @@ that allocates, copies or synchronizes, or depend on a Python value that
 changes from call to call (it is baked into the graph).  The prepare steps
 read the host and run before the capture.  `ops.messages.COUNTS` counts
 Python calls: under capture it counts the warm-up and the captured steps
-once; count what a replay launches with the profiler.
+once; count what a replay launches with the profiler.  The set-up span
+`capture.capture` (`utils.profiling.span`) times the warm-up step and the
+capture.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from gbp_tpu_torch.utils.profiling import span
 
 
 def tensors(obj) -> list:
@@ -123,5 +127,6 @@ class CapturedRun:
         return state
 
     def _capture(self):
-        return capture(lambda: write_back(self.state, self._steps(self.state)),
-                       lambda: self.step(map_tensors(torch.clone, self.state)))
+        with span("capture.capture"):
+            return capture(lambda: write_back(self.state, self._steps(self.state)),
+                           lambda: self.step(map_tensors(torch.clone, self.state)))

@@ -1,9 +1,25 @@
 """Profiling and timing helpers (counterpart of gbp_tpu/utils/profiling.py,
 whose traces are jax.profiler's): a `torch.profiler` trace, the sweep rate of
-a run function, and NVTX ranges for the card's timeline.
+a run function, and the port's set-up spans.
+
+Spans time the set-up steps that run once per prepared graph or capture:
+
+    with span("capture.capture"):
+        ...
+    recorded()  # [(name, start_ns, end_ns)], as they ended
+    reset()     # forget them
+
+A span records every time it runs (two clock reads and an append), so none
+sits on the path a sweep or a solve repeats.  The newest `SPAN_CAPACITY`
+spans are kept in memory.  Stamps are `time.time_ns()`, Unix nanoseconds,
+the clock of the profiler's own events (`_KinetoEvent.start_ns()`), so a
+span lines up with a trace taken in the same process.  A span emits nothing
+into that trace: no `record_function`, NVTX range, CUDA event or
+synchronization.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 
@@ -11,6 +27,30 @@ import torch
 from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
 from gbp_tpu_torch import resolve_device
+
+SPAN_CAPACITY = 65536
+
+_spans = collections.deque(maxlen=SPAN_CAPACITY)
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """Record the block as the span `name` (see the module docstring)."""
+    start = time.time_ns()
+    try:
+        yield
+    finally:
+        _spans.append((name, start, time.time_ns()))
+
+
+def recorded() -> list:
+    """The kept spans in the order they ended: (name, start_ns, end_ns)."""
+    return list(_spans)
+
+
+def reset() -> None:
+    """Forget every recorded span."""
+    _spans.clear()
 
 
 @contextlib.contextmanager
@@ -63,18 +103,3 @@ def time_sweeps(run_fn, graph, state, cfg, n_iters: int, warmup: int = 5):
         state = run_fn(graph, state, cfg, n_iters)
         seconds = time.perf_counter() - t0
     return n_iters / seconds, state
-
-
-@contextlib.contextmanager
-def nvtx_range(name: str, device=None):
-    """An NVTX range named `name` around the block on the card's timeline
-    (seen by the profiler and Nsight); nothing on the CPU.  `device` None:
-    the card."""
-    if resolve_device(device).type != "cuda":
-        yield
-        return
-    torch.cuda.nvtx.range_push(name)
-    try:
-        yield
-    finally:
-        torch.cuda.nvtx.range_pop()
