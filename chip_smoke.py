@@ -380,6 +380,13 @@ non-zero; no phase is caught):
      scaling (1, 2 and 4 partitions, paths halo and halo_cm: every column
      finite) and window_profile (fused and unfused: every stage finite),
      each through its `main`.
+ 33. the belief update (`ops.messages.update_beliefs`, csrc/beliefs.cu) on
+     the operands a sweep hands it at bench64 (8,000 landmarks and 7,999:
+     one padding landmark) and at the venice1778 cell's scene (BAL
+     Venice-1778's counts, ELL degree 6), float32: the kernel against its
+     plain version on the card (eta, lam and mean to the float32 tolerance),
+     a rerun bit for bit; its launch plan, wrapper ms, device ms, bound ms
+     (every operand it reads and writes once over 3.35 TB/s) and share.
 """
 import contextlib
 import dataclasses
@@ -440,6 +447,9 @@ WINDOWED = ("relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "scatter_windows_cm
 ROWS = ("messages_cm", "relin_cm", "fused_messages", "fused_relin_messages")
 UNFUSED = ("relin_cm_tab", "messages_cm_tab", "expand_ell_blk")
 UNFUSED_WIN = ("relin_cm_tabblk", "messages_cm_tabblk")
+# The belief update, once a sweep on a single-segment graph whose two slots
+# lie on two variable blocks (bundle adjustment), whatever the gather mode.
+BELIEFS = ("update_beliefs",)
 # One sweep of the windowed unfused path.
 UNFUSED_WIN_PATH = (*UNFUSED_WIN, "expand_ell_blk", "segsum_cm_blk", "scatter_windows_cm")
 ROWS_MODE = ("relin_cm", "messages_cm", "segsum_by_id", "expand_ell_blk")
@@ -494,7 +504,8 @@ SOURCE = {**dict.fromkeys(FULL, "gbp_tpu_torch/csrc/messages.cu"),
           **dict.fromkeys(ROWS, "gbp_tpu_torch/csrc/rows.cu"),
           **dict.fromkeys(UNFUSED, "gbp_tpu_torch/csrc/unfused.cu"),
           **dict.fromkeys(UNFUSED_WIN, "gbp_tpu_torch/csrc/unfused_win.cu"),
-          **dict.fromkeys(HALO_KERNELS, "gbp_tpu_torch/csrc/halo.cuh")}
+          **dict.fromkeys(HALO_KERNELS, "gbp_tpu_torch/csrc/halo.cuh"),
+          "update_beliefs": "gbp_tpu_torch/csrc/beliefs.cu"}
 REPLACES = {
     "relin_cm_tab_ell": "gbp_tpu/ops/messages_pallas.py:1118",
     "messages_cm_tab_ell": "gbp_tpu/ops/messages_pallas.py:1054",
@@ -516,6 +527,8 @@ REPLACES = {
     "relin_cm_tabblkg": "gbp_tpu/ops/messages_pallas.py:1396",
     "messages_cm_tabblkg_ell": "gbp_tpu/ops/messages_pallas.py:1700",
     "relin_cm_tabblkg_ell": "gbp_tpu/ops/messages_pallas.py:1748",
+    # The port's own kernel: the reference updates beliefs in XLA.
+    "update_beliefs": "gbp_tpu/core/sweep_cm.py (XLA, no Pallas kernel)",
 }
 # The card's published peaks (H100 SXM data sheet): device memory rate and
 # float32 rate outside the tensor cores.
@@ -1861,7 +1874,7 @@ def window_vs_full():
     graph, means = ba.build(sim, dtype=torch.float32, **BIG)
     n = 15
     ares, states = {}, {}
-    for window, names in ((True, WINDOWED), (False, FULL)):
+    for window, names in ((True, (*WINDOWED, *BELIEFS)), (False, (*FULL, *BELIEFS))):
         cmg = sweep_cm.prepare(graph, window=window)
         if bool(cmg.win_w) != window or (cmg.vperm is not None) != window:
             raise AssertionError(f"prepare(window={window}) gave win_w {cmg.win_w}")
@@ -1929,7 +1942,7 @@ def bench_path(card):
     t0 = time.perf_counter()
     state = sync(sweep_cm.run(cmg, init, CFG, SWEEPS))
     t_first = time.perf_counter() - t0
-    launches = check_counts("the bench path", FULL, SWEEPS)
+    launches = check_counts("the bench path", (*FULL, *BELIEFS), SWEEPS)
     print(f"[main] {SWEEPS} sweeps (first call) in {t_first:.3f} s; launches {launches}; "
           f"plain calls 0")
     hold_fold_path("main", lambda: sweep_cm.sweep(cmg, state, CFG))
@@ -1977,7 +1990,7 @@ def big_path(tag, scene, card, against_plain):
     t0 = time.perf_counter()
     state = sync(sweep_cm.run(cmg, init, CFG, QUALITY_SWEEPS))
     t_first = time.perf_counter() - t0
-    launches = check_counts(f"the {tag} path", WINDOWED, QUALITY_SWEEPS)
+    launches = check_counts(f"the {tag} path", (*WINDOWED, *BELIEFS), QUALITY_SWEEPS)
     are = are_px(graph, cmg, state, sim["k"])
     print(f"[{tag}] {QUALITY_SWEEPS} sweeps (first call) in {t_first:.3f} s; launches "
           f"{launches}; plain calls 0; ARE {are:.6f} px")
@@ -2136,7 +2149,7 @@ def rows_path(card):
           f"{sweep_cm.SMEM_TABLE_BYTES}), {sim['lmk_init'].shape[0]} lmks, {n_valid} factors in "
           f"{cmg.mp} rows (deg {cmg.fb.ell_deg}); gather_mode {cmg.gather_mode!r}; initial ARE "
           f"{are0:.6f} px")
-    names = ROWS_MODE
+    names = (*ROWS_MODE, *BELIEFS)
     M.COUNTS.reset()
     st50 = sync(sweep_cm.run(cmg, init, CFG, QUALITY_SWEEPS))
     launches = check_counts("the rows path", names, QUALITY_SWEEPS)
@@ -2185,7 +2198,8 @@ def rows_path(card):
         t0 = time.perf_counter()
         st = sync(sweep_cm.run(cmg, init, CFG, QUALITY_SWEEPS))
         dt = time.perf_counter() - t0
-        check_counts(f"bench64 {mode}", FULL if mode == "table" else names, QUALITY_SWEEPS)
+        check_counts(f"bench64 {mode}", (*FULL, *BELIEFS) if mode == "table" else names,
+                     QUALITY_SWEEPS)
         ares[mode] = are_px(graph, cmg, st, sim["k"])
         print(f"[rows] bench64 gather_mode {mode!r}: {QUALITY_SWEEPS} sweeps in {dt:.4f} s "
               f"({QUALITY_SWEEPS / dt:.2f} sweeps/s), ARE {ares[mode]:.6f} px")
@@ -2201,7 +2215,8 @@ def unfused_path(card):
     n_valid = graph.fblocks[0].n_valid
     n = QUALITY_SWEEPS
     out = {}
-    for fused, names in ((True, FULL), (False, (*UNFUSED, "segsum_by_id"))):
+    for fused, names in ((True, (*FULL, *BELIEFS)),
+                         (False, (*UNFUSED, "segsum_by_id", *BELIEFS))):
         cmg = sweep_cm.prepare(graph, ell_fused=fused)
         if cmg.ell_fused != fused or cmg.gather_mode != "table" or cmg.win_w:
             raise AssertionError(f"prepare(ell_fused={fused}) gave ell_fused {cmg.ell_fused}, "
@@ -2248,7 +2263,8 @@ def unfused_big_path(tag, scene, card, fused):
     t0 = time.perf_counter()
     state = sync(sweep_cm.run(cmg, init, CFG, QUALITY_SWEEPS))
     dt = time.perf_counter() - t0
-    launches = check_counts(f"the {tag} unfused path", UNFUSED_WIN_PATH, QUALITY_SWEEPS)
+    launches = check_counts(f"the {tag} unfused path", (*UNFUSED_WIN_PATH, *BELIEFS),
+                            QUALITY_SWEEPS)
     are = are_px(graph, cmg, state, sim["k"])
     print(f"[{tag}_unfused] {n_valid} factors in {cmg.mp} rows, win_w {cmg.win_w}: "
           f"{QUALITY_SWEEPS} sweeps, launches { {k: launches[k] for k in UNFUSED_WIN_PATH} }; "
@@ -2278,7 +2294,8 @@ def bal_path(card):
         argv = ["--bal_file", str(LADYBUG), "--n_iters", "100", "--oracle", *extra.split()]
         M.COUNTS.reset()
         res = ba_cli.main(argv)
-        launches = check_counts(f"ladybug49 {extra or 'fixed intrinsics'}", FULL, 100)
+        launches = check_counts(f"ladybug49 {extra or 'fixed intrinsics'}", (*FULL, *BELIEFS),
+                                100)
         final, are_map = res["are"][-1][1], res["are_map"]
         ref = LADYBUG_REFERENCE_CPU[extra]
         print(f"[bal] ladybug49 {extra or '(fixed intrinsics)'}: launches "
@@ -2315,7 +2332,7 @@ def annealed_city(card):
     t0 = time.perf_counter()
     st = sync(anneal.run_annealed_cm(cmg, init, CFG, QUALITY_SWEEPS))
     dt = time.perf_counter() - t0
-    check_counts("annealed city", WINDOWED, QUALITY_SWEEPS)
+    check_counts("annealed city", (*WINDOWED, *BELIEFS), QUALITY_SWEEPS)
     are = are_px(graph, cmg, st, sim["k"])
     print(f"[anneal] city, {QUALITY_SWEEPS} annealed sweeps in {dt:.3f} s (first call): ARE "
           f"{are0:.6f} -> {are:.6f} px ({card})")
@@ -2325,11 +2342,12 @@ def annealed_city(card):
 
 def mode_kernels(cmg):
     """The kernels one sweep of the prepared graph launches, once each."""
+    beliefs = BELIEFS if len(set(cmg.fb.vblocks)) == 2 else ()
     if cmg.gather_mode != "table":
-        return ROWS_MODE
+        return (*ROWS_MODE, *beliefs)
     if not cmg.ell_fused:
-        return UNFUSED_WIN_PATH if cmg.win_w else (*UNFUSED, "segsum_by_id")
-    return WINDOWED if cmg.win_w else FULL
+        return (*(UNFUSED_WIN_PATH if cmg.win_w else (*UNFUSED, "segsum_by_id")), *beliefs)
+    return (*(WINDOWED if cmg.win_w else FULL), *beliefs)
 
 
 def pose_run(tag, graph, means, truth, n, card, prep_kw=None, timed=False, gate=1.0):
@@ -3041,7 +3059,7 @@ def cm_schedules(tag, sim, graph, means, cmg, kinds, n, card, are_map, report):
     init = sweep_cm.init_state(cmg, means)
     are_of = lambda st: are_px(graph, cmg, st, sim["k"])
     are0 = are_of(init)
-    names = FULL if not cmg.win_w else WINDOWED
+    names = (*(FULL if not cmg.win_w else WINDOWED), *BELIEFS)
     n_valid = graph.fblocks[0].n_valid
     valid = (cmg.act[0] > 0.5,)
     sync_run = lambda k: sweep_cm.run(cmg, init, CFG, k)
@@ -3090,7 +3108,7 @@ def schedules_path(card):
     are_map = map_are(graph, sweep_cm.to_gbp_state(cmg, init), means, sim["k"])
     M.COUNTS.reset()
     below = sync(schedules.run_wildfire_cm(cmg, init, CFG, SWEEPS, -1.0))
-    check_counts("bench64 wildfire tau < 0", FULL, SWEEPS)
+    check_counts("bench64 wildfire tau < 0", (*FULL, *BELIEFS), SWEEPS)
     same_state(f"bench64: wildfire with tau < 0 and the synchronous run, {SWEEPS} sweeps",
                below, sync(sweep_cm.run(cmg, init, CFG, SWEEPS)))
     print(f"[schedules] bench64: run_wildfire_cm(tau=-1) equals sweep_cm.run bit for bit after "
@@ -3478,7 +3496,8 @@ def utilities_path(card):
             sync(sweep.run(graph, g_init, pallas, RESUME_AT)), g_init,
             {"fused_relin_messages": 1, "fused_messages": 1, "segsum_by_id": 1}, pallas)
         out["fast"] = resume(
-            "bench64 fast path", tmp / "fast", sweep_cm.run, cmg, mid, as_gbp(init), FULL,
+            "bench64 fast path", tmp / "fast", sweep_cm.run, cmg, mid, as_gbp(init),
+            (*FULL, *BELIEFS),
             to_saved=as_gbp, from_saved=lambda st: sweep_cm.from_gbp_state(cmg, st),
             compared=lambda st: (as_gbp(st), tuple(v.mean for v in st.v)))
         city = ba.simulate_blocks(**CITY)
@@ -3627,7 +3646,7 @@ def sfm_path(card):
     cmg = sweep_cm.prepare(graph, segsum_exact=True)
     M.COUNTS.reset()
     st = sync(sweep_cm.run(cmg, sweep_cm.init_state(cmg, means), sfm_example.CFG, n))
-    check_counts("sfm fast path", FULL, n)
+    check_counts("sfm fast path", (*FULL, *BELIEFS), n)
     a_fast = are_of(sweep_cm.to_gbp_state(cmg, st))
     print(f"[sfm] bootstrapped problem ({graph.fblocks[0].n_valid} factors, ELL deg "
           f"{graph.fblocks[0].ell_deg}), {n} sweeps: ARE {a_pallas:.6f} px under \"pallas\" "
@@ -4173,8 +4192,8 @@ def ell_cameras_path(card):
         # Kernels 1, 2 and 3 once a sweep on each partition (the 16 x 12 scene
         # has no windows), no other kernel and no plain call.
         parts = int(extra[1]) if extra else 1
-        check_counts(f"--n_cams 16 --n_lmks 12 {' '.join(extra)}", FULL,
-                     res["are"][-1][0] * parts)
+        check_counts(f"--n_cams 16 --n_lmks 12 {' '.join(extra)}",
+                     FULL if extra else (*FULL, *BELIEFS), res["are"][-1][0] * parts)
         if not (math.isfinite(final) and final <= 1.05 * are_map):
             raise AssertionError(f"--n_cams 16 --n_lmks 12 {extra}: ARE {final} vs {are_map}")
     print(f"[cams in ELL] phase 31 took {time.perf_counter() - t_phase:.1f} s")
@@ -4243,6 +4262,77 @@ def replay_records(fn, n=3):
         if names:
             return {k: v / n for k, v in names.items()}, launches / n, dev_us / 1e3 / n
     raise RuntimeError("the profiler recorded no device activity in 5 windows")
+
+
+# The venice1778 cell's scene (benchmark/configs/venice1778.json): 127
+# corridors of 14 cameras, 993,186 landmarks, 5,001,729 observations.
+VENICE1778 = dict(n_blocks=127, n_cams=14, lmks_per_cam=562, window=3, wall_dist=4.77, seed=1,
+                  shuffle=True)
+
+
+def belief_operands(cmg, state):
+    """(args, deg) that one sweep from `state` hands `update_beliefs`."""
+    seen = []
+
+    def record(*args, deg):
+        seen.append((args, deg))
+        return M.update_beliefs_plain(*args, deg=deg)
+
+    real, sweep_cm.update_beliefs = sweep_cm.update_beliefs, record
+    try:
+        sync(sweep_cm.sweep(cmg, state, CFG))
+    finally:
+        sweep_cm.update_beliefs = real
+    (op,) = seen
+    return op
+
+
+def beliefs_path(card, timings=None, errs=None):
+    """Phase 33: the belief-update kernel against its plain version on the
+    card at bench64 (with and without a padding landmark) and venice1778,
+    float32, with its launch plan, device ms, bound and share.  The bench64
+    row lands in `timings` and `errs`."""
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    errs = {} if errs is None else errs
+    scenes = (("bench64", lambda: ba.build(ba.simulate(**BENCH), dtype=f32)),
+              ("bench64 7,999", lambda: ba.build(ba.simulate(**{**BENCH, "n_lmks": 7999}),
+                                                 dtype=f32)),
+              ("venice1778", lambda: ba.build(ba.simulate_blocks(**VENICE1778), dtype=f32, **BIG)))
+    for tag, build in scenes:
+        graph, means = build()
+        cmg = sweep_cm.prepare(graph)
+        st = sync(sweep_cm.run(cmg, sweep_cm.init_state(cmg, means), CFG, 3))
+        args, deg = belief_operands(cmg, st)
+        me, ml, sum_c, pe, pl, pe_c, pl_c = args
+        kern = lambda: M.update_beliefs(*args, deg=deg)
+        got, again = sync(kern()), sync(kern())
+        if not all(torch.equal(a, b) for a, b in zip(got[0] + got[1], again[0] + again[1])):
+            raise AssertionError(f"beliefs {tag}: two runs of the kernel differ")
+        ref = sync(M.update_beliefs_plain(*args, deg=deg))
+        make_compare(f"beliefs {tag}", TOL[f32], errs)(
+            "update_beliefs", got[0] + got[1], ref[0] + ref[1], key="update_beliefs")
+        (n_l, d_e), (n_c, d_g) = pe.shape, pe_c.shape
+        plan = M.belief_plan(f32, d_e=d_e, d_g=d_g, deg=deg, n_l=n_l, n_c=n_c)
+        # Read once: the real variables' message rows, the priors, the
+        # gathered sums; written once: both blocks' eta, lam and mean.
+        nbytes = 4 * (n_l * deg * (d_e + d_e * d_e) + sum_c.numel() + pe.numel() + pl.numel()
+                      + pe_c.numel() + pl_c.numel()
+                      + sum(t.numel() for t in got[0] + got[1]))
+        ms, plain_ms = time_ms(kern, 20), time_ms(lambda: M.update_beliefs_plain(*args, deg=deg),
+                                                  3)
+        dev = device_ms(kern, 20)
+        b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        print(f"[beliefs] {tag}: {n_l} ELL variables of degree {deg} (mp {me.shape[1]}), {n_c} "
+              f"gathered; plan {plan}; wrapper {ms:.4f} ms, device {dev:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({nbytes / 1e6:.1f} MB once), share "
+              f"{b_ms / dev:.3f} ({card})")
+        if tag == "bench64" and timings is not None:
+            timings["update_beliefs"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                             bound_by="bytes", library_ms=None)
+        del graph, means, cmg, st, args, got, again, ref
+        torch.cuda.empty_cache()
+    print(f"[beliefs] took {time.perf_counter() - t_phase:.1f} s")
 
 
 def bench_layer_path(card):
@@ -4426,7 +4516,7 @@ def main():
     if any(venice[k] != city[k] for k in WINDOWED):
         raise AssertionError(f"venice launches {venice} differ from the city's {city}")
     unfused_big_path("venice", VENICE, card, venice_fused)
-    launches = {**{k: launches[k] for k in FULL}, **{k: city[k] for k in WINDOWED},
+    launches = {**{k: launches[k] for k in (*FULL, *BELIEFS)}, **{k: city[k] for k in WINDOWED},
                 **{k: city_unfused[k] for k in (*UNFUSED_WIN, "segsum_cm_blk")}}
     torch.cuda.empty_cache()
     annealed_city(card)
@@ -4459,6 +4549,7 @@ def main():
     seg_path(card)
     ell_cameras_path(card)
     bench_layer_path(card)
+    beliefs_path(card, timings, errs)
     launches.update({k: generic[k] for k in ROWS[2:]}, **{k: rows[k] for k in ROWS[:2]},
                     **{k: unfused[k] for k in (*UNFUSED, "segsum_by_id")})
     print(f"[done] {time.perf_counter() - T_START:.1f} s")

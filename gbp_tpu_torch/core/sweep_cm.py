@@ -36,8 +36,9 @@ the ELL slot fused (`ell_fused`, the default at ELL degree > 1) one sweep is:
      id and landmark means at row // deg;
   3. `messages_cm_tab_ell`: covariance-form messages, plus the camera-side
      sum of the new camera messages (`segsum_by_id`);
-  4. belief updates: landmarks by a reshape-sum over the degree axis,
-     cameras from the segment sum, means by `scaled_sym_solve`.
+  4. belief updates (`update_beliefs`, one launch): landmarks summed over
+     their rows, cameras from the segment sum, means by `scaled_sym_solve`'s
+     closed forms.
 
 Large scenes (city, venice): the packed camera table no longer fits one
 block's shared memory, so `prepare(window=True)` gives every tile of
@@ -108,6 +109,8 @@ from gbp_tpu_torch.ops.messages import (
     SMEM_WINDOW_BYTES,
     TABLE_SHAPES,
     TILE,
+    belief_plain,
+    ell_sum_plain,
     expand_ell_blk,
     messages_cm,
     messages_cm_tab,
@@ -123,6 +126,7 @@ from gbp_tpu_torch.ops.messages import (
     segment_ids,
     segsum_by_id,
     segsum_cm_blk,
+    update_beliefs,
     window_block_csr,
     window_rows_csr,
 )
@@ -652,24 +656,26 @@ def sweep(cmg: CMGraph | CMSegGraph, state: CMState, cfg: GBPConfig,
 
 def _update_beliefs(cmg: CMGraph, state: CMState, fs: CMFactorState,
                     sum_c: torch.Tensor) -> CMState:
-    """Beliefs = priors + message sums: the ELL slot by the reshape-sum over
-    the degree axis, the gathered slot from `sum_c` [d_g + d_g * d_g, n_cam]
-    (`_new_beliefs`)."""
+    """Beliefs = priors + message sums: the ELL slot summed over each
+    variable's `deg` rows, the gathered slot from `sum_c` [d_g + d_g * d_g,
+    n_cam].  With the slots on two variable blocks both updates are one
+    `update_beliefs` call (its kernel on the card); on one block (pose
+    graphs) `_new_beliefs` adds both sums onto that block."""
     fb = cmg.fb
-    e = fb.ell_slot
-    # ELL slot: padded and clone rows carry zero messages, so the plain
-    # reshape-sum over the degree axis is exact.  The beliefs live in the
-    # (possibly sorted) group order, so the sum is already aligned.
-    n_l = cmg.base.vblocks[fb.vblocks[e]].count
-    sum_l = _ell_sum(fs.msg_eta[e], fs.msg_lam[e], cmg.nv, fb.ell_deg)[:, :n_l]
-    return CMState(v=_new_beliefs(cmg.base, state.v, sum_l, sum_c), f=fs)
-
-
-def _ell_sum(oe: torch.Tensor, ol: torch.Tensor, nv: int, deg: int) -> torch.Tensor:
-    """The ELL slot's messages summed per variable, [d + d * d, nv]: a
-    reshape-sum over the degree axis."""
-    d = oe.shape[0]
-    return torch.cat([oe.reshape(d, nv, deg).sum(-1), ol.reshape(d * d, nv, deg).sum(-1)])
+    e, g = fb.ell_slot, 1 - fb.ell_slot
+    vb_l, vb_c = (cmg.base.vblocks[fb.vblocks[k]] for k in (e, g))
+    # ELL slot: padded and clone rows carry zero messages, so the sum over
+    # the degree axis is exact.  The beliefs live in the (possibly sorted)
+    # group order, so the sum is already aligned.
+    if fb.vblocks[e] == fb.vblocks[g]:
+        sum_l = ell_sum_plain(fs.msg_eta[e], fs.msg_lam[e], cmg.nv, fb.ell_deg)[:, :vb_l.count]
+        return CMState(v=_new_beliefs(cmg.base, state.v, sum_l, sum_c), f=fs)
+    new_l, new_c = update_beliefs(fs.msg_eta[e], fs.msg_lam[e], sum_c, vb_l.prior_eta,
+                                  vb_l.prior_lam, vb_c.prior_eta, vb_c.prior_lam,
+                                  deg=fb.ell_deg)
+    new_v = list(state.v)
+    new_v[fb.vblocks[e]], new_v[fb.vblocks[g]] = VariableState(*new_l), VariableState(*new_c)
+    return CMState(v=tuple(new_v), f=fs)
 
 
 def _new_beliefs(base: Graph, vstates: tuple, sum_l: torch.Tensor, sum_c: torch.Tensor) -> tuple:
@@ -680,10 +686,10 @@ def _new_beliefs(base: Graph, vstates: tuple, sum_l: torch.Tensor, sum_c: torch.
     fb = base.fblocks[0]
     e = fb.ell_slot
     g = 1 - e
-    d_c, d_l = fb.dofs[g], fb.dofs[e]
+    d_l = fb.dofs[e]
     vb_c = base.vblocks[fb.vblocks[g]]
     vb_l = base.vblocks[fb.vblocks[e]]
-    n_c, n_l = vb_c.count, vb_l.count
+    n_l = vb_l.count
     new_v = list(vstates)
     if fb.vblocks[e] == fb.vblocks[g]:
         eta = vb_l.prior_eta + sum_l[:d_l].T + sum_c[:d_l].T
@@ -691,11 +697,8 @@ def _new_beliefs(base: Graph, vstates: tuple, sum_l: torch.Tensor, sum_c: torch.
                + sum_c[d_l:].T.reshape(n_l, d_l, d_l))
         new_v[fb.vblocks[e]] = VariableState(eta=eta, lam=lam, mean=scaled_sym_solve(lam, eta))
         return tuple(new_v)
-    for vi, vb, s, n, d in ((fb.vblocks[e], vb_l, sum_l, n_l, d_l),
-                            (fb.vblocks[g], vb_c, sum_c, n_c, d_c)):
-        eta = vb.prior_eta + s[:d].T
-        lam = vb.prior_lam + s[d:].T.reshape(n, d, d)
-        new_v[vi] = VariableState(eta=eta, lam=lam, mean=scaled_sym_solve(lam, eta))
+    for vi, vb, s in ((fb.vblocks[e], vb_l, sum_l), (fb.vblocks[g], vb_c, sum_c)):
+        new_v[vi] = VariableState(*belief_plain(vb.prior_eta, vb.prior_lam, s))
     return tuple(new_v)
 
 
@@ -1076,7 +1079,7 @@ def sweep_seg(sg: CMSegGraph, state: CMState, cfg: GBPConfig) -> CMState:
         oe0, ol0, oe1, ol1 = out
         new_f.append(CMFactorState(lp=lp, jac=jac, r0=r0, srel=srel, msg_eta=(oe0, oe1),
                                    msg_lam=(ol0, ol1)))
-        sums_l.append(_ell_sum(out[2 * e], out[2 * e + 1], p.nv, p.deg)[:, :p.n_groups])
+        sums_l.append(ell_sum_plain(out[2 * e], out[2 * e + 1], p.nv, p.deg)[:, :p.n_groups])
     return CMState(v=_new_beliefs(sg.base, state.v, torch.cat(sums_l, dim=1), sum_c),
                    f=tuple(new_f))
 

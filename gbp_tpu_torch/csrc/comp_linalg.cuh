@@ -237,6 +237,31 @@ GBP_HD void scaled_sym_inv(const T (&a)[D][D], T (&out)[D][D]) {
   }
 }
 
+// x = A^-1 b by the Jacobi-normalized inverse, as smalllinalg.py's
+// `scaled_sym_solve` (D >= 2): D^-1 inv(D^-1 A D^-1) D^-1 b with
+// D = sqrt(clamp(diag A, 1e-30)).
+template <typename T, int D>
+GBP_HD void scaled_sym_solve(const T (&a)[D][D], const T (&b)[D], T (&x)[D]) {
+  static_assert(D >= 2, "scaled_sym_solve: d = 1 divides directly");
+  T s[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) s[i] = g_sqrt(max_nan(a[i][i], T(1e-30)));
+  T a_n[D][D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) a_n[i][j] = a[i][j] / (s[i] * s[j]);
+  }
+  T inv_n[D][D];
+  SymInv<T, D>::run(a_n, inv_n);
+  T b_n[D], y[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) b_n[i] = b[i] / s[i];
+  mv(inv_n, b_n, y);
+#pragma unroll
+  for (int i = 0; i < D; ++i) x[i] = y[i] / s[i];
+}
+
 // out = 0.5 * (a + a^T).
 template <typename T, int D>
 GBP_HD void sym(const T (&a)[D][D], T (&out)[D][D]) {

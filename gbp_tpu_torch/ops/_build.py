@@ -122,6 +122,10 @@ _ARGTYPES = {
     + [_P] * 4 + [_P] * 4 + [_I64, _D, _D, _D, _D, _D, _I, _D, _P, _P],
     # win_w -> resident blocks per SM (negative: minus the CUDA error)
     "gbp_relin_cm_tabblk_ell_blocks_per_sm": [_I],
+    # de, dg, me, ml, ld, deg, n_e, prior_eta_e, prior_lam_e, eta_e, lam_e,
+    # mean_e, sum_g, n_g, prior_eta_g, prior_lam_g, eta_g, lam_g, mean_g,
+    # stream, info (NULL: launch; else int[8], the launch plan and no launch)
+    "gbp_update_beliefs": [_I, _I, _P, _P, _I64, _I, _I] + [_P] * 6 + [_I] + [_P] * 7,
 }
 
 

@@ -1,4 +1,4 @@
-"""The port's twenty kernels: wrappers, plain versions, launch counts.
+"""The port's twenty-one kernels: wrappers, plain versions, launch counts.
 
 Each function dispatches on where its tensors lie: CUDA tensors go to the
 hand-written kernel in csrc/*.cu (built on first use by ops/_build.py), CPU
@@ -100,6 +100,15 @@ device memory.  No sum is folded in.
   messages_cm_tabblkg_ell  replaces fused_messages_cm_tabblkg_ell
   relin_cm_tabblkg         replaces fused_relin_cm_tabblkg (ELL slot expanded)
   messages_cm_tabblkg      replaces fused_messages_cm_tabblkg (ELL slot expanded)
+
+The belief update (csrc/beliefs.cu), the port's own kernel (the reference
+does it in XLA): the end of a fast-path sweep on a graph whose two slots lie
+on two variable blocks.
+
+  update_beliefs   both blocks' beliefs = priors + message sums (the ELL
+                   slot's summed over each variable's rows here, the
+                   gathered slot's as the messages launch returned them),
+                   means by `scaled_sym_solve`, in one launch
 """
 from __future__ import annotations
 
@@ -112,6 +121,7 @@ import torch
 
 from gbp_tpu_torch.ops import comp_linalg as cl
 from gbp_tpu_torch.ops.comp_factors import comp_model, comp_n_args, comp_residual
+from gbp_tpu_torch.utils.smalllinalg import scaled_sym_solve
 
 D0, D1, Z = 6, 3, 2  # bundle adjustment: camera dofs, landmark dofs, measurement dim
 F_CAM = D0 + D0 * D0  # packed camera belief row: eta | lam
@@ -130,13 +140,16 @@ KERNELS = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id",
            "scatter_windows_cm", "messages_cm", "relin_cm", "fused_messages",
            "fused_relin_messages", "messages_cm_tab", "relin_cm_tab", "expand_ell_blk",
            "messages_cm_tabblk", "relin_cm_tabblk", "messages_cm_tabblkg", "relin_cm_tabblkg",
-           "messages_cm_tabblkg_ell", "relin_cm_tabblkg_ell")
+           "messages_cm_tabblkg_ell", "relin_cm_tabblkg_ell", "update_beliefs")
 # (d0, d1, z) the expanded-operand messages kernel is instantiated for.
 ROW_SHAPES = ((6, 3, 2), (1, 1, 1), (3, 3, 3), (6, 6, 6), (9, 3, 2))
 # (d0, d1, z) of the table kernels, each instantiated with either slot
 # gathered, and the measurement models of the relinearization kernels with
 # their ids in the C entries.
 TABLE_SHAPES = ((6, 3, 2), (3, 3, 3), (6, 6, 6), (9, 3, 2))
+# (d_e, d_g) of the belief-update kernel: the ELL and the gathered slot's
+# dofs of every TABLE_SHAPES entry, either slot gathered.
+BELIEF_SHAPES = ((3, 6), (6, 3), (3, 9), (9, 3), (3, 3), (6, 6))
 MODELS = {"reprojection_normalized": (0, (6, 3, 2)), "se2_between": (1, (3, 3, 3)),
           "se3_between": (2, (6, 6, 6)), "bal_reprojection_normalized": (3, (6, 3, 2)),
           "bal_reprojection_intrinsics": (4, (9, 3, 2))}
@@ -568,6 +581,32 @@ def segsum_cm_blk_plain(me, ml, win_rows, win_offsets, *, n_tiles, w):
     COUNTS.plain["segsum_cm_blk"] += 1
     out = _csr_sum(me, ml, win_rows, win_offsets)
     return out.reshape(-1, n_tiles, w).permute(1, 0, 2).contiguous()
+
+
+def ell_sum_plain(oe, ol, nv, deg):
+    """The ELL slot's messages summed per variable, [d + d * d, nv]: a
+    reshape-sum over the degree axis."""
+    d = oe.shape[0]
+    return torch.cat([oe.reshape(d, nv, deg).sum(-1), ol.reshape(d * d, nv, deg).sum(-1)])
+
+
+def belief_plain(prior_eta, prior_lam, s):
+    """One variable block's (eta, lam, mean): priors [n, d], [n, d, d] plus
+    the message sums s [d + d * d, n], the mean by `scaled_sym_solve`."""
+    n, d = prior_eta.shape
+    eta = prior_eta + s[:d].T
+    lam = prior_lam + s[d:].T.reshape(n, d, d)
+    return eta, lam, scaled_sym_solve(lam, eta)
+
+
+def update_beliefs_plain(me, ml, sum_c, prior_eta_l, prior_lam_l, prior_eta_c, prior_lam_c, *,
+                         deg):
+    """Plain version of `update_beliefs`: the ELL slot's reshape-sum over
+    the degree axis (`ell_sum_plain`), then `belief_plain` for each block."""
+    COUNTS.plain["update_beliefs"] += 1
+    sum_l = ell_sum_plain(me, ml, me.shape[1] // deg, deg)[:, :prior_eta_l.shape[0]]
+    return (belief_plain(prior_eta_l, prior_lam_l, sum_l),
+            belief_plain(prior_eta_c, prior_lam_c, sum_c))
 
 
 def scatter_windows_cm_plain(part, win_starts, cov_tiles, cov_offsets, *, n_seg):
@@ -1755,6 +1794,79 @@ def scatter_windows_cm(part, win_starts, blk_tiles, blk_offsets, *, n_seg):
     _raise_on(fn(*args), "scatter_windows_cm")
     COUNTS.kernel["scatter_windows_cm"] += 1
     return out
+
+
+BELIEF_PLAN_KEYS = ("blocks", "gathered_blocks", "gathered_vars", "ell_vars", "smem_bytes",
+                    "registers", "local_bytes", "ell_staged")
+
+
+def _belief_entry(dtype, d_e, d_g):
+    if (d_e, d_g) not in BELIEF_SHAPES:
+        raise NotImplementedError(
+            f"update_beliefs: the kernel is not instantiated for (d_e, d_g) = ({d_e}, {d_g}); "
+            f"it has {BELIEF_SHAPES}")
+    from gbp_tpu_torch.ops._build import library
+
+    return getattr(library(), f"gbp_update_beliefs_{_suffix(dtype)}")
+
+
+def update_beliefs(me, ml, sum_c, prior_eta_l, prior_lam_l, prior_eta_c, prior_lam_c, *, deg):
+    """The beliefs of both variable blocks after a sweep, in one launch:
+    ((eta [n_l, d_e], lam [n_l, d_e, d_e], mean [n_l, d_e]) of the ELL
+    slot's n_l = prior_eta_l.shape[0] variables, the same [n_c, d_g] ... of
+    the gathered slot's).  The ELL slot's new messages me [d_e, mp], ml
+    [d_e * d_e, mp] are summed over each variable's `deg` consecutive rows;
+    sum_c [d_g + d_g * d_g, n_c] is the gathered slot's message sum; each
+    block adds its priors and solves by `scaled_sym_solve`'s closed forms in
+    its order.  The kernel adds the ELL rows in its own fixed order
+    (csrc/beliefs.cu), so eta and lam differ from the plain version's by the
+    reordering's roundoff; two runs give the same bits."""
+    if not _on_card(me):
+        return update_beliefs_plain(me, ml, sum_c, prior_eta_l, prior_lam_l, prior_eta_c,
+                                    prior_lam_c, deg=deg)
+    dt = me.dtype
+    d_e, mp = me.shape
+    n_l, n_c = prior_eta_l.shape[0], prior_eta_c.shape[0]
+    d_g = prior_eta_c.shape[1]
+    if deg <= 0 or mp % deg or n_l > mp // deg:
+        raise ValueError(f"update_beliefs: mp={mp}, deg={deg}, n_l={n_l}")
+    fn = _belief_entry(dt, d_e, d_g)
+    pe_l, pl_l, pe_c, pl_c = (t.contiguous() for t in (prior_eta_l, prior_lam_l, prior_eta_c,
+                                                       prior_lam_c))
+    out_l = [torch.empty(s, dtype=dt, device=me.device)
+             for s in ((n_l, d_e), (n_l, d_e, d_e), (n_l, d_e))]
+    out_c = [torch.empty(s, dtype=dt, device=me.device)
+             for s in ((n_c, d_g), (n_c, d_g, d_g), (n_c, d_g))]
+    args = [
+        ctypes.c_int(d_e), ctypes.c_int(d_g),
+        _check("me", me, (d_e, mp), dt), _check("ml", ml, (d_e * d_e, mp), dt),
+        ctypes.c_int64(mp), ctypes.c_int(deg), ctypes.c_int(n_l),
+        _check("prior_eta_l", pe_l, (n_l, d_e), dt),
+        _check("prior_lam_l", pl_l, (n_l, d_e, d_e), dt),
+        *[ctypes.c_void_p(o.data_ptr()) for o in out_l],
+        _check("sum_c", sum_c, (d_g + d_g * d_g, n_c), dt), ctypes.c_int(n_c),
+        _check("prior_eta_c", pe_c, (n_c, d_g), dt),
+        _check("prior_lam_c", pl_c, (n_c, d_g, d_g), dt),
+        *[ctypes.c_void_p(o.data_ptr()) for o in out_c],
+        _stream(), ctypes.c_void_p(None),
+    ]
+    _raise_on(fn(*args), "update_beliefs")
+    COUNTS.kernel["update_beliefs"] += 1
+    return tuple(out_l), tuple(out_c)
+
+
+def belief_plan(dtype, *, d_e, d_g, deg, n_l, n_c):
+    """How `update_beliefs` launches for these sizes: blocks (the gathered
+    side's first), variables a block on each side, shared bytes a block,
+    registers and local bytes a thread, the ELL side's row stride in shared
+    memory (0: its rows are read in place) (BELIEF_PLAN_KEYS); no launch."""
+    fn = _belief_entry(dtype, d_e, d_g)
+    info = (ctypes.c_int * len(BELIEF_PLAN_KEYS))()
+    null = ctypes.c_void_p(None)
+    _raise_on(fn(ctypes.c_int(d_e), ctypes.c_int(d_g), null, null, ctypes.c_int64(n_l * deg),
+                 ctypes.c_int(deg), ctypes.c_int(n_l), *[null] * 6, ctypes.c_int(n_c), *[null] * 6,
+                 info), "update_beliefs plan")
+    return dict(zip(BELIEF_PLAN_KEYS, info))
 
 
 # --- expanded operands: both slots' beliefs arrive per factor row ---------------

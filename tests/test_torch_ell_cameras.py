@@ -125,8 +125,9 @@ def test_one_sweep_matches_reference(scene, fused):
     used = {k for k, v in M.COUNTS.plain.items() if v}
     if fused is None:
         assert used == ({"relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
-                         "scatter_windows_cm"} if pc.win_w else
-                        {"relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id"})
+                         "scatter_windows_cm", "update_beliefs"} if pc.win_w else
+                        {"relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id",
+                         "update_beliefs"})
     else:
         assert "expand_ell_blk" in used
         assert P._expand_ell(pc, st.v[0])[0].shape == (pg.fblocks[0].dofs[0], pc.mp)

@@ -291,7 +291,7 @@ def test_cpu_tensors_take_the_plain_versions(setup):
                   "messages_cm_tabblkg")
     assert {k: v for k, v in M.COUNTS.plain.items() if v} == dict.fromkeys(halo_names, 1)
     assert not any(M.COUNTS.kernel.values())
-    assert len(M.KERNELS) == 20 and set(halo_names) <= set(M.KERNELS)
+    assert len(M.KERNELS) == 21 and set(halo_names) <= set(M.KERNELS)
 
 
 # --- on the card ------------------------------------------------------------------------

@@ -177,7 +177,7 @@ def test_cpu_tensors_take_the_plain_versions(port):
     M.COUNTS.reset()
     P.sweep(cmg, st, GBPConfig(**CFG))
     assert M.COUNTS.kernel == dict.fromkeys(M.KERNELS, 0)
-    full_table = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id")
+    full_table = ("relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id", "update_beliefs")
     assert M.COUNTS.plain == {k: int(k in full_table) for k in M.KERNELS}
 
 

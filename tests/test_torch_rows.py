@@ -125,9 +125,10 @@ def test_gather_modes_agree(small):
         M.COUNTS.reset()
         outs.append(P.run(cmg, P.init_state(cmg, pm), PS.GBPConfig(message_form="pallas"), 8))
         used = {k for k, v in M.COUNTS.plain.items() if v}
-        assert used == ({"relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id"}
+        assert used == ({"relin_cm_tab_ell", "messages_cm_tab_ell", "segsum_by_id",
+                         "update_beliefs"}
                         if mode == "table" else {"relin_cm", "messages_cm", "segsum_by_id",
-                                                 "expand_ell_blk"})
+                                                 "expand_ell_blk", "update_beliefs"})
     for o in outs[1:]:
         for a, b in zip(outs[0].v, o.v):
             assert (a.mean - b.mean).abs().max() <= 1e-12

@@ -236,7 +236,10 @@ def test_one_unfused_sweep_matches_reference(setup):
     _, _, pc, pcfg, st, ref = setup
     M.COUNTS.reset()
     ps, js = P.sweep(pc, st, pcfg), jsweep()(ref["jc"], ref["jst"], ref["jcfg"])
-    assert M.COUNTS.plain == {k: int(k in UNFUSED) for k in M.KERNELS}
+    # Bundle adjustment's two variable blocks take the belief update's
+    # kernel (its plain version here); a pose graph's one block does not.
+    used = UNFUSED + (("update_beliefs",) if len(set(pc.fb.vblocks)) == 2 else ())
+    assert M.COUNTS.plain == {k: int(k in used) for k in M.KERNELS}
     assert M.COUNTS.kernel == dict.fromkeys(M.KERNELS, 0)
     for a, b in zip(ps.f.msg_eta + ps.f.msg_lam, js.f.msg_eta + js.f.msg_lam):
         assert rel(a, b) <= 1e-10
@@ -324,7 +327,7 @@ def test_unfused_with_engaged_windows_raises(kind):
     P.sweep(pc, P.init_state(pc, pm), cfg)
     assert {k: v for k, v in M.COUNTS.plain.items() if v} == dict.fromkeys(
         ("relin_cm_tabblk", "messages_cm_tabblk", "expand_ell_blk", "segsum_cm_blk",
-         "scatter_windows_cm"), 1)
+         "scatter_windows_cm") + (("update_beliefs",) if kind == "ba_blocks" else ()), 1)
     # Without windows the table is beyond shared memory in float64: the
     # expanded operands, where `ell_fused` has no meaning.
     pc = P.prepare(pg, ell_fused=False, window=False)

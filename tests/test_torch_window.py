@@ -409,7 +409,7 @@ def test_one_windowed_sweep_matches_reference(f64, start):
     M.COUNTS.reset()
     ps, js = P.sweep(pc, ps, PCFG), _jsweep(jc, js, JCFG)
     windowed = ("relin_cm_tabblk_ell", "messages_cm_tabblk_ell", "segsum_cm_blk",
-                "scatter_windows_cm")
+                "scatter_windows_cm", "update_beliefs")
     assert M.COUNTS.plain == {k: int(k in windowed) for k in M.KERNELS}
     assert not any(M.COUNTS.kernel.values())
     for a, b in zip(ps.f.msg_eta + ps.f.msg_lam, js.f.msg_eta + js.f.msg_lam):

@@ -248,7 +248,8 @@ def test_one_unfused_windowed_sweep_matches_reference(ba_both, start):
     M.COUNTS.reset()
     ps = P.sweep(pc, ps, PCFG)
     js = jsweep()(jc, js, r.JConfig(message_form="pallas", **BA_CFG))
-    assert {k: v for k, v in M.COUNTS.plain.items() if v} == dict.fromkeys(UNFUSED_WIN, 1)
+    assert {k: v for k, v in M.COUNTS.plain.items() if v} == dict.fromkeys(
+        UNFUSED_WIN + ("update_beliefs",), 1)
     for a, b in zip(ps.f.msg_eta + ps.f.msg_lam, js.f.msg_eta + js.f.msg_lam):
         assert rel(a, b) <= 1e-10
     for name in ("lp", "jac", "r0", "srel"):
@@ -320,7 +321,8 @@ def test_degree_one_prepare_matches_reference():
     M.COUNTS.reset()
     ps = P.sweep(pc, ps, PCFG)
     js = jsweep()(jc, js, r.JConfig(message_form="pallas", **BA_CFG))
-    assert {k: v for k, v in M.COUNTS.plain.items() if v} == dict.fromkeys(UNFUSED_WIN, 1)
+    assert {k: v for k, v in M.COUNTS.plain.items() if v} == dict.fromkeys(
+        UNFUSED_WIN + ("update_beliefs",), 1)
     for a, b in zip(ps.f.msg_eta + ps.f.msg_lam, js.f.msg_eta + js.f.msg_lam):
         assert rel(a, b) <= 1e-10
     for pv, jv in zip(ps.v, js.v):
